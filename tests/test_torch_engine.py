@@ -1,0 +1,177 @@
+"""The port's `calc` as a whole against the JAX package's: the same
+imported archive through both engines (host Fisher on both sides) gives
+the same sorted .two records in every field. Also: repair of cap
+overflow and buffer spill, the CLI's device rule, and the rejection of
+everything outside the slice."""
+
+import numpy as np
+import pytest
+import torch
+
+from test_importer import make_vcf
+
+from tomahawk_tpu.compute.engine import CalcSettings
+from tomahawk_tpu.compute.engine import compute_ld as jax_compute_ld
+from tomahawk_tpu.io.importer import ImportSettings, import_vcf
+from tomahawk_tpu.io.two import TwoReader
+
+from tomahawk_tpu_torch import cli
+from tomahawk_tpu_torch.compute.engine import LdEngine, compute_ld
+from tomahawk_tpu_torch.ops import _build
+
+
+def _sorted(path):
+    r = TwoReader(path)
+    recs = r.records()
+    r.close()
+    return np.sort(recs, order=list(recs.dtype.names))
+
+
+def _assert_same(a, b):
+    assert len(a) == len(b) > 0
+    for f in a.dtype.names:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+@pytest.fixture(scope="module")
+def archive(tmp_path_factory):
+    """Phased, no missing genotypes, two contigs; imported through the
+    port's CLI, which hands `import` to the shared one."""
+    d = tmp_path_factory.mktemp("torch_engine")
+    vcf = str(d / "in.vcf")
+    make_vcf(vcf, n_samples=48, n_sites=600, seed=21, miss_frac=0.0,
+             contigs=("20", "21"))
+    twk = str(d / "in.twk")
+    assert cli.main(["import", "-i", vcf, "-o", twk, "-b", "64"]) == 0
+    return twk
+
+
+@pytest.fixture(scope="module")
+def jax_records(archive, tmp_path_factory):
+    """The JAX engine's records, phased and mixed dispatch."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("TWK_DEVICE_FISHER", "0")
+    d = tmp_path_factory.mktemp("torch_engine_ref")
+    out = {}
+    try:
+        for phased in (True, False):
+            path = str(d / f"jax_{phased}.two")
+            jax_compute_ld(CalcSettings(
+                input=archive, output=path, force_phased=phased,
+                min_r2=0.05, tile_rows=128, mesh="off", backend="device"))
+            out[phased] = _sorted(path)
+    finally:
+        mp.undo()
+    return out
+
+
+@pytest.mark.parametrize("entry,phased", [("api", True), ("api", False),
+                                          ("cli", True)])
+def test_calc_matches_jax(archive, jax_records, tmp_path, entry, phased):
+    out = str(tmp_path / "torch.two")
+    _build.reset_counts()
+    if entry == "api":
+        res = compute_ld(CalcSettings(input=archive, output=out,
+                                      force_phased=phased, min_r2=0.05,
+                                      tile_rows=128), device="cpu")
+        assert res.n_records == len(jax_records[phased])
+    else:
+        assert cli.main(["calc", "-i", archive, "-o", out, "-p",
+                         "-r", "0.05", "--tile-rows", "128",
+                         "--device", "cpu"]) == 0
+    _assert_same(_sorted(out), jax_records[phased])
+    # CPU tensors take the plain versions, never a kernel
+    assert _build.PLAIN_CALLS["phased_tile"] > 0
+    assert _build.PLAIN_CALLS["compact"] > 0
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+def _correlated_archive(tmp_path, n=30, sites=60):
+    """Sites in groups of 10 share a haplotype template: many
+    survivors per tile."""
+    rng = np.random.default_rng(3)
+    lines = ["##fileformat=VCFv4.2", "##contig=<ID=c1,length=10000000>",
+             '##FORMAT=<ID=GT,Number=1,Type=String,Description="G">',
+             "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+             + "\t".join(f"S{i}" for i in range(n))]
+    pos = 1000
+    for s in range(sites):
+        if s % 10 == 0:
+            base = rng.random(2 * n) < 0.4
+        hap = base ^ (rng.random(2 * n) < 0.06)
+        pos += int(rng.integers(40, 200))
+        gt = "\t".join(f"{int(hap[2 * i])}|{int(hap[2 * i + 1])}"
+                       for i in range(n))
+        lines.append(f"c1\t{pos}\t.\tA\tC\t.\tPASS\t.\tGT\t{gt}")
+    vcf = tmp_path / "r.vcf"
+    vcf.write_text("\n".join(lines) + "\n")
+    twk = str(tmp_path / "r.twk")
+    import_vcf(ImportSettings(input=str(vcf), output=twk, block_size=8))
+    return twk
+
+
+def test_cap_overflow_and_spill_repair(tmp_path, monkeypatch):
+    """Tiles past the fused cap and a spilling buffer are repaired
+    exactly: runs whose caps overflow (cap 8) or whose buffer spills
+    (outcap 512 of ~1,800 survivors) give the records of caps nothing
+    overflows, and the JAX engine's; each run grows the cap it
+    overran."""
+    twk = _correlated_archive(tmp_path)
+    settings = dict(input=twk, force_phased=True, min_r2=0.0,
+                    tile_rows=16)
+    runs, engines = {}, {}
+    orig_init = LdEngine.__init__
+    for cap, outcap in ((1 << 20, 1 << 20), (8, 64), (256, 512)):
+        def init(self, *a, cap=cap, **kw):
+            orig_init(self, *a, **kw)
+            engines[cap] = self
+        monkeypatch.setattr(LdEngine, "__init__", init)
+        monkeypatch.setattr(LdEngine, "FUSED_CAP", cap)
+        monkeypatch.setattr(LdEngine, "OUTCAP0", outcap)
+        out = str(tmp_path / f"o{cap}.two")
+        compute_ld(CalcSettings(output=out, **settings), device="cpu")
+        runs[cap] = _sorted(out)
+    monkeypatch.setenv("TWK_DEVICE_FISHER", "0")
+    ref = str(tmp_path / "jax.two")
+    jax_compute_ld(CalcSettings(output=ref, mesh="off", backend="device",
+                                **settings))
+    for cap in (8, 256):
+        _assert_same(runs[cap], runs[1 << 20])
+        assert engines[cap].stats["phased/nomiss/all"]["n_repair"] > 0
+    _assert_same(runs[8], _sorted(ref))
+    assert engines[8]._fused_cap > 8
+    assert engines[256]._outcap > 512
+
+
+def test_cli_calc_needs_cuda(archive, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "x.two"
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["calc", "-i", archive, "-o", str(out), "-p"])
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("phased", [True, False])
+def test_missing_data_not_implemented(tmp_path, phased):
+    vcf = str(tmp_path / "m.vcf")
+    make_vcf(vcf, n_samples=30, n_sites=80, seed=4, miss_frac=0.05)
+    twk = str(tmp_path / "m.twk")
+    import_vcf(ImportSettings(input=vcf, output=twk, threshold_miss=0.5))
+    out = tmp_path / "m.two"
+    argv = ["calc", "-i", twk, "-o", str(out), "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        cli.main(argv + (["-p"] if phased else []))
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(forced_unphased=True), dict(window=True, l_window=1000),
+    dict(min_dprime=0.5), dict(checkpoint="ck.json"),
+    dict(distributed=True), dict(mesh="2x1"), dict(backend="cpu"),
+    dict(memory_gb=1e-6),
+])
+def test_out_of_slice_settings_rejected(archive, tmp_path, kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        compute_ld(CalcSettings(input=archive, tile_rows=128,
+                                output=str(tmp_path / "x.two"), **kw),
+                   device="cpu")

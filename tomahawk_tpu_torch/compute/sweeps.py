@@ -1,0 +1,223 @@
+"""Tile sweeps on one device: counts and survivor compaction.
+
+Counterpart of tomahawk_tpu/compute/sweeps.py for the phased /
+no-missing / cls "all" / no-window slice, with the Fisher column off.
+The JAX package scans a jitted body over the tile list; here a Python
+loop launches, per tile, the tile kernel (ops/tiles.py) and the
+survivor compaction (`compact_survivors`, csrc/compact.cu). The
+compaction keeps the running offset on the device, so a segment of
+tiles runs without a host sync and the host reads the counts once,
+after the whole segment.
+
+Survivor rows are [flat index k*B + l, ALTALT] int32. With one payload
+part the JAX package's pair packing (`_pack_cols`) leaves ALTALT
+unshifted, so the port writes that layout directly; `unpack_payload`
+(the host inverse) is kept as the JAX package has it.
+"""
+
+import numpy as np
+import torch
+
+from ..ops import _build
+from ..ops import ld_kernels as K
+from ..ops.tiles import tile_prefilter
+
+#: device tensors the sweeps read: uint32 alt planes (as int32),
+#: per-variant alt-allele counts, and the real-row flags
+DEV_KEYS = ("alt_bits", "ac", "valid")
+
+
+def planes_to_device(stacked: dict, device) -> dict:
+    """The port's device tensors from the JAX package's numpy plane dict
+    (`bitpack.stack_planes` output): the counterpart of the JAX engine's
+    band upload (`LdEngine._upload` / `_band_dev_get`). uint32 planes
+    become int32 views of the same bits."""
+    out = {}
+    for k in DEV_KEYS:
+        a = np.ascontiguousarray(stacked[k])
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[k] = torch.from_numpy(a).to(device)
+    return out
+
+
+def make_cfg(table: str, has_missing: bool, cls: str, B: int,
+             n_samples: int, window: int, min_r2: float, max_r2: float,
+             min_dprime: float = 0.0, max_dprime: float = 100.0) -> dict:
+    """Sweep configuration. Raises NotImplementedError for what this
+    slice of the port does not run yet, naming the ROADMAP.md queue 1
+    item that adds it."""
+    if table != "phased":
+        raise NotImplementedError("unphased tables are not ported yet "
+                                  "(ROADMAP.md queue 1 item 8)")
+    if has_missing or cls != "all":
+        raise NotImplementedError("tiles with missing genotypes (and the "
+                                  "mixed clean/missing split) are not "
+                                  "ported yet (ROADMAP.md queue 1 item 7)")
+    if window:
+        raise NotImplementedError("window mode is not ported yet "
+                                  "(ROADMAP.md queue 1 item 9)")
+    if (min_dprime, max_dprime) != (0.0, 100.0):
+        raise NotImplementedError("the in-sweep D' filter is not ported "
+                                  "yet (ROADMAP.md queue 1 item 16)")
+    return dict(table=table, has_missing=has_missing, cls=cls, B=B,
+                n_samples=n_samples, window=window, min_r2=min_r2,
+                max_r2=max_r2)
+
+
+def payload_cols(table: str, has_missing: bool) -> int:
+    """Raw contraction parts carried per survivor (the host re-derives
+    the full table from these plus per-variant metadata)."""
+    if table == "phased":
+        return 4 if has_missing else 1
+    return 9 if has_missing else 4
+
+
+def pack16_ok(cfg) -> bool:
+    """Whether survivor payload parts fit uint16 so two can ride one
+    int32 buffer column. Phased parts are haplotype-level counts
+    (<= 2N), unphased genotype-level (<= N)."""
+    lim = (2 if cfg["table"] == "phased" else 1) * cfg["n_samples"]
+    return lim < (1 << 16)
+
+
+def buf_cols(cfg) -> int:
+    """Survivor buffer columns: 1 index col + (possibly pair-packed)
+    payload cols."""
+    p = payload_cols(cfg["table"], cfg["has_missing"])
+    return 1 + ((p + 1) // 2 if pack16_ok(cfg) else p)
+
+
+def unpack_payload(cols, table: str, has_missing: bool,
+                   n_samples: int):
+    """Host inverse of the payload packing: [K, buf_cols-1] int32
+    buffer columns -> [K, payload_cols] int64 parts."""
+    p = payload_cols(table, has_missing)
+    cfg = dict(table=table, n_samples=n_samples)
+    if not pack16_ok(cfg):
+        return cols.astype(np.int64)
+    out = np.empty((len(cols), p), np.int64)
+    for k in range(cols.shape[1]):
+        v = cols[:, k].astype(np.int64) & 0xFFFFFFFF
+        out[:, 2 * k] = v & 0xFFFF
+        if 2 * k + 1 < p:
+            out[:, 2 * k + 1] = (v >> 16) & 0xFFFF
+    return out
+
+
+def compact_survivors_plain(mask, altalt, off, buf, n_pass, n_cand,
+                            t: int, cap: int):
+    outcap = buf.shape[0]
+    n, idx = K.compact_indices_small(mask == 2, cap)
+    n = int(n)
+    o = int(off[0])
+    k = min(n, cap)
+    if k:
+        base = min(o, outcap - cap)
+        idx = idx[:k].long()
+        buf[base:base + k, 0] = idx.to(torch.int32)
+        buf[base:base + k, 1] = altalt.reshape(-1)[idx]
+    n_pass[t] = n
+    n_cand[t] = int((mask != 0).sum())
+    off[0] = min(o + n, outcap)
+
+
+def compact_survivors(mask, altalt, off, buf, n_pass, n_cand, t: int,
+                      cap: int):
+    """Write the first min(n, cap) survivors (mask == 2) of one tile,
+    ascending in flat index, as [k*B + l, ALTALT] rows at buffer row
+    min(off, outcap - cap), outcap = len(buf); set n_pass[t] and
+    n_cand[t]; advance off to min(off + n, outcap). `off` is an int32
+    [1] tensor updated in place. Launches csrc/compact.cu for CUDA
+    tensors, the plain version for CPU tensors."""
+    if mask.is_cuda:
+        return _launch_compact(mask, altalt, off, buf, n_pass, n_cand, t,
+                               cap)
+    if mask.device.type != "cpu":
+        raise ValueError(f"no compaction kernel for device {mask.device}")
+    _build.PLAIN_CALLS["compact"] += 1
+    return compact_survivors_plain(mask, altalt, off, buf, n_pass, n_cand,
+                                   t, cap)
+
+
+def _launch_compact(mask, altalt, off, buf, n_pass, n_cand, t, cap):
+    B = mask.shape[0]
+    outcap = buf.shape[0]
+    checks = (
+        (mask, torch.uint8, (B, B)), (altalt, torch.int32, (B, B)),
+        (off, torch.int32, (1,)), (buf, torch.int32, (outcap, 2)),
+        (n_pass, torch.int32, tuple(n_pass.shape)),
+        (n_cand, torch.int32, tuple(n_pass.shape)))
+    for x, dtype, shape in checks:
+        if x.dtype != dtype or tuple(x.shape) != shape \
+                or not x.is_contiguous() or x.device != mask.device:
+            raise ValueError(f"compaction input {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}: expected {shape} "
+                             f"{dtype}, contiguous, on {mask.device}")
+    if n_pass.dim() != 1 or not 0 <= t < n_pass.shape[0]:
+        raise ValueError(f"tile index {t} outside n_pass")
+    if not 0 < cap <= outcap or B * B >= 1 << 31:
+        raise ValueError(f"bad compaction shape: B={B} cap={cap} "
+                         f"outcap={outcap}")
+    scratch = torch.empty(3 * B + 2, dtype=torch.int32, device=mask.device)
+    lib = _build.library()
+    rc = lib.twk_compact(
+        mask.data_ptr(), altalt.data_ptr(), B, off.data_ptr(), cap, outcap,
+        n_pass.data_ptr(), n_cand.data_ptr(), t, scratch.data_ptr(),
+        buf.data_ptr(), torch.cuda.current_stream(mask.device).cuda_stream)
+    _build.check(rc, "compact launch")
+    _build.LAUNCHES["compact"] += 1
+
+
+def _zeros(dev, *shape):
+    return torch.zeros(shape, dtype=torch.int32,
+                       device=dev["alt_bits"].device)
+
+
+def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
+    """Per-tile counts AND capped survivor extraction at a running
+    offset over a tile list: (n_pass [T], n_cand [T], buf [outcap,
+    ncol]) on the planes' device. Writes clamp at outcap - cap; rows at
+    or beyond the clamp boundary are garbage whenever the total spills
+    (detectable from n_pass), and tiles with more than `cap` survivors
+    keep only their first `cap` rows -- the caller repairs both with
+    `extract_sweep`. Dead tiles (live False) count zero."""
+    T = len(pi)
+    n_pass, n_cand, off = _zeros(dev, T), _zeros(dev, T), _zeros(dev, 1)
+    buf = _zeros(dev, outcap, buf_cols(cfg))
+    for t in range(len(pi)):
+        if live[t]:
+            mask, altalt = tile_prefilter(dev, int(pi[t]), int(pj[t]),
+                                          bool(dg[t]), cfg)
+            compact_survivors(mask, altalt, off, buf, n_pass, n_cand, t,
+                              cap)
+    return n_pass, n_cand, buf
+
+
+def extract_sweep(dev, pi, pj, dg, off, *, cfg, cap, outcap):
+    """Re-sweep tiles, writing each one's survivor rows at the exact
+    caller-computed offset `off[t]` into one [outcap, ncol] buffer
+    (repair of cap and buffer overflows; `cap` must cover every tile's
+    survivors). Repair rows carry no Fisher bracket."""
+    n_pass, n_cand = _zeros(dev, len(pi)), _zeros(dev, len(pi))
+    buf = _zeros(dev, outcap, buf_cols(cfg))
+    # a copy: the compaction advances each slot in place
+    offs = torch.tensor(np.asarray(off), dtype=torch.int32, device=buf.device)
+    for t in range(len(pi)):
+        mask, altalt = tile_prefilter(dev, int(pi[t]), int(pj[t]),
+                                      bool(dg[t]), cfg)
+        compact_survivors(mask, altalt, offs[t:t + 1], buf, n_pass, n_cand,
+                          t, cap)
+    return buf
+
+
+def count_sweep(dev, pi, pj, dg, live, *, cfg):
+    """Per-tile (survivor count, candidate count) over a tile list."""
+    n, nc = _zeros(dev, len(pi)), _zeros(dev, len(pi))
+    for t in range(len(pi)):
+        if live[t]:
+            mask, _ = tile_prefilter(dev, int(pi[t]), int(pj[t]),
+                                     bool(dg[t]), cfg)
+            n[t] = (mask == 2).sum()
+            nc[t] = (mask != 0).sum()
+    return n, nc

@@ -1,0 +1,156 @@
+// One phased tile of variant pairs -> (candidate/survivor mask, ALTALT).
+//
+// Replaces tomahawk_tpu/ops/pallas_tiles.py::_make_kernel (built by
+// _build_call, reached through sweeps.tile_prefilter) in its phased /
+// no-missing / cls="all" / window=0 instance. Like the TPU kernel it
+// writes mask = 0 (not a candidate), 1 (candidate) or 2 (survivor of the
+// f32 prefilter) and the raw contraction ALTALT; unlike it, it applies the
+// diagonal upper-triangle rule itself (the TPU path did that outside the
+// kernel only to dodge a Mosaic lowering crash).
+//
+// What bounds it on the H100: the contraction. ALTALT[k,l] counts the
+// haplotypes carrying the alt allele at both variants, the popcount of
+// the AND of two packed rows of W words, so a B x B tile is B*B*W
+// AND+POPC+ADD steps (4096 * 4096 * 160 = 2.7e9 at 2,504 samples) against
+// 2*B*W*4 bytes of input (5 MB) and 5 bytes of output per pair. POPC
+// runs at a quarter of the rate of the integer adds and logic, so it is
+// the bound. The design feeds it from registers: a block stages 128 rows
+// x 32 words of each operand in shared memory (transposed, padded so the
+// staging stores do not conflict), and each of its 256 threads keeps an
+// 8 x 8 block of pair counts in registers, so every word read from shared
+// memory feeds 8 popcounts. No unpack to int8 is needed: AND+POPC over the
+// packed words counts exactly what the TPU's int8 contraction counts.
+// Tensor-core routes (int8 MMA on unpacked operands, the 1-bit AND+POPC
+// MMA) are faster in principle and are left for later work.
+//
+// The epilogue follows ops/ld_kernels.phased_cells (no-missing branch) and
+// phased_prefilter_cells expression by expression; with -fmad=false each
+// f32 product and difference rounds on its own, as in the plain version,
+// so the decisions are bit-identical. lo and hi arrive from the host,
+// rounded the way the JAX package rounds them. Padding rows (valid = 0)
+// are never candidates, and padding words are zero, so they add nothing.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 128;      // pairs per block edge
+constexpr int kWords = 32;      // packed words staged per step
+constexpr int kThreads = 256;   // 16 x 16 threads
+constexpr int kReg = 8;         // 8 x 8 pairs per thread
+constexpr int kLd = kTile + 1;  // padded shared row
+
+__global__ void __launch_bounds__(kThreads)
+phased_tile_kernel(const uint32_t* __restrict__ alt_i,
+                   const uint32_t* __restrict__ alt_j,
+                   const int32_t* __restrict__ ac_i,
+                   const int32_t* __restrict__ ac_j,
+                   const uint8_t* __restrict__ valid_i,
+                   const uint8_t* __restrict__ valid_j,
+                   int B, int W, int n_hap, float lo, float hi,
+                   int need_nonzero, int diag,
+                   uint8_t* __restrict__ mask,
+                   int32_t* __restrict__ altalt) {
+  __shared__ uint32_t sa[kWords][kLd];
+  __shared__ uint32_t sb[kWords][kLd];
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int row0 = blockIdx.y * kTile;
+  const int col0 = blockIdx.x * kTile;
+
+  int acc[kReg][kReg];
+#pragma unroll
+  for (int r = 0; r < kReg; ++r)
+#pragma unroll
+    for (int c = 0; c < kReg; ++c) acc[r][c] = 0;
+
+  for (int w0 = 0; w0 < W; w0 += kWords) {
+    // coalesced loads: consecutive threads read consecutive words of a row
+    for (int e = threadIdx.x; e < kTile * kWords; e += kThreads) {
+      const int r = e / kWords;
+      const int k = e % kWords;
+      const int w = w0 + k;
+      const int gi = row0 + r;
+      const int gj = col0 + r;
+      sa[k][r] = (gi < B && w < W) ? alt_i[(size_t)gi * W + w] : 0u;
+      sb[k][r] = (gj < B && w < W) ? alt_j[(size_t)gj * W + w] : 0u;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < kWords; ++k) {
+      uint32_t a[kReg], b[kReg];
+#pragma unroll
+      for (int r = 0; r < kReg; ++r) a[r] = sa[k][ty + 16 * r];
+#pragma unroll
+      for (int c = 0; c < kReg; ++c) b[c] = sb[k][tx + 16 * c];
+#pragma unroll
+      for (int r = 0; r < kReg; ++r)
+#pragma unroll
+        for (int c = 0; c < kReg; ++c) acc[r][c] += __popc(a[r] & b[c]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < kReg; ++r) {
+    const int k = row0 + ty + 16 * r;
+    if (k >= B) continue;
+    const int aci = ac_i[k];
+    const bool vi = valid_i[k] != 0;
+#pragma unroll
+    for (int c = 0; c < kReg; ++c) {
+      const int l = col0 + tx + 16 * c;
+      if (l >= B) continue;
+      const int aa = acc[r][c];
+      const int acj = ac_j[l];
+      // sweeps.tile_mask: real rows, ac_i + ac_j > 2, upper triangle
+      const bool cand = vi && valid_j[l] != 0 && aci + acj > 2 &&
+                        (!diag || k < l);
+      uint8_t m = 0;
+      if (cand) {
+        const int altref = aci - aa;
+        const int refalt = acj - aa;
+        const int refref = n_hap - (aci + acj) + aa;
+        const int t = refref + refalt + altref + aa;
+        const int guard = refref < aa ? refalt + altref + refref
+                                      : aa + refalt + altref;
+        bool pf = t >= 5 && guard >= 5;
+        const float rr = (float)refref;
+        const float ra = (float)refalt;
+        const float ar = (float)altref;
+        const float fa = (float)aa;
+        const float d_num = rr * fa - ar * ra;
+        const float d2 = d_num * d_num;
+        const float denom = (rr + ra) * (ar + fa) * (rr + ar) * (ra + fa);
+        if (need_nonzero) pf = pf && d_num != 0.0f;
+        pf = pf && d2 >= lo * denom && d2 <= hi * denom;
+        m = pf ? 2 : 1;
+      }
+      mask[(size_t)k * B + l] = m;
+      altalt[(size_t)k * B + l] = aa;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int twk_phased_tile(const void* alt_i, const void* alt_j,
+                               const void* ac_i, const void* ac_j,
+                               const void* valid_i, const void* valid_j,
+                               int B, int W, int n_hap, float lo, float hi,
+                               int need_nonzero, int diag, void* mask,
+                               void* altalt, void* stream) {
+  if (B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + kTile - 1) / kTile, (B + kTile - 1) / kTile);
+  phased_tile_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)alt_i, (const uint32_t*)alt_j,
+      (const int32_t*)ac_i, (const int32_t*)ac_j,
+      (const uint8_t*)valid_i, (const uint8_t*)valid_j, B, W, n_hap, lo, hi,
+      need_nonzero, diag, (uint8_t*)mask, (int32_t*)altalt);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* twk_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

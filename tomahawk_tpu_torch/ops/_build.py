@@ -1,0 +1,132 @@
+"""Build and bind the hand-written CUDA kernels.
+
+`csrc/*.cu` compile with nvcc for Hopper (`sm_90a`) into one shared
+library with a plain C interface, loaded with ctypes. The library lands
+in `build/tomahawk_tpu_torch/` beside the package, named by a hash of
+the sources and flags, so an edited source rebuilds on first use and an
+unchanged one loads at once. Nothing is built when the module is
+imported: `library()` builds on the first kernel launch.
+
+Each C entry point launches on the stream it is given, allocates
+nothing, and returns `cudaGetLastError()`; `check` turns a non-zero
+code into an exception. The files are built with `-fmad=false` so the
+f32 prefilter rounds each product and difference on its own, exactly as
+the plain PyTorch version does.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
+                         "tomahawk_tpu_torch")
+SOURCES = ("phased_tile.cu", "compact.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+#: the hand kernels: CUDA source and the TPU code each replaces
+KERNELS = {
+    "phased_tile": dict(
+        source="tomahawk_tpu_torch/csrc/phased_tile.cu",
+        replaces="tomahawk_tpu/ops/pallas_tiles.py:297"),
+    "compact": dict(
+        source="tomahawk_tpu_torch/csrc/compact.cu",
+        replaces="tomahawk_tpu/ops/ld_kernels.py:364"),
+}
+
+#: launches of each kernel, counted by its wrapper where it launches
+LAUNCHES = {name: 0 for name in KERNELS}
+#: wrapper calls that took the plain PyTorch version (CPU tensors)
+PLAIN_CALLS = {name: 0 for name in KERNELS}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # alt_i, alt_j, ac_i, ac_j, valid_i, valid_j, B, W, n_hap, lo, hi,
+    # need_nonzero, diag, mask, altalt, stream
+    "twk_phased_tile": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_I] * 2
+    + [_P] * 3,
+    # mask, altalt, B, off, cap, outcap, n_pass, n_cand, t, scratch,
+    # buf, stream
+    "twk_compact": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+#: nvcc's report (registers, shared memory, spills) of the last build
+build_log = ""
+
+
+def reset_counts():
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH); the CUDA "
+                           "kernels cannot be built")
+    return found
+
+
+def _lib_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"libtwk_torch-{h.hexdigest()[:16]}.so")
+
+
+def _compile(path: str):
+    global build_log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(os.path.join(CSRC, s) for s in SOURCES)]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
+                           f"{r.stdout}\n{r.stderr}")
+    build_log = r.stdout + r.stderr
+    os.replace(tmp, path)
+
+
+def library():
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = _lib_path()
+            if not os.path.exists(path):
+                _compile(path)
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.twk_error_string.argtypes = [ctypes.c_int]
+            lib.twk_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def loaded() -> bool:
+    return _lib is not None
+
+
+def check(code: int, what: str):
+    if code != 0:
+        msg = _lib.twk_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
