@@ -1,8 +1,9 @@
 """The port's `calc` as a whole against the JAX package's: the same
 imported archive through both engines (host Fisher on both sides) gives
-the same sorted .two records in every field. Also: repair of cap
-overflow and buffer spill, the CLI's device rule, and the rejection of
-everything outside the slice."""
+the same sorted .two records in every field, with -p, with -u and in
+the default mixed dispatch, on archives with and without missing
+genotypes. Also: repair of cap overflow and buffer spill, the CLI's
+device rule, and the rejection of everything outside the slice."""
 
 import numpy as np
 import pytest
@@ -11,13 +12,17 @@ import torch
 from test_importer import make_vcf
 
 from tomahawk_tpu.compute.engine import CalcSettings
+from tomahawk_tpu.compute.engine import LdEngine as JaxLdEngine
 from tomahawk_tpu.compute.engine import compute_ld as jax_compute_ld
 from tomahawk_tpu.io.importer import ImportSettings, import_vcf
 from tomahawk_tpu.io.two import TwoReader
+from tomahawk_tpu.ops.ld_math import LdFilters
 
 from tomahawk_tpu_torch import cli
 from tomahawk_tpu_torch.compute.engine import LdEngine, compute_ld
 from tomahawk_tpu_torch.ops import _build
+
+from test_torch_groups import group_planes
 
 
 def _sorted(path):
@@ -86,9 +91,10 @@ def test_calc_matches_jax(archive, jax_records, tmp_path, entry, phased):
     assert sum(_build.LAUNCHES.values()) == 0
 
 
-def _correlated_archive(tmp_path, n=30, sites=60):
+def _correlated_archive(tmp_path, n=30, sites=60, miss_frac=0.0):
     """Sites in groups of 10 share a haplotype template: many
-    survivors per tile."""
+    survivors per tile. With miss_frac, that share of genotypes is
+    missing (`.|.`)."""
     rng = np.random.default_rng(3)
     lines = ["##fileformat=VCFv4.2", "##contig=<ID=c1,length=10000000>",
              '##FORMAT=<ID=GT,Number=1,Type=String,Description="G">',
@@ -99,26 +105,25 @@ def _correlated_archive(tmp_path, n=30, sites=60):
         if s % 10 == 0:
             base = rng.random(2 * n) < 0.4
         hap = base ^ (rng.random(2 * n) < 0.06)
+        miss = rng.random(n) < miss_frac
         pos += int(rng.integers(40, 200))
-        gt = "\t".join(f"{int(hap[2 * i])}|{int(hap[2 * i + 1])}"
+        gt = "\t".join(".|." if miss[i] else
+                       f"{int(hap[2 * i])}|{int(hap[2 * i + 1])}"
                        for i in range(n))
         lines.append(f"c1\t{pos}\t.\tA\tC\t.\tPASS\t.\tGT\t{gt}")
     vcf = tmp_path / "r.vcf"
     vcf.write_text("\n".join(lines) + "\n")
     twk = str(tmp_path / "r.twk")
-    import_vcf(ImportSettings(input=str(vcf), output=twk, block_size=8))
+    import_vcf(ImportSettings(input=str(vcf), output=twk, block_size=8,
+                              threshold_miss=0.5))
     return twk
 
 
-def test_cap_overflow_and_spill_repair(tmp_path, monkeypatch):
-    """Tiles past the fused cap and a spilling buffer are repaired
-    exactly: runs whose caps overflow (cap 8) or whose buffer spills
-    (outcap 512 of ~1,800 survivors) give the records of caps nothing
-    overflows, and the JAX engine's; each run grows the cap it
-    overran."""
-    twk = _correlated_archive(tmp_path)
-    settings = dict(input=twk, force_phased=True, min_r2=0.0,
-                    tile_rows=16)
+def _repair_runs(tmp_path, monkeypatch, twk, stat_key, **settings):
+    """Runs whose caps overflow (cap 8) or whose buffer spills (outcap
+    512) give the records of caps nothing overflows, and the JAX
+    engine's; each run grows the cap it overran."""
+    settings = dict(input=twk, min_r2=0.0, tile_rows=16, **settings)
     runs, engines = {}, {}
     orig_init = LdEngine.__init__
     for cap, outcap in ((1 << 20, 1 << 20), (8, 64), (256, 512)):
@@ -137,10 +142,52 @@ def test_cap_overflow_and_spill_repair(tmp_path, monkeypatch):
                                 **settings))
     for cap in (8, 256):
         _assert_same(runs[cap], runs[1 << 20])
-        assert engines[cap].stats["phased/nomiss/all"]["n_repair"] > 0
+        assert engines[cap].stats[stat_key]["n_repair"] > 0
     _assert_same(runs[8], _sorted(ref))
     assert engines[8]._fused_cap > 8
     assert engines[256]._outcap > 512
+
+
+def test_cap_overflow_and_spill_repair(tmp_path, monkeypatch):
+    """Tiles past the fused cap and a spilling buffer (~1,800 survivors)
+    are repaired exactly."""
+    _repair_runs(tmp_path, monkeypatch, _correlated_archive(tmp_path),
+                 "phased/nomiss/all", force_phased=True)
+
+
+def test_cap_overflow_and_spill_repair_nine_parts(tmp_path, monkeypatch):
+    """The same repair for the 9-part group: -u on an archive where
+    every block has missing genotypes."""
+    twk = _correlated_archive(tmp_path, miss_frac=0.05)
+    _repair_runs(tmp_path, monkeypatch, twk, "unphased/miss/all",
+                 forced_unphased=True)
+
+
+@pytest.mark.parametrize("runner", ["unphased", "unphased_missing",
+                                    "mixed"])
+def test_pair_runners_match_jax(runner, monkeypatch):
+    """LdEngine.run_unphased_pairs (4- and 9-part tables) and
+    run_mixed_pairs give the JAX engine's records on the same planes."""
+    monkeypatch.setenv("TWK_DEVICE_FISHER", "0")
+    n_samples = 64
+    st = group_planes(9, 2, 128, n_samples,
+                      miss_frac=0.0 if runner == "unphased" else 0.05)
+    pairs = [(0, 0, True), (0, 1, False), (1, 1, True)]
+    filt = LdFilters(min_r2=0.05)
+    got = []
+    for engine in (LdEngine(st, n_samples, CalcSettings(min_r2=0.05),
+                            "cpu"),
+                   JaxLdEngine(st, n_samples, CalcSettings(min_r2=0.05))):
+        out = []
+        emit = lambda r, rev=None: out.append(r.copy())
+        if runner == "mixed":
+            engine.run_mixed_pairs(pairs, filt, emit)
+        else:
+            engine.run_unphased_pairs(pairs, runner != "unphased", filt,
+                                      emit)
+        recs = np.concatenate(out)
+        got.append(np.sort(recs, order=list(recs.dtype.names)))
+    _assert_same(*got)
 
 
 def test_cli_calc_needs_cuda(archive, tmp_path, monkeypatch):
@@ -151,21 +198,82 @@ def test_cli_calc_needs_cuda(archive, tmp_path, monkeypatch):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("phased", [True, False])
-def test_missing_data_not_implemented(tmp_path, phased):
-    vcf = str(tmp_path / "m.vcf")
-    make_vcf(vcf, n_samples=30, n_sites=80, seed=4, miss_frac=0.05)
-    twk = str(tmp_path / "m.twk")
-    import_vcf(ImportSettings(input=vcf, output=twk, threshold_miss=0.5))
-    out = tmp_path / "m.two"
-    argv = ["calc", "-i", twk, "-o", str(out), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        cli.main(argv + (["-p"] if phased else []))
-    assert not out.exists()
+MODES = {"mixed": dict(), "phased": dict(force_phased=True),
+         "unphased": dict(forced_unphased=True)}
+FLAGS = {"mixed": [], "phased": ["-p"], "unphased": ["-u"]}
+
+
+@pytest.fixture(scope="module")
+def missing_archives(tmp_path_factory):
+    """5% missing genotypes, phased (`|`) and unphased (`/`) VCFs."""
+    d = tmp_path_factory.mktemp("torch_engine_miss")
+    out = {}
+    for phased in (True, False):
+        vcf = str(d / f"m{phased}.vcf")
+        make_vcf(vcf, n_samples=40, n_sites=400, seed=4, miss_frac=0.05,
+                 phased=phased)
+        twk = str(d / f"m{phased}.twk")
+        import_vcf(ImportSettings(input=vcf, output=twk, block_size=64,
+                                  threshold_miss=0.5))
+        out[phased] = twk
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_missing_records(missing_archives, tmp_path_factory):
+    """The JAX engine's records for every (archive, mode)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("TWK_DEVICE_FISHER", "0")
+    d = tmp_path_factory.mktemp("torch_engine_miss_ref")
+    out = {}
+    try:
+        for phased, twk in missing_archives.items():
+            for mode, kw in MODES.items():
+                path = str(d / f"jax_{phased}_{mode}.two")
+                jax_compute_ld(CalcSettings(
+                    input=twk, output=path, min_r2=0.05, tile_rows=128,
+                    mesh="off", backend="device", **kw))
+                out[phased, mode] = _sorted(path)
+    finally:
+        mp.undo()
+    return out
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("phased", [True, False], ids=["phased_vcf",
+                                                      "unphased_vcf"])
+def test_calc_with_missing_matches_jax(missing_archives, jax_missing_records,
+                                       tmp_path, phased, mode):
+    """-p (4-part phased table), -u (4- and 9-part unphased) and the
+    mixed dispatch (the clean phased and missing unphased halves of
+    every tile with missing data) on archives with missing genotypes."""
+    out = str(tmp_path / "torch.two")
+    _build.reset_counts()
+    res = compute_ld(CalcSettings(input=missing_archives[phased],
+                                  output=out, min_r2=0.05, tile_rows=128,
+                                  **MODES[mode]), device="cpu")
+    want = jax_missing_records[phased, mode]
+    assert res.n_records == len(want)
+    _assert_same(_sorted(out), want)
+    assert _build.PLAIN_CALLS["parts_tile"] > 0
+    assert (_build.PLAIN_CALLS["phased_tile"] > 0) == (mode == "mixed")
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_cli_calc_with_missing_matches_jax(missing_archives,
+                                           jax_missing_records, tmp_path,
+                                           mode):
+    out = str(tmp_path / "cli.two")
+    assert cli.main(["calc", "-i", missing_archives[True], "-o", out,
+                     "-r", "0.05", "--tile-rows", "128", "--device", "cpu",
+                     *FLAGS[mode]]) == 0
+    _assert_same(_sorted(out), jax_missing_records[True, mode])
 
 
 @pytest.mark.parametrize("kw", [
-    dict(forced_unphased=True), dict(window=True, l_window=1000),
+    dict(window=True, l_window=1000),
+    dict(forced_unphased=True, window=True, l_window=1000),
     dict(min_dprime=0.5), dict(checkpoint="ck.json"),
     dict(distributed=True), dict(mesh="2x1"), dict(backend="cpu"),
     dict(memory_gb=1e-6),

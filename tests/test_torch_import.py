@@ -109,7 +109,8 @@ def test_resolve_device(monkeypatch):
 
 def test_kernel_report_names_sources_and_tpu_code():
     rows = D.kernel_report()
-    assert [r["name"] for r in rows] == ["phased_tile", "compact"]
+    assert [r["name"] for r in rows] == ["phased_tile", "parts_tile",
+                                         "compact"]
     for r in rows:
         assert (REPO / r["source"]).exists()
         path, line = r["replaces"].split(":")
@@ -133,7 +134,7 @@ def test_library_named_by_source_hash(tmp_path, monkeypatch):
     assert os.path.basename(first).startswith("libtwk_torch-")
     src = tmp_path / "csrc"
     src.mkdir()
-    for name in _build.SOURCES:
+    for name in _build.SOURCES + _build.HEADERS:
         text = (PKG / "csrc" / name).read_text()
         (src / name).write_text(text + "\n// edited\n")
     monkeypatch.setattr(_build, "CSRC", str(src))

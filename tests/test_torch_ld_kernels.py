@@ -89,8 +89,9 @@ def test_tile_matches_jax_and_pallas(i, j, diag):
     pf_x, m_x, (aa_x,) = jsweeps.tile_prefilter(*args, jcfg)
     pf_p, m_p, (aa_p,) = PT.tile_prefilter_pallas(*args, jcfg,
                                                   interpret=True)
-    mask, altalt = tiles.tile_prefilter(dev, i, j, diag, cfg)
-    mask, altalt = mask.numpy(), altalt.numpy()
+    mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg)
+    assert parts.shape == (1, B, B)
+    mask, altalt = mask.numpy(), parts[0].numpy()
     (aa_k,) = K.phased_parts_tile(dev["alt_bits"][i], dev["alt_bits"][j])
     (aa_j,) = JK.phased_parts_tile(jdev["alt_bits"][i], None,
                                    jdev["alt_bits"][j], None, False)
@@ -161,7 +162,8 @@ def test_compact_survivors_contract(off0, cap):
     n_cand = torch.zeros(3, dtype=torch.int32)
     off = torch.tensor([off0], dtype=torch.int32)
     _build.reset_counts()
-    sweeps.compact_survivors(mask, altalt, off, buf, n_pass, n_cand, 1, cap)
+    sweeps.compact_survivors(mask, altalt[None], off, buf, n_pass, n_cand,
+                             1, cap)
     assert _build.PLAIN_CALLS["compact"] == 1
     assert _build.LAUNCHES["compact"] == 0
     flat = np.flatnonzero(mask.numpy().ravel() == 2)
@@ -202,9 +204,9 @@ def test_tile_kernel_matches_plain_on_card():
     cfg = sweeps.make_cfg("phased", False, "all", B, N_SAMPLES, 0,
                           MIN_R2, 100.0)
     for i, j, diag in [(0, 0, True), (0, 1, False)]:
-        mask, altalt = tiles.tile_prefilter(dev, i, j, diag, cfg)
-        want_m, want_a = tiles.tile_prefilter_plain(dev, i, j, diag, cfg)
-        assert torch.equal(mask, want_m) and torch.equal(altalt, want_a)
+        mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg)
+        want_m, want_p = tiles.tile_prefilter_plain(dev, i, j, diag, cfg)
+        assert torch.equal(mask, want_m) and torch.equal(parts, want_p)
 
 
 @pytest.mark.gpu
@@ -223,8 +225,8 @@ def test_compact_kernel_matches_plain_on_card():
                 torch.zeros(2, dtype=torch.int32, device=card),
                 torch.tensor([100], dtype=torch.int32, device=card)]
         for t in range(2):
-            fn(mask.to(card), altalt.to(card), bufs[3], bufs[0], bufs[1],
-               bufs[2], t, cap)
+            fn(mask.to(card), altalt[None].to(card), bufs[3], bufs[0],
+               bufs[1], bufs[2], t, cap)
         outs.append([b.cpu() for b in bufs])
     for got, want in zip(*outs):
         assert torch.equal(got, want)

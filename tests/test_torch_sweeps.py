@@ -170,9 +170,9 @@ def test_payload_helpers_match_jax(table, miss, n_samples):
 
 
 @pytest.mark.parametrize("args", [
-    ("unphased", False, "all", 0, 0.0, 100.0),
-    ("phased", True, "all", 0, 0.0, 100.0),
-    ("phased", False, "clean", 0, 0.0, 100.0),
+    ("unphased", False, "all", 10_000, 0.0, 100.0),
+    ("phased", True, "all", 0, 0.2, 100.0),
+    ("unphased", True, "missing", 10_000, 0.0, 100.0),
     ("phased", False, "all", 10_000, 0.0, 100.0),
     ("phased", False, "all", 0, 0.2, 100.0),
 ])

@@ -1,8 +1,9 @@
 """tomahawk_tpu_torch: the PyTorch + CUDA port of tomahawk_tpu.
 
-This package runs `calc` all-vs-all on phased data with no missing
-genotypes on one NVIDIA H100, through two hand-written CUDA kernels
-(`csrc/phased_tile.cu`, `csrc/compact.cu`). The JAX package
+This package runs `calc` all-vs-all -- phased (`-p`), unphased (`-u`)
+and the default mixed dispatch, with or without missing genotypes -- on
+one NVIDIA H100, through three hand-written CUDA kernels
+(`csrc/phased_tile.cu`, `csrc/parts_tile.cu`, `csrc/compact.cu`). The JAX package
 `tomahawk_tpu` stays the reference; its host code (file formats,
 balancer, exact f64 statistics, native record assembly) is shared by
 import and never touches jax. This package imports torch and never

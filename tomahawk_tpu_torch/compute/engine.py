@@ -1,9 +1,12 @@
-"""All-vs-all LD on one GPU, phased data with no missing genotypes.
+"""All-vs-all LD on one GPU: phased (-p), unphased (-u) and mixed.
 
 The PyTorch port of the single-device path of
 tomahawk_tpu/compute/engine.py. Variant blocks regroup into super-blocks
-of up to `tile_rows` variants whose packed alt planes live on the
-device, and the block-pair tile grid is swept in segments. For each
+of up to `tile_rows` variants whose packed bit planes live on the
+device, and the block-pair tile grid is swept in segments, one
+(table, has_missing, cls) group at a time in the order of the JAX
+engine's `group_tiles` (mixed mode: the reference's per-pair dispatch,
+ld_engine.cpp:2737-2880). For each
 segment the device runs the tile kernel and the survivor compaction on
 every tile (sweeps.fused_sweep) with no host sync in between; the host
 then reads the per-tile counts once, pulls the survivor rows, re-sweeps
@@ -13,9 +16,9 @@ and Fisher P in the shared native record pipeline (ld_math.ld_records)
 and emits .two records. One segment is in flight at a time.
 
 Host code is shared with the JAX package by import. What that engine
-also does and this slice does not yet -- missing data, unphased and
-window sweeps, banded streaming, checkpoints, multi-process runs, the
-CPU route, the in-sweep Fisher -- raises NotImplementedError naming the
+also does and this slice does not yet -- window sweeps, banded
+streaming, checkpoints, multi-process runs, the CPU route, the in-sweep
+Fisher, D' bounds -- raises NotImplementedError naming the
 ROADMAP.md item that adds it. A kernel that fails to build or launch is
 an error: there is no fallback path.
 """
@@ -28,6 +31,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from tomahawk_tpu.compute.balancer import Balancer
+from tomahawk_tpu.compute.engine import LdEngine as _JaxLdEngine
 from tomahawk_tpu.compute.engine import (CalcResult, CalcSettings, _bucket,
                                          _pair_meta_from, _plan_loads,
                                          _reverse_records, _round_up,
@@ -36,7 +40,8 @@ from tomahawk_tpu.compute.engine import (CalcResult, CalcSettings, _bucket,
 from tomahawk_tpu.io.twk import TwkReader
 from tomahawk_tpu.io.two import TwoWriter
 from tomahawk_tpu.ops.bitpack import block_to_planes, stack_planes
-from tomahawk_tpu.ops.ld_math import LdFilters, ld_records, phased_math
+from tomahawk_tpu.ops.ld_math import (LdFilters, ld_records, phased_math,
+                                     unphased_math)
 from tomahawk_tpu.utils import Timer, log, pretty_int
 from tomahawk_tpu.utils.progress import ProgressTicker
 
@@ -61,6 +66,10 @@ class LdEngine:
     OUTCAP0 = 1 << 18
     # target segments per tile group (progress advances between them)
     PIPELINE_SEGMENTS = 8
+    # the JAX engine's host tables from survivor parts (shared host
+    # code: they read only self.stacked and self.n_samples)
+    _phased_counts_from_parts = _JaxLdEngine._phased_counts_from_parts
+    _unphased_table_from_parts = _JaxLdEngine._unphased_table_from_parts
 
     def __init__(self, stacked: dict, n_samples: int,
                  settings: CalcSettings, device):
@@ -84,11 +93,15 @@ class LdEngine:
                 "ported yet (ROADMAP.md queue 1 item 10)")
         self.stacked = bands[0][1]
         self.B = self.stacked["alt_bits"].shape[1]
-        self._dev = None
+        self._dev = {}
 
-    def _dev_for(self) -> dict:
-        if self._dev is None:
-            self._dev = sweeps.planes_to_device(self.stacked, self.device)
+    def _dev_for(self, cfg) -> dict:
+        """The resident band's device tensors, uploading on first use
+        the keys this sweep config reads and no others."""
+        keys = [k for k in sweeps.dev_keys_for(cfg) if k not in self._dev]
+        if keys:
+            self._dev.update(sweeps.planes_to_device(self.stacked,
+                                                     self.device, keys))
         return self._dev
 
     def _cfg(self, table, has_missing, cls):
@@ -125,13 +138,26 @@ class LdEngine:
         return self.run_group(pairs, "phased", has_missing, "all", filt,
                               emit)
 
+    def run_unphased_pairs(self, pairs, has_missing, filt, emit):
+        return self.run_group(pairs, "unphased", has_missing, "all", filt,
+                              emit)
+
+    def run_mixed_pairs(self, pairs, filt, emit):
+        """Reference mixed-mode Calculate() semantics on tiles that
+        contain missing data: clean pairs take the phased math, pairs
+        with missing alleles take the unphased math
+        (reference: ld_engine.cpp:2737-2880)."""
+        n = self.run_group(pairs, "phased", False, "clean", filt, emit)
+        n += self.run_group(pairs, "unphased", True, "missing", filt, emit)
+        return n
+
     # -- one segment -----------------------------------------------------
     def _dispatch_fused(self, tiles, cfg) -> dict:
         """Enqueue one segment's fused sweep; nothing waits for it."""
         pi = np.array([t[0] for t in tiles], np.int32)
         pj = np.array([t[1] for t in tiles], np.int32)
         dg = np.array([t[2] for t in tiles], bool)
-        dev = self._dev_for()
+        dev = self._dev_for(cfg)
         cap = min(self._fused_cap, self.B * self.B)
         outcap = max(self._outcap, 2 * cap)
         n_pass, n_cand, buf = sweeps.fused_sweep(
@@ -192,19 +218,22 @@ class LdEngine:
         bi = pi[hit][tile_of].astype(np.int64)
         bj = pj[hit][tile_of].astype(np.int64)
         meta = _pair_meta_from(self.stacked, bi, bj, k, l)
-        altalt = sweeps.unpack_payload(rows[:, 1:], cfg["table"],
-                                       cfg["has_missing"],
-                                       self.n_samples)[:, 0]
-        # (REFREF, REFALT, ALTREF, ALTALT), as ld_kernels.phased_cells
-        data = np.stack([
-            2 * self.n_samples - (meta.ac_a + meta.ac_b) + altalt,
-            meta.ac_b - altalt, meta.ac_a - altalt, altalt], axis=1)
+        table = cfg["table"]
+        parts = sweeps.unpack_payload(rows[:, 1:], table,
+                                      cfg["has_missing"], self.n_samples)
         t0 = time.perf_counter()
-        out = ld_records("phased", data, meta, filt)
+        if table == "phased":
+            data = self._phased_counts_from_parts(parts, meta)
+        else:
+            data = self._unphased_table_from_parts(parts, bi, bj, k, l)
+        out = ld_records(table, data, meta, filt)
         if out is not None:
             recs, rev = out[0], out[1]
-        else:
+        elif table == "phased":
             recs, _ = phased_math(data, meta, filt)
+            rev = None
+        else:
+            recs = unphased_math(data, meta, filt)
             rev = None
         stat["math_s"] += time.perf_counter() - t0
         stat["n_records"] += len(recs)
@@ -241,7 +270,6 @@ def _check_settings(settings: CalcSettings):
     """Raise for run options outside this slice of the port, naming the
     ROADMAP.md queue 1 item that adds each."""
     unported = (
-        (settings.forced_unphased, "unphased math (-u)", 8),
         (settings.window, "window mode (-w)", 9),
         ((settings.min_dprime, settings.max_dprime) != (0.0, 100.0),
          "D' bounds (-d/-D)", 16),
@@ -320,7 +348,8 @@ def _compute(settings, device, reader, timer) -> CalcResult:
             lambda blk: block_to_planes(blk, n_samples, pad_to=B), blocks)))
     slot = {g: s for s, g in enumerate(super_ids)}
     tiles = [(slot[i], slot[j], d) for i, j, d in pairs]
-    mode = "phased" if settings.force_phased else "mixed"
+    mode = ("phased" if settings.force_phased else
+            "unphased" if settings.forced_unphased else "mixed")
     groups = [g for g in group_tiles(tiles, mode,
                                      stacked["has_missing"].any(axis=1))
               if g[3]]

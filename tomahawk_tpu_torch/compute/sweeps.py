@@ -1,18 +1,19 @@
 """Tile sweeps on one device: counts and survivor compaction.
 
-Counterpart of tomahawk_tpu/compute/sweeps.py for the phased /
-no-missing / cls "all" / no-window slice, with the Fisher column off.
-The JAX package scans a jitted body over the tile list; here a Python
-loop launches, per tile, the tile kernel (ops/tiles.py) and the
-survivor compaction (`compact_survivors`, csrc/compact.cu). The
-compaction keeps the running offset on the device, so a segment of
-tiles runs without a host sync and the host reads the counts once,
-after the whole segment.
+Counterpart of tomahawk_tpu/compute/sweeps.py for every sweep group
+without a window, with the Fisher column off. The JAX package scans a
+jitted body over the tile list; here a Python loop launches, per tile,
+the tile kernel (ops/tiles.py) and the survivor compaction
+(`compact_survivors`, csrc/compact.cu). The compaction keeps the running
+offset on the device, so a segment of tiles runs without a host sync and
+the host reads the counts once, after the whole segment. A sweep
+allocates the tile's output buffers once and reuses them for every tile.
 
-Survivor rows are [flat index k*B + l, ALTALT] int32. With one payload
-part the JAX package's pair packing (`_pack_cols`) leaves ALTALT
-unshifted, so the port writes that layout directly; `unpack_payload`
-(the host inverse) is kept as the JAX package has it.
+Survivor rows are [flat index k*B + l, payload...] int32 in the layout
+of the JAX package's `_pack_cols`: while the parts fit uint16
+(`pack16_ok`) they ride two per column as `lo | hi << 16`, an odd last
+part unshifted; otherwise one part per column. `unpack_payload` is the
+host inverse, as the JAX package has it.
 """
 
 import numpy as np
@@ -20,20 +21,34 @@ import torch
 
 from ..ops import _build
 from ..ops import ld_kernels as K
-from ..ops.tiles import tile_prefilter
+from ..ops.tiles import (payload_cols, plane_keys, tile_buffers,
+                         tile_prefilter)
 
-#: device tensors the sweeps read: uint32 alt planes (as int32),
-#: per-variant alt-allele counts, and the real-row flags
-DEV_KEYS = ("alt_bits", "ac", "valid")
+#: device tensors the sweeps may read: uint32 planes (as int32),
+#: per-variant allele, missing-allele and genotype-class counts, and
+#: the real-row flags
+DEV_KEYS = ("alt_bits", "miss_bits", "het_bits", "hom_bits", "valid_bits",
+            "ac", "an", "n_het", "n_hom", "valid")
 
 
-def planes_to_device(stacked: dict, device) -> dict:
-    """The port's device tensors from the JAX package's numpy plane dict
-    (`bitpack.stack_planes` output): the counterpart of the JAX engine's
-    band upload (`LdEngine._upload` / `_band_dev_get`). uint32 planes
-    become int32 views of the same bits."""
+def dev_keys_for(cfg) -> tuple:
+    """The subset of DEV_KEYS a sweep config reads (the JAX package's
+    `dev_keys_for`, without the window's pos/rid)."""
+    keys = {"ac", "valid", *plane_keys(cfg["table"], cfg["has_missing"])}
+    if cfg["table"] == "unphased":
+        keys |= {"n_het", "n_hom"}
+    if cfg["cls"] != "all":
+        keys.add("an")
+    return tuple(k for k in DEV_KEYS if k in keys)
+
+
+def planes_to_device(stacked: dict, device, keys=DEV_KEYS) -> dict:
+    """The port's device tensors for `keys`, from the JAX package's numpy
+    plane dict (`bitpack.stack_planes` output): the counterpart of the
+    JAX engine's band upload (`LdEngine._upload` / `_band_dev_get`).
+    uint32 planes become int32 views of the same bits."""
     out = {}
-    for k in DEV_KEYS:
+    for k in keys:
         a = np.ascontiguousarray(stacked[k])
         if a.dtype == np.uint32:
             a = a.view(np.int32)
@@ -47,13 +62,9 @@ def make_cfg(table: str, has_missing: bool, cls: str, B: int,
     """Sweep configuration. Raises NotImplementedError for what this
     slice of the port does not run yet, naming the ROADMAP.md queue 1
     item that adds it."""
-    if table != "phased":
-        raise NotImplementedError("unphased tables are not ported yet "
-                                  "(ROADMAP.md queue 1 item 8)")
-    if has_missing or cls != "all":
-        raise NotImplementedError("tiles with missing genotypes (and the "
-                                  "mixed clean/missing split) are not "
-                                  "ported yet (ROADMAP.md queue 1 item 7)")
+    if table not in ("phased", "unphased") or cls not in ("all", "clean",
+                                                          "missing"):
+        raise ValueError(f"no sweep group ({table!r}, {cls!r})")
     if window:
         raise NotImplementedError("window mode is not ported yet "
                                   "(ROADMAP.md queue 1 item 9)")
@@ -63,14 +74,6 @@ def make_cfg(table: str, has_missing: bool, cls: str, B: int,
     return dict(table=table, has_missing=has_missing, cls=cls, B=B,
                 n_samples=n_samples, window=window, min_r2=min_r2,
                 max_r2=max_r2)
-
-
-def payload_cols(table: str, has_missing: bool) -> int:
-    """Raw contraction parts carried per survivor (the host re-derives
-    the full table from these plus per-variant metadata)."""
-    if table == "phased":
-        return 4 if has_missing else 1
-    return 9 if has_missing else 4
 
 
 def pack16_ok(cfg) -> bool:
@@ -105,9 +108,21 @@ def unpack_payload(cols, table: str, has_missing: bool,
     return out
 
 
-def compact_survivors_plain(mask, altalt, off, buf, n_pass, n_cand,
+def _payload_layout(P: int, ncol: int) -> bool:
+    """Whether a [*, ncol] buffer holds P parts pair-packed (True) or
+    one per column (False); with one part the two layouts agree."""
+    if ncol == 1 + (P + 1) // 2:
+        return True
+    if ncol == 1 + P:
+        return False
+    raise ValueError(f"a survivor buffer of {ncol} columns holds neither "
+                     f"layout of {P} parts")
+
+
+def compact_survivors_plain(mask, parts, off, buf, n_pass, n_cand,
                             t: int, cap: int):
     outcap = buf.shape[0]
+    packed = _payload_layout(parts.shape[0], buf.shape[1])
     n, idx = K.compact_indices_small(mask == 2, cap)
     n = int(n)
     o = int(off[0])
@@ -115,37 +130,45 @@ def compact_survivors_plain(mask, altalt, off, buf, n_pass, n_cand,
     if k:
         base = min(o, outcap - cap)
         idx = idx[:k].long()
+        vals = [p.reshape(-1)[idx] for p in parts]
+        if packed:
+            vals = [vals[q] | (vals[q + 1] << 16) if q + 1 < len(vals)
+                    else vals[q] for q in range(0, len(vals), 2)]
         buf[base:base + k, 0] = idx.to(torch.int32)
-        buf[base:base + k, 1] = altalt.reshape(-1)[idx]
+        buf[base:base + k, 1:] = torch.stack(vals, dim=1)
     n_pass[t] = n
     n_cand[t] = int((mask != 0).sum())
     off[0] = min(o + n, outcap)
 
 
-def compact_survivors(mask, altalt, off, buf, n_pass, n_cand, t: int,
+def compact_survivors(mask, parts, off, buf, n_pass, n_cand, t: int,
                       cap: int):
     """Write the first min(n, cap) survivors (mask == 2) of one tile,
-    ascending in flat index, as [k*B + l, ALTALT] rows at buffer row
+    ascending in flat index, as [k*B + l, payload...] rows at buffer row
     min(off, outcap - cap), outcap = len(buf); set n_pass[t] and
-    n_cand[t]; advance off to min(off + n, outcap). `off` is an int32
-    [1] tensor updated in place. Launches csrc/compact.cu for CUDA
-    tensors, the plain version for CPU tensors."""
+    n_cand[t]; advance off to min(off + n, outcap). `parts` is i32
+    [P, B, B]; the payload layout follows the buffer's width (buf_cols:
+    pair-packed or one part per column). `off` is an int32 [1] tensor
+    updated in place. Launches csrc/compact.cu for CUDA tensors, the
+    plain version for CPU tensors."""
     if mask.is_cuda:
-        return _launch_compact(mask, altalt, off, buf, n_pass, n_cand, t,
+        return _launch_compact(mask, parts, off, buf, n_pass, n_cand, t,
                                cap)
     if mask.device.type != "cpu":
         raise ValueError(f"no compaction kernel for device {mask.device}")
     _build.PLAIN_CALLS["compact"] += 1
-    return compact_survivors_plain(mask, altalt, off, buf, n_pass, n_cand,
+    return compact_survivors_plain(mask, parts, off, buf, n_pass, n_cand,
                                    t, cap)
 
 
-def _launch_compact(mask, altalt, off, buf, n_pass, n_cand, t, cap):
+def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap):
     B = mask.shape[0]
-    outcap = buf.shape[0]
+    P = parts.shape[0]
+    outcap, ncol = buf.shape
+    _payload_layout(P, ncol)
     checks = (
-        (mask, torch.uint8, (B, B)), (altalt, torch.int32, (B, B)),
-        (off, torch.int32, (1,)), (buf, torch.int32, (outcap, 2)),
+        (mask, torch.uint8, (B, B)), (parts, torch.int32, (P, B, B)),
+        (off, torch.int32, (1,)), (buf, torch.int32, (outcap, ncol)),
         (n_pass, torch.int32, tuple(n_pass.shape)),
         (n_cand, torch.int32, tuple(n_pass.shape)))
     for x, dtype, shape in checks:
@@ -162,16 +185,15 @@ def _launch_compact(mask, altalt, off, buf, n_pass, n_cand, t, cap):
     scratch = torch.empty(3 * B + 2, dtype=torch.int32, device=mask.device)
     lib = _build.library()
     rc = lib.twk_compact(
-        mask.data_ptr(), altalt.data_ptr(), B, off.data_ptr(), cap, outcap,
-        n_pass.data_ptr(), n_cand.data_ptr(), t, scratch.data_ptr(),
+        mask.data_ptr(), parts.data_ptr(), P, ncol, B, off.data_ptr(), cap,
+        outcap, n_pass.data_ptr(), n_cand.data_ptr(), t, scratch.data_ptr(),
         buf.data_ptr(), torch.cuda.current_stream(mask.device).cuda_stream)
     _build.check(rc, "compact launch")
     _build.LAUNCHES["compact"] += 1
 
 
 def _zeros(dev, *shape):
-    return torch.zeros(shape, dtype=torch.int32,
-                       device=dev["alt_bits"].device)
+    return torch.zeros(shape, dtype=torch.int32, device=dev["valid"].device)
 
 
 def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
@@ -185,11 +207,12 @@ def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
     T = len(pi)
     n_pass, n_cand, off = _zeros(dev, T), _zeros(dev, T), _zeros(dev, 1)
     buf = _zeros(dev, outcap, buf_cols(cfg))
-    for t in range(len(pi)):
+    out = tile_buffers(cfg, buf.device)
+    for t in range(T):
         if live[t]:
-            mask, altalt = tile_prefilter(dev, int(pi[t]), int(pj[t]),
-                                          bool(dg[t]), cfg)
-            compact_survivors(mask, altalt, off, buf, n_pass, n_cand, t,
+            mask, parts = tile_prefilter(dev, int(pi[t]), int(pj[t]),
+                                         bool(dg[t]), cfg, out)
+            compact_survivors(mask, parts, off, buf, n_pass, n_cand, t,
                               cap)
     return n_pass, n_cand, buf
 
@@ -201,12 +224,13 @@ def extract_sweep(dev, pi, pj, dg, off, *, cfg, cap, outcap):
     survivors). Repair rows carry no Fisher bracket."""
     n_pass, n_cand = _zeros(dev, len(pi)), _zeros(dev, len(pi))
     buf = _zeros(dev, outcap, buf_cols(cfg))
+    out = tile_buffers(cfg, buf.device)
     # a copy: the compaction advances each slot in place
     offs = torch.tensor(np.asarray(off), dtype=torch.int32, device=buf.device)
     for t in range(len(pi)):
-        mask, altalt = tile_prefilter(dev, int(pi[t]), int(pj[t]),
-                                      bool(dg[t]), cfg)
-        compact_survivors(mask, altalt, offs[t:t + 1], buf, n_pass, n_cand,
+        mask, parts = tile_prefilter(dev, int(pi[t]), int(pj[t]),
+                                     bool(dg[t]), cfg, out)
+        compact_survivors(mask, parts, offs[t:t + 1], buf, n_pass, n_cand,
                           t, cap)
     return buf
 
@@ -214,10 +238,11 @@ def extract_sweep(dev, pi, pj, dg, off, *, cfg, cap, outcap):
 def count_sweep(dev, pi, pj, dg, live, *, cfg):
     """Per-tile (survivor count, candidate count) over a tile list."""
     n, nc = _zeros(dev, len(pi)), _zeros(dev, len(pi))
+    out = tile_buffers(cfg, n.device)
     for t in range(len(pi)):
         if live[t]:
             mask, _ = tile_prefilter(dev, int(pi[t]), int(pj[t]),
-                                     bool(dg[t]), cfg)
+                                     bool(dg[t]), cfg, out)
             n[t] = (mask == 2).sum()
             nc[t] = (mask != 0).sum()
     return n, nc

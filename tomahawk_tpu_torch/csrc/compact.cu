@@ -11,14 +11,18 @@
 // Contract (the one resume, the .two byte order and the parity tests rely
 // on): of the n survivors (mask == 2) of a B x B tile, the first
 // min(n, cap) in ascending flat index k*B + l are written as int32 rows
-// [k*B + l, ALTALT[k,l]] starting at row min(off, outcap - cap) of buf;
+// [k*B + l, payload...] starting at row min(off, outcap - cap) of buf;
 // then n_pass[t] = n, n_cand[t] = #(mask != 0) and off = min(off + n,
-// outcap). With one payload part (phased, no missing data) the packed
-// layout of _pack_cols is ALTALT unshifted.
+// outcap). The payload is the survivor's P parts (parts i32 [P, B, B];
+// P = 1, 4 or 9) in _pack_cols' layout: with ncol = 1 + ceil(P/2) columns
+// the parts ride two per column as lo | hi << 16, an odd last part
+// unshifted (the caller picks this layout when every part fits uint16);
+// with ncol = 1 + P, one part per column. With P = 1 both are the part
+// unshifted.
 //
 // What bounds it on the H100: reading the B*B mask bytes twice (16 MB at
 // B = 4096, a few microseconds at HBM rate) and three launches; survivors
-// are sparse, so the writes are small. Design: (1) one warp per row counts
+// are sparse, so the writes (and the gathers of their parts) are small. Design: (1) one warp per row counts
 // survivors and candidates, (2) one block scans the row counts into row
 // offsets and advances the offset, (3) one warp per row with survivors
 // writes them in column order, each lane placing its survivor by the
@@ -114,7 +118,8 @@ __global__ void scan_kernel(const int* __restrict__ row_pass,
 }
 
 __global__ void write_kernel(const uint8_t* __restrict__ mask,
-                             const int32_t* __restrict__ altalt, int B,
+                             const int32_t* __restrict__ parts, int P,
+                             int ncol, int B,
                              const int* __restrict__ row_pass,
                              const int* __restrict__ row_off,
                              const int* __restrict__ info,
@@ -133,9 +138,19 @@ __global__ void write_kernel(const uint8_t* __restrict__ mask,
     if (s) {
       const int pos = run + __popc(bal & ((1u << lane) - 1u));
       if (pos < end) {
-        int32_t* dst = buf + (size_t)(base + pos) * 2;
+        int32_t* dst = buf + (size_t)(base + pos) * ncol;
+        const size_t f = (size_t)k * B + l;
+        const size_t BB = (size_t)B * B;
         dst[0] = k * B + l;
-        dst[1] = altalt[(size_t)k * B + l];
+        if (ncol == 1 + P) {
+          for (int p = 0; p < P; ++p) dst[1 + p] = parts[p * BB + f];
+        } else {
+          for (int p = 0; p < P; p += 2) {
+            uint32_t v = (uint32_t)parts[p * BB + f];
+            if (p + 1 < P) v |= (uint32_t)parts[(p + 1) * BB + f] << 16;
+            dst[1 + p / 2] = (int32_t)v;
+          }
+        }
       }
     }
     run += __popc(bal);
@@ -146,11 +161,13 @@ __global__ void write_kernel(const uint8_t* __restrict__ mask,
 
 // scratch: int32 [3 * B + 2] (row survivor counts, row candidate counts,
 // row offsets, info)
-extern "C" int twk_compact(const void* mask, const void* altalt, int B,
-                           void* off, int cap, int outcap, void* n_pass,
-                           void* n_cand, int t, void* scratch, void* buf,
-                           void* stream) {
-  if (B <= 0 || cap <= 0 || cap > outcap) return (int)cudaErrorInvalidValue;
+extern "C" int twk_compact(const void* mask, const void* parts, int P,
+                           int ncol, int B, void* off, int cap, int outcap,
+                           void* n_pass, void* n_cand, int t, void* scratch,
+                           void* buf, void* stream) {
+  if (B <= 0 || cap <= 0 || cap > outcap || P <= 0 ||
+      (ncol != 1 + P && ncol != 1 + (P + 1) / 2))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int* row_pass = (int*)scratch;
   int* row_cand = row_pass + B;
@@ -164,7 +181,7 @@ extern "C" int twk_compact(const void* mask, const void* altalt, int B,
                                          (int*)n_pass, (int*)n_cand, t,
                                          info);
   write_kernel<<<row_blocks, kRowThreads, 0, s>>>(
-      (const uint8_t*)mask, (const int32_t*)altalt, B, row_pass, row_off,
-      info, (int32_t*)buf);
+      (const uint8_t*)mask, (const int32_t*)parts, P, ncol, B, row_pass,
+      row_off, info, (int32_t*)buf);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,11 @@
 //
 // Replaces tomahawk_tpu/ops/pallas_tiles.py::_make_kernel (built by
 // _build_call, reached through sweeps.tile_prefilter) in its phased /
-// no-missing / cls="all" / window=0 instance. Like the TPU kernel it
+// no-missing / window=0 instances, with the pair class cls "all" (the -p
+// sweep and the mixed dispatch's tiles without missing data) or "clean"
+// (the mixed dispatch's phased half of tiles with missing data: pairs
+// whose variants have no missing allele, read from the per-variant `an`).
+// csrc/parts_tile.cu serves the other instances. Like the TPU kernel it
 // writes mask = 0 (not a candidate), 1 (candidate) or 2 (survivor of the
 // f32 prefilter) and the raw contraction ALTALT; unlike it, it applies the
 // diagonal upper-triangle rule itself (the TPU path did that outside the
@@ -24,14 +28,13 @@
 // MMA) are faster in principle and are left for later work.
 //
 // The epilogue follows ops/ld_kernels.phased_cells (no-missing branch) and
-// phased_prefilter_cells expression by expression; with -fmad=false each
-// f32 product and difference rounds on its own, as in the plain version,
-// so the decisions are bit-identical. lo and hi arrive from the host,
-// rounded the way the JAX package rounds them. Padding rows (valid = 0)
-// are never candidates, and padding words are zero, so they add nothing.
+// phased_prefilter_cells (prefilter.cuh). Padding rows (valid = 0) are
+// never candidates, and padding words are zero, so they add nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "prefilter.cuh"
 
 namespace {
 
@@ -48,7 +51,8 @@ phased_tile_kernel(const uint32_t* __restrict__ alt_i,
                    const int32_t* __restrict__ ac_j,
                    const uint8_t* __restrict__ valid_i,
                    const uint8_t* __restrict__ valid_j,
-                   int B, int W, int n_hap, float lo, float hi,
+                   const int32_t* __restrict__ an_i,
+                   const int32_t* __restrict__ an_j, int cls, int B, int W, int n_hap, float lo, float hi,
                    int need_nonzero, int diag,
                    uint8_t* __restrict__ mask,
                    int32_t* __restrict__ altalt) {
@@ -104,28 +108,14 @@ phased_tile_kernel(const uint32_t* __restrict__ alt_i,
       if (l >= B) continue;
       const int aa = acc[r][c];
       const int acj = ac_j[l];
-      // sweeps.tile_mask: real rows, ac_i + ac_j > 2, upper triangle
-      const bool cand = vi && valid_j[l] != 0 && aci + acj > 2 &&
-                        (!diag || k < l);
       uint8_t m = 0;
-      if (cand) {
+      if (twk::candidate(vi, valid_j[l] != 0, aci, acj, k, l, diag, cls,
+                         an_i, an_j)) {
         const int altref = aci - aa;
         const int refalt = acj - aa;
         const int refref = n_hap - (aci + acj) + aa;
-        const int t = refref + refalt + altref + aa;
-        const int guard = refref < aa ? refalt + altref + refref
-                                      : aa + refalt + altref;
-        bool pf = t >= 5 && guard >= 5;
-        const float rr = (float)refref;
-        const float ra = (float)refalt;
-        const float ar = (float)altref;
-        const float fa = (float)aa;
-        const float d_num = rr * fa - ar * ra;
-        const float d2 = d_num * d_num;
-        const float denom = (rr + ra) * (ar + fa) * (rr + ar) * (ra + fa);
-        if (need_nonzero) pf = pf && d_num != 0.0f;
-        pf = pf && d2 >= lo * denom && d2 <= hi * denom;
-        m = pf ? 2 : 1;
+        m = twk::phased_prefilter(refref, refalt, altref, aa, lo, hi,
+                                  need_nonzero) ? 2 : 1;
       }
       mask[(size_t)k * B + l] = m;
       altalt[(size_t)k * B + l] = aa;
@@ -138,15 +128,19 @@ phased_tile_kernel(const uint32_t* __restrict__ alt_i,
 extern "C" int twk_phased_tile(const void* alt_i, const void* alt_j,
                                const void* ac_i, const void* ac_j,
                                const void* valid_i, const void* valid_j,
+                               const void* an_i, const void* an_j, int cls,
                                int B, int W, int n_hap, float lo, float hi,
                                int need_nonzero, int diag, void* mask,
                                void* altalt, void* stream) {
-  if (B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || W <= 0 || cls < 0 || cls > 2 ||
+      (cls != 0 && (an_i == nullptr || an_j == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((B + kTile - 1) / kTile, (B + kTile - 1) / kTile);
   phased_tile_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)alt_i, (const uint32_t*)alt_j,
       (const int32_t*)ac_i, (const int32_t*)ac_j,
-      (const uint8_t*)valid_i, (const uint8_t*)valid_j, B, W, n_hap, lo, hi,
+      (const uint8_t*)valid_i, (const uint8_t*)valid_j,
+      (const int32_t*)an_i, (const int32_t*)an_j, cls, B, W, n_hap, lo, hi,
       need_nonzero, diag, (uint8_t*)mask, (int32_t*)altalt);
   return (int)cudaGetLastError();
 }

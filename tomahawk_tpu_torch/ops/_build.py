@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels.
 
-`csrc/*.cu` compile with nvcc for Hopper (`sm_90a`) into one shared
-library with a plain C interface, loaded with ctypes. The library lands
+`csrc/*.cu` compile with nvcc for Hopper (`sm_90a`), one nvcc process
+per source, all started together, and link into one shared library
+with a plain C interface, loaded with ctypes. The library lands
 in `build/tomahawk_tpu_torch/` beside the package, named by a hash of
 the sources and flags, so an edited source rebuilds on first use and an
 unchanged one loads at once. Nothing is built when the module is
@@ -25,15 +26,21 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "tomahawk_tpu_torch")
-SOURCES = ("phased_tile.cu", "compact.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+SOURCES = ("phased_tile.cu", "parts_tile.cu", "compact.cu")
+#: headers the sources include (part of the build hash)
+HEADERS = ("prefilter.cuh",)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*_ARCH, "-shared")
 
 #: the hand kernels: CUDA source and the TPU code each replaces
 KERNELS = {
     "phased_tile": dict(
         source="tomahawk_tpu_torch/csrc/phased_tile.cu",
+        replaces="tomahawk_tpu/ops/pallas_tiles.py:297"),
+    "parts_tile": dict(
+        source="tomahawk_tpu_torch/csrc/parts_tile.cu",
         replaces="tomahawk_tpu/ops/pallas_tiles.py:297"),
     "compact": dict(
         source="tomahawk_tpu_torch/csrc/compact.cu",
@@ -47,13 +54,19 @@ PLAIN_CALLS = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # alt_i, alt_j, ac_i, ac_j, valid_i, valid_j, B, W, n_hap, lo, hi,
-    # need_nonzero, diag, mask, altalt, stream
-    "twk_phased_tile": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_I] * 2
+    # alt_i, alt_j, ac_i, ac_j, valid_i, valid_j, an_i, an_j, cls, B, W,
+    # n_hap, lo, hi, need_nonzero, diag, mask, altalt, stream
+    "twk_phased_tile": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_I] * 2
     + [_P] * 3,
-    # mask, altalt, B, off, cap, outcap, n_pass, n_cand, t, scratch,
-    # buf, stream
-    "twk_compact": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+    # kind, x_i, y_i, z_i, x_j, y_j, z_j, ac_i, ac_j, valid_i, valid_j,
+    # an_i, an_j, n_het_i, n_hom_i, n_het_j, n_hom_j, cls, B, W,
+    # n_samples, lo, hi, need_nonzero, diag, mask, parts, stream
+    "twk_parts_tile": [_I] + [_P] * 16 + [_I] * 4 + [_F] * 2 + [_I] * 2
+    + [_P] * 3,
+    # mask, parts, P, ncol, B, off, cap, outcap, n_pass, n_cand, t,
+    # scratch, buf, stream
+    "twk_compact": [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
+                    _P],
 }
 
 _lock = threading.Lock()
@@ -82,24 +95,42 @@ def _nvcc() -> str:
 
 
 def _lib_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"libtwk_torch-{h.hexdigest()[:16]}.so")
+
+
+def _run(cmds):
+    """Run the commands at once; (stdout + stderr) of each, raising if
+    any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{out}")
+    return outs
 
 
 def _compile(path: str):
     global build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                           f"{r.stdout}\n{r.stderr}")
-    build_log = r.stdout + r.stderr
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+    try:
+        outs = _run([[nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, s),
+                      "-o", o] for s, o in zip(SOURCES, objs)])
+        _run([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    build_log = "".join(outs)
     os.replace(tmp, path)
 
 

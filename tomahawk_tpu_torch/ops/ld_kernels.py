@@ -1,11 +1,15 @@
-"""Plain PyTorch versions of the phased tile operations.
+"""Plain PyTorch versions of the tile operations.
 
-Counterpart of tomahawk_tpu/ops/ld_kernels.py for the phased / no-missing
-slice. These are the reference path of the hand kernels: the CPU tests
-run them against the JAX functions, and the kernel wrappers
-(ops/tiles.py, compute/sweeps.py) use them for tensors on the CPU. A
-CUDA tensor never takes them inside the sweep; the on-card comparison
-calls them directly.
+Counterpart of tomahawk_tpu/ops/ld_kernels.py (and of the candidate mask
+of sweeps.tile_mask). These are the reference path of the hand kernels:
+the CPU tests run them against the JAX functions, and the kernel
+wrappers (ops/tiles.py, compute/sweeps.py) use them for tensors on the
+CPU. A CUDA tensor never takes them inside the sweep; the on-card
+comparison calls them directly.
+
+Every f32 expression keeps the JAX function's order of operations, one
+rounding per operation, so the kernels (built with -fmad=false) and
+these versions make bit-identical decisions.
 
 Uint32 bit planes are held as int32 views (torch's uint32 has almost no
 operations), and bits are unpacked through a uint8 view, as the JAX
@@ -25,55 +29,130 @@ def unpack_bits(x: torch.Tensor) -> torch.Tensor:
     return bits.reshape(*x.shape[:-1], x.shape[-1] * 32).to(torch.int8)
 
 
-def phased_parts_tile(alt_a: torch.Tensor, alt_b: torch.Tensor):
-    """(ALTALT,) [I, J] int32: the no-missing contraction of
-    ld_kernels.phased_parts_tile. int8 @ int8 wraps in torch, so the
-    CPU contracts in int32; CUDA has no int32 matmul, so it contracts
-    0/1 values in float32 with TF32 off, which is exact while the
-    contraction length (32 * W bits) stays below 2**24."""
-    a = unpack_bits(alt_a)
-    b = unpack_bits(alt_b)
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[I, L] x [J, L] 0/1 int8 -> [I, J] int32 contraction over L.
+    int8 @ int8 wraps in torch, so the CPU contracts in int32; CUDA has
+    no int32 matmul, so it contracts the 0/1 values in float32 with TF32
+    off, which is exact while L stays below 2**24."""
     if a.is_cuda:
         if a.shape[-1] >= 1 << 24:
             raise ValueError("contraction too long for an exact f32 sum")
         torch.backends.cuda.matmul.allow_tf32 = False
-        return (torch.matmul(a.float(), b.float().T).to(torch.int32),)
-    return (torch.matmul(a.to(torch.int32), b.to(torch.int32).T),)
+        return torch.matmul(a.float(), b.float().T).to(torch.int32)
+    return torch.matmul(a.to(torch.int32), b.to(torch.int32).T)
+
+
+def phased_parts_tile(alt_a, alt_b, miss_a=None, miss_b=None):
+    """Raw contractions of ld_kernels.phased_parts_tile: (ALTALT,) with
+    no missing data; with the miss planes, (altalt, alt_val, val_alt,
+    val_val), valid = 1 - unpack(miss). The miss planes carry ones on
+    their padding bits, so padded lanes are never valid."""
+    a = unpack_bits(alt_a)
+    b = unpack_bits(alt_b)
+    if miss_a is None:
+        return (_dot(a, b),)
+    va = (1 - unpack_bits(miss_a)).to(torch.int8)
+    vb = (1 - unpack_bits(miss_b)).to(torch.int8)
+    return (_dot(a, b), _dot(a, vb), _dot(va, b), _dot(va, vb))
 
 
 def phased_cells(parts, ac_a, ac_b, n_samples: int):
-    """(REFREF, REFALT, ALTREF, ALTALT) [I, J] from the no-missing
-    contraction and per-variant allele counts (the reference's trick
-    for skipping 3 of 4 popcount passes, ld_engine.cpp:683-685)."""
-    (altalt,) = parts
-    altref = ac_a[:, None] - altalt
-    refalt = ac_b[None, :] - altalt
-    refref = 2 * n_samples - (ac_a[:, None] + ac_b[None, :]) + altalt
+    """(REFREF, REFALT, ALTREF, ALTALT) [I, J] from raw parts. Without
+    missing data the table comes from per-variant allele counts (the
+    reference's trick for skipping 3 of 4 popcount passes,
+    ld_engine.cpp:683-685)."""
+    if len(parts) == 4:
+        altalt, alt_val, val_alt, val_val = parts
+        altref = alt_val - altalt
+        refalt = val_alt - altalt
+        refref = val_val - altalt - altref - refalt
+    else:
+        (altalt,) = parts
+        altref = ac_a[:, None] - altalt
+        refalt = ac_b[None, :] - altalt
+        refref = 2 * n_samples - (ac_a[:, None] + ac_b[None, :]) + altalt
     return refref, refalt, altref, altalt
 
 
-def pair_mask_tile(valid_a, valid_b, ac_a, ac_b, diagonal: bool):
-    """Candidate pairs of a tile (sweeps.tile_mask with no window and
-    cls "all"): both rows real, the reference's ac skip rule
-    (ac_i + ac_j > 2, ld_engine.cpp:1910-1912), and the upper triangle
-    on diagonal tiles."""
+def unphased_parts_tile(het_a, hom_a, valid_a, het_b, hom_b, valid_b,
+                        has_missing: bool):
+    """Raw contractions of ld_kernels.unphased_parts_tile: the 4
+    het/hom class products, plus the 5 products against the valid
+    plane when data are missing (T11, T12, T21, T22, hv, vh, ov, vo,
+    vv)."""
+    ha, oa = unpack_bits(het_a), unpack_bits(hom_a)
+    hb, ob = unpack_bits(het_b), unpack_bits(hom_b)
+    dots = [_dot(ha, hb), _dot(ha, ob), _dot(oa, hb), _dot(oa, ob)]
+    if has_missing:
+        va, vb = unpack_bits(valid_a), unpack_bits(valid_b)
+        dots += [_dot(ha, vb), _dot(va, hb), _dot(oa, vb), _dot(va, ob),
+                 _dot(va, vb)]
+    return tuple(dots)
+
+
+def unphased_cells(parts, n_het_a, n_hom_a, n_het_b, n_hom_b,
+                   n_samples: int):
+    """The 9 genotype-table cells T00..T22 (row = A's alt-allele count,
+    col = B's) of ld_kernels.unphased_cells, over fully called sample
+    pairs. Without missing data the marginals come from the per-variant
+    het/hom counts and n_samples."""
+    if len(parts) == 9:
+        T11, T12, T21, T22, hv, vh, ov, vo, vv = parts
+    else:
+        T11, T12, T21, T22 = parts
+        hv = n_het_a[:, None]
+        vh = n_het_b[None, :]
+        ov = n_hom_a[:, None]
+        vo = n_hom_b[None, :]
+        vv = n_samples
+    T10 = hv - T11 - T12
+    T20 = ov - T21 - T22
+    T01 = vh - T11 - T21
+    T02 = vo - T12 - T22
+    T00 = vv - (T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22)
+    return (T00, T01, T02, T10, T11, T12, T20, T21, T22)
+
+
+def pair_mask_tile(valid_a, valid_b, ac_a, ac_b, diagonal: bool,
+                   cls: str = "all", an_a=None, an_b=None):
+    """Candidate pairs of a tile (sweeps.tile_mask with no window):
+    both rows real, the reference's ac skip rule (ac_i + ac_j > 2,
+    ld_engine.cpp:1910-1912), the upper triangle on diagonal tiles, and
+    the pair class of the mixed dispatch: "clean" keeps pairs whose two
+    variants have no missing allele (`an` counts missing alleles),
+    "missing" the others, "all" every pair."""
     m = valid_a[:, None] & valid_b[None, :]
     m &= (ac_a[:, None] + ac_b[None, :]) > 2
     if diagonal:
         i = torch.arange(m.shape[0], device=m.device)[:, None]
         j = torch.arange(m.shape[1], device=m.device)[None, :]
         m &= i < j
+    if cls != "all":
+        clean = (an_a[:, None] == 0) & (an_b[None, :] == 0)
+        m &= clean if cls == "clean" else ~clean
     return m
 
 
 def prefilter_bounds(min_r2: float, max_r2: float):
-    """(lo, hi, need_nonzero) of the f32 r2 range test, rounded exactly
-    as ld_kernels.phased_prefilter_cells rounds them: lo is computed in
-    double and cast, hi is computed in f32 after the cast."""
+    """(lo, hi, need_nonzero) of the phased f32 r2 range test, rounded
+    exactly as ld_kernels.phased_prefilter_cells rounds them: lo is
+    computed in double and cast, hi is computed in f32 after the
+    cast."""
     lo_d = min_r2 * 0.999 - 1e-6
     lo = np.float32(max(lo_d, 0.0))
     hi = np.float32(max_r2) * np.float32(1.001) + np.float32(1e-6)
     return lo, hi, lo_d > 0
+
+
+def unphased_bounds(min_r2: float, max_r2: float):
+    """(lo, hi) of the unphased prefilter, rounded as
+    ld_kernels.unphased_prefilter_cells rounds them: every step in f32,
+    `float32(min_r2) * 0.98 - 1e-4` and `float32(max_r2) * 1.02 +
+    1e-4`. These are not the phased margins."""
+    f = np.float32
+    lo = f(f(min_r2) * f(0.98)) - f(1e-4)
+    hi = f(f(max_r2) * f(1.02)) + f(1e-4)
+    return f(lo), f(hi)
 
 
 def phased_prefilter_cells(cells, pair_mask, min_r2: float,
@@ -105,6 +184,77 @@ def phased_prefilter_cells(cells, pair_mask, min_r2: float,
         m &= d_num != 0
     m &= (d2 >= lo * denom) & (d2 <= hi * denom)
     return m
+
+
+def phased_r2_cells(refref, refalt, altref, altalt):
+    """Approximate r2 (f32) from 2x2 cells, ld_kernels.phased_r2_cells
+    in its expression order: inf where a marginal is zero."""
+    rr = refref.to(torch.float32)
+    ra = refalt.to(torch.float32)
+    ar = altref.to(torch.float32)
+    aa = altalt.to(torch.float32)
+    t = rr + ra + ar + aa
+    ts = torch.where(t > 0, t, 1.0)
+    D = (rr * aa - ar * ra) / (ts * ts)
+    g0 = (rr + ra) / ts
+    g1 = (ar + aa) / ts
+    h0 = (rr + ar) / ts
+    h1 = (ra + aa) / ts
+    denom = g0 * g1 * h0 * h1
+    pos = denom > 0
+    return torch.where(pos, D * D / torch.where(pos, denom, 1.0),
+                       float("inf"))
+
+
+def unphased_prefilter_cells(cells, pair_mask, min_r2: float,
+                             max_r2: float):
+    """The unphased superset prefilter of
+    ld_kernels.unphased_prefilter_cells, in its expression order (f32):
+    pairs with no double heterozygote take the exact phased fold's r2;
+    the others pass when the exact r2 range over the plausible
+    haplotype-frequency interval [minhap, maxhap] meets [lo, hi]. The
+    host redoes the cubic-EM root choice exactly in f64."""
+    T00, T01, T02, T10, T11, T12, T20, T21, T22 = (
+        c.to(torch.float32) for c in cells)
+    n = T00 + T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22
+    m = pair_mask & (n >= 5)
+    ns = torch.clamp(n, min=1.0)
+    p = (2 * (T00 + T01 + T02) + (T10 + T11 + T12)) / (2 * ns)
+    q = (2 * (T00 + T10 + T20) + (T01 + T11 + T21)) / (2 * ns)
+    n11 = 2 * T00 + T01 + T10
+    ndh = T11
+    lo, hi = unphased_bounds(min_r2, max_r2)
+    lo = torch.tensor(lo, device=n.device)
+    hi = torch.tensor(hi, device=n.device)
+
+    # fold case (no double hets): the exact phased table
+    refref = 2 * T00 + T01 + T10
+    refalt = 2 * T02 + T01 + T12
+    altref = 2 * T20 + T10 + T21
+    altalt = 2 * T22 + T21 + T12
+    r2_fold = phased_r2_cells(refref, refalt, altref, altalt)
+    t = refref + refalt + altref + altalt
+    fold_ok = (t >= 5) & (r2_fold >= lo) & (r2_fold <= hi)
+
+    # EM case: r2(f11) = (f11 - pq)^2 / denom over [minhap, maxhap]
+    minhap = n11 / (2.0 * ns)
+    maxhap = (n11 + ndh) / (2.0 * ns)
+    tol = 1e-4
+    pq = p * q
+    lo_h = minhap - tol
+    hi_h = maxhap + tol
+    dmin = torch.clamp(torch.maximum(lo_h - pq, pq - hi_h), min=0.0)
+    dmax = torch.maximum(hi_h - pq, pq - lo_h)
+    denom = p * (1 - p) * q * (1 - q)
+    pos = denom > 0
+    denom_s = torch.where(pos, denom, 1.0)
+    inf = float("inf")
+    r2_min = torch.where(pos, dmin * dmin / denom_s, inf)
+    r2_max = torch.where(pos, dmax * dmax / denom_s, inf)
+    em_ok = (r2_min <= hi) & (r2_max >= lo)
+
+    no_dh = ndh == 0
+    return m & ((no_dh & fold_ok) | (~no_dh & em_ok))
 
 
 def compact_indices_small(mask: torch.Tensor, cap: int):
