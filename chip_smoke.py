@@ -10,22 +10,30 @@ Phases, in order; any failure exits non-zero:
 1. report the card (torch's name and nvidia-smi's name and power limit);
 2. build the hand kernels from tomahawk_tpu_torch/csrc with nvcc (one
    process per source) and print ptxas's registers and spills for each
-   kernel instance;
+   kernel instance; build the port's native host library with g++;
 3. compare each kernel with its plain PyTorch version at the main
    paths' shapes (B = 4096 variants per tile, 2,504 samples):
-   phased_tile (P = 1, W = 160 words) and compact as before; every
+   phased_tile (P = 1, W = 160 words) and compact; every
    parts_tile instance and phased_tile's clean class on planes with ~2%
    missing genotypes, packed as bitpack.block_to_planes packs them, on
    a diagonal and an off-diagonal tile; compact with 4- and 9-part
    payloads, pair-packed (2,504 samples) and one part per column
    (70,000 unphased samples); the time per call of each, and of the
    unphased P = 4 instance at tools/probe_pallas.py's shape (random
-   het/hom words, W = 80). Outputs must be bit-identical;
+   het/hom words, W = 80). Outputs must be bit-identical. Then the
+   window instances: all six sweep groups at windows of 250,000 and
+   1,000,000 bp over positions ~275 bp apart, on a diagonal and the
+   neighbouring off-diagonal tile, and two groups on a super-block
+   with two contigs and invalid rows: the mask equal on every lane,
+   the parts equal wherever the mask is not 0, the set of thread blocks
+   the kernel skipped equal to ld_kernels.block_live's; the share of
+   live thread blocks and of candidates, the time per call and the
+   POPC-rate bound of the live blocks;
 4. run `calc` through the user's entry points (`python -m
    tomahawk_tpu_torch import`, then `python -m tomahawk_tpu_torch calc`
    in this process, so its kernel launch counts are visible), each path
    with the counts set to 0 just before it and read just after, and
-   hold its .two record multiset against the native C++ CPU tile
+   hold its .two record multiset against the port's native C++ CPU tile
    engine's on the same archive, field by field with P included:
    a. `calc -p -r 0.1` on a 2,504-sample x 16,384-site phased VCF with
       LD groups and no missing genotypes;
@@ -38,15 +46,24 @@ Phases, in order; any failure exits non-zero:
       (first super-block 2% per site, the second none): 9- and 4-part
       tables;
    d. `calc -p -r 0.1` on the archive of b: 4-part phased tables;
-5. time `LdEngine.run_phased_pairs` on bench.py's two workloads (64 x
-   4096 random variants; 16 x 4096 LD-grouped variants), and
+   e. `calc -p -w 500000 -r 0.1` on the archive of a, and
+   f. `calc -w 500000 -r 0.1` (mixed) on the archive of b: the four
+      super-blocks span ~1.1 Mb each, so the window drops the tiles of
+      super-blocks that are not neighbours and thread blocks die inside
+      the tiles it keeps; every record must lie on one contig within
+      the window;
+5. time `LdEngine.run_phased_pairs` on the sparse and records-dense
+   workloads (64 x 4096 random variants; 16 x 4096 LD-grouped
+   variants), the sparse planes again over `Balancer.window_pairs` at
+   windows of 250,000 and 1,000,000 bp, and
    `LdEngine.run_unphased_pairs` on 16 x 4096 random genotype variants
    without missing data (P = 4) and with 2% (P = 9);
 6. check that each calc path launched each of its kernels, and never a
-   plain version.
+   plain version, that the native host library is loaded, and that
+   neither jax nor the JAX package was imported.
 
 The last two lines are a JSON summary of the kernels and the device
-line. Nothing here imports jax.
+line. Everything here comes from tomahawk_tpu_torch, torch and numpy.
 """
 
 import json
@@ -63,6 +80,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_SAMPLES = 2504
 B = 4096
 MIN_R2 = 0.1
+#: windows of the kernel checks and the engine rate, bp
+WINDOWS = (250_000, 1_000_000)
+#: window of the two windowed calc paths, bp: shorter than a
+#: super-block's span (~1.1 Mb) and than the gap between the first and
+#: the third
+CALC_WINDOW = 500_000
+#: POPC rate of one H100 SXM, per second: 132 SMs x 16 a clock x
+#: ~1.98 GHz (the rate PERF.md holds the tile kernels against)
+POPC_PER_S = 4.2e12
+#: HBM3 rate of the H100 SXM, bytes per second (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
 
 
 def _say(msg):
@@ -104,6 +132,13 @@ def build_kernels():
     for line in _build.build_log.splitlines():
         if "entry function" in line or "Used" in line or "spill" in line:
             _say(f"  ptxas: {line.strip()}")
+    from tomahawk_tpu_torch import native
+    t0 = time.perf_counter()
+    if not native.available():
+        raise SystemExit("the port's native host library did not build "
+                         "(g++ missing?)")
+    _say(f"native host library built in {time.perf_counter() - t0:.1f}s "
+         f"({native._SO})")
 
 
 def compare_kernels():
@@ -111,14 +146,14 @@ def compare_kernels():
     against their plain versions at the -p main path's shape. Returns
     {kernel: (max_abs_err, ms, plain_ms)}."""
     import torch
-    import bench
+    from tomahawk_tpu_torch import workloads
     from tomahawk_tpu_torch.compute import sweeps
     from tomahawk_tpu_torch.ops import tiles
 
     cfg = sweeps.make_cfg("phased", False, "all", B, N_SAMPLES, 0, MIN_R2,
                           100.0)
-    planes = {"random": bench.build_planes(2, B, N_SAMPLES, seed=0),
-              "grouped": bench.build_planes_grouped(1, B, N_SAMPLES)}
+    planes = {"random": workloads.build_planes(2, B, N_SAMPLES, seed=0),
+              "grouped": workloads.build_planes_grouped(1, B, N_SAMPLES)}
     keys = sweeps.dev_keys_for(cfg)
     devs = {k: sweeps.planes_to_device(v, "cuda", keys)
             for k, v in planes.items()}
@@ -193,48 +228,10 @@ def _time_compact(mask, parts, ncol):
             _cuda_ms(lambda: compact(sweeps.compact_survivors_plain)))
 
 
-def genotype_planes(n_blocks, miss_frac=0.02, seed=3, group=16, flip=0.02,
-                    miss_rows=0.5):
-    """bitpack.stack_planes output for n_blocks blocks of B variants at
-    2,504 samples, packed as bitpack.block_to_planes packs them: every
-    `group` consecutive variants are noisy copies of one haplotype
-    template (group=1, flip=0: independent variants); a `miss_rows`
-    share of the variants miss `miss_frac` of their genotypes (both
-    alleles); the miss plane's padding bits are ones; ac and an count
-    alt and missing alleles; n_het/n_hom are counted from the planes."""
-    from tomahawk_tpu.ops.bitpack import (BlockPlanes, _pack_bits,
-                                          _popcount_rows, stack_planes,
-                                          words_for)
-    rng = np.random.default_rng(seed)
-    Wh, Ws = words_for(2 * N_SAMPLES), words_for(N_SAMPLES)
-    planes = []
-    for _ in range(n_blocks):
-        n_grp = B // group
-        maf = np.minimum(rng.beta(0.5, 2.0, size=n_grp) * 0.4 + 0.05, 0.5)
-        base = rng.random((n_grp, 2 * N_SAMPLES), np.float32) < maf[:, None]
-        alt = np.repeat(base, group, axis=0)
-        if flip:
-            alt ^= rng.random((B, 2 * N_SAMPLES), np.float32) < flip
-        miss = rng.random((B, N_SAMPLES), np.float32) < miss_frac
-        miss &= (rng.random(B) < miss_rows)[:, None]
-        hap_miss = np.repeat(miss, 2, axis=1)
-        alt &= ~hap_miss
-        a, b = alt[:, 0::2], alt[:, 1::2]
-        full = ~miss
-        het_w = _pack_bits(full & (a ^ b), Ws)
-        hom_w = _pack_bits(full & a & b, Ws)
-        planes.append(BlockPlanes(
-            n_rec=B, alt_bits=_pack_bits(alt, Wh),
-            miss_bits=_pack_bits(hap_miss, Wh, pad_value=1),
-            het_bits=het_w, hom_bits=hom_w,
-            valid_bits=_pack_bits(full, Ws),
-            pos=np.arange(B, dtype=np.int32), rid=np.zeros(B, np.int32),
-            ac=alt.sum(axis=1).astype(np.int32),
-            an=(2 * miss.sum(axis=1)).astype(np.int32),
-            n_het=_popcount_rows(het_w), n_hom=_popcount_rows(hom_w),
-            hwe=np.ones(B, np.float32), has_missing=miss.any(axis=1),
-            valid=np.ones(B, bool)))
-    return stack_planes(planes)
+def genotype_planes(n_blocks, *args, **kw):
+    """workloads.genotype_planes at this script's tile shape."""
+    from tomahawk_tpu_torch import workloads
+    return workloads.genotype_planes(n_blocks, B, N_SAMPLES, *args, **kw)
 
 
 #: the sweep groups beyond phased / no missing / cls "all",
@@ -292,7 +289,8 @@ def compare_payloads():
     """compact with 4- and 9-part payloads against its plain version:
     pair-packed at 2,504 samples (B = 4096), one part per column at
     70,000 unphased samples (a 512-row tile, where pack16_ok is false).
-    Returns {P: (max_abs_err, ms, plain_ms)} at 2,504 samples."""
+    Returns {P: (max_abs_err, ms, plain_ms, rows kept by the timed
+    call)} at 2,504 samples."""
     import torch
     from tomahawk_tpu_torch.compute import sweeps
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -332,7 +330,122 @@ def compare_payloads():
                 ms, plain = _time_compact(mask, parts, ncol)
                 _say(f"  ms per call: compact, {P} parts {ms:.4f} (plain "
                      f"{plain:.4f})")
-                res[P] = (err, ms, plain)
+                kept = min(int(outs[0][1][0]), 32768)
+                res[P] = (err, ms, plain, kept)
+    return res
+
+
+#: pairs per thread block edge of each tile kernel, (rows, cols) by P
+BLOCK_SHAPE = {1: (128, 128), 4: (64, 64), 9: (64, 32)}
+#: all six sweep groups, (table, has_missing, cls)
+ALL_GROUPS = (("phased", False, "all"),) + GROUPS
+
+
+def _check_window_tile(dev, host, i, j, diag, cfg, label):
+    """One window instance on one tile against its plain version: mask
+    on every lane, parts where mask >= 1, and the kernel's skipped
+    thread blocks (parts left at the -1 they were filled with) against
+    ld_kernels.block_live. Returns (live blocks, all blocks,
+    candidates)."""
+    import torch
+    from tomahawk_tpu_torch.ops import ld_kernels as K
+    from tomahawk_tpu_torch.ops import tiles
+    out = tiles.tile_buffers(cfg, "cuda")
+    out[1].fill_(-1)
+    mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg, out)
+    want_m, want_p = tiles.tile_prefilter_plain(dev, i, j, diag, cfg)
+    torch.cuda.synchronize()
+    if not torch.equal(mask, want_m):
+        raise SystemExit(f"{label}: mask differs from the plain version")
+    on = (want_m != 0).unsqueeze(0)
+    if not torch.equal(parts * on, want_p * on):
+        raise SystemExit(f"{label}: parts differ from the plain version "
+                         f"where mask >= 1")
+    P = parts.shape[0]
+    rows, cols = BLOCK_SHAPE[P]
+    live = K.block_live(host["valid"][i], host["valid"][j], host["pos"][i],
+                        host["pos"][j], host["rid"][i], host["rid"][j],
+                        cfg["window"], rows, cols, diag)
+    skipped = (parts[0].view(B // rows, rows, B // cols, cols) == -1) \
+        .all(dim=3).all(dim=1).cpu().numpy()
+    if not np.array_equal(~skipped, live):
+        raise SystemExit(f"{label}: the kernel skipped "
+                         f"{int(skipped.sum())} thread blocks, "
+                         f"block_live marks {int((~live).sum())} dead")
+    dead_cand = int((want_m.view(B // rows, rows, B // cols, cols) != 0)
+                    .any(dim=3).any(dim=1).cpu().numpy()[~live].sum())
+    if dead_cand:
+        raise SystemExit(f"{label}: a dead block holds a candidate")
+    return int(live.sum()), live.size, int((mask != 0).sum())
+
+
+def compare_window():
+    """Every window instance against its plain version (see the module
+    docstring, phase 3). Returns {(group, window, diag): dict(ms,
+    plain_ms, bound_ms, live, blocks, cand)}."""
+    import torch
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import tiles
+    st = genotype_planes(2)
+    dev = sweeps.planes_to_device(st, "cuda")
+    span = [int(st["pos"][b][-1] - st["pos"][b][0]) for b in range(2)]
+    _say(f"window check: B={B}, {N_SAMPLES} samples, super-blocks span "
+         f"{span} bp on one contig")
+    res = {}
+    for group in ALL_GROUPS:
+        for window in WINDOWS:
+            cfg = sweeps.make_cfg(*group, B, N_SAMPLES, window, MIN_R2,
+                                  100.0)
+            name = tiles.kernel_name(cfg)
+            P = tiles.payload_cols(group[0], group[1])
+            rows, cols = BLOCK_SHAPE[P]
+            W = dev[tiles.plane_keys(group[0], group[1])[0]].shape[-1]
+            for i, j, diag in ((1, 1, True), (0, 1, False)):
+                label = (f"{name} {'/'.join(map(str, group))} w={window} "
+                         f"({i},{j})")
+                live, blocks, cand = _check_window_tile(dev, st, i, j, diag,
+                                                        cfg, label)
+                out = tiles.tile_buffers(cfg, "cuda")
+                ms = _cuda_ms(lambda: tiles.tile_prefilter(dev, i, j, diag,
+                                                           cfg, out))
+                plain = _cuda_ms(lambda: tiles.tile_prefilter_plain(
+                    dev, i, j, diag, cfg), reps=3)
+                bound = live * P * rows * cols * W / POPC_PER_S * 1e3
+                _say(f"  {label}: live blocks {live}/{blocks} "
+                     f"({live / blocks:.4f}), candidates {cand} "
+                     f"({cand / (B * B):.4f} of B^2), {ms:.4f} ms (plain "
+                     f"{plain:.4f}, POPC bound of the live blocks "
+                     f"{bound:.4f}), equal")
+                res[group, window, diag] = dict(
+                    ms=ms, plain_ms=plain, bound_ms=bound, live=live,
+                    blocks=blocks, cand=cand)
+                del out
+    # two contigs inside one super-block, invalid rows: whole row groups
+    # (a side of a block with no valid row) and scattered ones, whose
+    # positions must not reach the extrema
+    rng = np.random.default_rng(17)
+    st2 = {k: v.copy() for k, v in st.items()}
+    half = B // 2
+    st2["rid"][:, half:] = 1
+    st2["pos"][:, half:] -= st2["pos"][:, half:half + 1] - 1000
+    bad = rng.random((2, B)) < 0.05
+    bad[:, 256:512] = True
+    bad[1, B - 384:] = True
+    st2["valid"] = st2["valid"] & ~bad
+    st2["pos"][bad] = rng.integers(0, 2**31 - 1, int(bad.sum()))
+    st2["rid"][bad] = rng.integers(0, 3, int(bad.sum()))
+    dev2 = sweeps.planes_to_device(st2, "cuda")
+    for group in (("phased", False, "all"), ("unphased", True, "missing")):
+        cfg = sweeps.make_cfg(*group, B, N_SAMPLES, WINDOWS[0], MIN_R2,
+                              100.0)
+        for i, j, diag in ((0, 0, True), (0, 1, False)):
+            label = (f"{tiles.kernel_name(cfg)} {'/'.join(map(str, group))}"
+                     f" w={WINDOWS[0]} two contigs ({i},{j})")
+            live, blocks, cand = _check_window_tile(dev2, st2, i, j, diag,
+                                                    cfg, label)
+            _say(f"  {label}: live blocks {live}/{blocks}, candidates "
+                 f"{cand}, equal")
+    torch.cuda.empty_cache()
     return res
 
 
@@ -342,8 +455,8 @@ def probe_shape():
     epilogue is replaced by the real prefilter). Returns (max_abs_err,
     ms, plain_ms)."""
     import torch
-    from tomahawk_tpu.ops.bitpack import _popcount_rows
     from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops.bitpack import _popcount_rows
     from tomahawk_tpu_torch.ops import tiles
     W = 80
     rng = np.random.default_rng(0)
@@ -377,7 +490,7 @@ def probe_shape():
 def write_vcf(path, n_sites, seed=7, group=16, flip=0.02, phased=True,
               miss_sites=0, miss_step=1, miss_frac=0.0):
     """VCF with LD: every `group` consecutive sites are noisy copies of
-    one haplotype template (as bench.build_planes_grouped), genotypes
+    one haplotype template (as workloads.build_planes_grouped), genotypes
     `a|b` (or `a/b` when not phased). Of the first `miss_sites` sites,
     every `miss_step`-th misses `miss_frac` of its genotypes (`.|.`)."""
     rng = np.random.default_rng(seed)
@@ -412,21 +525,19 @@ def write_vcf(path, n_sites, seed=7, group=16, flip=0.02, phased=True,
             fh.write(cells[s].tobytes())
 
 
-def native_reference(twk, mode):
-    """The native C++ CPU tile engine's records for `calc -r 0.1` on the
-    same archive under the JAX engine's dispatch for `mode` ("phased",
-    "unphased" or "mixed"), with the port's super-block plan."""
-    from tomahawk_tpu import native
-    from tomahawk_tpu.compute.balancer import Balancer
-    from tomahawk_tpu.compute.cpu_engine import run_native_cpu
-    from tomahawk_tpu.compute.engine import (CalcSettings, _round_up,
-                                             _super_ranges, group_tiles)
-    from tomahawk_tpu.io.twk import TwkReader
-    from tomahawk_tpu.ops.bitpack import block_to_planes, stack_planes
-    from tomahawk_tpu.ops.ld_math import LdFilters
-    if not native.available():
-        raise SystemExit("the native CPU engine (g++ build of "
-                         "tomahawk_tpu/native) is unavailable")
+def native_reference(twk, mode, window=0):
+    """The port's native C++ CPU tile engine's records for `calc -r 0.1`
+    (`-w window` when window > 0) on the same archive under the
+    engine's dispatch for `mode` ("phased", "unphased" or "mixed"),
+    with the engine's super-block and tile plan."""
+    from tomahawk_tpu_torch.compute.balancer import Balancer
+    from tomahawk_tpu_torch.compute.cpu_engine import run_native_cpu
+    from tomahawk_tpu_torch.compute.engine import (CalcSettings, _round_up,
+                                                   _super_ranges,
+                                                   group_tiles)
+    from tomahawk_tpu_torch.io.twk import TwkReader
+    from tomahawk_tpu_torch.ops.bitpack import block_to_planes, stack_planes
+    from tomahawk_tpu_torch.ops.ld_math import LdFilters
     reader = TwkReader(twk)
     supers = _super_ranges(reader.index.ent, list(range(reader.index.n)),
                            B)
@@ -441,12 +552,24 @@ def native_reference(twk, mode):
     stacked = stack_planes([block_to_planes(b, N_SAMPLES, pad_to=Bp)
                             for b in blocks])
     reader.close()
-    tiles = Balancer.build(len(supers)).tile_pairs()
+    balancer = Balancer.build(len(supers))
+    if window:
+        ids = range(len(supers))
+        tiles = balancer.window_pairs(
+            {s: supers[s]["minpos"] for s in ids},
+            {s: supers[s]["maxpos"] for s in ids},
+            {s: supers[s]["rid"] for s in ids}, window)
+    else:
+        tiles = balancer.tile_pairs()
     groups = group_tiles(tiles, mode, stacked["has_missing"].any(axis=1))
     out = []
-    run_native_cpu(stacked, groups, LdFilters(min_r2=MIN_R2),
-                   lambda f, r: out.extend([f.copy(), r.copy()]), None,
-                   N_SAMPLES, CalcSettings(min_r2=MIN_R2), {})
+    n = run_native_cpu(stacked, groups, LdFilters(min_r2=MIN_R2),
+                       lambda f, r: out.extend([f.copy(), r.copy()]), None,
+                       N_SAMPLES, CalcSettings(min_r2=MIN_R2,
+                                               window=bool(window),
+                                               l_window=window or 1), {})
+    if n is None:
+        raise SystemExit("the native CPU tile engine is unavailable")
     return np.concatenate(out), [(g[0], g[1], g[2], len(g[3]))
                                  for g in groups]
 
@@ -468,13 +591,14 @@ def make_archive(work, name, n_sites, **kw):
     return twk
 
 
-def run_calc(label, twk, two, flags, mode, need):
+def run_calc(label, twk, two, flags, mode, need, window=0):
     """One calc path through the CLI entry point, in this process: the
     launch counts are set to 0 just before it and read just after; each
     kernel in `need` must have launched and no plain version run. The
-    records must equal the native CPU engine's under `mode`. Returns the
-    launch counts."""
-    from tomahawk_tpu.io.two import TwoReader
+    records must equal the native CPU engine's under `mode`, and with a
+    window each must lie on one contig within it. Returns the launch
+    counts."""
+    from tomahawk_tpu_torch.io.two import TwoReader
     from tomahawk_tpu_torch.ops import _build
     argv = ["tomahawk_tpu_torch", "calc", "-i", twk, "-o", two,
             "-r", str(MIN_R2), *flags]
@@ -504,7 +628,7 @@ def run_calc(label, twk, two, flags, mode, need):
     got = r.records()
     r.close()
     t0 = time.perf_counter()
-    want, groups = native_reference(twk, mode)
+    want, groups = native_reference(twk, mode, window)
     _say(f"  native CPU engine reference ({mode}: {groups}) in "
          f"{time.perf_counter() - t0:.1f}s")
     fields = list(got.dtype.names)
@@ -522,11 +646,19 @@ def run_calc(label, twk, two, flags, mode, need):
     _say(f"  {len(got)} records equal the native CPU engine's field by "
          f"field (P included); R2 in [{got['R2'].min():.3f}, "
          f"{got['R2'].max():.3f}]")
+    if window:
+        dist = np.abs((got["packA"] >> 2).astype(np.int64)
+                      - (got["packB"] >> 2).astype(np.int64))
+        if (got["ridA"] != got["ridB"]).any() or int(dist.max()) > window:
+            raise SystemExit(f"calc {label}: a record lies outside the "
+                             f"{window} bp window")
+        _say(f"  every record on one contig, max |pos_a - pos_b| "
+             f"{int(dist.max())} <= {window}")
     return launches
 
 
 def main_paths(work):
-    """The four calc paths of phase 4. Returns the launch counts summed
+    """The six calc paths of phase 4. Returns the launch counts summed
     over them."""
     ld = make_archive(work, "ld", 16384)
     miss = make_archive(work, "miss", 16384, miss_sites=12288, miss_step=2,
@@ -534,15 +666,19 @@ def main_paths(work):
     unph = make_archive(work, "unph", 8192, seed=8, phased=False,
                         miss_sites=4096, miss_frac=0.02)
     two = os.path.join(work, "ld.two")
+    every = ("phased_tile", "parts_tile", "compact")
+    win = ["-w", str(CALC_WINDOW)]
     paths = (
-        ("a", ld, ["-p"], "phased", ("phased_tile", "compact")),
-        ("b", miss, [], "mixed", ("phased_tile", "parts_tile", "compact")),
-        ("c", unph, ["-u"], "unphased", ("parts_tile", "compact")),
-        ("d", miss, ["-p"], "phased", ("phased_tile", "parts_tile",
-                                       "compact")))
+        ("a", ld, ["-p"], "phased", ("phased_tile", "compact"), 0),
+        ("b", miss, [], "mixed", every, 0),
+        ("c", unph, ["-u"], "unphased", ("parts_tile", "compact"), 0),
+        ("d", miss, ["-p"], "phased", every, 0),
+        ("e", ld, ["-p"] + win, "phased", ("phased_tile", "compact"),
+         CALC_WINDOW),
+        ("f", miss, win, "mixed", every, CALC_WINDOW))
     total = {}
-    for label, twk, flags, mode, need in paths:
-        launches = run_calc(label, twk, two, flags, mode, need)
+    for label, twk, flags, mode, need, window in paths:
+        launches = run_calc(label, twk, two, flags, mode, need, window)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     return total
@@ -551,9 +687,9 @@ def main_paths(work):
 def _time_engine(work, tag, run, n_pairs, stat_key, engine):
     """Three reps (warm-up, rep0, rep1) of one engine workload into
     .two files; prints pairs/s per rep."""
-    from tomahawk_tpu.compute.engine import _reverse_records
-    from tomahawk_tpu.io.header import VcfContig, VcfHeader
-    from tomahawk_tpu.io.two import TwoWriter
+    from tomahawk_tpu_torch.compute.engine import _reverse_records
+    from tomahawk_tpu_torch.io.header import VcfContig, VcfHeader
+    from tomahawk_tpu_torch.io.two import TwoWriter
     hdr = VcfHeader(samples=[f"S{i}" for i in range(N_SAMPLES)],
                     contigs=[VcfContig(idx=0, name="bench")])
     for rep in ("warmup", "rep0", "rep1"):
@@ -578,25 +714,30 @@ def _time_engine(work, tag, run, n_pairs, stat_key, engine):
 
 
 def engine_rates(work):
-    """bench.py's two workloads through LdEngine.run_phased_pairs, and
-    random genotype variants through LdEngine.run_unphased_pairs with
-    no missing data (P = 4) and 2% missing genotypes (P = 9)."""
-    import bench
-    from tomahawk_tpu.ops.ld_math import LdFilters
+    """The sparse and records-dense workloads through
+    LdEngine.run_phased_pairs; the sparse planes again in window mode,
+    over Balancer.window_pairs; random genotype variants through
+    LdEngine.run_unphased_pairs with no missing data (P = 4) and 2%
+    missing genotypes (P = 9). No plain version may run."""
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute.balancer import Balancer
     from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
+    from tomahawk_tpu_torch.ops import _build
+    from tomahawk_tpu_torch.ops.ld_math import LdFilters
 
     filt = LdFilters(min_r2=MIN_R2)
-    workloads = (
-        ("sparse", lambda: bench.build_planes(64, B, N_SAMPLES), 64, "phased",
-         False),
-        ("dense", lambda: bench.build_planes_grouped(16, B, N_SAMPLES), 16,
+    jobs = (
+        ("sparse", lambda: workloads.build_planes(64, B, N_SAMPLES), 64,
          "phased", False),
+        ("dense", lambda: workloads.build_planes_grouped(16, B, N_SAMPLES),
+         16, "phased", False),
         ("unphased P=4", lambda: genotype_planes(
             16, 0.0, seed=11, group=1, flip=0.0), 16, "unphased", False),
         ("unphased P=9", lambda: genotype_planes(
             16, 0.02, seed=12, group=1, flip=0.0, miss_rows=1.0), 16,
          "unphased", True))
-    for tag, build, nb, table, miss in workloads:
+    _build.reset_counts()
+    for tag, build, nb, table, miss in jobs:
         t0 = time.perf_counter()
         stacked = build()
         engine = LdEngine(stacked, N_SAMPLES, CalcSettings(min_r2=MIN_R2),
@@ -608,10 +749,58 @@ def engine_rates(work):
              f"{n_pairs} pairs")
         run = (engine.run_phased_pairs if table == "phased"
                else engine.run_unphased_pairs)
+        stat_key = f"{table}/{'miss' if miss else 'nomiss'}/all"
         _time_engine(work, tag.replace(" ", "_").replace("=", ""),
                      lambda emit: run(pairs, miss, filt, emit), n_pairs,
-                     f"{table}/{'miss' if miss else 'nomiss'}/all", engine)
-        del engine, stacked
+                     stat_key, engine)
+        del engine
+        if tag != "sparse":
+            continue
+        # the same planes in window mode: the tiles window_pairs keeps,
+        # rated in candidate pairs (what the window leaves of each tile)
+        ranges = workloads.super_ranges(stacked)
+        for window in WINDOWS:
+            wpairs = Balancer.build(nb).window_pairs(*ranges, window)
+            engine = LdEngine(stacked, N_SAMPLES, CalcSettings(
+                min_r2=MIN_R2, window=True, l_window=window), "cuda")
+            n_cand = engine.run_phased_pairs(wpairs, False, filt,
+                                             lambda recs, rev=None: None)
+            _say(f"engine sparse, window {window}: {len(wpairs)} of "
+                 f"{len(pairs)} tiles swept, {n_cand} candidate pairs "
+                 f"({n_cand / (len(wpairs) * B * B):.4f} of the swept "
+                 f"tiles' pairs)")
+            _time_engine(work, f"sparse_w{window}",
+                         lambda emit: engine.run_phased_pairs(
+                             wpairs, False, filt, emit), n_cand, stat_key,
+                         engine)
+            del engine
+        del stacked
+    if any(_build.PLAIN_CALLS.values()):
+        raise SystemExit(f"an engine workload took a plain version on "
+                         f"CUDA: {_build.PLAIN_CALLS}")
+
+
+def kernel_bounds(n_survivors):
+    """{kernel: (bound_ms, bound_by)} at the shapes the kernels line
+    reports: the larger of operations over the card's peak rate for
+    their type (POPC) and bytes moved once over the HBM rate.
+    phased_tile: the -p tile (P = 1, W = 160); parts_tile: the mixed
+    dispatch's unphased 9-part tile (W = 80); compact: the timed 9-part
+    call, its mask read once plus, for each of the `n_survivors` rows it
+    keeps, 9 parts gathered and 6 columns written (one comparison per
+    mask byte is its arithmetic, far under the byte time)."""
+    from tomahawk_tpu_torch.ops.bitpack import words_for
+    Wh, Ws = words_for(2 * N_SAMPLES), words_for(N_SAMPLES)
+    out = {"compact": ((B * B + n_survivors * (9 + 6) * 4)
+                       / HBM_BYTES_PER_S * 1e3, "bytes")}
+    for name, P, planes, W in (("phased_tile", 1, 1, Wh),
+                               ("parts_tile", 9, 3, Ws)):
+        ops_ms = P * B * B * W / POPC_PER_S * 1e3
+        nbytes = 2 * planes * B * W * 4 + 2 * B * 9 + B * B * (1 + 4 * P)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(ops_ms, byte_ms),
+                     "operations" if ops_ms >= byte_ms else "bytes")
+    return out
 
 
 def main():
@@ -623,10 +812,14 @@ def main():
         print("chip_smoke: run from the root of a checkout",
               file=sys.stderr)
         return 1
-    sys.modules["jax"] = None           # nothing here may import jax
+    # nothing here may import jax or the JAX package
+    sys.modules["jax"] = None
+    sys.modules["tomahawk_tpu"] = None
     sys.path.insert(0, ROOT)
+    from tomahawk_tpu_torch import native
     from tomahawk_tpu_torch.device import kernel_report
 
+    t_start = time.perf_counter()
     report_card()
     build_kernels()
     checks = compare_kernels()
@@ -634,13 +827,15 @@ def main():
     payloads = compare_payloads()
     probe = probe_shape()
     torch.cuda.empty_cache()
+    windows = compare_window()
     # the kernels line: phased_tile at the -p path's shape; parts_tile
     # and compact at the default (mixed) dispatch's 9-part sweep
     checks["parts_tile"] = (max(max(v[0] for v in groups.values()),
                                 probe[0]),) + groups[MAIN_GROUP][1:]
     checks["compact"] = (max(checks["compact"][0],
                              max(v[0] for v in payloads.values())),
-                         ) + payloads[9][1:]
+                         ) + payloads[9][1:3]
+    bounds = kernel_bounds(payloads[9][3])
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     try:
@@ -648,11 +843,27 @@ def main():
         engine_rates(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    if native.get_lib() is None:
+        raise SystemExit("the port's native host library is not loaded")
+    leaked = sorted(m for m, v in sys.modules.items()
+                    if m.split(".")[0] in ("jax", "tomahawk_tpu", "bench")
+                    and v is not None)
+    if leaked:
+        raise SystemExit(f"imported outside the port: {leaked}")
+    # window rows: (group, window, diagonal) -> ms, plain, bound, shares
+    _say(json.dumps({"window_instances": [
+        dict(group="/".join(map(str, g)), window=w, diagonal=d, **v)
+        for (g, w, d), v in windows.items()]}))
     kernels = [dict(name=k["name"], route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches[k["name"]],
                     max_abs_err=checks[k["name"]][0],
-                    ms=checks[k["name"]][1], plain_ms=checks[k["name"]][2])
+                    ms=checks[k["name"]][1], plain_ms=checks[k["name"]][2],
+                    bound_ms=bounds[k["name"]][0],
+                    bound_by=bounds[k["name"]][1], library_ms=None)
                for k in kernel_report()]
+    _say(f"native host library loaded; no jax, no tomahawk_tpu in "
+         f"sys.modules; {time.perf_counter() - t_start:.0f}s in all")
+    report_card()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

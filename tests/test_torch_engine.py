@@ -3,7 +3,8 @@ imported archive through both engines (host Fisher on both sides) gives
 the same sorted .two records in every field, with -p, with -u and in
 the default mixed dispatch, on archives with and without missing
 genotypes. Also: repair of cap overflow and buffer spill, the CLI's
-device rule, and the rejection of everything outside the slice."""
+device rule, and the rejection of everything outside the slice (window
+mode is inside it: tests/test_torch_window.py)."""
 
 import numpy as np
 import pytest
@@ -41,7 +42,7 @@ def _assert_same(a, b):
 @pytest.fixture(scope="module")
 def archive(tmp_path_factory):
     """Phased, no missing genotypes, two contigs; imported through the
-    port's CLI, which hands `import` to the shared one."""
+    port's CLI and its own importer."""
     d = tmp_path_factory.mktemp("torch_engine")
     vcf = str(d / "in.vcf")
     make_vcf(vcf, n_samples=48, n_sites=600, seed=21, miss_frac=0.0,
@@ -272,9 +273,8 @@ def test_cli_calc_with_missing_matches_jax(missing_archives,
 
 
 @pytest.mark.parametrize("kw", [
-    dict(window=True, l_window=1000),
-    dict(forced_unphased=True, window=True, l_window=1000),
-    dict(min_dprime=0.5), dict(checkpoint="ck.json"),
+    dict(min_dprime=0.5), dict(window=True, l_window=1000, max_dprime=0.9),
+    dict(checkpoint="ck.json"), dict(sort_shards=True),
     dict(distributed=True), dict(mesh="2x1"), dict(backend="cpu"),
     dict(memory_gb=1e-6),
 ])

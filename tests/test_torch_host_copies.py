@@ -1,0 +1,422 @@
+"""The port's own host layer against the JAX package's: every copied
+module's text equals its original except for the listed lines (so drift
+in either package shows up), and the copies give identical results on
+seeded input -- planes from one .twk block, archives written by one
+package and read by the other, record assembly, the window tile plan
+and the native CPU tile engine. The importer's spawned workers and the
+CLI never reach the JAX package."""
+
+import os
+import pathlib
+import subprocess
+import sys
+from collections import Counter
+
+import numpy as np
+import pytest
+
+import tomahawk_tpu_torch  # noqa: F401  (binds libzstd where needed)
+
+from tomahawk_tpu import native as jnative
+from tomahawk_tpu.compute import balancer as jbalancer
+from tomahawk_tpu.compute import cpu_engine as jcpu
+from tomahawk_tpu.compute.engine import CalcSettings as JaxCalcSettings
+from tomahawk_tpu.compute.engine import group_tiles as jgroup_tiles
+from tomahawk_tpu.io import importer as jimporter
+from tomahawk_tpu.io import twk as jtwk
+from tomahawk_tpu.io import two as jtwo
+from tomahawk_tpu.ops import bitpack as jbitpack
+from tomahawk_tpu.ops import ld_math as jld_math
+
+from tomahawk_tpu_torch import cli, native
+from tomahawk_tpu_torch.compute import balancer, cpu_engine
+from tomahawk_tpu_torch.compute.engine import CalcSettings, group_tiles
+from tomahawk_tpu_torch.io import importer, twk, two
+from tomahawk_tpu_torch.ops import bitpack, ld_math
+
+from test_importer import make_vcf
+from test_torch_groups import group_planes
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+JAX_PKG, PORT = REPO / "tomahawk_tpu", REPO / "tomahawk_tpu_torch"
+
+#: every module the port copied from the JAX package
+COPIED = [
+    "utils/__init__.py", "utils/logging.py", "utils/timer.py",
+    "utils/progress.py",
+    "io/__init__.py", "io/constants.py", "io/errors.py", "io/buffer.py",
+    "io/header.py", "io/index.py", "io/twk.py", "io/two.py", "io/vcf.py",
+    "io/bcf.py", "io/importer.py",
+    "native/__init__.py", "native/twk_native.cpp",
+    "ops/bitpack.py", "ops/fisher.py", "ops/hwe.py", "ops/ld_math.py",
+    "compute/balancer.py", "compute/cpu_engine.py",
+    "post/__init__.py", "post/intervals.py",
+]
+
+#: the lines that differ, (lines the original has more of, lines the
+#: copy has more of), in file order: header literals name the package
+#: that wrote the file, and the native library builds under build/ under
+#: its own name and raises when the compiler fails
+DIFFS = {
+    "utils/logging.py": (
+        ['    header.literals += (f"\\n##tomahawk_tpu_{tool}Version='
+         '{__version__}\\n"',
+         '                        f"##tomahawk_tpu_{tool}Command={tool} '
+         '{detail}; "'],
+        ['    header.literals += (f"\\n##tomahawk_tpu_torch_{tool}Version='
+         '{__version__}\\n"',
+         '                        f"##tomahawk_tpu_torch_{tool}Command={tool} '
+         '{detail}; "']),
+    "io/importer.py": (
+        ['        f"##tomahawk_tpu_importVersion={__version__}\\n"',
+         '        f"##tomahawk_tpu_importCommand=import {settings.input}; "'],
+        ['        f"##tomahawk_tpu_torch_importVersion={__version__}\\n"',
+         '        f"##tomahawk_tpu_torch_importCommand=import '
+         '{settings.input}; "']),
+    "native/__init__.py": (
+        ['Builds libtwk_native.so on first use (g++ -O3) and caches it '
+         'next to',
+         'the source. Every consumer has a pure-numpy fallback, so a '
+         'missing',
+         'compiler only costs speed, never correctness.',
+         '_SO = os.path.join(_HERE, "libtwk_native.so")',
+         '           "-o", _SO, _SRC, "-lz"]',
+         '    try:',
+         '        subprocess.run(cmd, check=True, capture_output=True, '
+         'timeout=120)',
+         '        return True',
+         '    except Exception:'],
+        ['Builds libtwk_native_torch.so on first use (g++ -O3) into',
+         'build/tomahawk_tpu_torch/ beside the package. A build that fails '
+         'raises;',
+         'the pure-numpy fallbacks of the consumers serve only hosts '
+         'without g++.',
+         'import shutil',
+         '_BUILD_DIR = '
+         'os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",',
+         '                          "tomahawk_tpu_torch")',
+         '_SO = os.path.join(_BUILD_DIR, "libtwk_native_torch.so")',
+         '    if shutil.which("g++") is None:',
+         '    os.makedirs(_BUILD_DIR, exist_ok=True)',
+         '    tmp = f"{_SO}.{os.getpid()}.tmp"',
+         '           "-o", tmp, _SRC, "-lz"]',
+         '    r = subprocess.run(cmd, capture_output=True, text=True, '
+         'timeout=300)',
+         '    if r.returncode != 0:',
+         '        raise RuntimeError(f"building {_SO} failed '
+         '({r.returncode}): "',
+         '                           f"{\' \'.join(cmd)}\\n{r.stderr}")',
+         '    os.replace(tmp, _SO)',
+         '    return True',
+         '    return True']),
+}
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copy_equals_original_but_for_listed_lines(rel):
+    a = (JAX_PKG / rel).read_text().splitlines()
+    b = (PORT / rel).read_text().splitlines()
+    only_a, only_b = Counter(a) - Counter(b), Counter(b) - Counter(a)
+    want_gone, want_came = DIFFS.get(rel, ([], []))
+    assert [line for line in a if line in only_a] == want_gone
+    assert [line for line in b if line in only_b] == want_came
+    if not want_gone:
+        assert a == b
+
+
+def test_every_host_module_of_the_port_is_listed():
+    """What the port has under the copied sub-packages is exactly the
+    list above (the JAX-only jaxcache is never copied)."""
+    have = sorted(
+        str(p.relative_to(PORT)) for d in ("utils", "io", "native", "post")
+        for p in (PORT / d).iterdir() if p.suffix in (".py", ".cpp"))
+    assert have == sorted(r for r in COPIED
+                          if r.split("/")[0] in ("utils", "io", "native",
+                                                 "post"))
+
+
+def test_native_library_is_the_ports_own():
+    assert native.available() and jnative.available()
+    assert native._SO != jnative._SO
+    build = REPO / "build" / "tomahawk_tpu_torch"
+    assert pathlib.Path(native._SO).parent == build
+    assert os.path.exists(native._SO)
+    assert native.get_lib() is not jnative.get_lib()
+    # nothing untracked lands in the package
+    assert not list((PORT / "native").glob("*.so"))
+
+
+def test_native_build_failure_raises(tmp_path, monkeypatch):
+    src = tmp_path / "broken.cpp"
+    src.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "_SRC", str(src))
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_SO", str(tmp_path / "build" / "lib.so"))
+    with pytest.raises(RuntimeError, match="building .* failed"):
+        native._build()
+    assert not os.path.exists(native._SO)
+
+
+@pytest.fixture(scope="module")
+def archives(tmp_path_factory):
+    """One VCF (two contigs, 5% missing) imported by each package."""
+    d = tmp_path_factory.mktemp("host_copies")
+    vcf = str(d / "in.vcf")
+    make_vcf(vcf, n_samples=33, n_sites=300, seed=17, miss_frac=0.05,
+             contigs=("20", "21"))
+    out = {}
+    for name, mod in (("jax", jimporter), ("port", importer)):
+        out[name] = str(d / f"{name}.twk")
+        mod.import_vcf(mod.ImportSettings(input=vcf, output=out[name],
+                                          block_size=64,
+                                          threshold_miss=0.5))
+    out["vcf"] = vcf
+    return out
+
+
+def _blocks(mod, path):
+    with mod.TwkReader(path) as r:
+        return [r.read_block(b) for b in range(r.index.n)], r.header
+
+
+@pytest.mark.parametrize("writer,reader", [("jax", "port"), ("port", "jax"),
+                                           ("port", "port")])
+def test_twk_written_by_one_reads_in_the_other(archives, writer, reader):
+    """Blocks and records of both importers' archives are the same,
+    whichever package reads them; only the header literal names its
+    writer."""
+    mod = twk if reader == "port" else jtwk
+    got, hdr = _blocks(mod, archives[writer])
+    want, jhdr = _blocks(jtwk, archives["jax"])
+    assert len(got) == len(want) > 3
+    assert hdr.samples == jhdr.samples
+    assert [c.name for c in hdr.contigs] == [c.name for c in jhdr.contigs]
+    tag = ("##tomahawk_tpu_torch_importVersion" if writer == "port"
+           else "##tomahawk_tpu_importVersion")
+    assert tag in hdr.literals
+    for a, b in zip(got, want):
+        assert (a.n, a.rid, a.minpos, a.maxpos) == (b.n, b.rid, b.minpos,
+                                                    b.maxpos)
+        for ra, rb in zip(a.rcds, b.rcds):
+            assert (ra.pos, ra.rid, ra.ac, ra.an, ra.gt_missing) == \
+                (rb.pos, rb.rid, rb.ac, rb.an, rb.gt_missing)
+            np.testing.assert_array_equal(ra.decode_codes(),
+                                          rb.decode_codes())
+
+
+def test_stack_planes_identical(archives):
+    """Both packages' block_to_planes / stack_planes give identical
+    arrays for the same .twk blocks: the state the sweeps carry."""
+    blocks, hdr = _blocks(twk, archives["port"])
+    jblocks, _ = _blocks(jtwk, archives["jax"])
+    n = hdr.n_samples
+    got = bitpack.stack_planes([bitpack.block_to_planes(b, n, pad_to=128)
+                                for b in blocks])
+    want = jbitpack.stack_planes([jbitpack.block_to_planes(b, n, pad_to=128)
+                                  for b in jblocks])
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # the miss plane's padding bits are ones
+    Wh = bitpack.words_for(2 * n)
+    assert Wh * 32 > 2 * n and (got["miss_bits"][:, :, -1] >> 31 == 1).all()
+
+
+def _seeded_records(mod, n=5000):
+    rng = np.random.default_rng(4)
+    recs = np.zeros(n, mod.TWO_DTYPE)
+    recs["ridA"] = rng.integers(0, 3, n)
+    recs["ridB"] = recs["ridA"]
+    recs["packA"] = rng.integers(0, 1 << 20, n).astype(np.uint32) << 2
+    recs["packB"] = rng.integers(0, 1 << 20, n).astype(np.uint32) << 2
+    recs["cnt"] = rng.integers(0, 60, (n, 4))
+    for f in ("D", "Dprime", "R", "R2", "P"):
+        recs[f] = rng.random(n)
+    return recs
+
+
+@pytest.mark.parametrize("writer,reader", [("jax", "port"), ("port", "jax")])
+def test_two_written_by_one_reads_in_the_other(archives, tmp_path, writer,
+                                               reader):
+    wmod, rmod = ((jtwo, two) if writer == "jax" else (two, jtwo))
+    wtwk = jtwk if writer == "jax" else twk
+    with wtwk.TwkReader(archives[writer]) as r:
+        hdr = r.header
+    recs = _seeded_records(wmod)
+    path = str(tmp_path / "x.two")
+    w = wmod.TwoWriter(path, hdr, block_limit=1200)
+    w.add(recs)
+    w.close()
+    r = rmod.TwoReader(path)
+    got = r.records()
+    assert r.header.samples == hdr.samples
+    r.close()
+    assert two.TWO_DTYPE == jtwo.TWO_DTYPE
+    np.testing.assert_array_equal(got, recs)
+
+
+@pytest.mark.parametrize("table", ["phased", "unphased"])
+def test_ld_records_identical(table):
+    """The native record pipeline (exact f64 statistics, Fisher P) of
+    both packages on the same seeded tables: equal in every field within
+    the repo's 1e-5 guard, integer fields exactly."""
+    rng = np.random.default_rng(9)
+    K = 4000
+    if table == "phased":
+        data = rng.integers(0, 80, (K, 4)).astype(np.int64)
+    else:
+        data = rng.integers(0, 30, (K, 3, 3)).astype(np.int64)
+    pos = np.sort(rng.integers(0, 10**6, (K, 2)), axis=1).astype(np.int64)
+    z = np.zeros(K, np.int64)
+    meta_kw = dict(pos_a=pos[:, 0], pos_b=pos[:, 1], rid_a=z, rid_b=z,
+                   ac_a=z + 5, ac_b=z + 7, an_a=z, an_b=z,
+                   hwe_a=np.ones(K), hwe_b=np.ones(K))
+    outs = []
+    for mod in (ld_math, jld_math):
+        out = mod.ld_records(table, data, mod.PairMeta(**meta_kw),
+                             mod.LdFilters(min_r2=0.05))
+        assert out is not None, "the native library is unavailable"
+        outs.append(out)
+    (recs, rev), (jrecs, jrev) = (o[:2] for o in outs)
+    assert len(recs) == len(jrecs) > 100
+    for got, want in ((recs, jrecs), (rev, jrev)):
+        for f in got.dtype.names:
+            if got.dtype[f].kind == "f" and f != "cnt":
+                np.testing.assert_allclose(got[f], want[f], rtol=0,
+                                           atol=1e-5, err_msg=f)
+            else:
+                np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+
+
+@pytest.mark.parametrize("n_chunks,c_chunk", [(1, 0), (3, 1), (6, 4)])
+@pytest.mark.parametrize("window", [50_000, 400_000])
+def test_balancer_identical(window, n_chunks, c_chunk):
+    rng = np.random.default_rng(12)
+    n = 24
+    edges = np.sort(rng.integers(0, 3_000_000, 2 * n)).reshape(n, 2)
+    rid = {s: int(s >= 15) for s in range(n)}
+    minpos = {s: int(edges[s, 0]) for s in range(n)}
+    maxpos = {s: int(edges[s, 1]) for s in range(n)}
+    got = balancer.Balancer.build(n, n_chunks, c_chunk)
+    want = jbalancer.Balancer.build(n, n_chunks, c_chunk)
+    assert got.block_ids() == want.block_ids()
+    assert got.tile_pairs() == want.tile_pairs()
+    wp = got.window_pairs(minpos, maxpos, rid, window)
+    assert wp == want.window_pairs(minpos, maxpos, rid, window)
+    if n_chunks == 1:
+        assert 0 < len(wp) < len(got.tile_pairs())
+
+
+@pytest.mark.parametrize("mode", ["phased", "unphased", "mixed"])
+@pytest.mark.parametrize("window", [0, 3000])
+def test_run_native_cpu_identical(mode, window):
+    """The native CPU tile engine of both packages on the same planes,
+    all-vs-all and windowed."""
+    st = group_planes(21, n_blocks=3, B=128, n_samples=50)
+    st["pos"] = (st["pos"] + 6400 * np.arange(3)[:, None]).astype(np.int32)
+    tiles = [(i, j, i == j) for i in range(3) for j in range(i, 3)]
+    blk_missing = st["has_missing"].any(axis=1)
+    outs = []
+    for run, grouper, filt, settings in (
+            (cpu_engine.run_native_cpu, group_tiles, ld_math.LdFilters,
+             CalcSettings),
+            (jcpu.run_native_cpu, jgroup_tiles, jld_math.LdFilters,
+             JaxCalcSettings)):
+        groups = grouper(tiles, mode, blk_missing)
+        recs = []
+        n = run(st, groups, filt(min_r2=0.05),
+                lambda f, r: recs.extend([f.copy(), r.copy()]), None, 50,
+                settings(min_r2=0.05, window=window > 0,
+                         l_window=window or 1), {})
+        assert n is not None and n > 0
+        outs.append((n, np.concatenate(recs)))
+    (n, recs), (jn, jrecs) = outs
+    assert n == jn and len(recs) == len(jrecs) > 0
+    for f in recs.dtype.names:
+        if recs.dtype[f].kind == "f" and f != "cnt":
+            np.testing.assert_allclose(recs[f], jrecs[f], rtol=0, atol=1e-5,
+                                       err_msg=f)
+        else:
+            np.testing.assert_array_equal(recs[f], jrecs[f], err_msg=f)
+    if window:
+        dist = np.abs((recs["packA"] >> 2).astype(np.int64)
+                      - (recs["packB"] >> 2).astype(np.int64))
+        assert dist.max() <= window
+
+
+def test_import_workers_never_reach_the_jax_package(archives, tmp_path):
+    """`import` through the port's CLI with two spawned parse workers,
+    with a `tomahawk_tpu` on the path that raises when imported: the
+    parent and the workers (which inherit the path, not the modules)
+    import only the port, and the archive equals the serial one."""
+    shadow = tmp_path / "shadow" / "tomahawk_tpu"
+    shadow.mkdir(parents=True)
+    (shadow / "__init__.py").write_text(
+        "raise ImportError('the JAX package was imported')\n")
+    out = str(tmp_path / "w.twk")
+    path = os.pathsep.join(filter(None, [str(shadow.parent), str(REPO),
+                                         os.environ.get("PYTHONPATH")]))
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         "sys.modules['jax'] = None\n"
+         "from tomahawk_tpu_torch.io import importer\n"
+         "importer._CHUNK_BYTES = 1 << 12\n"   # many chunks -> the pool
+         "from tomahawk_tpu_torch import cli\n"
+         f"cli.main(['import', '-i', {archives['vcf']!r}, '-o', {out!r}, "
+         "'-b', '64', '-n', '0.5', '-t', '2'])\n"
+         "assert not [m for m in sys.modules if m.split('.')[0] == "
+         "'tomahawk_tpu']\n"],
+        capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=path))
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    got, _ = _blocks(twk, out)
+    want, _ = _blocks(twk, archives["port"])
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.n == b.n
+        for ra, rb in zip(a.rcds, b.rcds):
+            assert (ra.pos, ra.rid, ra.ac, ra.an) == (rb.pos, rb.rid, rb.ac,
+                                                      rb.an)
+            assert bytes(ra.gt_runs) == bytes(rb.gt_runs)
+
+
+@pytest.mark.parametrize("command", sorted(cli.UNPORTED))
+def test_cli_names_the_roadmap_item_of_unported_subcommands(command):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        cli.main([command, "-i", "x"])
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    assert "post-processing subcommands" in roadmap
+
+
+def test_cli_parser_owns_import_and_calc():
+    ap = cli.build_parser()
+    args = ap.parse_args(["calc", "-i", "a.twk", "-w", "1000000"])
+    assert args.window == 1_000_000 and args.device == "cuda"
+    args = ap.parse_args(["import", "-i", "a.vcf", "-o", "a.twk"])
+    assert args.block_size == 500
+    assert cli.main([]) == 1
+
+
+@pytest.mark.parametrize("name", ["build_planes", "build_planes_grouped"])
+def test_workload_planes_match_bench(name):
+    """The port's seeded workloads draw bench.py's planes from the same
+    seeds -- every array equal -- but for the miss plane's padding bits,
+    which are ones here (as block_to_planes packs them) and zero there."""
+    import bench
+    from tomahawk_tpu_torch import workloads
+    n_blocks, Bs, n = 2, 64, 50
+    got = getattr(workloads, name)(n_blocks, Bs, n)
+    want = getattr(bench, name)(n_blocks, Bs, n)
+    assert set(got) == set(want)
+    for k in want:
+        if k != "miss_bits":
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    Wh = bitpack.words_for(2 * n)
+    pad = bitpack._pack_bits(np.zeros((1, 2 * n), bool), Wh, pad_value=1)[0]
+    assert pad.any() and not want["miss_bits"].any()
+    np.testing.assert_array_equal(
+        got["miss_bits"], np.broadcast_to(pad, got["miss_bits"].shape))
+    minpos, maxpos, rid = workloads.super_ranges(got)
+    assert minpos[1] > maxpos[0] and rid == {0: 0, 1: 0}

@@ -1,5 +1,6 @@
-"""The port stands apart from jax: every module imports with jax blocked
-and no source names it; the zstd stand-in writes files the real package
+"""The port stands apart from jax and from the JAX package: every module
+imports with both blocked and no source (chip_smoke.py included) imports
+them, bench or tools; the zstd stand-in writes files the real package
 reads and reads files it wrote; the device rule raises instead of
 falling back; a kernel build without nvcc fails loudly."""
 
@@ -33,27 +34,48 @@ def test_every_module_imports_without_jax(tmp_path):
     out = _run(
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['tomahawk_tpu'] = None\n"
         "import importlib, pkgutil, tomahawk_tpu_torch as P\n"
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, "
         "'tomahawk_tpu_torch.') if not m.name.endswith('__main__')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert not [m for m, v in sys.modules.items()\n"
-        "            if m.split('.')[0] == 'jax' and v is not None]\n"
+        "            if m.split('.')[0] in ('jax', 'tomahawk_tpu', 'bench',\n"
+        "                                   'tools') and v is not None]\n"
         "print(len(names))\n", tmp_path)
     # every .py below the package but its own __init__ and __main__
     modules = [f for f in PKG.rglob("*.py") if "_compat" not in f.parts
                and f not in (PKG / "__init__.py", PKG / "__main__.py")]
-    assert int(out.split()[-1]) == len(modules)
+    assert int(out.split()[-1]) == len(modules) == 34
+
+
+def test_entry_points_import_without_the_jax_package(tmp_path):
+    _run("import sys\n"
+         "sys.modules['jax'] = None\n"
+         "sys.modules['tomahawk_tpu'] = None\n"
+         "import tomahawk_tpu_torch.cli, tomahawk_tpu_torch.compute.engine\n"
+         "import tomahawk_tpu_torch.workloads\n", tmp_path)
 
 
 def test_no_source_names_jax():
-    for path in PKG.rglob("*.py"):
+    """No import of jax, the JAX package, bench or tools in any source of
+    the port or in chip_smoke.py (relative imports stay inside the
+    port)."""
+    banned = {"jax", "tomahawk_tpu", "bench", "tools"}
+    sources = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) > 35
+    for path in sources:
         for line in path.read_text().splitlines():
-            words = line.split()
-            assert not (words[:1] in (["import"], ["from"])
-                        and words[1].split(".")[0] == "jax"), \
-                f"{path}: {line}"
+            words = line.replace(",", " ").split()
+            if words[:1] == ["from"]:
+                names = words[1:2]
+            elif words[:1] == ["import"]:
+                names = [w for w in words[1:] if w != "as"]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, f"{path}: {line}"
 
 
 def test_zstd_stand_in_roundtrip(tmp_path):

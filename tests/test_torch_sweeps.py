@@ -170,11 +170,11 @@ def test_payload_helpers_match_jax(table, miss, n_samples):
 
 
 @pytest.mark.parametrize("args", [
-    ("unphased", False, "all", 10_000, 0.0, 100.0),
     ("phased", True, "all", 0, 0.2, 100.0),
-    ("unphased", True, "missing", 10_000, 0.0, 100.0),
-    ("phased", False, "all", 10_000, 0.0, 100.0),
+    ("unphased", True, "missing", 10_000, 0.0, 0.9),
+    ("phased", False, "all", 10_000, 0.1, 100.0),
     ("phased", False, "all", 0, 0.2, 100.0),
+    ("unphased", False, "all", 0, 0.0, 0.5),
 ])
 def test_make_cfg_rejects_what_is_not_ported(args):
     table, miss, cls, window, dmin, dmax = args

@@ -1,19 +1,132 @@
 """Command line of the port: `python -m tomahawk_tpu_torch <subcommand>`.
 
-`calc` runs on the port's GPU engine and takes `--device` (default
-`cuda`, which raises where torch sees no card). Every other subcommand
-is host code and goes to the JAX package's jax-free CLI unchanged.
+`import` turns a VCF/BCF into a .twk archive on the host. `calc` runs on
+the port's GPU engine and takes `--device` (default `cuda`, which raises
+where torch sees no card). The post-processing subcommands and `scalc`
+are not ported yet: they raise, naming the ROADMAP.md item that brings
+each.
 """
 
 import argparse
 import sys
 
-from tomahawk_tpu import cli as ref_cli
+#: subcommands of the reference CLI this port does not own yet, with the
+#: ROADMAP.md queue 1 item that ports each
+UNPORTED = {
+    "scalc": "item 12 (scalc)",
+    **{name: "item 13b (post-processing subcommands: post/ copied, "
+       "relationship's GEMM as X4)"
+       for name in ("view", "sort", "concat", "aggregate", "stats", "decay",
+                    "haplotype", "relationship")},
+}
+
+
+def _add_import(sub):
+    p = sub.add_parser("import", help="import VCF into .twk")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+    # reference letters (-n missingness, -r keep-univariate, -L level;
+    # import.h:26-129) are accepted alongside the long spellings
+    p.add_argument("-c", "-L", "--c-level", type=int, default=1)
+    p.add_argument("-b", "--block-size", type=int, default=500)
+    p.add_argument("-n", "-m", "--threshold-miss", type=float,
+                   default=0.9,
+                   help="minimum fraction of fully-called samples")
+    p.add_argument("-H", "--hwe", type=float, default=0.0,
+                   help="minimum HWE p-value")
+    p.add_argument("-r", "--keep-univariate", action="store_true",
+                   help="retain invariant sites")
+    p.add_argument("-f", "--flip-major-minor", action="store_true")
+    p.add_argument("-t", "--threads", type=int, default=0,
+                   help="parse worker processes (0 = auto). Output is "
+                   "byte-identical at any worker count")
+
+
+def _cmd_import(args):
+    from .io.importer import ImportSettings, import_vcf
+    s = ImportSettings(input=args.input, output=args.output,
+                       c_level=args.c_level, block_size=args.block_size,
+                       threshold_miss=args.threshold_miss, hwe=args.hwe,
+                       remove_univariate=not args.keep_univariate,
+                       flip_major_minor=args.flip_major_minor,
+                       workers=args.threads)
+    import_vcf(s)
+    return 0
+
+
+def _add_calc(sub):
+    """The reference CLI's `calc` options. Those that select what this
+    port does not run yet parse and are then rejected by the engine,
+    which names the ROADMAP.md item that adds each."""
+    p = sub.add_parser("calc", help="compute pairwise LD -> .two")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", default="-")
+    p.add_argument("-p", "--phased", action="store_true",
+                   help="force phased math")
+    p.add_argument("-u", "--unphased", action="store_true",
+                   help="force unphased math")
+    p.add_argument("-w", "--window", type=float, default=None,
+                   help="window size in bp (enables window mode; "
+                   "must be positive, like the reference calc.h:204)")
+    p.add_argument("-P", "--min-p", type=float, default=1.0)
+    p.add_argument("-r", "--min-r2", type=float, default=0.1)
+    p.add_argument("-R", "--max-r2", type=float, default=100.0)
+    p.add_argument("-d", "--min-dprime", type=float, default=0.0,
+                   help="not ported yet")
+    p.add_argument("-D", "--max-dprime", type=float, default=100.0,
+                   help="not ported yet")
+    p.add_argument("-c", "--n-chunks", type=int, default=1)
+    p.add_argument("-C", "--c-chunk", type=int, default=0)
+    p.add_argument("-I", "--interval", action="append", default=[])
+    p.add_argument("-b", "--b-size", type=int, default=10000)
+    p.add_argument("-l", "-k", "--c-level", type=int, default=1)
+    p.add_argument("-m", "--low-memory", action="store_true",
+                   help="accepted for reference compatibility")
+    p.add_argument("--performance", action="store_true",
+                   help="print the per-sweep-group dispatch and timing "
+                   "report (reference ComputePerformance analogue)")
+    p.add_argument("--mesh", default="auto",
+                   help="'auto' or 'off': one device; device meshes are "
+                   "not ported yet")
+    p.add_argument("--tile-rows", type=int, default=0,
+                   help="variants per super-block tile (0 = 4096)")
+    p.add_argument("--tile-backend", default="auto",
+                   choices=("auto", "pallas", "xla"),
+                   help="only 'auto': the port has one tile path, its "
+                   "CUDA kernels")
+    p.add_argument("--backend", default="auto",
+                   choices=("auto", "device", "cpu"),
+                   help="'cpu' (the native CPU tile engine) is not "
+                   "ported yet")
+    p.add_argument("-t", "--threads", type=int, default=0,
+                   help="host threads for block unpacking (0 = all)")
+    p.add_argument("-M", "--memory-gb", type=float, default=12.0,
+                   help="device-memory budget for genotype planes; "
+                   "larger inputs need banded streaming (not ported yet)")
+    p.add_argument("--distributed", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--sort-shards", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--coordinator", default="")
+    p.add_argument("--num-processes", type=int, default=-1)
+    p.add_argument("--process-id", type=int, default=-1)
+    p.add_argument("--checkpoint", default="", help="not ported yet")
+    p.add_argument("--checkpoint-interval", type=float, default=60.0)
+    p.add_argument("--sweep-segment", type=int, default=4096,
+                   help="upper limit of tiles per sweep segment")
+    p.add_argument("--no-stage-prefetch", action="store_true")
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device: 'cuda' (the default; raises without a card) "
+        "or 'cpu' (the kernels' plain PyTorch versions)")
 
 
 def _cmd_calc(args):
     from .compute.engine import CalcSettings, compute_ld
     if args.window is not None and int(args.window) <= 0:
+        # the reference rejects this too (calc.h:204-208); l_window == 0
+        # encodes "no window", so neither 0 nor a fractional bp value
+        # that truncates to 0 may pass through
         raise SystemExit("ERROR: cannot have a non-positive window size")
     s = CalcSettings(
         input=args.input, output=args.output,
@@ -40,17 +153,29 @@ def _cmd_calc(args):
     return 0
 
 
-def main(argv=None):
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if not argv or argv[0] != "calc":
-        return ref_cli.main(argv)
+COMMANDS = {"import": _cmd_import, "calc": _cmd_calc}
+
+
+def build_parser():
     ap = argparse.ArgumentParser(
         prog="python -m tomahawk_tpu_torch",
-        description="tomahawk_tpu_torch: LD on an NVIDIA GPU")
+        description="tomahawk_tpu_torch: LD on an NVIDIA GPU",
+        epilog="not ported yet: " + ", ".join(UNPORTED))
     sub = ap.add_subparsers(dest="command")
-    ref_cli._add_calc(sub)
-    sub.choices["calc"].add_argument(
-        "--device", default="cuda",
-        help="torch device: 'cuda' (the default; raises without a card) "
-        "or 'cpu' (the kernels' plain PyTorch versions)")
-    return _cmd_calc(ap.parse_args(argv))
+    _add_import(sub)
+    _add_calc(sub)
+    return ap
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in UNPORTED:
+        raise NotImplementedError(
+            f"`{argv[0]}` is not ported to tomahawk_tpu_torch yet "
+            f"(ROADMAP.md queue 1, {UNPORTED[argv[0]]})")
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if not args.command:
+        ap.print_help()
+        return 1
+    return COMMANDS[args.command](args)

@@ -1,24 +1,27 @@
-"""All-vs-all LD on one GPU: phased (-p), unphased (-u) and mixed.
+"""LD on one GPU, all-vs-all or windowed (-w): phased (-p), unphased
+(-u) and mixed.
 
 The PyTorch port of the single-device path of
 tomahawk_tpu/compute/engine.py. Variant blocks regroup into super-blocks
 of up to `tile_rows` variants whose packed bit planes live on the
-device, and the block-pair tile grid is swept in segments, one
-(table, has_missing, cls) group at a time in the order of the JAX
-engine's `group_tiles` (mixed mode: the reference's per-pair dispatch,
+device, and the block-pair tile grid -- every pair, or in window mode
+the pairs `Balancer.window_pairs` keeps -- is swept in segments, one
+(table, has_missing, cls) group at a time in the order of `group_tiles`
+(mixed mode: the reference's per-pair dispatch,
 ld_engine.cpp:2737-2880). For each
 segment the device runs the tile kernel and the survivor compaction on
 every tile (sweeps.fused_sweep) with no host sync in between; the host
 then reads the per-tile counts once, pulls the survivor rows, re-sweeps
 the rare tiles that overflowed the per-tile cap or spilled the buffer
 at exact offsets (sweeps.extract_sweep), runs the exact f64 statistics
-and Fisher P in the shared native record pipeline (ld_math.ld_records)
+and Fisher P in the native record pipeline (ld_math.ld_records)
 and emits .two records. One segment is in flight at a time.
 
-Host code is shared with the JAX package by import. What that engine
-also does and this slice does not yet -- window sweeps, banded
-streaming, checkpoints, multi-process runs, the CPU route, the in-sweep
-Fisher, D' bounds -- raises NotImplementedError naming the
+The host layer (file formats, balancer, exact statistics, the native
+library) is this package's own. What the JAX engine also does and this
+port does not yet -- banded streaming, checkpoints, multi-process runs,
+the CPU route, the in-sweep Fisher, D' bounds -- raises
+NotImplementedError naming the
 ROADMAP.md item that adds it. A kernel that fails to build or launch is
 an error: there is no fallback path.
 """
@@ -27,29 +30,227 @@ import datetime
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import List
 
 import numpy as np
 
-from tomahawk_tpu.compute.balancer import Balancer
-from tomahawk_tpu.compute.engine import LdEngine as _JaxLdEngine
-from tomahawk_tpu.compute.engine import (CalcResult, CalcSettings, _bucket,
-                                         _pair_meta_from, _plan_loads,
-                                         _reverse_records, _round_up,
-                                         _super_ranges, group_tiles,
-                                         report_performance)
-from tomahawk_tpu.io.twk import TwkReader
-from tomahawk_tpu.io.two import TwoWriter
-from tomahawk_tpu.ops.bitpack import block_to_planes, stack_planes
-from tomahawk_tpu.ops.ld_math import (LdFilters, ld_records, phased_math,
-                                     unphased_math)
-from tomahawk_tpu.utils import Timer, log, pretty_int
-from tomahawk_tpu.utils.progress import ProgressTicker
-
 from .. import __version__
 from ..device import resolve_device
+from ..io.twk import TwkReader
+from ..io.two import TwoWriter
+from ..ops.bitpack import block_to_planes, stack_planes
+from ..ops.ld_math import (LdFilters, PairMeta, ld_records, phased_math,
+                           unphased_math)
+from ..utils import Timer, log, pretty_int
+from ..utils.progress import ProgressTicker
 from . import sweeps
+from .balancer import Balancer
 
 __all__ = ["CalcResult", "CalcSettings", "LdEngine", "compute_ld"]
+
+
+@dataclass
+class CalcSettings:
+    """The run options of `calc`, with the reference twk_ld_settings
+    defaults (reference: lib/core.cpp:297-306) and the fields of the JAX
+    package's CalcSettings, so one settings object describes a run to
+    either engine. Options this port does not run yet are rejected by
+    `_check_settings`."""
+    input: str = ""
+    output: str = "-"
+    force_phased: bool = False
+    forced_unphased: bool = False
+    window: bool = False
+    l_window: int = 1_000_000
+    min_p: float = 1.0
+    min_r2: float = 0.1
+    max_r2: float = 100.0
+    min_dprime: float = 0.0
+    max_dprime: float = 100.0
+    n_chunks: int = 1
+    c_chunk: int = 0
+    c_level: int = 1
+    b_size: int = 10_000          # output block record limit
+    intervals: List[str] = field(default_factory=list)
+    # accepted and unused, as in the JAX package
+    batch_pairs: int = 16
+    cap_fraction: float = 0.25
+    # upper limit of tiles per segment; the progress ticker advances
+    # between segments
+    sweep_segment: int = 4096
+    performance: bool = False
+    # consecutive .twk blocks regroup into super-blocks of up to this
+    # many variants (never spanning a contig change); 0 = 4096
+    tile_rows: int = 0
+    # "auto", "off" or "": one device; anything else is rejected
+    mesh: str = "auto"
+    # device-memory budget for the packed planes; inputs that exceed it
+    # need banded streaming, which is rejected
+    memory_gb: float = 12.0
+    # host threads for block decompression and plane inflation; 0 = all
+    threads: int = 0
+    distributed: bool = False     # rejected
+    coordinator: str = ""
+    num_processes: int = -1
+    process_id: int = -1
+    tile_backend: str = "auto"    # anything but "auto" is rejected
+    backend: str = "auto"         # "cpu" is rejected
+    checkpoint: str = ""          # rejected
+    checkpoint_interval: float = 60.0
+    stage_prefetch: bool = True
+    sort_shards: bool = False     # rejected
+
+
+@dataclass
+class CalcResult:
+    n_pairs: int = 0
+    n_records: int = 0
+    elapsed: float = 0.0
+
+    @property
+    def pairs_per_sec(self) -> float:
+        return self.n_pairs / self.elapsed if self.elapsed else 0.0
+
+
+def _pair_meta_from(stacked, bi, bj, k, l) -> PairMeta:
+    return PairMeta(
+        pos_a=stacked["pos"][bi, k].astype(np.int64),
+        pos_b=stacked["pos"][bj, l].astype(np.int64),
+        rid_a=stacked["rid"][bi, k].astype(np.int64),
+        rid_b=stacked["rid"][bj, l].astype(np.int64),
+        ac_a=stacked["ac"][bi, k].astype(np.int64),
+        ac_b=stacked["ac"][bj, l].astype(np.int64),
+        an_a=stacked["an"][bi, k].astype(np.int64),
+        an_b=stacked["an"][bj, l].astype(np.int64),
+        hwe_a=stacked["hwe"][bi, k].astype(np.float64),
+        hwe_b=stacked["hwe"][bj, l].astype(np.float64),
+    )
+
+
+def _reverse_records(recs: np.ndarray) -> np.ndarray:
+    """The (B, A) mirror of each record: swap rid and position tuples;
+    statistics and counts stay in the original orientation
+    (reference: ld_engine.cpp:1290-1298)."""
+    rev = recs.copy()
+    # rev shares no memory with recs after the copy, so the swapped
+    # field writes need no intermediate copies
+    rev["ridA"], rev["ridB"] = recs["ridB"], recs["ridA"]
+    rev["packA"], rev["packB"] = recs["packB"], recs["packA"]
+    return rev
+
+
+def _bucket(n: int, lo: int) -> int:
+    """Round n up to a power of two (>= lo)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _round_up(n: int, q: int) -> int:
+    """Round n up to a multiple of q."""
+    return ((n + q - 1) // q) * q
+
+
+def _auto_tile_rows(entries, block_ids, settings) -> int:
+    """Resolve tile_rows=0: 4096 rows in every mode, the JAX engine's
+    rule, so both engines plan the same tiles and emit records in the
+    same order. Whether a smaller tile serves a short window better on
+    the GPU is not measured yet; tile_rows remains an explicit
+    override."""
+    return 4096
+
+
+def _super_ranges(entries, block_ids, tile_rows: int):
+    """Greedily pack consecutive block ids into super-blocks of up to
+    tile_rows records, never crossing a contig boundary or a gap in the
+    id list. Returns a list of dicts with keys ids/n/rid/minpos/maxpos."""
+    out = []
+    cur = None
+    for b in block_ids:
+        e = entries[b]
+        if cur is not None and (
+                cur["rid"] != e.rid or cur["n"] + e.n > tile_rows
+                or cur["ids"][-1] + 1 != b):
+            out.append(cur)
+            cur = None
+        if cur is None:
+            cur = dict(ids=[b], n=e.n, rid=e.rid, minpos=e.minpos,
+                       maxpos=e.maxpos)
+        else:
+            cur["ids"].append(b)
+            cur["n"] += e.n
+            cur["minpos"] = min(cur["minpos"], e.minpos)
+            cur["maxpos"] = max(cur["maxpos"], e.maxpos)
+    if cur is not None:
+        out.append(cur)
+    return out
+
+
+def group_tiles(pairs, mode: str, blk_missing):
+    """Deterministic (table, has_missing, cls, tiles) sweep groups for
+    one load: the dispatch order. 'mixed' follows the reference's
+    default per-pair dispatch (reference: ld_engine.cpp:2737-2880
+    Calculate(): pairs with missing alleles use unphased math)."""
+    nomiss = [p for p in pairs
+              if not (blk_missing[p[0]] or blk_missing[p[1]])]
+    withmiss = [p for p in pairs
+                if blk_missing[p[0]] or blk_missing[p[1]]]
+    if mode == "phased":
+        return [("phased", False, "all", nomiss),
+                ("phased", True, "all", withmiss)]
+    if mode == "unphased":
+        return [("unphased", False, "all", nomiss),
+                ("unphased", True, "all", withmiss)]
+    # blocks without any missing variant: pure phased fast path
+    return [("phased", False, "all", nomiss),
+            ("phased", False, "clean", withmiss),
+            ("unphased", True, "missing", withmiss)]
+
+
+def _plan_loads(super_ids, pairs, budget_supers: int, parts: int = 2):
+    """Partition the run into device loads. If all supers fit the
+    budget, one load covers everything; otherwise supers split into
+    bands of budget/`parts` and every band pair becomes a load
+    containing its slice of the tile list (blocked streaming).
+    Returns (bands, loads): bands is a list of super-id lists; each
+    load is ((p, q), tiles) over band indices."""
+    if len(super_ids) <= budget_supers:
+        return [list(super_ids)], [((0, 0), list(pairs))]
+    band = max(1, budget_supers // parts)
+    bands = [list(super_ids[k:k + band])
+             for k in range(0, len(super_ids), band)]
+    of_band = {}
+    for bi, ids in enumerate(bands):
+        for g in ids:
+            of_band[g] = bi
+    by_pair = {}
+    for i, j, d in pairs:
+        key = (of_band[i], of_band[j])
+        by_pair.setdefault(key, []).append((i, j, d))
+    return bands, [((p, q), by_pair[(p, q)]) for p, q in sorted(by_pair)]
+
+
+def report_performance(stats):
+    """Per-sweep-group dispatch and timing report, the analogue of the
+    reference's ComputePerformance / n_method counters
+    (reference: lib/ld/ld.cpp:878-1057, ld_engine.h:171-174,313), from
+    an engine's `stats` dict."""
+    log("LOG", f"{'config':<24}{'tiles':>8}{'cand pairs':>14}"
+        f"{'prefilter pass':>15}{'count s':>9}{'extract s':>10}"
+        f"{'math s':>8}{'records':>9}{'repair':>7}{'supp':>5}",
+        sub="PERF")
+    for key, s in sorted(stats.items()):
+        log("LOG", f"{key:<24}{s['n_tiles']:>8}{s['n_cand']:>14,}"
+            f"{s['n_pass']:>15,}{s['count_s']:>9.3f}"
+            f"{s['extract_s']:>10.3f}{s['math_s']:>8.3f}"
+            f"{s['n_records']:>9,}{s.get('n_repair', 0):>7}"
+            f"{s.get('n_supp', 0):>5}", sub="PERF")
+        cs = s["count_s"]
+        if cs > 0 and s["n_cand"]:
+            log("LOG", f"{'':<24}count-sweep rate "
+                f"{pretty_int(int(s['n_cand'] / cs))} pairs/s", sub="PERF")
 
 
 class LdEngine:
@@ -66,10 +267,6 @@ class LdEngine:
     OUTCAP0 = 1 << 18
     # target segments per tile group (progress advances between them)
     PIPELINE_SEGMENTS = 8
-    # the JAX engine's host tables from survivor parts (shared host
-    # code: they read only self.stacked and self.n_samples)
-    _phased_counts_from_parts = _JaxLdEngine._phased_counts_from_parts
-    _unphased_table_from_parts = _JaxLdEngine._unphased_table_from_parts
 
     def __init__(self, stacked: dict, n_samples: int,
                  settings: CalcSettings, device):
@@ -242,6 +439,47 @@ class LdEngine:
             self.ticker.add(pairs=total_cand, records=len(recs))
         return total_cand
 
+    def _phased_counts_from_parts(self, parts, meta) -> np.ndarray:
+        """[K, 4] (REFREF, REFALT, ALTREF, ALTALT) int64 from the raw
+        device contractions (mirrors ops.ld_kernels.phased_cells)."""
+        if parts.shape[1] == 4:
+            altalt, alt_val, val_alt, val_val = parts.T
+            altref = alt_val - altalt
+            refalt = val_alt - altalt
+            refref = val_val - altalt - altref - refalt
+        else:
+            altalt = parts[:, 0]
+            altref = meta.ac_a - altalt
+            refalt = meta.ac_b - altalt
+            refref = 2 * self.n_samples - (meta.ac_a + meta.ac_b) + altalt
+        return np.stack([refref, refalt, altref, altalt], axis=1)
+
+    def _unphased_table_from_parts(self, parts, bi, bj, k, l) -> np.ndarray:
+        """[K, 3, 3] int64 genotype tables from the raw device
+        contractions (mirrors ops.ld_kernels.unphased_cells)."""
+        st = self.stacked
+        if parts.shape[1] == 9:
+            T11, T12, T21, T22, hv, vh, ov, vo, vv = parts.T
+        else:
+            T11, T12, T21, T22 = parts.T
+            hv = st["n_het"][bi, k].astype(np.int64)
+            vh = st["n_het"][bj, l].astype(np.int64)
+            ov = st["n_hom"][bi, k].astype(np.int64)
+            vo = st["n_hom"][bj, l].astype(np.int64)
+            vv = np.full(len(T11), self.n_samples, np.int64)
+        T10 = hv - T11 - T12
+        T20 = ov - T21 - T22
+        T01 = vh - T11 - T21
+        T02 = vo - T12 - T22
+        T00 = vv - (T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22)
+        # column fills into one [K, 9] buffer: np.stack's temporary
+        # costs real fault time at millions of survivors per segment
+        rows = np.empty((len(T11), 9), np.int64)
+        for c, col in enumerate((T00, T01, T02, T10, T11, T12,
+                                 T20, T21, T22)):
+            rows[:, c] = col
+        return rows.reshape(-1, 3, 3)
+
     def _repair(self, dev, cfg, stat, pi, pj, dg, bad, ns_bad, cap):
         """Re-sweep the tiles that overflowed the cap or spilled the
         buffer, at exact offsets; adapt the caps so later segments of
@@ -270,7 +508,6 @@ def _check_settings(settings: CalcSettings):
     """Raise for run options outside this slice of the port, naming the
     ROADMAP.md queue 1 item that adds each."""
     unported = (
-        (settings.window, "window mode (-w)", 9),
         ((settings.min_dprime, settings.max_dprime) != (0.0, 100.0),
          "D' bounds (-d/-D)", 16),
         (settings.checkpoint, "--checkpoint", 11),
@@ -294,6 +531,8 @@ def compute_ld(settings: CalcSettings, device="cuda") -> CalcResult:
     """`calc` on one device (`cuda`, or `cpu` for the plain versions)."""
     device = resolve_device(device)
     _check_settings(settings)
+    if settings.window and settings.n_chunks != 1:
+        raise ValueError("cannot use chunking in window mode")
     timer = Timer()
     log("LOG", f"Opening {settings.input}...", sub="READER")
     reader = TwkReader(settings.input)
@@ -308,9 +547,10 @@ def _compute(settings, device, reader, timer) -> CalcResult:
     log("LOG", f"Samples: {pretty_int(n_samples)}...")
     block_ids = list(range(reader.index.n))
     if settings.intervals:
-        from tomahawk_tpu.post.intervals import blocks_for_intervals
+        from ..post.intervals import blocks_for_intervals
         block_ids = list(blocks_for_intervals(reader, settings.intervals))
-    tile_rows = settings.tile_rows or 4096
+    tile_rows = settings.tile_rows or _auto_tile_rows(
+        reader.index.ent, block_ids, settings)
     supers = _super_ranges(reader.index.ent, block_ids, tile_rows)
     balancer = Balancer.build(len(supers), settings.n_chunks,
                               settings.c_chunk)
@@ -320,7 +560,17 @@ def _compute(settings, device, reader, timer) -> CalcResult:
         raise ValueError("no valid data available")
     # padding rows carry valid=0, so rounding up changes no result
     B = _round_up(B, 128)
-    pairs = balancer.tile_pairs()
+    if settings.window:
+        minpos = {s: supers[s]["minpos"] for s in super_ids}
+        maxpos = {s: supers[s]["maxpos"] for s in super_ids}
+        rid = {s: supers[s]["rid"] for s in super_ids}
+        pairs = balancer.window_pairs(minpos, maxpos, rid, settings.l_window)
+    else:
+        pairs = balancer.tile_pairs()
+    log("LOG", f"Using {len(pairs)} tiles of {len(supers)} super-blocks "
+        f"(<= {tile_rows} variants each) in "
+        f"{'window' if settings.window else 'square'} mode...",
+        sub="BALANCING")
 
     # the JAX engine's plane budget: one band must hold every super
     Wh = (2 * n_samples + 127) // 128 * 4
@@ -368,6 +618,7 @@ def _compute(settings, device, reader, timer) -> CalcResult:
                      f"##tomahawk_tpu_torch_calcCommand=calc; "
                      f"Date={datetime.datetime.now().isoformat()}\n")
     result = CalcResult()
+    # upper bound of the pairs the (windowed) tile list holds
     est = sum(B * (B - 1) // 2 if d else B * B for _, _, d in pairs)
     engine.ticker = ProgressTicker(total_pairs=est,
                                    n_samples=n_samples).start()

@@ -1,9 +1,10 @@
 """Tile sweeps on one device: counts and survivor compaction.
 
-Counterpart of tomahawk_tpu/compute/sweeps.py for every sweep group
-without a window, with the Fisher column off. The JAX package scans a
-jitted body over the tile list; here a Python loop launches, per tile,
-the tile kernel (ops/tiles.py) and the survivor compaction
+Counterpart of tomahawk_tpu/compute/sweeps.py for every sweep group,
+with or without a distance window, with the Fisher column off. The JAX
+package scans a jitted body over the tile list; here a Python loop
+launches, per tile, the tile kernel (ops/tiles.py) and the survivor
+compaction
 (`compact_survivors`, csrc/compact.cu). The compaction keeps the running
 offset on the device, so a segment of tiles runs without a host sync and
 the host reads the counts once, after the whole segment. A sweep
@@ -25,25 +26,27 @@ from ..ops.tiles import (payload_cols, plane_keys, tile_buffers,
                          tile_prefilter)
 
 #: device tensors the sweeps may read: uint32 planes (as int32),
-#: per-variant allele, missing-allele and genotype-class counts, and
-#: the real-row flags
+#: positions and contig ids (window sweeps), per-variant allele,
+#: missing-allele and genotype-class counts, and the real-row flags
 DEV_KEYS = ("alt_bits", "miss_bits", "het_bits", "hom_bits", "valid_bits",
-            "ac", "an", "n_het", "n_hom", "valid")
+            "pos", "rid", "ac", "an", "n_het", "n_hom", "valid")
 
 
 def dev_keys_for(cfg) -> tuple:
     """The subset of DEV_KEYS a sweep config reads (the JAX package's
-    `dev_keys_for`, without the window's pos/rid)."""
+    `dev_keys_for`): pos and rid upload only for window sweeps."""
     keys = {"ac", "valid", *plane_keys(cfg["table"], cfg["has_missing"])}
     if cfg["table"] == "unphased":
         keys |= {"n_het", "n_hom"}
+    if cfg["window"] > 0:
+        keys |= {"pos", "rid"}
     if cfg["cls"] != "all":
         keys.add("an")
     return tuple(k for k in DEV_KEYS if k in keys)
 
 
 def planes_to_device(stacked: dict, device, keys=DEV_KEYS) -> dict:
-    """The port's device tensors for `keys`, from the JAX package's numpy
+    """The port's device tensors for `keys`, from the numpy
     plane dict (`bitpack.stack_planes` output): the counterpart of the
     JAX engine's band upload (`LdEngine._upload` / `_band_dev_get`).
     uint32 planes become int32 views of the same bits."""
@@ -65,9 +68,8 @@ def make_cfg(table: str, has_missing: bool, cls: str, B: int,
     if table not in ("phased", "unphased") or cls not in ("all", "clean",
                                                           "missing"):
         raise ValueError(f"no sweep group ({table!r}, {cls!r})")
-    if window:
-        raise NotImplementedError("window mode is not ported yet "
-                                  "(ROADMAP.md queue 1 item 9)")
+    if not 0 <= window < 1 << 31:
+        raise ValueError(f"window {window} outside [0, 2**31) bp")
     if (min_dprime, max_dprime) != (0.0, 100.0):
         raise NotImplementedError("the in-sweep D' filter is not ported "
                                   "yet (ROADMAP.md queue 1 item 16)")

@@ -2,9 +2,9 @@
 // the tile instances with more than one contraction.
 //
 // Replaces tomahawk_tpu/ops/pallas_tiles.py::_make_kernel (built by
-// _build_call, reached through sweeps.tile_prefilter) in its window=0
-// instances with P = 4 or 9 parts, and with them tools/probe_pallas.py's
-// `fused` probe, whose 4 het/hom contractions are the unphased P = 4
+// _build_call, reached through sweeps.tile_prefilter) in its instances
+// with P = 4 or 9 parts, with and without a window, and with them
+// tools/probe_pallas.py's `fused` probe, whose 4 het/hom contractions are the unphased P = 4
 // instance with a toy epilogue:
 //
 //   kind  table, missing data   planes per side   parts (column order)
@@ -45,6 +45,12 @@
 // the prefilters of prefilter.cuh, which keep the plain versions'
 // expression order. Without missing data the unphased marginals come from
 // the per-variant het/hom counts and n_samples, as the host table does.
+//
+// Window mode (window > 0, a runtime argument) is phased_tile's: the
+// candidate test adds same contig and |pos_i - pos_j| <= window, and a
+// block whose 64 x 64 (P = 4) or 64 x 32 (P = 9) pairs can hold no
+// in-window pair (twk::block_live) writes its mask region as 0, leaves its
+// parts unwritten and returns before the staging loop.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -70,6 +76,7 @@ struct Args {
   const int32_t* nhom_i;
   const int32_t* nhet_j;
   const int32_t* nhom_j;
+  twk::Window win;
   int cls, B, W, n_samples;
   float lo, hi;
   int need_nonzero, diag;
@@ -111,6 +118,17 @@ __global__ void __launch_bounds__(kThreads) parts_tile_kernel(const Args a) {
   const int col0 = blockIdx.x * TJ;
   const int B = a.B;
   const int W = a.W;
+
+  if (a.win.window > 0 &&
+      !twk::block_live(a.win, a.valid_i, a.valid_j, row0, TI, col0, TJ, B,
+                       a.diag)) {
+    for (int e = threadIdx.x; e < TI * TJ; e += kThreads) {
+      const int k = row0 + e / TJ;
+      const int l = col0 + e % TJ;
+      if (k < B && l < B) a.mask[(size_t)k * B + l] = 0;
+    }
+    return;
+  }
 
   int acc[P][R][C];
 #pragma unroll
@@ -197,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) parts_tile_kernel(const Args a) {
       const size_t f = (size_t)k * B + l;
       uint8_t m = 0;
       if (twk::candidate(vi, a.valid_j[l] != 0, aci, a.ac_j[l], k, l, a.diag,
-                         a.cls, a.an_i, a.an_j)) {
+                         a.cls, a.an_i, a.an_j, a.win)) {
         bool pf;
         if constexpr (KIND == 0) {
           // ld_kernels.phased_cells, 4-part branch
@@ -257,19 +275,22 @@ int launch(const Args& a, cudaStream_t s) {
 // kind: 0 phased with missing data (x = alt, y = miss), 1 unphased
 // (x = het, y = hom), 2 unphased with missing data (z = valid).
 // cls: 0 all, 1 clean, 2 missing (needs an_*). n_het/n_hom: kind 1 only.
+// window: 0 none, else bp (needs pos_* and rid_*).
 extern "C" int twk_parts_tile(
     int kind, const void* x_i, const void* y_i, const void* z_i,
     const void* x_j, const void* y_j, const void* z_j, const void* ac_i,
     const void* ac_j, const void* valid_i, const void* valid_j,
     const void* an_i, const void* an_j, const void* nhet_i,
-    const void* nhom_i, const void* nhet_j, const void* nhom_j, int cls,
-    int B, int W, int n_samples, float lo, float hi, int need_nonzero,
+    const void* nhom_i, const void* nhet_j, const void* nhom_j,
+    const void* pos_i, const void* pos_j, const void* rid_i,
+    const void* rid_j, int window, int cls, int B, int W, int n_samples, float lo, float hi, int need_nonzero,
     int diag, void* mask, void* parts, void* stream) {
   const bool bad =
       B <= 0 || W <= 0 || kind < 0 || kind > 2 || cls < 0 || cls > 2 ||
       !x_i || !y_i || !x_j || !y_j || !ac_i || !ac_j || !valid_i ||
       !valid_j || !mask || !parts || (kind == 2 && (!z_i || !z_j)) ||
-      (cls != 0 && (!an_i || !an_j)) ||
+      (cls != 0 && (!an_i || !an_j)) || window < 0 ||
+      (window > 0 && (!pos_i || !pos_j || !rid_i || !rid_j)) ||
       (kind == 1 && (!nhet_i || !nhom_i || !nhet_j || !nhom_j));
   if (bad) return (int)cudaErrorInvalidValue;
   Args a;
@@ -289,6 +310,8 @@ extern "C" int twk_parts_tile(
   a.nhom_i = (const int32_t*)nhom_i;
   a.nhet_j = (const int32_t*)nhet_j;
   a.nhom_j = (const int32_t*)nhom_j;
+  a.win = {(const int32_t*)pos_i, (const int32_t*)pos_j,
+           (const int32_t*)rid_i, (const int32_t*)rid_j, window};
   a.cls = cls;
   a.B = B;
   a.W = W;

@@ -2,9 +2,9 @@
 //
 // Replaces tomahawk_tpu/ops/pallas_tiles.py::_make_kernel (built by
 // _build_call, reached through sweeps.tile_prefilter) in its phased /
-// no-missing / window=0 instances, with the pair class cls "all" (the -p
-// sweep and the mixed dispatch's tiles without missing data) or "clean"
-// (the mixed dispatch's phased half of tiles with missing data: pairs
+// no-missing instances, with and without a window, with the pair class
+// cls "all" (the -p sweep and the mixed dispatch's tiles without missing
+// data) or "clean" (the mixed dispatch's phased half of tiles with missing data: pairs
 // whose variants have no missing allele, read from the per-variant `an`).
 // csrc/parts_tile.cu serves the other instances. Like the TPU kernel it
 // writes mask = 0 (not a candidate), 1 (candidate) or 2 (survivor of the
@@ -30,6 +30,14 @@
 // The epilogue follows ops/ld_kernels.phased_cells (no-missing branch) and
 // phased_prefilter_cells (prefilter.cuh). Padding rows (valid = 0) are
 // never candidates, and padding words are zero, so they add nothing.
+//
+// Window mode (window > 0, a runtime argument: one compiled instance
+// serves both modes): the candidate test adds same contig and |pos_i -
+// pos_j| <= window, and before anything else the block runs the TPU
+// kernel's dead-block test on its own 128 x 128 pairs (twk::block_live).
+// A dead block writes its mask region as 0 -- the compaction reads every
+// mask byte -- leaves ALTALT unwritten and returns before the staging
+// loop, so a windowed tile costs the contraction of its live blocks only.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,7 +60,9 @@ phased_tile_kernel(const uint32_t* __restrict__ alt_i,
                    const uint8_t* __restrict__ valid_i,
                    const uint8_t* __restrict__ valid_j,
                    const int32_t* __restrict__ an_i,
-                   const int32_t* __restrict__ an_j, int cls, int B, int W, int n_hap, float lo, float hi,
+                   const int32_t* __restrict__ an_j,
+                   const twk::Window win, int cls, int B, int W, int n_hap,
+                   float lo, float hi,
                    int need_nonzero, int diag,
                    uint8_t* __restrict__ mask,
                    int32_t* __restrict__ altalt) {
@@ -62,6 +72,17 @@ phased_tile_kernel(const uint32_t* __restrict__ alt_i,
   const int ty = threadIdx.x / 16;
   const int row0 = blockIdx.y * kTile;
   const int col0 = blockIdx.x * kTile;
+
+  if (win.window > 0 &&
+      !twk::block_live(win, valid_i, valid_j, row0, kTile, col0, kTile, B,
+                       diag)) {
+    for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
+      const int k = row0 + e / kTile;
+      const int l = col0 + e % kTile;
+      if (k < B && l < B) mask[(size_t)k * B + l] = 0;
+    }
+    return;
+  }
 
   int acc[kReg][kReg];
 #pragma unroll
@@ -110,7 +131,7 @@ phased_tile_kernel(const uint32_t* __restrict__ alt_i,
       const int acj = ac_j[l];
       uint8_t m = 0;
       if (twk::candidate(vi, valid_j[l] != 0, aci, acj, k, l, diag, cls,
-                         an_i, an_j)) {
+                         an_i, an_j, win)) {
         const int altref = aci - aa;
         const int refalt = acj - aa;
         const int refref = n_hap - (aci + acj) + aa;
@@ -128,19 +149,26 @@ phased_tile_kernel(const uint32_t* __restrict__ alt_i,
 extern "C" int twk_phased_tile(const void* alt_i, const void* alt_j,
                                const void* ac_i, const void* ac_j,
                                const void* valid_i, const void* valid_j,
-                               const void* an_i, const void* an_j, int cls,
-                               int B, int W, int n_hap, float lo, float hi,
+                               const void* an_i, const void* an_j,
+                               const void* pos_i, const void* pos_j,
+                               const void* rid_i, const void* rid_j,
+                               int window, int cls, int B, int W, int n_hap, float lo, float hi,
                                int need_nonzero, int diag, void* mask,
                                void* altalt, void* stream) {
   if (B <= 0 || W <= 0 || cls < 0 || cls > 2 ||
-      (cls != 0 && (an_i == nullptr || an_j == nullptr)))
+      (cls != 0 && (an_i == nullptr || an_j == nullptr)) || window < 0 ||
+      (window > 0 && (!pos_i || !pos_j || !rid_i || !rid_j)))
     return (int)cudaErrorInvalidValue;
+  const twk::Window win = {(const int32_t*)pos_i, (const int32_t*)pos_j,
+                           (const int32_t*)rid_i, (const int32_t*)rid_j,
+                           window};
   const dim3 grid((B + kTile - 1) / kTile, (B + kTile - 1) / kTile);
   phased_tile_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)alt_i, (const uint32_t*)alt_j,
       (const int32_t*)ac_i, (const int32_t*)ac_j,
       (const uint8_t*)valid_i, (const uint8_t*)valid_j,
-      (const int32_t*)an_i, (const int32_t*)an_j, cls, B, W, n_hap, lo, hi,
+      (const int32_t*)an_i, (const int32_t*)an_j, win, cls, B, W, n_hap, lo,
+      hi,
       need_nonzero, diag, (uint8_t*)mask, (int32_t*)altalt);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// The f32 prefilter epilogues shared by the tile kernels.
+// The candidate mask, the window's dead-block test and the f32 prefilter
+// epilogues shared by the tile kernels.
 //
 // Each function follows its plain PyTorch version in ops/ld_kernels.py
 // (itself the JAX package's tomahawk_tpu/ops/ld_kernels.py) expression by
@@ -14,22 +15,103 @@
 
 namespace twk {
 
-// Candidate mask of sweeps.tile_mask without a window: real rows, the
-// reference's ac skip rule, the upper triangle on diagonal tiles, and the
+// The distance window of a sweep: window > 0 keeps a pair only when its
+// variants share a contig (rid) and lie within `window` bp (pos); 0 means
+// no window, and the pointers may then be null.
+struct Window {
+  const int32_t* pos_i;
+  const int32_t* pos_j;
+  const int32_t* rid_i;
+  const int32_t* rid_j;
+  int window;
+};
+
+// Candidate mask of sweeps.tile_mask: real rows, the reference's ac skip
+// rule, the upper triangle on diagonal tiles, the distance window, and the
 // pair class of the mixed dispatch (cls 0 = all, 1 = clean: neither
 // variant has a missing allele, 2 = missing: the others). an_* may be
-// null when cls is 0.
+// null when cls is 0. Positions are non-negative int32, so their
+// difference cannot overflow.
 __device__ __forceinline__ bool candidate(bool valid_i, bool valid_j,
                                           int ac_i, int ac_j, int k, int l,
                                           int diag, int cls,
                                           const int32_t* an_i,
-                                          const int32_t* an_j) {
+                                          const int32_t* an_j,
+                                          const Window& win) {
   bool m = valid_i && valid_j && ac_i + ac_j > 2 && (!diag || k < l);
+  if (win.window > 0 && m) {
+    const int d = win.pos_i[k] - win.pos_j[l];
+    m = win.rid_i[k] == win.rid_j[l] && (d < 0 ? -d : d) <= win.window;
+  }
   if (cls != 0 && m) {
     const bool clean = an_i[k] == 0 && an_j[l] == 0;
     m = cls == 1 ? clean : !clean;
   }
   return m;
+}
+
+// Whether the thread block whose rows are [row0, row0 + n_rows) of side i
+// and whose columns are [col0, col0 + n_cols) of side j can hold an
+// in-window pair: the TPU kernel's block_live on this kernel's own unit of
+// work (ops/ld_kernels.block_live states it in numpy). Every thread of the
+// block must call it, before any other barrier; all get the same answer.
+// The extrema of rid and pos run over valid rows inside [0, B) only, with
+// sentinels -+2^30 where a side has none: each warp reduces its strided
+// share with shuffles, warp leaders fold into shared memory with atomics.
+// Live iff both sides have a valid row, the rid ranges meet, and not (both
+// sides sit on one shared contig and the pos ranges are further apart than
+// the window). On a diagonal tile a block wholly below the diagonal
+// (every k >= every l) holds no candidate either and is dead as well.
+// The test is conservative: a dead block's mask is all zero.
+__device__ __forceinline__ bool block_live(const Window& win,
+                                           const uint8_t* valid_i,
+                                           const uint8_t* valid_j, int row0,
+                                           int n_rows, int col0, int n_cols,
+                                           int B, int diag) {
+  constexpr int kBig = 1 << 30;
+  // rid lo/hi, pos lo/hi of side i, then of side j
+  __shared__ int ext[8];
+  if (threadIdx.x < 8) ext[threadIdx.x] = (threadIdx.x & 1) ? -kBig : kBig;
+  __syncthreads();
+  int v[8] = {kBig, -kBig, kBig, -kBig, kBig, -kBig, kBig, -kBig};
+  for (int e = threadIdx.x; e < n_rows + n_cols; e += blockDim.x) {
+    const bool side_j = e >= n_rows;
+    const int g = side_j ? col0 + e - n_rows : row0 + e;
+    if (g >= B || (side_j ? valid_j[g] : valid_i[g]) == 0) continue;
+    const int r = side_j ? win.rid_j[g] : win.rid_i[g];
+    const int p = side_j ? win.pos_j[g] : win.pos_i[g];
+    const int o = side_j ? 4 : 0;
+    v[o + 0] = min(v[o + 0], r);
+    v[o + 1] = max(v[o + 1], r);
+    v[o + 2] = min(v[o + 2], p);
+    v[o + 3] = max(v[o + 3], p);
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      const int other = __shfl_xor_sync(0xffffffffu, v[q], s);
+      v[q] = (q & 1) ? max(v[q], other) : min(v[q], other);
+    }
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (q & 1) atomicMax(&ext[q], v[q]);
+      else atomicMin(&ext[q], v[q]);
+    }
+  }
+  __syncthreads();
+  const int ri_lo = ext[0], ri_hi = ext[1], pi_lo = ext[2], pi_hi = ext[3];
+  const int rj_lo = ext[4], rj_hi = ext[5], pj_lo = ext[6], pj_hi = ext[7];
+  const bool any_pair = ri_hi >= 0 && rj_hi >= 0;
+  if (!any_pair) return false;
+  const bool rid_meet = ri_lo <= rj_hi && rj_lo <= ri_hi;
+  const bool one_rid = ri_lo == ri_hi && rj_lo == rj_hi && ri_lo == rj_lo;
+  const bool far = (long long)pj_lo - pi_hi > win.window ||
+                   (long long)pi_lo - pj_hi > win.window;
+  const bool below_diag = diag && row0 >= col0 + n_cols - 1;
+  return rid_meet && !(one_rid && far) && !below_diag;
 }
 
 // ld_kernels.phased_prefilter_cells (default D' bounds) on one 2x2 table.

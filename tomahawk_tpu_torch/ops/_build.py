@@ -54,14 +54,16 @@ PLAIN_CALLS = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # alt_i, alt_j, ac_i, ac_j, valid_i, valid_j, an_i, an_j, cls, B, W,
-    # n_hap, lo, hi, need_nonzero, diag, mask, altalt, stream
-    "twk_phased_tile": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_I] * 2
+    # alt_i, alt_j, ac_i, ac_j, valid_i, valid_j, an_i, an_j, pos_i, pos_j,
+    # rid_i, rid_j, window, cls, B, W, n_hap, lo, hi, need_nonzero, diag,
+    # mask, altalt, stream
+    "twk_phased_tile": [_P] * 12 + [_I] * 5 + [_F] * 2 + [_I] * 2
     + [_P] * 3,
     # kind, x_i, y_i, z_i, x_j, y_j, z_j, ac_i, ac_j, valid_i, valid_j,
-    # an_i, an_j, n_het_i, n_hom_i, n_het_j, n_hom_j, cls, B, W,
-    # n_samples, lo, hi, need_nonzero, diag, mask, parts, stream
-    "twk_parts_tile": [_I] + [_P] * 16 + [_I] * 4 + [_F] * 2 + [_I] * 2
+    # an_i, an_j, n_het_i, n_hom_i, n_het_j, n_hom_j, pos_i, pos_j, rid_i,
+    # rid_j, window, cls, B, W, n_samples, lo, hi, need_nonzero, diag,
+    # mask, parts, stream
+    "twk_parts_tile": [_I] + [_P] * 20 + [_I] * 5 + [_F] * 2 + [_I] * 2
     + [_P] * 3,
     # mask, parts, P, ncol, B, off, cap, outcap, n_pass, n_cand, t,
     # scratch, buf, stream

@@ -114,23 +114,73 @@ def unphased_cells(parts, n_het_a, n_hom_a, n_het_b, n_hom_b,
 
 
 def pair_mask_tile(valid_a, valid_b, ac_a, ac_b, diagonal: bool,
-                   cls: str = "all", an_a=None, an_b=None):
-    """Candidate pairs of a tile (sweeps.tile_mask with no window):
-    both rows real, the reference's ac skip rule (ac_i + ac_j > 2,
-    ld_engine.cpp:1910-1912), the upper triangle on diagonal tiles, and
-    the pair class of the mixed dispatch: "clean" keeps pairs whose two
-    variants have no missing allele (`an` counts missing alleles),
-    "missing" the others, "all" every pair."""
+                   cls: str = "all", an_a=None, an_b=None, window: int = 0,
+                   pos_a=None, pos_b=None, rid_a=None, rid_b=None):
+    """Candidate pairs of a tile (sweeps.tile_mask): both rows real,
+    the reference's ac skip rule (ac_i + ac_j > 2,
+    ld_engine.cpp:1910-1912), the upper triangle on diagonal tiles, with
+    `window` > 0 the distance window (same contig `rid` and
+    |pos_a - pos_b| <= window, int32), and the pair class of the mixed
+    dispatch: "clean" keeps pairs whose two variants have no missing
+    allele (`an` counts missing alleles), "missing" the others, "all"
+    every pair."""
     m = valid_a[:, None] & valid_b[None, :]
     m &= (ac_a[:, None] + ac_b[None, :]) > 2
     if diagonal:
         i = torch.arange(m.shape[0], device=m.device)[:, None]
         j = torch.arange(m.shape[1], device=m.device)[None, :]
         m &= i < j
+    if window > 0:
+        same = rid_a[:, None] == rid_b[None, :]
+        dist = (pos_a[:, None] - pos_b[None, :]).abs()
+        m &= same & (dist <= window)
     if cls != "all":
         clean = (an_a[:, None] == 0) & (an_b[None, :] == 0)
         m &= clean if cls == "clean" else ~clean
     return m
+
+
+def block_live(valid_i, valid_j, pos_i, pos_j, rid_i, rid_j, window: int,
+               rows: int = 0, cols: int = 0, diag: bool = False):
+    """Which blocks of `rows` x `cols` pairs of a tile can hold an
+    in-window pair: bool [ceil(Bi / rows), ceil(Bj / cols)] (one block,
+    the whole tile, when rows and cols are 0). The numpy statement of
+    the dead-block test the tile kernels run per thread block
+    (csrc/prefilter.cuh `block_live`; the TPU kernel's `block_live` on
+    its own block size). Extrema of rid and pos run over valid rows
+    only, with sentinels -+2**30 where a side has none. Live iff both
+    sides have a valid row, the rid ranges meet, and not (both sides
+    sit on one shared contig and the pos ranges lie further apart than
+    `window`); on a diagonal tile a block wholly below the diagonal
+    (every row index >= every column index) is dead too. Conservative:
+    a dead block holds no candidate."""
+    big = 1 << 30
+
+    def extrema(x, v, step):
+        x = np.asarray(x, np.int64)
+        v = np.asarray(v, bool)
+        step = step or max(len(x), 1)
+        pad = -len(x) % step
+        x = np.pad(x, (0, pad)).reshape(-1, step)
+        v = np.pad(v, (0, pad)).reshape(-1, step)
+        return (np.where(v, x, big).min(axis=1, initial=big),
+                np.where(v, x, -big).max(axis=1, initial=-big))
+
+    ri_lo, ri_hi = (e[:, None] for e in extrema(rid_i, valid_i, rows))
+    pi_lo, pi_hi = (e[:, None] for e in extrema(pos_i, valid_i, rows))
+    rj_lo, rj_hi = (e[None, :] for e in extrema(rid_j, valid_j, cols))
+    pj_lo, pj_hi = (e[None, :] for e in extrema(pos_j, valid_j, cols))
+    any_pair = (ri_hi >= 0) & (rj_hi >= 0)
+    rid_meet = (ri_lo <= rj_hi) & (rj_lo <= ri_hi)
+    one_rid = (ri_lo == ri_hi) & (rj_lo == rj_hi) & (ri_lo == rj_lo)
+    far = (pj_lo - pi_hi > window) | (pi_lo - pj_hi > window)
+    live = any_pair & rid_meet & ~(one_rid & far)
+    if diag:
+        row0 = np.arange(live.shape[0])[:, None] * (rows or len(valid_i))
+        last = (np.arange(live.shape[1])[None, :] + 1) \
+            * (cols or len(valid_j)) - 1
+        live &= row0 < last
+    return live
 
 
 def prefilter_bounds(min_r2: float, max_r2: float):

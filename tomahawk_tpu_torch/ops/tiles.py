@@ -1,9 +1,10 @@
 """One tile of a sweep: packed planes -> (mask, parts).
 
 Counterpart of tomahawk_tpu/ops/pallas_tiles.py (`tile_prefilter_pallas`
-and the fused TPU kernel behind it) for every sweep group without a
-window. `tile_prefilter` launches a hand kernel for CUDA tensors and
-runs the plain PyTorch version for CPU tensors; any other device raises.
+and the fused TPU kernel behind it) for every sweep group, with and
+without a distance window. `tile_prefilter` launches a hand kernel for
+CUDA tensors and runs the plain PyTorch version for CPU tensors; any
+other device raises.
 The kernel serving each group:
 
     (table, has_missing)   planes per side         P   kernel
@@ -13,12 +14,17 @@ The kernel serving each group:
     unphased, missing      het, hom, valid         9   csrc/parts_tile.cu
 
 each with the pair class `cls` ("all", "clean", "missing") of the mixed
-dispatch, read from the per-variant `an` (missing-allele counts).
+dispatch, read from the per-variant `an` (missing-allele counts). With
+cfg["window"] > 0 a pair must also share its contig (`rid`) and lie
+within `window` bp (`pos`), and the kernels skip the contraction of
+every thread block that can hold no such pair (`block_live`): its mask
+is 0 and its region of `parts` is left unwritten.
 
 Both versions return mask u8 [B, B] (0 = not a candidate, 1 =
 candidate, 2 = survivor of the f32 prefilter, the diagonal triangle
 applied) and parts i32 [P, B, B], the raw contractions in the column
-order of ld_kernels.*_parts_tile: the TPU kernel's contract.
+order of ld_kernels.*_parts_tile: the TPU kernel's contract. In window
+mode the kernels' parts are defined only where mask >= 1.
 """
 
 import torch
@@ -63,8 +69,11 @@ def tile_prefilter_plain(dev, i: int, j: int, diag: bool, cfg):
     ac_i, ac_j = dev["ac"][i], dev["ac"][j]
     an_i, an_j = ((dev["an"][i], dev["an"][j]) if cls != "all"
                   else (None, None))
+    win = cfg["window"]
+    pos_rid = ((dev["pos"][i], dev["pos"][j], dev["rid"][i], dev["rid"][j])
+               if win > 0 else ())
     m = K.pair_mask_tile(dev["valid"][i], dev["valid"][j], ac_i, ac_j,
-                         diag, cls, an_i, an_j)
+                         diag, cls, an_i, an_j, win, *pos_rid)
     n = cfg["n_samples"]
     if table == "phased":
         miss_i, miss_j = ((dev["miss_bits"][i], dev["miss_bits"][j])
@@ -126,6 +135,8 @@ def _check_inputs(dev, cfg, out):
         meta.append("an")
     if cfg["table"] == "unphased" and not cfg["has_missing"]:
         meta += ["n_het", "n_hom"]
+    if cfg["window"] > 0:
+        meta += ["pos", "rid"]
     want += [(k, torch.bool if k == "valid" else torch.int32, (NB, B))
              for k in meta]
     tensors = [(k, dev[k], dt, shape) for k, dt, shape in want]
@@ -152,6 +163,9 @@ def _launch(dev, i, j, diag, cfg, out):
     ptr = lambda k, s: dev[k][s].data_ptr()
     cls_code = _CLS[cls]
     an = [ptr("an", i), ptr("an", j)] if cls != "all" else [None, None]
+    window = int(cfg["window"])
+    win = ([ptr("pos", i), ptr("pos", j), ptr("rid", i), ptr("rid", j)]
+           if window > 0 else [None] * 4)
     lib = _build.library()
     if table == "phased":
         lo, hi, need_nonzero = K.prefilter_bounds(cfg["min_r2"],
@@ -163,9 +177,9 @@ def _launch(dev, i, j, diag, cfg, out):
     if name == "phased_tile":
         rc = lib.twk_phased_tile(
             ptr("alt_bits", i), ptr("alt_bits", j), ptr("ac", i),
-            ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, cls_code,
-            B, W, 2 * cfg["n_samples"], float(lo), float(hi),
-            int(need_nonzero), int(bool(diag)), mask.data_ptr(),
+            ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *win,
+            window, cls_code, B, W, 2 * cfg["n_samples"], float(lo),
+            float(hi), int(need_nonzero), int(bool(diag)), mask.data_ptr(),
             parts.data_ptr(), stream)
     else:
         keys = plane_keys(table, miss)
@@ -175,8 +189,8 @@ def _launch(dev, i, j, diag, cfg, out):
               else [None] * 4)
         rc = lib.twk_parts_tile(
             _KIND[(table, miss)], *side(i), *side(j), ptr("ac", i),
-            ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *nh,
-            cls_code, B, W, cfg["n_samples"], float(lo), float(hi),
+            ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *nh, *win,
+            window, cls_code, B, W, cfg["n_samples"], float(lo), float(hi),
             int(need_nonzero), int(bool(diag)), mask.data_ptr(),
             parts.data_ptr(), stream)
     _build.check(rc, f"{name} launch")

@@ -1,0 +1,132 @@
+"""Seeded planes for the port's measured workloads.
+
+Each returns `bitpack.stack_planes` output for `n_blocks` super-blocks
+of `B` variants, built without a file: what `chip_smoke.py` sweeps when
+it times the engine and checks the kernels. `build_planes` and
+`build_planes_grouped` draw what bench.py's functions of the same names
+draw from the same seeds -- the same alt planes, allele counts and
+positions -- so rates measured on them compare across both packages.
+They differ in one place: the miss plane's padding bits (past 2N) are
+ones here, as `bitpack.block_to_planes` packs them, where bench.py
+leaves them zero; the 4-part phased kernels rely on that padding.
+Positions ascend along the blocks with a mean spacing of 275 bp on one
+contig, so a 4096-variant super-block spans about 1.1 Mb.
+"""
+
+import numpy as np
+
+from .ops.bitpack import (BlockPlanes, _pack_bits, _popcount_rows,
+                          stack_planes, words_for)
+
+
+def _phased_block(alt, pos, n_samples):
+    """BlockPlanes of fully called phased variants `alt` [B, 2N] bool:
+    no missing allele, empty genotype-class planes."""
+    B = alt.shape[0]
+    Wh, Ws = words_for(2 * n_samples), words_for(n_samples)
+    none = np.zeros((B, n_samples), bool)
+    zero = np.zeros(B, np.int32)
+    return BlockPlanes(
+        n_rec=B, alt_bits=_pack_bits(alt, Wh),
+        miss_bits=_pack_bits(np.zeros_like(alt), Wh, pad_value=1),
+        het_bits=_pack_bits(none, Ws), hom_bits=_pack_bits(none, Ws),
+        valid_bits=_pack_bits(~none, Ws),
+        pos=pos, rid=zero.copy(), ac=alt.sum(axis=1).astype(np.int32),
+        an=zero.copy(), n_het=zero.copy(), n_hom=zero.copy(),
+        hwe=np.ones(B, np.float32), has_missing=np.zeros(B, bool),
+        valid=np.ones(B, bool))
+
+
+def build_planes(n_blocks, B, n_samples, seed=0):
+    """Independent phased variants with a beta-distributed MAF spectrum
+    folded to (0, 0.5]: the sparse workload (few pairs survive)."""
+    rng = np.random.default_rng(seed)
+    planes = []
+    pos0 = 0
+    for _ in range(n_blocks):
+        maf = np.minimum(rng.beta(0.5, 2.0, size=B) * 0.5 + 1e-3, 0.5)
+        alt = rng.random((B, 2 * n_samples)) < maf[:, None]
+        pos = pos0 + np.cumsum(rng.integers(50, 500, B)).astype(np.int32)
+        pos0 = int(pos[-1])
+        planes.append(_phased_block(alt, pos, n_samples))
+    return stack_planes(planes)
+
+
+def build_planes_grouped(n_blocks, B, n_samples, seed=1, group=16,
+                         flip=0.02):
+    """LD-structured phased variants: every `group` consecutive
+    variants share a haplotype template with `flip` per-haplotype
+    perturbation, so in-group pairs carry r2 ~ 0.9 and flow through
+    survivor extraction, the exact host math and record emission: the
+    records-dense workload."""
+    rng = np.random.default_rng(seed)
+    planes = []
+    pos0 = 0
+    for _ in range(n_blocks):
+        n_grp = B // group
+        maf = np.minimum(rng.beta(0.5, 2.0, size=n_grp) * 0.4 + 0.05, 0.5)
+        base = rng.random((n_grp, 2 * n_samples)) < maf[:, None]
+        alt = np.repeat(base, group, axis=0)
+        alt ^= rng.random((B, 2 * n_samples)) < flip
+        pos = pos0 + np.cumsum(rng.integers(50, 500, B)).astype(np.int32)
+        pos0 = int(pos[-1])
+        planes.append(_phased_block(alt, pos, n_samples))
+    return stack_planes(planes)
+
+
+def genotype_planes(n_blocks, B, n_samples, miss_frac=0.02, seed=3,
+                    group=16, flip=0.02, miss_rows=0.5):
+    """Genotype variants with missing data, packed as
+    bitpack.block_to_planes packs them: every `group` consecutive
+    variants are noisy copies of one haplotype template (group=1,
+    flip=0: independent variants); a `miss_rows` share of the variants
+    miss `miss_frac` of their genotypes (both alleles); the miss plane's
+    padding bits are ones; ac and an count alt and missing alleles;
+    n_het/n_hom are counted from the planes. Positions come from a
+    generator of their own (seed + 1000)."""
+    rng = np.random.default_rng(seed)
+    pos_rng = np.random.default_rng(seed + 1000)
+    Wh, Ws = words_for(2 * n_samples), words_for(n_samples)
+    planes = []
+    pos0 = 0
+    for _ in range(n_blocks):
+        n_grp = B // group
+        maf = np.minimum(rng.beta(0.5, 2.0, size=n_grp) * 0.4 + 0.05, 0.5)
+        base = rng.random((n_grp, 2 * n_samples), np.float32) < maf[:, None]
+        alt = np.repeat(base, group, axis=0)
+        if flip:
+            alt ^= rng.random((B, 2 * n_samples), np.float32) < flip
+        miss = rng.random((B, n_samples), np.float32) < miss_frac
+        miss &= (rng.random(B) < miss_rows)[:, None]
+        hap_miss = np.repeat(miss, 2, axis=1)
+        alt &= ~hap_miss
+        a, b = alt[:, 0::2], alt[:, 1::2]
+        full = ~miss
+        het_w = _pack_bits(full & (a ^ b), Ws)
+        hom_w = _pack_bits(full & a & b, Ws)
+        pos = pos0 + np.cumsum(pos_rng.integers(50, 500, B)).astype(np.int32)
+        pos0 = int(pos[-1])
+        planes.append(BlockPlanes(
+            n_rec=B, alt_bits=_pack_bits(alt, Wh),
+            miss_bits=_pack_bits(hap_miss, Wh, pad_value=1),
+            het_bits=het_w, hom_bits=hom_w,
+            valid_bits=_pack_bits(full, Ws),
+            pos=pos, rid=np.zeros(B, np.int32),
+            ac=alt.sum(axis=1).astype(np.int32),
+            an=(2 * miss.sum(axis=1)).astype(np.int32),
+            n_het=_popcount_rows(het_w), n_hom=_popcount_rows(hom_w),
+            hwe=np.ones(B, np.float32), has_missing=miss.any(axis=1),
+            valid=np.ones(B, bool)))
+    return stack_planes(planes)
+
+
+def super_ranges(stacked):
+    """({s: minpos}, {s: maxpos}, {s: rid}) of each super-block's valid
+    rows: what `Balancer.window_pairs` takes."""
+    minpos, maxpos, rid = {}, {}, {}
+    for s in range(len(stacked["pos"])):
+        v = stacked["valid"][s]
+        minpos[s] = int(stacked["pos"][s][v].min())
+        maxpos[s] = int(stacked["pos"][s][v].max())
+        rid[s] = int(stacked["rid"][s][v][0])
+    return minpos, maxpos, rid
