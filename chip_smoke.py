@@ -28,7 +28,15 @@ Phases, in order; any failure exits non-zero:
    the parts equal wherever the mask is not 0, the set of thread blocks
    the kernel skipped equal to ld_kernels.block_live's; the share of
    live thread blocks and of candidates, the time per call and the
-   POPC-rate bound of the live blocks;
+   POPC-rate bound of the live blocks. Then the two kernels of the
+   samples-sharded sweep: local_parts in its four instances on word
+   slices S = 2 and S = 3 of the planes (every lane equal to its plain
+   version; the slices' sum equal to the plain full-width parts on
+   every lane and to the fused kernel's parts where its mask is not 0)
+   and tile_epilogue on that sum, for every pair class, windows 0 and
+   250,000 bp, a diagonal and the neighbouring tile (equal to its plain
+   version and to the fused kernel's mask on every lane); the time per
+   call of each instance beside its bound;
 4. run `calc` through the user's entry points (`python -m
    tomahawk_tpu_torch import`, then `python -m tomahawk_tpu_torch calc`
    in this process, so its kernel launch counts are visible), each path
@@ -52,12 +60,28 @@ Phases, in order; any failure exits non-zero:
       super-blocks that are not neighbours and thread blocks die inside
       the tiles it keeps; every record must lie on one contig within
       the window;
+   then `calc --distributed` in two processes that share the card
+   (spawned as `python3 chip_smoke.py rank <job>`, each with a wall
+   limit; collectives over gloo; each rank reports its launch and plain
+   counts on its last line):
+   g. `calc -p --distributed --mesh dcn` on the archive of a and
+   h. `calc --distributed --mesh dcn` (mixed) on the archive of b: each
+      rank holds half of every word plane, sweeps every tile through
+      local_parts, the all-reduce, tile_epilogue and compact; only
+      rank 0's file exists and equals the native engine's records;
+   i. `calc --distributed` (tile partition) on the archive of b: each
+      rank sweeps every second tile into its own shard through the fused
+      kernels; `merge_shards` of both equals the native engine's;
 5. time `LdEngine.run_phased_pairs` on the sparse and records-dense
    workloads (64 x 4096 random variants; 16 x 4096 LD-grouped
    variants), the sparse planes again over `Balancer.window_pairs` at
    windows of 250,000 and 1,000,000 bp, and
    `LdEngine.run_unphased_pairs` on 16 x 4096 random genotype variants
-   without missing data (P = 4) and with 2% (P = 9);
+   without missing data (P = 4) and with 2% (P = 9); and
+   `LdEngine.run_phased_pairs` over the first 16 blocks of the sparse
+   planes (136 tiles) as two samples-sharded ranks on the one card,
+   with the time per tile of local_parts, the all-reduce, tile_epilogue
+   and compact from CUDA events;
 6. check that each calc path launched each of its kernels, and never a
    plain version, that the native host library is loaded, and that
    neither jax nor the JAX package was imported.
@@ -70,6 +94,7 @@ import json
 import os
 import runpy
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -91,6 +116,10 @@ CALC_WINDOW = 500_000
 POPC_PER_S = 4.2e12
 #: HBM3 rate of the H100 SXM, bytes per second (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
+#: seconds a spawned rank may take before it is killed
+RANK_LIMIT = 300
+#: super-blocks of the sparse planes the two-rank engine timing sweeps
+DCN_BLOCKS = 16
 
 
 def _say(msg):
@@ -449,6 +478,129 @@ def compare_window():
     return res
 
 
+#: the (table, has_missing) instances of local_parts and tile_epilogue
+INSTANCES = (("phased", False), ("phased", True), ("unphased", False),
+             ("unphased", True))
+#: the instance the kernels line reports for both: the -p dcn path's
+MAIN_INSTANCE = ("phased", False)
+
+
+def compare_dcn_kernels():
+    """The kernels of the samples-sharded sweep against their plain
+    versions and against the fused tile kernels (see the module
+    docstring, phase 3). Returns ({instance: (ms, plain_ms, bound_ms,
+    bound_by)} for local_parts at S = 2, the same for tile_epilogue)."""
+    import torch
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import tiles
+    st = genotype_planes(2)
+    full = sweeps.planes_to_device(st, "cuda")
+    _say(f"samples-sharded kernel check: B={B}, {N_SAMPLES} samples, word "
+         f"slices S=2 and S=3")
+    local, epi = {}, {}
+    for instance in INSTANCES:
+        groups = [g for g in ALL_GROUPS if g[:2] == instance]
+        cfg0 = sweeps.make_cfg(*instance, "all", B, N_SAMPLES, 0, MIN_R2,
+                               100.0)
+        keys = tiles.plane_keys(*instance)
+        P = tiles.payload_cols(*instance)
+        W = full[keys[0]].shape[-1]
+        slices = {S: [sweeps.planes_to_device(st, "cuda", keys,
+                                              word_slice=(s, S))
+                      for s in range(S)] for S in (2, 3)}
+        name = "/".join(map(str, instance))
+        out = tiles.tile_buffers(cfg0, "cuda")
+        for i, j, diag in ((1, 1, True), (0, 1, False)):
+            want = torch.stack(tiles.tile_local_parts_plain(full, i, j,
+                                                            cfg0))
+            fused_m, fused_p = tiles.tile_prefilter(full, i, j, diag, cfg0)
+            on = (fused_m != 0).unsqueeze(0)
+            for S, devs in slices.items():
+                total = torch.zeros_like(want)
+                for s, dev in enumerate(devs):
+                    got = tiles.tile_local_parts(dev, i, j, cfg0, out)
+                    plain = torch.stack(tiles.tile_local_parts_plain(
+                        dev, i, j, cfg0))
+                    if not torch.equal(got, plain):
+                        raise SystemExit(
+                            f"local_parts {name} slice {s}/{S} ({i},{j}) "
+                            f"differs from its plain version")
+                    total += got
+                    del plain
+                if not torch.equal(total, want):
+                    raise SystemExit(f"local_parts {name} ({i},{j}): the "
+                                     f"{S} slices do not sum to the plain "
+                                     f"full-width parts")
+                if not torch.equal(total * on, fused_p * on):
+                    raise SystemExit(f"local_parts {name} ({i},{j}): the "
+                                     f"{S} slices do not sum to the fused "
+                                     f"kernel's parts")
+                _say(f"  local_parts {name} ({i},{j}) S={S}: "
+                     f"{devs[0][keys[0]].shape[-1]} of {W} words a rank, "
+                     f"P={P}, every slice and the sum equal")
+            del fused_p
+            # the epilogue on the global parts (the sum of the 3 slices)
+            out[1].copy_(total)
+            for group in groups:
+                for window in (0, WINDOWS[0]):
+                    cfg = sweeps.make_cfg(*group, B, N_SAMPLES, window,
+                                          MIN_R2, 100.0)
+                    mask, _ = tiles.tile_epilogue(full, i, j, diag, cfg,
+                                                  out)
+                    want_m = tiles.tile_epilogue_plain(full, i, j, diag, cfg,
+                                                       total)
+                    fused_m, _ = tiles.tile_prefilter(full, i, j, diag, cfg)
+                    torch.cuda.synchronize()
+                    label = (f"tile_epilogue {'/'.join(map(str, group))} "
+                             f"w={window} ({i},{j})")
+                    if not torch.equal(mask, want_m):
+                        raise SystemExit(f"{label} differs from its plain "
+                                         f"version")
+                    if not torch.equal(mask, fused_m):
+                        raise SystemExit(f"{label} differs from the fused "
+                                         f"kernel's mask")
+                    _say(f"  {label}: {int((mask == 2).sum())} survivors, "
+                         f"{int((mask != 0).sum())} candidates, equal to "
+                         f"the plain version and the fused kernel")
+            del want, total, fused_m, want_m
+        # ms per call: local_parts on slice 0 of 2, the epilogue on the
+        # off-diagonal tile, cls "all", no window
+        dev = slices[2][0]
+        Wl = dev[keys[0]].shape[-1]
+        ms = _cuda_ms(lambda: tiles.tile_local_parts(dev, 0, 1, cfg0, out))
+        plain = _cuda_ms(lambda: tiles.tile_local_parts_plain(dev, 0, 1,
+                                                              cfg0), reps=3)
+        local[instance] = (ms, plain) + _bound(
+            P * B * B * Wl, 2 * len(keys) * B * Wl * 4 + P * B * B * 4)
+        tiles.tile_local_parts(full, 0, 1, cfg0, out)
+        ms = _cuda_ms(lambda: tiles.tile_epilogue(full, 0, 1, False, cfg0,
+                                                  out))
+        plain = _cuda_ms(lambda: tiles.tile_epilogue_plain(
+            full, 0, 1, False, cfg0, out[1]), reps=3)
+        epi[instance] = (ms, plain) + (
+            ((4 * P + 1) * B * B + 2 * B * 13) / HBM_BYTES_PER_S * 1e3,
+            "bytes")
+        for kname, r in (("local_parts", local), ("tile_epilogue", epi)):
+            v = r[instance]
+            _say(f"  ms per call: {kname} {name} P={P}"
+                 f"{f', {Wl} words' if kname == 'local_parts' else ''} "
+                 f"{v[0]:.4f} (plain {v[1]:.4f}, bound {v[2]:.4f} by "
+                 f"{v[3]})")
+        del out, slices
+        torch.cuda.empty_cache()
+    return local, epi
+
+
+def _bound(popcounts, nbytes):
+    """(bound_ms, bound_by) of a contraction: the larger of its
+    popcounts over the card's POPC rate and its bytes, each moved once,
+    over the HBM rate."""
+    ops_ms = popcounts / POPC_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, byte_ms),
+            "operations" if ops_ms >= byte_ms else "bytes")
+
+
 def probe_shape():
     """The unphased P = 4 instance at tools/probe_pallas.py's shape:
     random het/hom words [4096, 80] on each side (the TPU probe's toy
@@ -591,19 +743,9 @@ def make_archive(work, name, n_sites, **kw):
     return twk
 
 
-def run_calc(label, twk, two, flags, mode, need, window=0):
-    """One calc path through the CLI entry point, in this process: the
-    launch counts are set to 0 just before it and read just after; each
-    kernel in `need` must have launched and no plain version run. The
-    records must equal the native CPU engine's under `mode`, and with a
-    window each must lie on one contig within it. Returns the launch
-    counts."""
-    from tomahawk_tpu_torch.io.two import TwoReader
-    from tomahawk_tpu_torch.ops import _build
-    argv = ["tomahawk_tpu_torch", "calc", "-i", twk, "-o", two,
-            "-r", str(MIN_R2), *flags]
-    _build.reset_counts()
-    t0 = time.perf_counter()
+def _run_cli(argv):
+    """The port's CLI entry point (`python -m tomahawk_tpu_torch ...`)
+    in this process, so its kernel launch counts are visible."""
     saved, sys.argv = sys.argv, argv
     try:
         runpy.run_module("tomahawk_tpu_torch", run_name="__main__")
@@ -612,18 +754,53 @@ def run_calc(label, twk, two, flags, mode, need, window=0):
             raise
     finally:
         sys.argv = saved
+
+
+def _check_counts(label, launches, plain, need, idle=()):
+    """Each kernel in `need` launched, none in `idle` did, and no plain
+    version ran."""
+    missing = sorted(k for k in need if launches[k] == 0)
+    if missing:
+        raise SystemExit(f"calc {label} did not launch {missing}: "
+                         f"{launches}")
+    stray = sorted(k for k in idle if launches[k] != 0)
+    if stray:
+        raise SystemExit(f"calc {label} launched {stray}, which its path "
+                         f"does not hold: {launches}")
+    if any(plain.values()):
+        raise SystemExit(f"calc {label} took a plain version on CUDA: "
+                         f"{plain}")
+
+
+def run_calc(label, twk, two, flags, mode, need, window=0):
+    """One calc path through the CLI entry point, in this process: the
+    launch counts are set to 0 just before it and read just after; each
+    kernel in `need` must have launched and no plain version run. The
+    records must equal the native CPU engine's under `mode`, and with a
+    window each must lie on one contig within it. Returns the launch
+    counts."""
+    from tomahawk_tpu_torch.ops import _build
+    argv = ["tomahawk_tpu_torch", "calc", "-i", twk, "-o", two,
+            "-r", str(MIN_R2), *flags]
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    _run_cli(argv)
     dt = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     plain = dict(_build.PLAIN_CALLS)
     _say(f"main path {label}: `calc {' '.join(flags + ['-r', str(MIN_R2)])}`"
          f" {dt:.2f}s wall, launches {launches}, plain {plain}")
-    idle = sorted(k for k in need if launches[k] == 0)
-    if idle:
-        raise SystemExit(f"calc {label} did not launch {idle}: {launches}")
-    if any(plain.values()):
-        raise SystemExit(f"calc {label} took a plain version on CUDA: "
-                         f"{plain}")
+    _check_counts(label, launches, plain, need,
+                  ("local_parts", "tile_epilogue"))
+    check_records(label, two, twk, mode, window)
+    return launches
 
+
+def check_records(label, two, twk, mode, window=0):
+    """The records of `two` equal the native CPU engine's for `calc -r
+    0.1` on `twk` under `mode`, field by field, and with a window each
+    lies on one contig within it."""
+    from tomahawk_tpu_torch.io.two import TwoReader
     r = TwoReader(two)
     got = r.records()
     r.close()
@@ -654,12 +831,104 @@ def run_calc(label, twk, two, flags, mode, need, window=0):
                              f"{window} bp window")
         _say(f"  every record on one contig, max |pos_a - pos_b| "
              f"{int(dist.max())} <= {window}")
-    return launches
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(label, jobs):
+    """Run one `python3 chip_smoke.py rank <job>` process per job, all
+    at once, each with the wall limit; a rank that fails or outlives
+    the limit fails the run with every rank's output. Returns each
+    rank's report (the JSON object on its last line)."""
+    import torch
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "rank", json.dumps(job)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for job in jobs]
+    outs, late = [], False
+    try:
+        deadline = time.perf_counter() + RANK_LIMIT
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(deadline - time.perf_counter(), 1))[0])
+            except subprocess.TimeoutExpired:
+                late = True
+                p.kill()
+                outs.append(p.communicate()[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if late or any(p.returncode != 0 for p in procs):
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            _say(f"--- {label} rank {r}: exit {p.returncode}\n{out[-4000:]}")
+        raise SystemExit(f"{label}: a rank failed"
+                         f"{' or outlived its limit' if late else ''}")
+    reports = []
+    for r, out in enumerate(outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith('{"rank"')]
+        if not lines:
+            raise SystemExit(f"{label}: rank {r} printed no report:\n"
+                             f"{out[-2000:]}")
+        reports.append(json.loads(lines[-1]))
+    return reports
+
+
+def run_ranked_calc(label, twk, out, flags, mode, need, idle, dcn):
+    """One `calc --distributed` path as two ranks that share the card.
+    Every rank must launch each kernel in `need`, none in `idle`, and no
+    plain version. dcn: only rank 0's file exists; otherwise both shards
+    exist and are merged. The records must equal the native CPU
+    engine's. Returns the launches summed over the ranks."""
+    from tomahawk_tpu_torch.parallel import merge_shards, shard_paths
+    coordinator = f"127.0.0.1:{_free_port()}"
+    flags = flags + (["--mesh", "dcn"] if dcn else [])
+    jobs = [dict(kind="calc", rank=r, argv=[
+        "tomahawk_tpu_torch", "calc", "-i", twk, "-o", out, "-r",
+        str(MIN_R2), *flags, "--distributed", "--coordinator", coordinator,
+        "--num-processes", "2", "--process-id", str(r)]) for r in (0, 1)]
+    shards = shard_paths(out, 2)
+    for path in [out] + shards:
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    reports = spawn_ranks(label, jobs)
+    dt = time.perf_counter() - t0
+    total = {}
+    for rep in reports:
+        _check_counts(f"{label} rank {rep['rank']}", rep["launches"],
+                      rep["plain"], need, idle)
+        for k, v in rep["launches"].items():
+            total[k] = total.get(k, 0) + v
+    cmd = " ".join(["calc", *flags, "--distributed"])
+    _say(f"main path {label}: `{cmd}` as two ranks sharing one card, "
+         f"collectives over gloo: {dt:.2f}s wall "
+         f"(processes' start included), launches per rank "
+         f"{[rep['launches'] for rep in reports]}, no plain version")
+    have = [os.path.exists(path) for path in shards]
+    if dcn:
+        if any(have) or not os.path.exists(out):
+            raise SystemExit(f"calc {label}: expected the one file {out} "
+                             f"and no shard")
+        check_records(label, out, twk, mode)
+    else:
+        if not all(have):
+            raise SystemExit(f"calc {label}: a shard is missing: {shards}")
+        n = merge_shards(shards, out)
+        _say(f"  merge_shards folded {n} records of {shards}")
+        check_records(label, out, twk, mode)
+    return total
 
 
 def main_paths(work):
-    """The six calc paths of phase 4. Returns the launch counts summed
-    over them."""
+    """The calc paths of phase 4: six in this process, three as two
+    ranks. Returns the launch counts summed over them."""
     ld = make_archive(work, "ld", 16384)
     miss = make_archive(work, "miss", 16384, miss_sites=12288, miss_step=2,
                         miss_frac=0.025)
@@ -679,6 +948,16 @@ def main_paths(work):
     total = {}
     for label, twk, flags, mode, need, window in paths:
         launches = run_calc(label, twk, two, flags, mode, need, window)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    dcn = ("local_parts", "tile_epilogue", "compact")
+    fused = ("phased_tile", "parts_tile")
+    ranked = (("g", ld, ["-p"], "phased", dcn, fused, True),
+              ("h", miss, [], "mixed", dcn, fused, True),
+              ("i", miss, [], "mixed", every, dcn[:2], False))
+    for label, twk, flags, mode, need, idle, is_dcn in ranked:
+        launches = run_ranked_calc(label, twk, two, flags, mode, need, idle,
+                                   is_dcn)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     return total
@@ -780,6 +1059,124 @@ def engine_rates(work):
                          f"CUDA: {_build.PLAIN_CALLS}")
 
 
+def dcn_engine():
+    """`LdEngine.run_phased_pairs` over the first DCN_BLOCKS blocks of
+    the sparse planes as two samples-sharded ranks on the one card, and
+    the time per tile of each step of the sweep. Returns rank 0's
+    report."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    reports = spawn_ranks("engine dcn", [
+        dict(kind="engine", rank=r, coordinator=coordinator) for r in (0, 1)])
+    for rep in reports:
+        _check_counts(f"engine dcn rank {rep['rank']}", rep["launches"],
+                      rep["plain"],
+                      ("local_parts", "tile_epilogue", "compact"),
+                      ("phased_tile", "parts_tile"))
+    a, b = reports
+    if (a["candidates"], a["records"]) != (b["candidates"], b["records"]):
+        raise SystemExit(f"engine dcn: the ranks disagree: {a} {b}")
+    _say(f"engine dcn, two ranks sharing one card, collectives over gloo: "
+         f"{DCN_BLOCKS} x {B} sparse variants, {a['tiles']} tiles, "
+         f"{a['pairs']} pairs")
+    for rep in reports:
+        _say(f"  rank {rep['rank']}: {rep['wall_s']:.3f}s, "
+             f"{rep['pairs'] / rep['wall_s']:.0f} pairs/s, {rep['records']} "
+             f"records; ms per tile {rep['ms_per_tile']}")
+    _say(json.dumps({"dcn_engine": reports}))
+    return a
+
+
+def rank_engine(job):
+    """One rank of `dcn_engine`: the engine run on the clock, then the
+    same tiles once more step by step between CUDA events."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
+    from tomahawk_tpu_torch.ops import tiles
+    from tomahawk_tpu_torch.ops.ld_math import LdFilters
+    from tomahawk_tpu_torch.parallel import distributed as dist
+    rank = job["rank"]
+    device = dist.rank_device("cuda", rank)
+    dist.init_distributed(job["coordinator"], 2, rank, device)
+    try:
+        group = dist.group()
+        stacked = workloads.build_planes(DCN_BLOCKS, B, N_SAMPLES)
+        engine = LdEngine(stacked, N_SAMPLES, CalcSettings(min_r2=MIN_R2),
+                          device, group=group, samples_rank=rank,
+                          samples_size=2)
+        pairs = [(i, j, i == j) for i in range(DCN_BLOCKS)
+                 for j in range(i, DCN_BLOCKS)]
+        n_rec = [0]
+
+        def emit(recs, rev=None):
+            n_rec[0] += 2 * len(recs)
+
+        cfg = engine._cfg("phased", False, "all")
+        dev = engine._dev_for(cfg)
+        out = tiles.tile_buffers(cfg, device)
+        # warm-up: one tile through every step
+        tiles.tile_local_parts(dev, 0, 1, cfg, out)
+        dist.all_reduce_parts(out[1], group)
+        tiles.tile_epilogue(dev, 0, 1, False, cfg, out)
+        torch.cuda.synchronize()
+        dist.sync_shards()
+        t0 = time.perf_counter()
+        n_cand = engine.run_phased_pairs(pairs, False,
+                                         LdFilters(min_r2=MIN_R2), emit)
+        wall = time.perf_counter() - t0
+
+        cap = 256
+        buf = torch.zeros((1 << 18, sweeps.buf_cols(cfg)), dtype=torch.int32,
+                          device=device)
+        n_pass = torch.zeros(len(pairs), dtype=torch.int32, device=device)
+        n_cnd = torch.zeros(len(pairs), dtype=torch.int32, device=device)
+        off = torch.zeros(1, dtype=torch.int32, device=device)
+        marks = []
+        for t, (i, j, diag) in enumerate(pairs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            tiles.tile_local_parts(dev, i, j, cfg, out)
+            ev[1].record()
+            dist.all_reduce_parts(out[1], group)
+            ev[2].record()
+            mask, parts = tiles.tile_epilogue(dev, i, j, diag, cfg, out)
+            ev[3].record()
+            sweeps.compact_survivors(mask, parts, off, buf, n_pass, n_cnd, t,
+                                     cap)
+            ev[4].record()
+            marks.append(ev)
+        torch.cuda.synchronize()
+        steps = ("local_parts", "all_reduce", "tile_epilogue", "compact")
+        ms = {name: sum(ev[k].elapsed_time(ev[k + 1]) for ev in marks)
+              / len(marks) for k, name in enumerate(steps)}
+        dist.sync_shards()
+    finally:
+        dist.shutdown()
+    nv = DCN_BLOCKS * B
+    return dict(tiles=len(pairs), pairs=nv * (nv - 1) // 2,
+                candidates=int(n_cand), records=n_rec[0], wall_s=wall,
+                ms_per_tile=ms)
+
+
+def rank_main(job):
+    """`python3 chip_smoke.py rank <job>`: one rank of a two-rank phase.
+    Runs the job with the counts set to 0 just before it and prints them
+    just after, with the job's own results, as one JSON object on the
+    last line."""
+    from tomahawk_tpu_torch.ops import _build
+    _build.reset_counts()
+    extra = {}
+    if job["kind"] == "calc":
+        _run_cli(job["argv"])
+    else:
+        extra = rank_engine(job)
+    print(json.dumps(dict(rank=job["rank"], launches=dict(_build.LAUNCHES),
+                          plain=dict(_build.PLAIN_CALLS), **extra)),
+          flush=True)
+    return 0
+
+
 def kernel_bounds(n_survivors):
     """{kernel: (bound_ms, bound_by)} at the shapes the kernels line
     reports: the larger of operations over the card's peak rate for
@@ -795,11 +1192,8 @@ def kernel_bounds(n_survivors):
                        / HBM_BYTES_PER_S * 1e3, "bytes")}
     for name, P, planes, W in (("phased_tile", 1, 1, Wh),
                                ("parts_tile", 9, 3, Ws)):
-        ops_ms = P * B * B * W / POPC_PER_S * 1e3
-        nbytes = 2 * planes * B * W * 4 + 2 * B * 9 + B * B * (1 + 4 * P)
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        out[name] = (max(ops_ms, byte_ms),
-                     "operations" if ops_ms >= byte_ms else "bytes")
+        out[name] = _bound(P * B * B * W, 2 * planes * B * W * 4 + 2 * B * 9
+                           + B * B * (1 + 4 * P))
     return out
 
 
@@ -816,6 +1210,8 @@ def main():
     sys.modules["jax"] = None
     sys.modules["tomahawk_tpu"] = None
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["rank"]:
+        return rank_main(json.loads(sys.argv[2]))
     from tomahawk_tpu_torch import native
     from tomahawk_tpu_torch.device import kernel_report
 
@@ -828,19 +1224,26 @@ def main():
     probe = probe_shape()
     torch.cuda.empty_cache()
     windows = compare_window()
+    local, epi = compare_dcn_kernels()
     # the kernels line: phased_tile at the -p path's shape; parts_tile
     # and compact at the default (mixed) dispatch's 9-part sweep
     checks["parts_tile"] = (max(max(v[0] for v in groups.values()),
                                 probe[0]),) + groups[MAIN_GROUP][1:]
+    compact1 = checks["compact"]
     checks["compact"] = (max(checks["compact"][0],
                              max(v[0] for v in payloads.values())),
                          ) + payloads[9][1:3]
     bounds = kernel_bounds(payloads[9][3])
+    # local_parts and tile_epilogue at the -p dcn path's instance
+    for name, res in (("local_parts", local), ("tile_epilogue", epi)):
+        checks[name] = (0,) + res[MAIN_INSTANCE][:2]
+        bounds[name] = res[MAIN_INSTANCE][2:]
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     try:
         launches = main_paths(work)
         engine_rates(work)
+        dcn_engine()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if native.get_lib() is None:
@@ -850,10 +1253,28 @@ def main():
                     and v is not None)
     if leaked:
         raise SystemExit(f"imported outside the port: {leaked}")
+    # every fused-kernel instance and payload timed above, so that the end
+    # of the output carries each measured time
+    _say(json.dumps({"tile_instances": [
+        dict(kernel="phased_tile", group="phased/False/all",
+             ms=checks["phased_tile"][1], plain_ms=checks["phased_tile"][2])]
+        + [dict(kernel="phased_tile" if g[:2] == ("phased", False)
+                else "parts_tile", group="/".join(map(str, g)), ms=v[1],
+                plain_ms=v[2]) for g, v in groups.items()]
+        + [dict(kernel="parts_tile", group="unphased/False/all at the probe "
+                "shape", ms=probe[1], plain_ms=probe[2])]
+        + [dict(kernel="compact", group=f"{P} parts", ms=v[1], plain_ms=v[2])
+           for P, v in [(1, compact1)] + sorted(payloads.items())]}))
     # window rows: (group, window, diagonal) -> ms, plain, bound, shares
     _say(json.dumps({"window_instances": [
         dict(group="/".join(map(str, g)), window=w, diagonal=d, **v)
         for (g, w, d), v in windows.items()]}))
+    # samples-sharded rows: instance -> ms, plain, bound of both kernels
+    _say(json.dumps({"dcn_instances": [
+        dict(kernel=name, instance="/".join(map(str, inst)), ms=v[0],
+             plain_ms=v[1], bound_ms=v[2], bound_by=v[3])
+        for name, res in (("local_parts", local), ("tile_epilogue", epi))
+        for inst, v in res.items()]}))
     kernels = [dict(name=k["name"], route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches[k["name"]],
                     max_abs_err=checks[k["name"]][0],

@@ -274,8 +274,10 @@ def test_cli_calc_with_missing_matches_jax(missing_archives,
 
 @pytest.mark.parametrize("kw", [
     dict(min_dprime=0.5), dict(window=True, l_window=1000, max_dprime=0.9),
-    dict(checkpoint="ck.json"), dict(sort_shards=True),
-    dict(distributed=True), dict(mesh="2x1"), dict(backend="cpu"),
+    dict(checkpoint="ck.json"),
+    dict(distributed=True, mesh="dcn", checkpoint="ck.json"),
+    dict(distributed=True, mesh="2x2"), dict(mesh="2x1"),
+    dict(backend="cpu"),
     dict(memory_gb=1e-6),
 ])
 def test_out_of_slice_settings_rejected(archive, tmp_path, kw):

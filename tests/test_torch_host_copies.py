@@ -50,7 +50,7 @@ COPIED = [
     "native/__init__.py", "native/twk_native.cpp",
     "ops/bitpack.py", "ops/fisher.py", "ops/hwe.py", "ops/ld_math.py",
     "compute/balancer.py", "compute/cpu_engine.py",
-    "post/__init__.py", "post/intervals.py",
+    "post/__init__.py", "post/intervals.py", "post/sort.py",
 ]
 
 #: the lines that differ, (lines the original has more of, lines the

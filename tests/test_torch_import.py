@@ -47,7 +47,7 @@ def test_every_module_imports_without_jax(tmp_path):
     # every .py below the package but its own __init__ and __main__
     modules = [f for f in PKG.rglob("*.py") if "_compat" not in f.parts
                and f not in (PKG / "__init__.py", PKG / "__main__.py")]
-    assert int(out.split()[-1]) == len(modules) == 34
+    assert int(out.split()[-1]) == len(modules) == 37
 
 
 def test_entry_points_import_without_the_jax_package(tmp_path):
@@ -55,7 +55,9 @@ def test_entry_points_import_without_the_jax_package(tmp_path):
          "sys.modules['jax'] = None\n"
          "sys.modules['tomahawk_tpu'] = None\n"
          "import tomahawk_tpu_torch.cli, tomahawk_tpu_torch.compute.engine\n"
-         "import tomahawk_tpu_torch.workloads\n", tmp_path)
+         "import tomahawk_tpu_torch.workloads\n"
+         "import tomahawk_tpu_torch.parallel, tomahawk_tpu_torch.post.sort\n",
+         tmp_path)
 
 
 def test_no_source_names_jax():
@@ -132,7 +134,8 @@ def test_resolve_device(monkeypatch):
 def test_kernel_report_names_sources_and_tpu_code():
     rows = D.kernel_report()
     assert [r["name"] for r in rows] == ["phased_tile", "parts_tile",
-                                         "compact"]
+                                         "compact", "local_parts",
+                                         "tile_epilogue"]
     for r in rows:
         assert (REPO / r["source"]).exists()
         path, line = r["replaces"].split(":")

@@ -2,7 +2,8 @@
 
 `import` turns a VCF/BCF into a .twk archive on the host. `calc` runs on
 the port's GPU engine and takes `--device` (default `cuda`, which raises
-where torch sees no card). The post-processing subcommands and `scalc`
+where torch sees no card); with `--distributed` it is one process of a
+multi-process run (compute/engine.py). The post-processing subcommands and `scalc`
 are not ported yet: they raise, naming the ROADMAP.md item that brings
 each.
 """
@@ -86,8 +87,10 @@ def _add_calc(sub):
                    help="print the per-sweep-group dispatch and timing "
                    "report (reference ComputePerformance analogue)")
     p.add_argument("--mesh", default="auto",
-                   help="'auto' or 'off': one device; device meshes are "
-                   "not ported yet")
+                   help="'auto' or 'off': one device per process; 'dcn' "
+                   "(with --distributed): the packed-word axis spans the "
+                   "processes, process 0 writes the one output; P x S "
+                   "device meshes are not ported yet")
     p.add_argument("--tile-rows", type=int, default=0,
                    help="variants per super-block tile (0 = 4096)")
     p.add_argument("--tile-backend", default="auto",
@@ -104,10 +107,16 @@ def _add_calc(sub):
                    help="device-memory budget for genotype planes; "
                    "larger inputs need banded streaming (not ported yet)")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported yet")
+                   help="run as one process of a torch.distributed group, "
+                   "one device per process: the tile grid is partitioned "
+                   "round-robin and each process writes out.pKofN.two "
+                   "(with --mesh dcn the samples axis is sharded instead); "
+                   "needs --coordinator, --num-processes, --process-id")
     p.add_argument("--sort-shards", action="store_true",
-                   help="not ported yet")
-    p.add_argument("--coordinator", default="")
+                   help="position-sort this process's output in place, so "
+                   "merging the shards is a single merge pass")
+    p.add_argument("--coordinator", default="",
+                   help="host:port every process of the run can reach")
     p.add_argument("--num-processes", type=int, default=-1)
     p.add_argument("--process-id", type=int, default=-1)
     p.add_argument("--checkpoint", default="", help="not ported yet")

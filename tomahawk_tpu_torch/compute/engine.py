@@ -1,13 +1,14 @@
-"""LD on one GPU, all-vs-all or windowed (-w): phased (-p), unphased
-(-u) and mixed.
+"""LD on one GPU per process, all-vs-all or windowed (-w): phased (-p),
+unphased (-u) and mixed, in one process or several (--distributed).
 
-The PyTorch port of the single-device path of
-tomahawk_tpu/compute/engine.py. Variant blocks regroup into super-blocks
-of up to `tile_rows` variants whose packed bit planes live on the
-device, and the block-pair tile grid -- every pair, or in window mode
-the pairs `Balancer.window_pairs` keeps -- is swept in segments, one
-(table, has_missing, cls) group at a time in the order of `group_tiles`
-(mixed mode: the reference's per-pair dispatch,
+The PyTorch port of tomahawk_tpu/compute/engine.py: its single-device
+path, and its multi-process run modes over `torch.distributed`
+(parallel/distributed.py has the mapping from the JAX mesh). Variant
+blocks regroup into super-blocks of up to `tile_rows` variants whose
+packed bit planes live on the device, and the block-pair tile grid --
+every pair, or in window mode the pairs `Balancer.window_pairs` keeps --
+is swept in segments, one (table, has_missing, cls) group at a time in
+the order of `group_tiles` (mixed mode: the reference's per-pair dispatch,
 ld_engine.cpp:2737-2880). For each
 segment the device runs the tile kernel and the survivor compaction on
 every tile (sweeps.fused_sweep) with no host sync in between; the host
@@ -17,10 +18,21 @@ at exact offsets (sweeps.extract_sweep), runs the exact f64 statistics
 and Fisher P in the native record pipeline (ld_math.ld_records)
 and emits .two records. One segment is in flight at a time.
 
+`--distributed` runs one process per device. By default the tile list is
+partitioned round-robin: rank k of N sweeps `pairs[k::N]`, loads only
+the super-blocks those touch and writes `out.pKofN.two`
+(`parallel.merge_shards` folds the shards). With `--mesh dcn` the
+packed-word axis spans the ranks instead: every rank holds 1/N of every
+word plane, all sweep every tile jointly (local parts, all-reduce,
+epilogue: sweeps.py), every rank derives the same records and rank 0
+alone writes the one output. Every rank walks the same tiles in the same
+order with the same caps and repair decisions, because those follow from
+the global counts, so the collectives stay aligned.
+
 The host layer (file formats, balancer, exact statistics, the native
 library) is this package's own. What the JAX engine also does and this
-port does not yet -- banded streaming, checkpoints, multi-process runs,
-the CPU route, the in-sweep Fisher, D' bounds -- raises
+port does not yet -- banded streaming, checkpoints, P x S device
+meshes, the CPU route, the in-sweep Fisher, D' bounds -- raises
 NotImplementedError naming the
 ROADMAP.md item that adds it. A kernel that fails to build or launch is
 an error: there is no fallback path.
@@ -42,6 +54,7 @@ from ..io.two import TwoWriter
 from ..ops.bitpack import block_to_planes, stack_planes
 from ..ops.ld_math import (LdFilters, PairMeta, ld_records, phased_math,
                            unphased_math)
+from ..parallel import distributed as dist
 from ..utils import Timer, log, pretty_int
 from ..utils.progress import ProgressTicker
 from . import sweeps
@@ -83,14 +96,19 @@ class CalcSettings:
     # consecutive .twk blocks regroup into super-blocks of up to this
     # many variants (never spanning a contig change); 0 = 4096
     tile_rows: int = 0
-    # "auto", "off" or "": one device; anything else is rejected
+    # "auto", "off" or "": one device per process; "dcn" (with
+    # distributed): the packed-word axis spans the processes; anything
+    # else is rejected
     mesh: str = "auto"
     # device-memory budget for the packed planes; inputs that exceed it
     # need banded streaming, which is rejected
     memory_gb: float = 12.0
     # host threads for block decompression and plane inflation; 0 = all
     threads: int = 0
-    distributed: bool = False     # rejected
+    # one process per device over torch.distributed: tile partition
+    # with per-process shards, or with mesh "dcn" the samples-sharded
+    # sweep; needs coordinator (host:port), num_processes, process_id
+    distributed: bool = False
     coordinator: str = ""
     num_processes: int = -1
     process_id: int = -1
@@ -99,7 +117,9 @@ class CalcSettings:
     checkpoint: str = ""          # rejected
     checkpoint_interval: float = 60.0
     stage_prefetch: bool = True
-    sort_shards: bool = False     # rejected
+    # position-sort the output (this process's shard) in place after
+    # the run, so merge_shards only merges
+    sort_shards: bool = False
 
 
 @dataclass
@@ -256,7 +276,12 @@ def report_performance(stats):
 class LdEngine:
     """Device planes and the segment loop for one run configuration on
     one device. `LdEngine(stacked, n_samples, settings, device)` makes
-    `stacked` (bitpack.stack_planes output) the single resident band."""
+    `stacked` (bitpack.stack_planes output) the single resident band.
+    With `group` (a parallel.ProcessGroup) the engine is one rank of a
+    samples-sharded run: it uploads slice `samples_rank` of
+    `samples_size` of every word plane and its sweeps sum each tile's
+    parts over the group; every rank of the group must then make the
+    same calls in the same order."""
 
     # survivors extracted per tile inside the fused sweep; tiles with
     # more go through the exact-offset repair pass, and the cap adapts
@@ -269,7 +294,17 @@ class LdEngine:
     PIPELINE_SEGMENTS = 8
 
     def __init__(self, stacked: dict, n_samples: int,
-                 settings: CalcSettings, device):
+                 settings: CalcSettings, device, group=None,
+                 samples_rank: int = 0, samples_size: int = 1):
+        if (group is None) != (samples_size == 1) \
+                or not 0 <= samples_rank < samples_size:
+            raise ValueError(
+                f"samples slice {samples_rank} of {samples_size} "
+                f"{'with' if group is not None else 'without'} a process "
+                f"group: a sharded engine needs both")
+        self.group = group
+        self.word_slice = ((samples_rank, samples_size)
+                           if samples_size > 1 else None)
         self.settings = settings
         self.n_samples = n_samples
         self.device = resolve_device(device)
@@ -297,15 +332,16 @@ class LdEngine:
         the keys this sweep config reads and no others."""
         keys = [k for k in sweeps.dev_keys_for(cfg) if k not in self._dev]
         if keys:
-            self._dev.update(sweeps.planes_to_device(self.stacked,
-                                                     self.device, keys))
+            self._dev.update(sweeps.planes_to_device(
+                self.stacked, self.device, keys, self.word_slice))
         return self._dev
 
     def _cfg(self, table, has_missing, cls):
         s = self.settings
         return sweeps.make_cfg(table, has_missing, cls, self.B,
                                self.n_samples, self.window, s.min_r2,
-                               s.max_r2, s.min_dprime, s.max_dprime)
+                               s.max_r2, s.min_dprime, s.max_dprime,
+                               psum_group=self.group)
 
     def _stat(self, cfg):
         key = (f"{cfg['table']}/{'miss' if cfg['has_missing'] else 'nomiss'}"
@@ -507,14 +543,14 @@ class LdEngine:
 def _check_settings(settings: CalcSettings):
     """Raise for run options outside this slice of the port, naming the
     ROADMAP.md queue 1 item that adds each."""
+    mesh = settings.mesh or "off"
     unported = (
         ((settings.min_dprime, settings.max_dprime) != (0.0, 100.0),
          "D' bounds (-d/-D)", 16),
         (settings.checkpoint, "--checkpoint", 11),
-        (settings.distributed, "--distributed", 15),
-        (settings.sort_shards, "--sort-shards", 15),
-        (settings.mesh not in ("auto", "off", ""),
-         f"--mesh {settings.mesh}", 15),
+        (mesh not in ("auto", "off", "dcn"),
+         f"--mesh {settings.mesh} (device meshes beyond one device per "
+         f"process, P x S rank grids)", 15),
         (settings.backend == "cpu", "--backend cpu", 14),
     )
     for on, what, item in unported:
@@ -522,27 +558,84 @@ def _check_settings(settings: CalcSettings):
             raise NotImplementedError(
                 f"{what} is not ported to the GPU engine yet "
                 f"(ROADMAP.md queue 1 item {item})")
+    if mesh == "dcn" and not settings.distributed:
+        raise ValueError("mesh 'dcn' needs a multi-process run "
+                         "(use --distributed)")
     if settings.tile_backend != "auto":
         raise ValueError("--tile-backend selects a JAX tile path; the "
                          "port has one: its CUDA kernels")
 
 
 def compute_ld(settings: CalcSettings, device="cuda") -> CalcResult:
-    """`calc` on one device (`cuda`, or `cpu` for the plain versions)."""
-    device = resolve_device(device)
+    """`calc` on one device per process (`cuda`, or `cpu` for the plain
+    versions). With `settings.distributed` this process is one rank of
+    the run: `cuda` is then the rank's share of the visible cards
+    (`parallel.rank_device`)."""
     _check_settings(settings)
     if settings.window and settings.n_chunks != 1:
         raise ValueError("cannot use chunking in window mode")
     timer = Timer()
-    log("LOG", f"Opening {settings.input}...", sub="READER")
-    reader = TwkReader(settings.input)
+    proc_id, n_procs = 0, 1
+    if settings.distributed:
+        device = resolve_device(dist.rank_device(device,
+                                                 settings.process_id))
+        proc_id, n_procs = dist.init_distributed(
+            settings.coordinator, settings.num_processes,
+            settings.process_id, device)
+    else:
+        device = resolve_device(device)
     try:
-        return _compute(settings, device, reader, timer)
+        log("LOG", f"Opening {settings.input}...", sub="READER")
+        reader = TwkReader(settings.input)
+        try:
+            return _compute(settings, device, reader, timer, proc_id,
+                            n_procs)
+        finally:
+            reader.close()
     finally:
-        reader.close()
+        if settings.distributed:
+            dist.shutdown()
 
 
-def _compute(settings, device, reader, timer) -> CalcResult:
+def _load_engine(settings, device, reader, supers, super_ids, pairs, B,
+                 dcn, proc_id, n_procs):
+    """(engine, sweep groups) for this process's tiles: inflate the
+    super-blocks `super_ids` into planes, make them the engine's band
+    and group the tiles in dispatch order. A dcn rank shares the
+    process group and holds slice `proc_id` of `n_procs` of the words."""
+    n_samples = reader.header.n_samples
+    n_threads = settings.threads if settings.threads > 0 \
+        else (os.cpu_count() or 1)
+    blocks = []
+    for s in super_ids:
+        sup = supers[s]
+        blk = reader.read_block(sup["ids"][0])
+        for b in sup["ids"][1:]:
+            for rec in reader.read_block(b).rcds:
+                blk.add(rec)
+        blocks.append(blk)
+    with ThreadPoolExecutor(n_threads) as pool:
+        stacked = stack_planes(list(pool.map(
+            lambda blk: block_to_planes(blk, n_samples, pad_to=B), blocks)))
+    slot = {g: s for s, g in enumerate(super_ids)}
+    tiles = [(slot[i], slot[j], d) for i, j, d in pairs]
+    mode = ("phased" if settings.force_phased else
+            "unphased" if settings.forced_unphased else "mixed")
+    groups = [g for g in group_tiles(tiles, mode,
+                                     stacked["has_missing"].any(axis=1))
+              if g[3]]
+
+    engine = LdEngine(stacked, n_samples, settings, device,
+                      group=dist.group() if dcn else None,
+                      samples_rank=proc_id if dcn else 0,
+                      samples_size=n_procs if dcn else 1)
+    for table, has_missing, cls, _ in groups:
+        engine._cfg(table, has_missing, cls)   # reject before any output
+    return engine, groups
+
+
+def _compute(settings, device, reader, timer, proc_id,
+             n_procs) -> CalcResult:
     n_samples = reader.header.n_samples
     log("LOG", f"Samples: {pretty_int(n_samples)}...")
     block_ids = list(range(reader.index.n))
@@ -567,6 +660,20 @@ def _compute(settings, device, reader, timer) -> CalcResult:
         pairs = balancer.window_pairs(minpos, maxpos, rid, settings.l_window)
     else:
         pairs = balancer.tile_pairs()
+    # dcn: the packed-word axis spans the processes and every process
+    # sweeps every tile jointly, one output file written by process 0.
+    # Otherwise a distributed run partitions the tile grid, one shard
+    # per process.
+    dcn = settings.mesh == "dcn"
+    if dcn and n_procs < 2:
+        raise ValueError("mesh 'dcn' needs a multi-process run "
+                         "(--num-processes >= 2)")
+    if n_procs > 1 and not dcn:
+        pairs, touched = dist.partition_tiles(pairs, proc_id, n_procs)
+        # only this process's supers need loading
+        super_ids = [s for s in super_ids if s in touched]
+        log("LOG", f"Process {proc_id}: {len(pairs)} tiles over "
+            f"{len(super_ids)} super-blocks", sub="DIST")
     log("LOG", f"Using {len(pairs)} tiles of {len(supers)} super-blocks "
         f"(<= {tile_rows} variants each) in "
         f"{'window' if settings.window else 'square'} mode...",
@@ -576,6 +683,9 @@ def _compute(settings, device, reader, timer) -> CalcResult:
     Wh = (2 * n_samples + 127) // 128 * 4
     Ws = (n_samples + 127) // 128 * 4
     per_super = B * (2 * Wh + 3 * Ws) * 4
+    # a dcn rank holds only 1/S of every word plane
+    n_samp_shards = n_procs if dcn else 1
+    per_super = -(-per_super // n_samp_shards)
     budget = max(2, int(settings.memory_gb * (1 << 30) / 2 / per_super))
     bands, _ = _plan_loads(super_ids, pairs, budget)
     if len(bands) > 1:
@@ -583,34 +693,19 @@ def _compute(settings, device, reader, timer) -> CalcResult:
             f"the planes exceed --memory-gb {settings.memory_gb}: banded "
             f"streaming is not ported yet (ROADMAP.md queue 1 item 10)")
 
-    n_threads = settings.threads if settings.threads > 0 \
-        else (os.cpu_count() or 1)
-    blocks = []
-    for s in super_ids:
-        sup = supers[s]
-        blk = reader.read_block(sup["ids"][0])
-        for b in sup["ids"][1:]:
-            for rec in reader.read_block(b).rcds:
-                blk.add(rec)
-        blocks.append(blk)
-    with ThreadPoolExecutor(n_threads) as pool:
-        stacked = stack_planes(list(pool.map(
-            lambda blk: block_to_planes(blk, n_samples, pad_to=B), blocks)))
-    slot = {g: s for s, g in enumerate(super_ids)}
-    tiles = [(slot[i], slot[j], d) for i, j, d in pairs]
-    mode = ("phased" if settings.force_phased else
-            "unphased" if settings.forced_unphased else "mixed")
-    groups = [g for g in group_tiles(tiles, mode,
-                                     stacked["has_missing"].any(axis=1))
-              if g[3]]
-
-    engine = LdEngine(stacked, n_samples, settings, device)
-    for table, has_missing, cls, _ in groups:
-        engine._cfg(table, has_missing, cls)   # reject before any output
+    engine, groups = None, []
+    if pairs:
+        engine, groups = _load_engine(settings, device, reader, supers,
+                                      super_ids, pairs, B, dcn, proc_id,
+                                      n_procs)
     filt = LdFilters(min_p=settings.min_p, min_r2=settings.min_r2,
                      max_r2=settings.max_r2, min_dprime=settings.min_dprime,
                      max_dprime=settings.max_dprime)
     out = settings.output
+    if n_procs > 1 and not dcn:
+        out = dist.shard_output_path(out, proc_id, n_procs)
+    elif dcn and out == "-":
+        raise ValueError("distributed calc needs a file output")
     if out != "-" and not out.endswith(".two"):
         out += ".two"
     hdr = reader.header
@@ -620,16 +715,22 @@ def _compute(settings, device, reader, timer) -> CalcResult:
     result = CalcResult()
     # upper bound of the pairs the (windowed) tile list holds
     est = sum(B * (B - 1) // 2 if d else B * B for _, _, d in pairs)
-    engine.ticker = ProgressTicker(total_pairs=est,
-                                   n_samples=n_samples).start()
-    writer = TwoWriter(out, hdr, c_level=settings.c_level,
-                       block_limit=settings.b_size, async_blocks=True)
+    ticker = ProgressTicker(total_pairs=est, n_samples=n_samples).start()
+    if engine is not None:
+        engine.ticker = ticker
+    # dcn: every process derives identical records (the counts are the
+    # same on every rank); only process 0 writes the single output
+    writer = None
+    if not (dcn and proc_id != 0):
+        writer = TwoWriter(out, hdr, c_level=settings.c_level,
+                           block_limit=settings.b_size, async_blocks=True)
 
     def emit(recs, rev=None):
         if len(recs) == 0:
             return
-        writer.add(recs)
-        writer.add(rev if rev is not None else _reverse_records(recs))
+        if writer is not None:
+            writer.add(recs)
+            writer.add(rev if rev is not None else _reverse_records(recs))
         result.n_records += 2 * len(recs)
 
     try:
@@ -637,8 +738,23 @@ def _compute(settings, device, reader, timer) -> CalcResult:
             result.n_pairs += engine.run_group(group, table, has_missing,
                                                cls, filt, emit)
     finally:
-        writer.close()
-        engine.ticker.finalize()
+        if writer is not None:
+            writer.close()
+        ticker.finalize()
+    if writer is not None and settings.sort_shards and out != "-":
+        from ..post.sort import sort_two
+        tmp_sorted = out[:-4] + ".sorting.two"
+        sort_two(out, tmp_sorted, threads=settings.threads)
+        os.replace(tmp_sorted, out)
+        log("LOG", f"Shard {out} sorted in place (presorted merge ready)",
+            sub="SORT")
+    if n_procs > 1:
+        # every shard exists before any process returns, so a driving
+        # script can merge right after rank 0 finishes
+        dist.sync_shards()
+        if not dcn:
+            log("LOG", f"Shard {out} complete; merge the shards with "
+                f"parallel.merge_shards", sub="DIST")
     result.elapsed = timer.elapsed()
     log("LOG", f"Computed {pretty_int(result.n_pairs)} pairs -> "
         f"{pretty_int(result.n_records)} records in "
@@ -646,5 +762,5 @@ def _compute(settings, device, reader, timer) -> CalcResult:
         f"({pretty_int(int(result.pairs_per_sec))} pairs/s)",
         sub="PROGRESS")
     if settings.performance:
-        report_performance(engine.stats)
+        report_performance(engine.stats if engine is not None else {})
     return result

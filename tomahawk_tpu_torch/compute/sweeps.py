@@ -15,6 +15,15 @@ of the JAX package's `_pack_cols`: while the parts fit uint16
 (`pack16_ok`) they ride two per column as `lo | hi << 16`, an odd last
 part unshifted; otherwise one part per column. `unpack_payload` is the
 host inverse, as the JAX package has it.
+
+Samples-sharded sweeps (`make_cfg(..., psum_group=...)`, the counterpart
+of the JAX sweeps under a mesh with a 'samples' axis): every rank of the
+group holds a word slice of the planes (`planes_to_device(...,
+word_slice=(s, S))`) and walks the same tile list; per tile it runs
+`tile_local_parts`, sums the parts over the group in place
+(`parallel.all_reduce_parts`, the JAX `psum`) and runs `tile_epilogue`
+on the global counts, then the same compaction. Counts and survivor rows
+are then identical on every rank.
 """
 
 import numpy as np
@@ -23,13 +32,16 @@ import torch
 from ..ops import _build
 from ..ops import ld_kernels as K
 from ..ops.tiles import (payload_cols, plane_keys, tile_buffers,
-                         tile_prefilter)
+                         tile_epilogue, tile_local_parts, tile_prefilter)
+from ..parallel.distributed import all_reduce_parts
 
 #: device tensors the sweeps may read: uint32 planes (as int32),
 #: positions and contig ids (window sweeps), per-variant allele,
 #: missing-allele and genotype-class counts, and the real-row flags
 DEV_KEYS = ("alt_bits", "miss_bits", "het_bits", "hom_bits", "valid_bits",
             "pos", "rid", "ac", "an", "n_het", "n_hom", "valid")
+#: the packed-word planes: what a samples-sharded run slices over ranks
+WORD_KEYS = ("alt_bits", "miss_bits", "het_bits", "hom_bits", "valid_bits")
 
 
 def dev_keys_for(cfg) -> tuple:
@@ -45,14 +57,28 @@ def dev_keys_for(cfg) -> tuple:
     return tuple(k for k in DEV_KEYS if k in keys)
 
 
-def planes_to_device(stacked: dict, device, keys=DEV_KEYS) -> dict:
+def planes_to_device(stacked: dict, device, keys=DEV_KEYS,
+                     word_slice=None) -> dict:
     """The port's device tensors for `keys`, from the numpy
     plane dict (`bitpack.stack_planes` output): the counterpart of the
     JAX engine's band upload (`LdEngine._upload` / `_band_dev_get`).
-    uint32 planes become int32 views of the same bits."""
+    uint32 planes become int32 views of the same bits. With
+    `word_slice=(s, S)` each word plane uploads only the s-th of S equal
+    slices of its word axis, the axis first padded to a multiple of S:
+    with zeros, and with ones for `miss_bits` (padding is "missing"), as
+    the JAX engine pads for a 'samples' mesh axis."""
     out = {}
     for k in keys:
-        a = np.ascontiguousarray(stacked[k])
+        a = stacked[k]
+        if word_slice is not None and k in WORD_KEYS:
+            s, S = word_slice
+            wl = -(-a.shape[-1] // S)
+            a = a[..., s * wl:(s + 1) * wl]
+            if a.shape[-1] < wl:
+                pad = np.zeros((*a.shape[:-1], wl - a.shape[-1]), a.dtype)
+                a = np.concatenate([a, ~pad if k == "miss_bits" else pad],
+                                   axis=-1)
+        a = np.ascontiguousarray(a)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
         out[k] = torch.from_numpy(a).to(device)
@@ -61,10 +87,12 @@ def planes_to_device(stacked: dict, device, keys=DEV_KEYS) -> dict:
 
 def make_cfg(table: str, has_missing: bool, cls: str, B: int,
              n_samples: int, window: int, min_r2: float, max_r2: float,
-             min_dprime: float = 0.0, max_dprime: float = 100.0) -> dict:
-    """Sweep configuration. Raises NotImplementedError for what this
-    slice of the port does not run yet, naming the ROADMAP.md queue 1
-    item that adds it."""
+             min_dprime: float = 0.0, max_dprime: float = 100.0,
+             psum_group=None) -> dict:
+    """Sweep configuration. `psum_group` (a parallel.ProcessGroup) makes
+    the sweeps samples-sharded: the parts of every tile are summed over
+    its ranks. Raises NotImplementedError for what this slice of the port
+    does not run yet, naming the ROADMAP.md queue 1 item that adds it."""
     if table not in ("phased", "unphased") or cls not in ("all", "clean",
                                                           "missing"):
         raise ValueError(f"no sweep group ({table!r}, {cls!r})")
@@ -75,7 +103,7 @@ def make_cfg(table: str, has_missing: bool, cls: str, B: int,
                                   "yet (ROADMAP.md queue 1 item 16)")
     return dict(table=table, has_missing=has_missing, cls=cls, B=B,
                 n_samples=n_samples, window=window, min_r2=min_r2,
-                max_r2=max_r2)
+                max_r2=max_r2, psum_group=psum_group)
 
 
 def pack16_ok(cfg) -> bool:
@@ -198,6 +226,18 @@ def _zeros(dev, *shape):
     return torch.zeros(shape, dtype=torch.int32, device=dev["valid"].device)
 
 
+def _tile(dev, i, j, diag, cfg, out):
+    """(mask, parts) of one tile into `out`: the fused tile kernel, or
+    in a samples-sharded sweep the local parts, their sum over the group
+    and the epilogue."""
+    group = cfg["psum_group"]
+    if group is None:
+        return tile_prefilter(dev, i, j, diag, cfg, out)
+    tile_local_parts(dev, i, j, cfg, out)
+    all_reduce_parts(out[1], group)
+    return tile_epilogue(dev, i, j, diag, cfg, out)
+
+
 def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
     """Per-tile counts AND capped survivor extraction at a running
     offset over a tile list: (n_pass [T], n_cand [T], buf [outcap,
@@ -212,8 +252,8 @@ def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
     out = tile_buffers(cfg, buf.device)
     for t in range(T):
         if live[t]:
-            mask, parts = tile_prefilter(dev, int(pi[t]), int(pj[t]),
-                                         bool(dg[t]), cfg, out)
+            mask, parts = _tile(dev, int(pi[t]), int(pj[t]), bool(dg[t]),
+                                cfg, out)
             compact_survivors(mask, parts, off, buf, n_pass, n_cand, t,
                               cap)
     return n_pass, n_cand, buf
@@ -230,8 +270,8 @@ def extract_sweep(dev, pi, pj, dg, off, *, cfg, cap, outcap):
     # a copy: the compaction advances each slot in place
     offs = torch.tensor(np.asarray(off), dtype=torch.int32, device=buf.device)
     for t in range(len(pi)):
-        mask, parts = tile_prefilter(dev, int(pi[t]), int(pj[t]),
-                                     bool(dg[t]), cfg, out)
+        mask, parts = _tile(dev, int(pi[t]), int(pj[t]), bool(dg[t]), cfg,
+                            out)
         compact_survivors(mask, parts, offs[t:t + 1], buf, n_pass, n_cand,
                           t, cap)
     return buf
@@ -243,8 +283,8 @@ def count_sweep(dev, pi, pj, dg, live, *, cfg):
     out = tile_buffers(cfg, n.device)
     for t in range(len(pi)):
         if live[t]:
-            mask, _ = tile_prefilter(dev, int(pi[t]), int(pj[t]),
-                                     bool(dg[t]), cfg, out)
+            mask, _ = _tile(dev, int(pi[t]), int(pj[t]), bool(dg[t]), cfg,
+                            out)
             n[t] = (mask == 2).sum()
             nc[t] = (mask != 0).sum()
     return n, nc

@@ -26,7 +26,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "tomahawk_tpu_torch")
-SOURCES = ("phased_tile.cu", "parts_tile.cu", "compact.cu")
+SOURCES = ("phased_tile.cu", "parts_tile.cu", "compact.cu", "local_parts.cu",
+           "epilogue.cu")
 #: headers the sources include (part of the build hash)
 HEADERS = ("prefilter.cuh",)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -45,6 +46,12 @@ KERNELS = {
     "compact": dict(
         source="tomahawk_tpu_torch/csrc/compact.cu",
         replaces="tomahawk_tpu/ops/ld_kernels.py:364"),
+    "local_parts": dict(
+        source="tomahawk_tpu_torch/csrc/local_parts.cu",
+        replaces="tomahawk_tpu/ops/pallas_tiles.py:221"),
+    "tile_epilogue": dict(
+        source="tomahawk_tpu_torch/csrc/epilogue.cu",
+        replaces="tomahawk_tpu/compute/sweeps.py:279"),
 }
 
 #: launches of each kernel, counted by its wrapper where it launches
@@ -69,6 +76,13 @@ _SIGNATURES = {
     # scratch, buf, stream
     "twk_compact": [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
                     _P],
+    # kind, x_i, y_i, z_i, x_j, y_j, z_j, B, W, parts, stream
+    "twk_local_parts": [_I] + [_P] * 6 + [_I] * 2 + [_P] * 2,
+    # kind, parts, ac_i, ac_j, valid_i, valid_j, an_i, an_j, n_het_i,
+    # n_hom_i, n_het_j, n_hom_j, pos_i, pos_j, rid_i, rid_j, window, cls, B,
+    # n_samples, lo, hi, need_nonzero, diag, mask, stream
+    "twk_tile_epilogue": [_I] + [_P] * 15 + [_I] * 4 + [_F] * 2 + [_I] * 2
+    + [_P] * 2,
 }
 
 _lock = threading.Lock()

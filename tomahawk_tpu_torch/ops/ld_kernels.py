@@ -113,6 +113,42 @@ def unphased_cells(parts, n_het_a, n_hom_a, n_het_b, n_hom_b,
     return (T00, T01, T02, T10, T11, T12, T20, T21, T22)
 
 
+def local_parts_tile(planes_a, planes_b, table: str, has_missing: bool):
+    """The raw contractions of one tile over the words given, as a
+    tuple in the column order of `*_parts_tile`: the plain version of
+    the parts-only kernel (pallas_tiles.tile_parts_pallas). `planes_a`
+    and `planes_b` hold each side's planes in the order of
+    tiles.plane_keys: (alt[, miss]) or (het, hom[, valid]). On a word
+    slice of the planes these are the slice's share of the counts; the
+    shares of all slices sum to the full-width parts, provided the miss
+    plane's padding words are all ones."""
+    if table == "phased":
+        miss = (planes_a[1], planes_b[1]) if has_missing else (None, None)
+        return phased_parts_tile(planes_a[0], planes_b[0], *miss)
+    val_a, val_b = ((planes_a[2], planes_b[2]) if has_missing
+                    else (None, None))
+    return unphased_parts_tile(planes_a[0], planes_a[1], val_a,
+                               planes_b[0], planes_b[1], val_b, has_missing)
+
+
+def epilogue_tile(parts, pair_mask, table: str, n_samples: int,
+                  min_r2: float, max_r2: float, ac_a, ac_b, n_het_a=None,
+                  n_hom_a=None, n_het_b=None, n_hom_b=None):
+    """mask u8 [I, J] (0 = not a candidate, 1 = candidate, 2 = survivor
+    of the f32 prefilter) from a tile's global `parts` and its candidate
+    mask `pair_mask` (pair_mask_tile): the cells and the prefilter that
+    sweeps.tile_prefilter runs after the psum of the samples-sharded
+    sweep. The n_het/n_hom counts serve the unphased table only."""
+    if table == "phased":
+        cells = phased_cells(parts, ac_a, ac_b, n_samples)
+        pf = phased_prefilter_cells(cells, pair_mask, min_r2, max_r2)
+    else:
+        cells = unphased_cells(parts, n_het_a, n_hom_a, n_het_b, n_hom_b,
+                               n_samples)
+        pf = unphased_prefilter_cells(cells, pair_mask, min_r2, max_r2)
+    return pair_mask.to(torch.uint8) + pf.to(torch.uint8)
+
+
 def pair_mask_tile(valid_a, valid_b, ac_a, ac_b, diagonal: bool,
                    cls: str = "all", an_a=None, an_b=None, window: int = 0,
                    pos_a=None, pos_b=None, rid_a=None, rid_b=None):

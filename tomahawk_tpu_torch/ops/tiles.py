@@ -25,6 +25,15 @@ candidate, 2 = survivor of the f32 prefilter, the diagonal triangle
 applied) and parts i32 [P, B, B], the raw contractions in the column
 order of ld_kernels.*_parts_tile: the TPU kernel's contract. In window
 mode the kernels' parts are defined only where mask >= 1.
+
+The samples-sharded sweep (compute/sweeps.py with a process group) holds
+only a word slice of every plane on each rank, so it takes the tile in
+two steps with an all-reduce of the parts between them:
+`tile_local_parts` (csrc/local_parts.cu, the counterpart of
+`tile_parts_pallas`: the P parts of the local words, every lane written)
+and `tile_epilogue` (csrc/epilogue.cu: the mask from the global parts).
+Both follow the same rule: the kernel for CUDA tensors, the plain
+version for CPU tensors.
 """
 
 import torch
@@ -63,37 +72,39 @@ def tile_buffers(cfg, device):
             torch.empty((P, B, B), dtype=torch.int32, device=device))
 
 
-def tile_prefilter_plain(dev, i: int, j: int, diag: bool, cfg):
-    """The plain PyTorch version: fresh (mask, parts) tensors."""
-    table, miss, cls = cfg["table"], cfg["has_missing"], cfg["cls"]
-    ac_i, ac_j = dev["ac"][i], dev["ac"][j]
-    an_i, an_j = ((dev["an"][i], dev["an"][j]) if cls != "all"
-                  else (None, None))
-    win = cfg["window"]
+def _sides(dev, i: int, j: int, cfg):
+    keys = plane_keys(cfg["table"], cfg["has_missing"])
+    return [dev[k][i] for k in keys], [dev[k][j] for k in keys]
+
+
+def tile_local_parts_plain(dev, i: int, j: int, cfg):
+    """The plain PyTorch version of `tile_local_parts`: a tuple of P
+    fresh [B, B] tensors over the words `dev` holds."""
+    return K.local_parts_tile(*_sides(dev, i, j, cfg), cfg["table"],
+                              cfg["has_missing"])
+
+
+def tile_epilogue_plain(dev, i: int, j: int, diag: bool, cfg, parts):
+    """The plain PyTorch version of `tile_epilogue`: a fresh mask from
+    the global parts (a tuple or a [P, B, B] tensor)."""
+    cls, win = cfg["cls"], cfg["window"]
+    an = (dev["an"][i], dev["an"][j]) if cls != "all" else (None, None)
     pos_rid = ((dev["pos"][i], dev["pos"][j], dev["rid"][i], dev["rid"][j])
                if win > 0 else ())
-    m = K.pair_mask_tile(dev["valid"][i], dev["valid"][j], ac_i, ac_j,
-                         diag, cls, an_i, an_j, win, *pos_rid)
-    n = cfg["n_samples"]
-    if table == "phased":
-        miss_i, miss_j = ((dev["miss_bits"][i], dev["miss_bits"][j])
-                          if miss else (None, None))
-        parts = K.phased_parts_tile(dev["alt_bits"][i], dev["alt_bits"][j],
-                                    miss_i, miss_j)
-        cells = K.phased_cells(parts, ac_i, ac_j, n)
-        pf = K.phased_prefilter_cells(cells, m, cfg["min_r2"],
-                                      cfg["max_r2"])
-    else:
-        val_i, val_j = ((dev["valid_bits"][i], dev["valid_bits"][j])
-                        if miss else (None, None))
-        parts = K.unphased_parts_tile(
-            dev["het_bits"][i], dev["hom_bits"][i], val_i,
-            dev["het_bits"][j], dev["hom_bits"][j], val_j, miss)
-        cells = K.unphased_cells(parts, dev["n_het"][i], dev["n_hom"][i],
-                                 dev["n_het"][j], dev["n_hom"][j], n)
-        pf = K.unphased_prefilter_cells(cells, m, cfg["min_r2"],
-                                        cfg["max_r2"])
-    return m.to(torch.uint8) + pf.to(torch.uint8), torch.stack(parts)
+    m = K.pair_mask_tile(dev["valid"][i], dev["valid"][j], dev["ac"][i],
+                         dev["ac"][j], diag, cls, *an, win, *pos_rid)
+    nh = ((dev["n_het"][i], dev["n_hom"][i], dev["n_het"][j],
+           dev["n_hom"][j]) if cfg["table"] == "unphased" else ())
+    return K.epilogue_tile(tuple(parts), m, cfg["table"], cfg["n_samples"],
+                           cfg["min_r2"], cfg["max_r2"], dev["ac"][i],
+                           dev["ac"][j], *nh)
+
+
+def tile_prefilter_plain(dev, i: int, j: int, diag: bool, cfg):
+    """The plain PyTorch version: fresh (mask, parts) tensors."""
+    parts = tile_local_parts_plain(dev, i, j, cfg)
+    return (tile_epilogue_plain(dev, i, j, diag, cfg, parts),
+            torch.stack(parts))
 
 
 def kernel_name(cfg) -> str:
@@ -120,16 +131,8 @@ def tile_prefilter(dev, i: int, j: int, diag: bool, cfg, out=None):
     return out
 
 
-def _check_inputs(dev, cfg, out):
-    """(NB, B, W) after checking every tensor the kernel reads and
-    writes: dtype, shape, contiguity and device."""
-    keys = plane_keys(cfg["table"], cfg["has_missing"])
-    first = dev[keys[0]]
-    if first.dim() != 3:
-        raise ValueError(f"{keys[0]} must be int32 [NB, B, W]")
-    NB, B, W = first.shape
-    P = payload_cols(cfg["table"], cfg["has_missing"])
-    want = [(k, torch.int32, (NB, B, W)) for k in keys]
+def _meta_keys(cfg):
+    """The per-variant tensors a tile's mask and cells read."""
     meta = ["ac", "valid"]
     if cfg["cls"] != "all":
         meta.append("an")
@@ -137,26 +140,49 @@ def _check_inputs(dev, cfg, out):
         meta += ["n_het", "n_hom"]
     if cfg["window"] > 0:
         meta += ["pos", "rid"]
-    want += [(k, torch.bool if k == "valid" else torch.int32, (NB, B))
-             for k in meta]
-    tensors = [(k, dev[k], dt, shape) for k, dt, shape in want]
-    tensors += [("mask", out[0], torch.uint8, (B, B)),
-                ("parts", out[1], torch.int32, (P, B, B))]
+    return meta
+
+
+def _check_inputs(dev, cfg, out, planes=True, meta=True):
+    """(NB, B, W) after checking every tensor the kernel reads and
+    writes: dtype, shape, contiguity and device. W is the word count the
+    device holds, which on a rank of a samples-sharded run is its slice
+    of the row. `planes` and `meta` select what the kernel reads (the
+    parts-only kernel reads no metadata and writes no mask, the epilogue
+    reads no plane; W is then 0)."""
+    mask, parts = out
+    device = parts.device
+    B = cfg["B"]
+    P = payload_cols(cfg["table"], cfg["has_missing"])
+    tensors = [("parts", parts, torch.int32, (P, B, B))]
+    W = 0
+    if planes:
+        keys = plane_keys(cfg["table"], cfg["has_missing"])
+        first = dev[keys[0]]
+        if first.dim() != 3 or first.shape[2] < 1:
+            raise ValueError(f"{keys[0]} must be int32 [NB, B, W >= 1]")
+        NB, _, W = first.shape
+        tensors += [(k, dev[k], torch.int32, (NB, B, W)) for k in keys]
+    else:
+        NB = dev["ac"].shape[0]
+    if meta:
+        tensors += [(k, dev[k], torch.bool if k == "valid" else torch.int32,
+                     (NB, B)) for k in _meta_keys(cfg)]
+        tensors.append(("mask", mask, torch.uint8, (B, B)))
     for name, t, dtype, shape in tensors:
         if t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != first.device:
+                or not t.is_contiguous() or t.device != device:
             raise ValueError(f"tile input {name} {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}: expected {shape} "
-                             f"{dtype}, contiguous, on {first.device}")
-    if B != cfg["B"] or B * B >= 1 << 31:
-        raise ValueError(f"tile rows {B} do not match B={cfg['B']}")
+                             f"{dtype}, contiguous, on {device}")
+    if B * B >= 1 << 31:
+        raise ValueError(f"tile rows {B} too many for an int32 flat index")
     return NB, B, W
 
 
 def _launch(dev, i, j, diag, cfg, out):
     NB, B, W = _check_inputs(dev, cfg, out)
-    if not (0 <= i < NB and 0 <= j < NB):
-        raise ValueError(f"tile ({i}, {j}) outside [{NB}]")
+    _in_range(i, j, NB)
     table, miss, cls = cfg["table"], cfg["has_missing"], cfg["cls"]
     mask, parts = out
     stream = torch.cuda.current_stream(mask.device).cuda_stream
@@ -195,4 +221,89 @@ def _launch(dev, i, j, diag, cfg, out):
             parts.data_ptr(), stream)
     _build.check(rc, f"{name} launch")
     _build.LAUNCHES[name] += 1
+    return out
+
+
+#: local_parts.cu's and epilogue.cu's instance codes
+_LOCAL_KIND = {("phased", False): 0, ("phased", True): 1,
+               ("unphased", False): 2, ("unphased", True): 3}
+
+
+def tile_local_parts(dev, i: int, j: int, cfg, out):
+    """The P raw parts of tile (i, j) over the words `dev` holds (a
+    rank's slice of every plane in a samples-sharded run), written into
+    every lane of out[1] (tile_buffers); out[0] is left alone. The sum
+    over the ranks is the tile's global parts."""
+    parts = out[1]
+    if parts.is_cuda:
+        return _launch_local_parts(dev, i, j, cfg, out)
+    if parts.device.type != "cpu":
+        raise ValueError(f"no tile kernel for device {parts.device}")
+    _build.PLAIN_CALLS["local_parts"] += 1
+    parts.copy_(torch.stack(tile_local_parts_plain(dev, i, j, cfg)))
+    return parts
+
+
+def tile_epilogue(dev, i: int, j: int, diag: bool, cfg, out):
+    """The mask of tile (i, j) from its global parts in out[1], written
+    into out[0]; returns `out`, the (mask, parts) a fused tile kernel
+    gives."""
+    mask, parts = out
+    if parts.is_cuda:
+        return _launch_epilogue(dev, i, j, diag, cfg, out)
+    if parts.device.type != "cpu":
+        raise ValueError(f"no tile kernel for device {parts.device}")
+    _build.PLAIN_CALLS["tile_epilogue"] += 1
+    mask.copy_(tile_epilogue_plain(dev, i, j, diag, cfg, parts))
+    return out
+
+
+def _in_range(i, j, NB):
+    if not (0 <= i < NB and 0 <= j < NB):
+        raise ValueError(f"tile ({i}, {j}) outside [{NB}]")
+
+
+def _launch_local_parts(dev, i, j, cfg, out):
+    NB, B, W = _check_inputs(dev, cfg, out, meta=False)
+    _in_range(i, j, NB)
+    keys = plane_keys(cfg["table"], cfg["has_missing"])
+    side = lambda s: [dev[k][s].data_ptr() for k in keys] \
+        + [None] * (3 - len(keys))
+    parts = out[1]
+    rc = _build.library().twk_local_parts(
+        _LOCAL_KIND[(cfg["table"], cfg["has_missing"])], *side(i), *side(j),
+        B, W, parts.data_ptr(),
+        torch.cuda.current_stream(parts.device).cuda_stream)
+    _build.check(rc, "local_parts launch")
+    _build.LAUNCHES["local_parts"] += 1
+    return parts
+
+
+def _launch_epilogue(dev, i, j, diag, cfg, out):
+    NB, B, _ = _check_inputs(dev, cfg, out, planes=False)
+    _in_range(i, j, NB)
+    table, miss, cls = cfg["table"], cfg["has_missing"], cfg["cls"]
+    mask, parts = out
+    ptr = lambda k, s: dev[k][s].data_ptr()
+    an = [ptr("an", i), ptr("an", j)] if cls != "all" else [None, None]
+    nh = ([ptr("n_het", i), ptr("n_hom", i), ptr("n_het", j),
+           ptr("n_hom", j)] if table == "unphased" and not miss
+          else [None] * 4)
+    window = int(cfg["window"])
+    win = ([ptr("pos", i), ptr("pos", j), ptr("rid", i), ptr("rid", j)]
+           if window > 0 else [None] * 4)
+    if table == "phased":
+        lo, hi, need_nonzero = K.prefilter_bounds(cfg["min_r2"],
+                                                  cfg["max_r2"])
+    else:
+        lo, hi = K.unphased_bounds(cfg["min_r2"], cfg["max_r2"])
+        need_nonzero = False
+    rc = _build.library().twk_tile_epilogue(
+        _LOCAL_KIND[(table, miss)], parts.data_ptr(), ptr("ac", i),
+        ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *nh, *win,
+        window, _CLS[cls], B, cfg["n_samples"], float(lo), float(hi),
+        int(need_nonzero), int(bool(diag)), mask.data_ptr(),
+        torch.cuda.current_stream(mask.device).cuda_stream)
+    _build.check(rc, "tile_epilogue launch")
+    _build.LAUNCHES["tile_epilogue"] += 1
     return out
