@@ -11,9 +11,19 @@ Phases, in order; any failure exits non-zero:
 2. build the hand kernels from tomahawk_tpu_torch/csrc with nvcc (one
    process per source) and print ptxas's registers and spills for each
    kernel instance; build the port's native host library with g++;
+   time the MMA probe (csrc/mma_probe.cu): the rates at which the card
+   runs the 1-bit AND+POPC MMA and the int8 MMAs (mma.sync, wgmma);
 3. compare each kernel with its plain PyTorch version at the main
    paths' shapes (B = 4096 variants per tile, 2,504 samples):
-   phased_tile (P = 1, W = 160 words) and compact; every
+   phased_tile (P = 1, W = 160 words) with its counts buffer (against
+   tile_counts_plain of the mask) and compact, with the counts given
+   and without; torch._int_mm on the operands unpacked to int8
+   beforehand, timed beside phased_tile as the library's yardstick of
+   the contraction alone (its result equal to ALTALT; the port never
+   calls it); phased_tile, its counts and compact at odd shapes (63
+   words a row, so rows are not 16-byte aligned; 192 and 320 rows, so
+   the tile's edge cuts a thread block; cls all and clean, window
+   0 and 250,000 bp, a diagonal and an off-diagonal tile); every
    parts_tile instance and phased_tile's clean class on planes with ~2%
    missing genotypes, packed as bitpack.block_to_planes packs them, on
    a diagonal and an off-diagonal tile; compact with 4- and 9-part
@@ -27,8 +37,8 @@ Phases, in order; any failure exits non-zero:
    with two contigs and invalid rows: the mask equal on every lane,
    the parts equal wherever the mask is not 0, the set of thread blocks
    the kernel skipped equal to ld_kernels.block_live's; the share of
-   live thread blocks and of candidates, the time per call and the
-   POPC-rate bound of the live blocks. Then the two kernels of the
+   live thread blocks and of candidates, the time per call, the card's
+   bound of the live blocks and the CUDA-core ceiling. Then the two kernels of the
    samples-sharded sweep: local_parts in its four instances on word
    slices S = 2 and S = 3 of the planes (every lane equal to its plain
    version; the slices' sum equal to the plain full-width parts on
@@ -37,6 +47,15 @@ Phases, in order; any failure exits non-zero:
    250,000 bp, a diagonal and the neighbouring tile (equal to its plain
    version and to the fused kernel's mask on every lane); the time per
    call of each instance beside its bound;
+   Bounds: each contraction's is the card's, the larger of 64
+   operations a pair-word over the rate the card runs the 1-bit AND+POPC
+   MMA at (10.2e15/s, the MMA probe's lowest reading) and its bytes over
+   the HBM rate; beside it `int8_ms`, the same operations over the
+   published int8 tensor-core peak (1.979e15/s), which a bit contraction
+   need not pay, and `cuda_core_ms`, over the POPC rate of the CUDA cores
+   (4.2e12/s), the ceiling of the route parts_tile and local_parts still
+   take. compact's times are the device's, the calls queued ahead of it;
+   its time at the host's pace is printed beside them;
 4. run `calc` through the user's entry points (`python -m
    tomahawk_tpu_torch import`, then `python -m tomahawk_tpu_torch calc`
    in this process, so its kernel launch counts are visible), each path
@@ -77,7 +96,9 @@ Phases, in order; any failure exits non-zero:
    variants), the sparse planes again over `Balancer.window_pairs` at
    windows of 250,000 and 1,000,000 bp, and
    `LdEngine.run_unphased_pairs` on 16 x 4096 random genotype variants
-   without missing data (P = 4) and with 2% (P = 9); and
+   without missing data (P = 4) and with 2% (P = 9); after the timed
+   reps of the sparse and the dense workload one more rep of each under
+   torch.profiler (wall, device busy, idle share, ms by kernel); and
    `LdEngine.run_phased_pairs` over the first 16 blocks of the sparse
    planes (136 tiles) as two samples-sharded ranks on the one card,
    with the time per tile of local_parts, the all-reduce, tile_epilogue
@@ -111,8 +132,21 @@ WINDOWS = (250_000, 1_000_000)
 #: super-block's span (~1.1 Mb) and than the gap between the first and
 #: the third
 CALC_WINDOW = 500_000
-#: POPC rate of one H100 SXM, per second: 132 SMs x 16 a clock x
-#: ~1.98 GHz (the rate PERF.md holds the tile kernels against)
+#: rate of the 1-bit tensor-core MMA (mma.sync.m16n8k256.b1.and.popc, SASS
+#: BMMA.168256.AND.POPC) on one NVIDIA H100 80GB HBM3 at 700 W, operations
+#: per second: the lowest of this script's MMA-probe readings there
+#: (10.2-10.5e15; no data sheet lists it). The rate the contractions'
+#: bound is stated against. An operation is one AND or one add, so a
+#: pair-word is 64.
+B1_OPS_PER_S = 10.2e15
+#: dense int8 tensor-core peak of one H100 SXM, operations per second
+#: (NVIDIA's H100 data sheet: 1,979 TOP/s without sparsity): what the
+#: contractions would cost unpacked to int8 (`int8_ms`), not their bound
+INT8_OPS_PER_S = 1.979e15
+#: POPC rate of the CUDA cores of one H100 SXM, per second: 132 SMs x 16
+#: a clock x ~1.98 GHz. Not the card's bound: the ceiling of the AND +
+#: __popc route, which parts_tile and local_parts still take
+#: (`cuda_core_ms`)
 POPC_PER_S = 4.2e12
 #: HBM3 rate of the H100 SXM, bytes per second (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -126,18 +160,31 @@ def _say(msg):
     print(msg, flush=True)
 
 
-def _cuda_ms(fn, reps=10):
-    """Mean device milliseconds per call of fn, after one warm-up."""
+def _cuda_ms(fn, reps=10, queued=True, rounds=3):
+    """Device milliseconds per call of fn, after one warm-up: the mean
+    over `reps` calls, the least of `rounds` such means (the machine's
+    cores are shared, and a host that stalls for a few ms inside a round
+    of short calls would otherwise show as device time). With `queued`
+    the calls of a round are enqueued behind ~4 ms of other device work
+    (the MMA probe), so the host is ahead of the device throughout and
+    the time is the device's, launch gaps included: neither the host's
+    pace of enqueueing a call that is shorter than its own enqueue, nor the
+    first launch's latency spread over a few short calls."""
     import torch
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    best = float("inf")
+    for _ in range(rounds):
+        if queued:
+            _launch_probe(0, 20000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
 
 
 def report_card():
@@ -150,6 +197,48 @@ def report_card():
          f"(count {torch.cuda.device_count()}, torch {torch.__version__}, "
          f"CUDA {torch.version.cuda})")
     _say(f"nvidia-smi: {smi}")
+
+
+#: operations of one MMA of each probe kind, and MMAs a block runs per
+#: round (csrc/mma_probe.cu)
+PROBE_KINDS = (
+    (0, "mma.sync.m16n8k256.b1.and.popc", 2 * 16 * 8 * 256, 8 * 8),
+    (1, "mma.sync.m16n8k32.s8", 2 * 16 * 8 * 32, 8 * 8),
+    (2, "wgmma.m64n128k32.s8", 2 * 64 * 128 * 32, 2 * 4))
+_probe_out = []
+
+
+def _launch_probe(kind, iters, blocks=528):
+    import torch
+    from tomahawk_tpu_torch.ops import _build
+    if not _probe_out:
+        _probe_out.append(torch.zeros(528 * 256, dtype=torch.int32,
+                                      device="cuda"))
+    rc = _build.library().twk_mma_probe(
+        kind, blocks, iters, _probe_out[0].data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "mma_probe launch")
+
+
+def mma_probe():
+    """The rate of the tensor-core instructions a bit contraction
+    could use (csrc/mma_probe.cu): back-to-back MMAs from every SM, in
+    operations per second, where an operation is one AND/multiply or one
+    add. Returns {instruction: operations per second}."""
+    import torch
+    rates = {}
+    for kind, name, ops, per_round in PROBE_KINDS:
+        blocks = 528 if kind < 2 else 264
+        iters = 20000
+        ms = _cuda_ms(lambda: _launch_probe(kind, iters, blocks), reps=3,
+                      rounds=1)
+        rates[name] = blocks * per_round * iters * ops / (ms * 1e-3)
+    torch.cuda.synchronize()
+    _say("mma probe, operations per second: "
+         + ", ".join(f"{k} {v:.4g}" for k, v in rates.items())
+         + f" (data sheet, int8 dense: {INT8_OPS_PER_S:.4g})")
+    _say(json.dumps({"mma_probe_ops_per_s": rates}))
+    return rates
 
 
 def build_kernels():
@@ -170,10 +259,59 @@ def build_kernels():
          f"({native._SO})")
 
 
+def _check_counts_buffer(label, counts, mask):
+    """The counts a tile kernel wrote equal tile_counts_plain of its
+    mask."""
+    import torch
+    from tomahawk_tpu_torch.ops import tiles
+    if not torch.equal(counts, tiles.tile_counts_plain(mask)):
+        raise SystemExit(f"{label}: the counts buffer differs from "
+                         f"tile_counts_plain of the mask")
+
+
+def _compact_all_ways(tiles_out, ncol, cap, n_tiles):
+    """compact over `n_tiles` (mask, parts, counts) triples at a running
+    offset, three ways: the kernel with the counts given (where a triple
+    has them), the kernel without, the plain version. Returns the three
+    [buf, n_pass, n_cand, off] lists."""
+    import torch
+    from tomahawk_tpu_torch.compute import sweeps
+    outs = []
+    for way in ("counts", "no counts", "plain"):
+        buf = torch.zeros((1 << 18, ncol), dtype=torch.int32, device="cuda")
+        n_pass = torch.zeros(n_tiles, dtype=torch.int32, device="cuda")
+        n_cand = torch.zeros(n_tiles, dtype=torch.int32, device="cuda")
+        off = torch.zeros(1, dtype=torch.int32, device="cuda")
+        for t in range(n_tiles):
+            mask, parts, counts = tiles_out[t % len(tiles_out)]
+            if way == "plain":
+                sweeps.compact_survivors_plain(mask, parts, off, buf, n_pass,
+                                               n_cand, t, cap)
+            else:
+                sweeps.compact_survivors(
+                    mask, parts, off, buf, n_pass, n_cand, t, cap,
+                    counts if way == "counts" else None)
+        torch.cuda.synchronize()
+        outs.append([x.long() for x in (buf, n_pass, n_cand, off)])
+    return outs
+
+
+def _unpack_int8(words):
+    """int32 packed words [B, W] -> int8 0/1 [B, 32 * W]."""
+    import torch
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    return ((words.unsqueeze(-1) >> shifts) & 1).to(torch.int8) \
+        .reshape(words.shape[0], -1)
+
+
 def compare_kernels():
-    """phased_tile (P = 1, cls "all") and compact (one payload part)
-    against their plain versions at the -p main path's shape. Returns
-    {kernel: (max_abs_err, ms, plain_ms)}."""
+    """phased_tile (P = 1, cls "all") with its counts buffer, and compact
+    (one payload part; with the counts given and without) against their
+    plain versions at the -p main path's shape; the time per call of
+    each, and of torch._int_mm on the pre-unpacked operands (cuBLAS's
+    int8 GEMM: the contraction alone, the yardstick the port never
+    calls). Returns {kernel: (max_abs_err, ms, plain_ms)} and a dict of
+    the other times."""
     import torch
     from tomahawk_tpu_torch import workloads
     from tomahawk_tpu_torch.compute import sweeps
@@ -193,68 +331,151 @@ def compare_kernels():
     for name, i, j, diag in (("random", 0, 0, True), ("random", 0, 1, False),
                              ("grouped", 0, 0, True)):
         dev = devs[name]
-        mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg)
+        counts = tiles.counts_buffer(cfg, "cuda").fill_(-1)
+        mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg,
+                                           counts=counts)
         want_m, want_p = tiles.tile_prefilter_plain(dev, i, j, diag, cfg)
         err = max(int((mask.int() - want_m.int()).abs().max()),
                   int((parts - want_p).abs().max()))
         _say(f"  phased_tile {name} ({i},{j}) diag={diag}: "
              f"{int((mask == 2).sum())} survivors, "
-             f"{int((mask != 0).sum())} candidates, max |diff| {err}")
+             f"{int((mask != 0).sum())} candidates, max |diff| {err}, "
+             f"counts equal")
         if err:
             raise SystemExit("phased_tile disagrees with its plain version")
+        _check_counts_buffer(f"phased_tile {name} ({i},{j})", counts, mask)
         tile_err = max(tile_err, err)
-        masks.append((mask, parts))
+        masks.append((mask, parts, counts))
 
     comp_err = 0
     for cap in (32768, 256):
-        outs = []
-        for fn in (sweeps.compact_survivors,
-                   sweeps.compact_survivors_plain):
-            buf = torch.zeros((1 << 18, 2), dtype=torch.int32, device="cuda")
-            n_pass = torch.zeros(3, dtype=torch.int32, device="cuda")
-            n_cand = torch.zeros(3, dtype=torch.int32, device="cuda")
-            off = torch.zeros(1, dtype=torch.int32, device="cuda")
-            for t, (mask, parts) in enumerate(masks):
-                fn(mask, parts, off, buf, n_pass, n_cand, t, cap)
-            outs.append([x.long() for x in (buf, n_pass, n_cand, off)])
-        err = max(int((a - b).abs().max()) for a, b in zip(*outs))
-        _say(f"  compact cap={cap}: n_pass {outs[0][1].tolist()}, "
-             f"n_cand {outs[0][2].tolist()}, max |diff| {err}")
+        outs = _compact_all_ways(masks, 2, cap, 3)
+        err = max(int((a - b).abs().max())
+                  for got in outs[:2] for a, b in zip(got, outs[2]))
+        _say(f"  compact cap={cap}, counts given / not given: n_pass "
+             f"{outs[0][1].tolist()}, n_cand {outs[0][2].tolist()}, max "
+             f"|diff| {err}")
         if err:
             raise SystemExit("compact disagrees with its plain version")
         comp_err = max(comp_err, err)
 
     dev = devs["random"]
     out = tiles.tile_buffers(cfg, "cuda")
+    counts = tiles.counts_buffer(cfg, "cuda")
     tile_ms = _cuda_ms(lambda: tiles.tile_prefilter(dev, 0, 1, False, cfg,
-                                                    out))
+                                                    out, counts))
     tile_plain = _cuda_ms(
         lambda: tiles.tile_prefilter_plain(dev, 0, 1, False, cfg))
-    mask, parts = masks[2]
-    comp_ms, comp_plain = _time_compact(mask, parts, 2)
+    # the library's int8 GEMM on the same operands, unpacked beforehand
+    a8 = _unpack_int8(dev["alt_bits"][0])
+    b8t = _unpack_int8(dev["alt_bits"][1]).t()
+    if not torch.equal(torch._int_mm(a8, b8t), masks[1][1][0]):
+        raise SystemExit("torch._int_mm of the unpacked operands differs "
+                         "from phased_tile's ALTALT")
+    library_ms = _cuda_ms(lambda: torch._int_mm(a8, b8t))
+    del a8, b8t
+    mask, parts, counts = masks[2]
+    times = _time_compact(mask, parts, 2, counts)
     _say(f"  ms per call: phased_tile {tile_ms:.4f} (plain "
-         f"{tile_plain:.4f}); compact, 1 part {comp_ms:.4f} (plain "
-         f"{comp_plain:.4f})")
-    return {"phased_tile": (tile_err, tile_ms, tile_plain),
-            "compact": (comp_err, comp_ms, comp_plain)}
+         f"{tile_plain:.4f}; torch._int_mm of the pre-unpacked int8 "
+         f"operands, contraction only, {library_ms:.4f}); compact, 1 part, "
+         f"{int((mask == 2).sum())} survivors: counts given "
+         f"{times['ms']:.4f}, not given {times['no_counts_ms']:.4f}, "
+         f"at the host's pace {times['host_paced_ms']:.4f} (plain "
+         f"{times['plain_ms']:.4f})")
+    return ({"phased_tile": (tile_err, tile_ms, tile_plain),
+             "compact": (comp_err, times["ms"], times["plain_ms"])},
+            dict(times, library_ms=library_ms,
+                 kept=min(int((mask == 2).sum()), 32768)))
 
 
-def _time_compact(mask, parts, ncol):
-    """(kernel ms, plain ms) per call of one tile's compaction at cap
-    32768 into an [2**18, ncol] buffer."""
+def _time_compact(mask, parts, ncol, counts=None):
+    """Times per call of one tile's compaction at cap 32768 into an
+    [2**18, ncol] buffer, the scratch allocated once: `ms` (with the
+    counts given, where there are any) and `no_counts_ms` on the device's
+    clock with the calls queued ahead of it; `host_paced_ms`, the same
+    call as `ms` enqueued as fast as the host can, with the offset reset
+    before each (how it was timed before the calls were queued); and
+    `plain_ms`."""
     import torch
     from tomahawk_tpu_torch.compute import sweeps
     bufs = [torch.zeros((1 << 18, ncol), dtype=torch.int32, device="cuda"),
             torch.zeros(1, dtype=torch.int32, device="cuda"),
             torch.zeros(1, dtype=torch.int32, device="cuda"),
             torch.zeros(1, dtype=torch.int32, device="cuda")]
+    scratch = sweeps.compact_scratch(mask.shape[0], "cuda")
 
-    def compact(fn):
+    def kernel(cnt, reset=False):
+        if reset:
+            bufs[3].zero_()
+        sweeps.compact_survivors(mask, parts, bufs[3], bufs[0], bufs[1],
+                                 bufs[2], 0, 32768, cnt, scratch)
+
+    def plain():
         bufs[3].zero_()
-        fn(mask, parts, bufs[3], bufs[0], bufs[1], bufs[2], 0, 32768)
+        sweeps.compact_survivors_plain(mask, parts, bufs[3], bufs[0],
+                                       bufs[1], bufs[2], 0, 32768)
 
-    return (_cuda_ms(lambda: compact(sweeps.compact_survivors)),
-            _cuda_ms(lambda: compact(sweeps.compact_survivors_plain)))
+    return dict(
+        ms=_cuda_ms(lambda: kernel(counts), reps=50),
+        no_counts_ms=_cuda_ms(lambda: kernel(None), reps=50),
+        host_paced_ms=_cuda_ms(lambda: kernel(counts, reset=True),
+                               queued=False),
+        plain_ms=_cuda_ms(plain))
+
+
+#: odd shapes of the phased_tile check: (tile rows, words kept of the
+#: 64 a 1,000-sample plane has). 63 words hold all 2,000 haplotypes and
+#: make rows that are not 16-byte aligned; 192 and 320 rows are 1.5 and
+#: 2.5 thread blocks
+ODD_SHAPES = ((192, 63), (320, 63), (192, 64))
+
+
+def compare_odd_shapes():
+    """phased_tile and its counts against the plain versions where the
+    staging cannot use 16-byte copies (W % 4 != 0) and where the tile's
+    edge cuts a thread block: cls all and clean, window 0 and 250 kb, a
+    diagonal and an off-diagonal tile; then compact on those masks, with
+    counts and without. Equal on every lane."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import tiles
+    n_samples = 1000
+    for Bt, W in ODD_SHAPES:
+        st = workloads.genotype_planes(2, Bt, n_samples, 0.02)
+        st = dict(st, alt_bits=st["alt_bits"][..., :W])
+        dev = sweeps.planes_to_device(st, "cuda")
+        n = 0
+        for cls in ("all", "clean"):
+            for window in (0, WINDOWS[0]):
+                cfg = sweeps.make_cfg("phased", False, cls, Bt, n_samples,
+                                      window, MIN_R2, 100.0)
+                got = []
+                for i, j, diag in ((1, 1, True), (0, 1, False)):
+                    label = (f"phased_tile B={Bt} W={W} {cls} w={window} "
+                             f"({i},{j})")
+                    counts = tiles.counts_buffer(cfg, "cuda").fill_(-1)
+                    mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg,
+                                                       counts=counts)
+                    want_m, want_p = tiles.tile_prefilter_plain(dev, i, j,
+                                                                diag, cfg)
+                    on = (want_m != 0).unsqueeze(0) if window else 1
+                    if not torch.equal(mask, want_m) \
+                            or not torch.equal(parts * on, want_p * on):
+                        raise SystemExit(f"{label} differs from its plain "
+                                         f"version")
+                    _check_counts_buffer(label, counts, mask)
+                    got.append((mask, parts, counts))
+                    n += int((mask == 2).sum())
+                outs = _compact_all_ways(got, 2, 256, 2)
+                if any(not torch.equal(a, b) for g in outs[:2]
+                       for a, b in zip(g, outs[2])):
+                    raise SystemExit(f"compact B={Bt} {cls} w={window} "
+                                     f"differs from its plain version")
+        _say(f"  phased_tile, counts and compact at B={Bt}, W={W} of "
+             f"{n_samples} samples: cls all / clean x window 0 / "
+             f"{WINDOWS[0]} x two tiles, {n} survivors, equal")
 
 
 def genotype_planes(n_blocks, *args, **kw):
@@ -318,7 +539,9 @@ def compare_payloads():
     """compact with 4- and 9-part payloads against its plain version:
     pair-packed at 2,504 samples (B = 4096), one part per column at
     70,000 unphased samples (a 512-row tile, where pack16_ok is false).
-    Returns {P: (max_abs_err, ms, plain_ms, rows kept by the timed
+    Their masks come from parts_tile on the calc paths, which writes no
+    counts, so this is the compaction's path that counts the mask
+    itself. Returns {P: (max_abs_err, ms, plain_ms, rows kept by the timed
     call)} at 2,504 samples."""
     import torch
     from tomahawk_tpu_torch.compute import sweeps
@@ -337,30 +560,22 @@ def compare_payloads():
                                   generator=gen)
             err = 0
             for cap in (32768, 256):
-                outs = []
-                for fn in (sweeps.compact_survivors,
-                           sweeps.compact_survivors_plain):
-                    buf = torch.zeros((1 << 18, ncol), dtype=torch.int32,
-                                      device="cuda")
-                    cnt = [torch.zeros(2, dtype=torch.int32, device="cuda")
-                           for _ in range(2)]
-                    off = torch.zeros(1, dtype=torch.int32, device="cuda")
-                    for t in range(2):
-                        fn(mask, parts, off, buf, cnt[0], cnt[1], t, cap)
-                    outs.append([x.long() for x in (buf, *cnt, off)])
+                outs = _compact_all_ways([(mask, parts, None)], ncol, cap, 2)
                 err = max([err] + [int((a - b).abs().max())
-                                   for a, b in zip(*outs)])
+                                   for a, b in zip(outs[1], outs[2])])
             _say(f"  compact P={P}, {n_samples} samples, {ncol} columns, "
-                 f"B={Bt}: {int(outs[0][1][0])} survivors, max |diff| "
-                 f"{err}")
+                 f"B={Bt}, no counts given: {int(outs[1][1][0])} survivors, "
+                 f"max |diff| {err}")
             if err:
                 raise SystemExit("compact disagrees with its plain version")
             if n_samples == N_SAMPLES:
-                ms, plain = _time_compact(mask, parts, ncol)
-                _say(f"  ms per call: compact, {P} parts {ms:.4f} (plain "
-                     f"{plain:.4f})")
-                kept = min(int(outs[0][1][0]), 32768)
-                res[P] = (err, ms, plain, kept)
+                tm = _time_compact(mask, parts, ncol)
+                _say(f"  ms per call: compact, {P} parts, no counts given "
+                     f"{tm['no_counts_ms']:.4f}, at the host's pace "
+                     f"{tm['host_paced_ms']:.4f} (plain "
+                     f"{tm['plain_ms']:.4f})")
+                kept = min(int(outs[1][1][0]), 32768)
+                res[P] = (err, tm["no_counts_ms"], tm["plain_ms"], kept)
     return res
 
 
@@ -374,18 +589,24 @@ def _check_window_tile(dev, host, i, j, diag, cfg, label):
     """One window instance on one tile against its plain version: mask
     on every lane, parts where mask >= 1, and the kernel's skipped
     thread blocks (parts left at the -1 they were filled with) against
-    ld_kernels.block_live. Returns (live blocks, all blocks,
+    ld_kernels.block_live; phased_tile's counts buffer, dead blocks'
+    cells included, against tile_counts_plain. Returns (live blocks, all blocks,
     candidates)."""
     import torch
     from tomahawk_tpu_torch.ops import ld_kernels as K
     from tomahawk_tpu_torch.ops import tiles
     out = tiles.tile_buffers(cfg, "cuda")
     out[1].fill_(-1)
-    mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg, out)
+    counts = tiles.counts_buffer(cfg, "cuda")
+    if counts is not None:
+        counts.fill_(-1)
+    mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg, out, counts)
     want_m, want_p = tiles.tile_prefilter_plain(dev, i, j, diag, cfg)
     torch.cuda.synchronize()
     if not torch.equal(mask, want_m):
         raise SystemExit(f"{label}: mask differs from the plain version")
+    if counts is not None:
+        _check_counts_buffer(label, counts, mask)
     on = (want_m != 0).unsqueeze(0)
     if not torch.equal(parts * on, want_p * on):
         raise SystemExit(f"{label}: parts differ from the plain version "
@@ -439,14 +660,20 @@ def compare_window():
                                                            cfg, out))
                 plain = _cuda_ms(lambda: tiles.tile_prefilter_plain(
                     dev, i, j, diag, cfg), reps=3)
-                bound = live * P * rows * cols * W / POPC_PER_S * 1e3
+                # the live blocks' contraction; the mask is written for
+                # every pair, parts for the live blocks' pairs
+                words = live * P * rows * cols * W
+                bound, by = _bound(words, B * B + live * rows * cols * 4 * P)
+                core = _cuda_core_ms(words)
                 _say(f"  {label}: live blocks {live}/{blocks} "
                      f"({live / blocks:.4f}), candidates {cand} "
                      f"({cand / (B * B):.4f} of B^2), {ms:.4f} ms (plain "
-                     f"{plain:.4f}, POPC bound of the live blocks "
-                     f"{bound:.4f}), equal")
+                     f"{plain:.4f}; of the live blocks: bound {bound:.4f} "
+                     f"by {by}, as int8 {_int8_ms(words):.4f}, CUDA-core "
+                     f"ceiling {core:.4f}), equal")
                 res[group, window, diag] = dict(
-                    ms=ms, plain_ms=plain, bound_ms=bound, live=live,
+                    ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                    int8_ms=_int8_ms(words), cuda_core_ms=core, live=live,
                     blocks=blocks, cand=cand)
                 del out
     # two contigs inside one super-block, invalid rows: whole row groups
@@ -489,7 +716,8 @@ def compare_dcn_kernels():
     """The kernels of the samples-sharded sweep against their plain
     versions and against the fused tile kernels (see the module
     docstring, phase 3). Returns ({instance: (ms, plain_ms, bound_ms,
-    bound_by)} for local_parts at S = 2, the same for tile_epilogue)."""
+    bound_by, int8_ms, cuda_core_ms)} for local_parts at S = 2, the same
+    for tile_epilogue, whose last two are None)."""
     import torch
     from tomahawk_tpu_torch.compute import sweeps
     from tomahawk_tpu_torch.ops import tiles
@@ -571,7 +799,8 @@ def compare_dcn_kernels():
         plain = _cuda_ms(lambda: tiles.tile_local_parts_plain(dev, 0, 1,
                                                               cfg0), reps=3)
         local[instance] = (ms, plain) + _bound(
-            P * B * B * Wl, 2 * len(keys) * B * Wl * 4 + P * B * B * 4)
+            P * B * B * Wl, 2 * len(keys) * B * Wl * 4 + P * B * B * 4) \
+            + (_int8_ms(P * B * B * Wl), _cuda_core_ms(P * B * B * Wl))
         tiles.tile_local_parts(full, 0, 1, cfg0, out)
         ms = _cuda_ms(lambda: tiles.tile_epilogue(full, 0, 1, False, cfg0,
                                                   out))
@@ -579,26 +808,44 @@ def compare_dcn_kernels():
             full, 0, 1, False, cfg0, out[1]), reps=3)
         epi[instance] = (ms, plain) + (
             ((4 * P + 1) * B * B + 2 * B * 13) / HBM_BYTES_PER_S * 1e3,
-            "bytes")
+            "bytes", None, None)
         for kname, r in (("local_parts", local), ("tile_epilogue", epi)):
             v = r[instance]
             _say(f"  ms per call: {kname} {name} P={P}"
                  f"{f', {Wl} words' if kname == 'local_parts' else ''} "
                  f"{v[0]:.4f} (plain {v[1]:.4f}, bound {v[2]:.4f} by "
-                 f"{v[3]})")
+                 f"{v[3]}"
+                 + ("" if v[4] is None else
+                    f", as int8 {v[4]:.4f}, CUDA-core ceiling {v[5]:.4f}")
+                 + ")")
         del out, slices
         torch.cuda.empty_cache()
     return local, epi
 
 
-def _bound(popcounts, nbytes):
-    """(bound_ms, bound_by) of a contraction: the larger of its
-    popcounts over the card's POPC rate and its bytes, each moved once,
-    over the HBM rate."""
-    ops_ms = popcounts / POPC_PER_S * 1e3
+def _bound(pair_words, nbytes):
+    """(bound_ms, bound_by) of a contraction of `pair_words` = P * B * B
+    * W packed words ANDed and counted: the card's bound, the larger of
+    its 2 * 32 operations a pair-word over the 1-bit MMA's rate and its
+    bytes, each moved once, over the HBM rate."""
+    ops_ms = 64 * pair_words / B1_OPS_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(ops_ms, byte_ms),
             "operations" if ops_ms >= byte_ms else "bytes")
+
+
+def _int8_ms(pair_words):
+    """The same operations over the published int8 tensor-core peak: the
+    cost of the contraction unpacked to int8. Not a bound of the card,
+    whose 1-bit MMA is faster."""
+    return 64 * pair_words / INT8_OPS_PER_S * 1e3
+
+
+def _cuda_core_ms(pair_words):
+    """The ceiling of the AND + __popc route on the CUDA cores: one POPC
+    a pair-word. Not a bound of the card; the kernels still on that
+    route are read against it."""
+    return pair_words / POPC_PER_S * 1e3
 
 
 def probe_shape():
@@ -992,12 +1239,50 @@ def _time_engine(work, tag, run, n_pairs, stat_key, engine):
          f"tiles {st['n_repair']}, fused cap {engine._fused_cap}")
 
 
+def _profile_engine(tag, run, n_tiles):
+    """One more rep of an engine workload under torch.profiler: wall,
+    the device's busy time (the sum of every kernel's and copy's device
+    time), its idle share of the wall, and the time by kernel name.
+    Returns the numbers as a dict."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(lambda recs, rev=None: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            by_name[name] = by_name.get(name, 0.0) \
+                + e.self_device_time_total / 1e3
+    busy = sum(by_name.values())
+    if busy == 0:
+        raise SystemExit(f"torch.profiler saw no device time in {tag}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    res = dict(workload=tag, tiles=n_tiles, wall_ms=wall * 1e3,
+               device_busy_ms=busy, idle_share=1 - busy / (wall * 1e3),
+               ms_by_kernel=dict(top))
+    _say(f"  traced rep: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} "
+         f"ms, idle share {res['idle_share']:.4f}; ms by kernel: "
+         + ", ".join(f"{k} {v:.2f} ({v / n_tiles:.4f} a tile)"
+                     for k, v in top))
+    _say(json.dumps({"engine_trace": res}))
+    return res
+
+
 def engine_rates(work):
     """The sparse and records-dense workloads through
     LdEngine.run_phased_pairs; the sparse planes again in window mode,
     over Balancer.window_pairs; random genotype variants through
     LdEngine.run_unphased_pairs with no missing data (P = 4) and 2%
-    missing genotypes (P = 9). No plain version may run."""
+    missing genotypes (P = 9). After the timed reps of the two phased
+    workloads, one more rep of each under torch.profiler. No plain
+    version may run."""
     from tomahawk_tpu_torch import workloads
     from tomahawk_tpu_torch.compute.balancer import Balancer
     from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
@@ -1032,6 +1317,9 @@ def engine_rates(work):
         _time_engine(work, tag.replace(" ", "_").replace("=", ""),
                      lambda emit: run(pairs, miss, filt, emit), n_pairs,
                      stat_key, engine)
+        if tag in ("sparse", "dense"):
+            _profile_engine(tag, lambda emit: run(pairs, miss, filt, emit),
+                            len(pairs))
         del engine
         if tag != "sparse":
             continue
@@ -1177,24 +1465,46 @@ def rank_main(job):
     return 0
 
 
+def tile_bytes(table, has_missing):
+    """Bytes one fused tile kernel call moves at this script's shape,
+    each input read once and each output written once: the word planes
+    and 9 bytes of metadata a variant on both sides, the mask, the P
+    parts and, from phased_tile, its counts buffer."""
+    from tomahawk_tpu_torch.ops.bitpack import words_for
+    from tomahawk_tpu_torch.ops.tiles import payload_cols, plane_keys
+    P = payload_cols(table, has_missing)
+    W = words_for((2 if table == "phased" else 1) * N_SAMPLES)
+    return (2 * len(plane_keys(table, has_missing)) * B * W * 4 + 2 * B * 9
+            + B * B * (1 + 4 * P) + (B * (B // 128) * 4 if P == 1 else 0))
+
+
 def kernel_bounds(n_survivors):
     """{kernel: (bound_ms, bound_by)} at the shapes the kernels line
-    reports: the larger of operations over the card's peak rate for
-    their type (POPC) and bytes moved once over the HBM rate.
-    phased_tile: the -p tile (P = 1, W = 160); parts_tile: the mixed
-    dispatch's unphased 9-part tile (W = 80); compact: the timed 9-part
-    call, its mask read once plus, for each of the `n_survivors` rows it
-    keeps, 9 parts gathered and 6 columns written (one comparison per
-    mask byte is its arithmetic, far under the byte time)."""
-    from tomahawk_tpu_torch.ops.bitpack import words_for
-    Wh, Ws = words_for(2 * N_SAMPLES), words_for(N_SAMPLES)
-    out = {"compact": ((B * B + n_survivors * (9 + 6) * 4)
+    reports: the larger of operations over the 1-bit MMA's rate and bytes
+    moved once over the HBM rate (`_bound`). phased_tile: the -p tile
+    (P = 1, W = 160); parts_tile: the mixed dispatch's unphased 9-part
+    tile (W = 80); compact: the timed 1-part call with the counts given,
+    its mask and counts read once plus, for each of the `n_survivors`
+    rows it keeps, one part gathered and 2 columns written (one
+    comparison per mask byte is its arithmetic, far under the byte
+    time)."""
+    out = {"compact": ((B * B + B * (B // 128) * 4
+                        + n_survivors * (1 + 2) * 4)
                        / HBM_BYTES_PER_S * 1e3, "bytes")}
-    for name, P, planes, W in (("phased_tile", 1, 1, Wh),
-                               ("parts_tile", 9, 3, Ws)):
-        out[name] = _bound(P * B * B * W, 2 * planes * B * W * 4 + 2 * B * 9
-                           + B * B * (1 + 4 * P))
+    for name, group in (("phased_tile", ("phased", False)),
+                        ("parts_tile", MAIN_GROUP[:2])):
+        out[name] = _bound(contraction_pair_words(*group),
+                           tile_bytes(*group))
     return out
+
+
+def contraction_pair_words(table, has_missing, slices=1):
+    """P * B * B * W of one tile of a sweep group at this script's shape,
+    W the words a rank holds when the planes are cut in `slices`."""
+    from tomahawk_tpu_torch.ops.bitpack import words_for
+    from tomahawk_tpu_torch.ops.tiles import payload_cols
+    W = words_for((2 if table == "phased" else 1) * N_SAMPLES)
+    return payload_cols(table, has_missing) * B * B * -(-W // slices)
 
 
 def main():
@@ -1218,22 +1528,25 @@ def main():
     t_start = time.perf_counter()
     report_card()
     build_kernels()
-    checks = compare_kernels()
+    probe_rates = mma_probe()
+    checks, times = compare_kernels()
+    compare_odd_shapes()
     groups = compare_groups()
     payloads = compare_payloads()
     probe = probe_shape()
     torch.cuda.empty_cache()
     windows = compare_window()
     local, epi = compare_dcn_kernels()
-    # the kernels line: phased_tile at the -p path's shape; parts_tile
-    # and compact at the default (mixed) dispatch's 9-part sweep
+    # the kernels line: phased_tile and compact at the -p path's shape
+    # (one part, the counts given); parts_tile at the default (mixed)
+    # dispatch's 9-part sweep
     checks["parts_tile"] = (max(max(v[0] for v in groups.values()),
                                 probe[0]),) + groups[MAIN_GROUP][1:]
     compact1 = checks["compact"]
-    checks["compact"] = (max(checks["compact"][0],
+    checks["compact"] = (max(compact1[0],
                              max(v[0] for v in payloads.values())),
-                         ) + payloads[9][1:3]
-    bounds = kernel_bounds(payloads[9][3])
+                         ) + compact1[1:]
+    bounds = kernel_bounds(times["kept"])
     # local_parts and tile_epilogue at the -p dcn path's instance
     for name, res in (("local_parts", local), ("tile_epilogue", epi)):
         checks[name] = (0,) + res[MAIN_INSTANCE][:2]
@@ -1255,26 +1568,45 @@ def main():
         raise SystemExit(f"imported outside the port: {leaked}")
     # every fused-kernel instance and payload timed above, so that the end
     # of the output carries each measured time
+    def tile_row(kernel, group, v, table, miss):
+        words = contraction_pair_words(table, miss)
+        bound, by = _bound(words, tile_bytes(table, miss))
+        return dict(kernel=kernel, group=group, ms=v[1], plain_ms=v[2],
+                    bound_ms=bound, bound_by=by, int8_ms=_int8_ms(words),
+                    cuda_core_ms=_cuda_core_ms(words))
+
     _say(json.dumps({"tile_instances": [
-        dict(kernel="phased_tile", group="phased/False/all",
-             ms=checks["phased_tile"][1], plain_ms=checks["phased_tile"][2])]
-        + [dict(kernel="phased_tile" if g[:2] == ("phased", False)
-                else "parts_tile", group="/".join(map(str, g)), ms=v[1],
-                plain_ms=v[2]) for g, v in groups.items()]
-        + [dict(kernel="parts_tile", group="unphased/False/all at the probe "
-                "shape", ms=probe[1], plain_ms=probe[2])]
-        + [dict(kernel="compact", group=f"{P} parts", ms=v[1], plain_ms=v[2])
-           for P, v in [(1, compact1)] + sorted(payloads.items())]}))
+        tile_row("phased_tile", "phased/False/all", checks["phased_tile"],
+                 "phased", False)]
+        + [tile_row("phased_tile" if g[:2] == ("phased", False)
+                    else "parts_tile", "/".join(map(str, g)), v, g[0], g[1])
+           for g, v in groups.items()]
+        + [tile_row("parts_tile", "unphased/False/all at the probe shape",
+                    probe, "unphased", False)]
+        + [dict(kernel="compact", group="1 part, counts given",
+                ms=compact1[1], plain_ms=compact1[2]),
+           dict(kernel="compact", group="1 part, no counts given",
+                ms=times["no_counts_ms"], plain_ms=compact1[2]),
+           dict(kernel="compact", group="1 part, counts given, at the "
+                "host's pace with the offset reset",
+                ms=times["host_paced_ms"], plain_ms=compact1[2])]
+        + [dict(kernel="compact", group=f"{P} parts, no counts given",
+                ms=v[1], plain_ms=v[2])
+           for P, v in sorted(payloads.items())]}))
     # window rows: (group, window, diagonal) -> ms, plain, bound, shares
     _say(json.dumps({"window_instances": [
         dict(group="/".join(map(str, g)), window=w, diagonal=d, **v)
         for (g, w, d), v in windows.items()]}))
-    # samples-sharded rows: instance -> ms, plain, bound of both kernels
+    # samples-sharded rows: instance -> ms, plain, bound, the int8 figure,
+    # CUDA-core ceiling
     _say(json.dumps({"dcn_instances": [
         dict(kernel=name, instance="/".join(map(str, inst)), ms=v[0],
-             plain_ms=v[1], bound_ms=v[2], bound_by=v[3])
+             plain_ms=v[1], bound_ms=v[2], bound_by=v[3], int8_ms=v[4],
+             cuda_core_ms=v[5])
         for name, res in (("local_parts", local), ("tile_epilogue", epi))
         for inst, v in res.items()]}))
+    # library_ms: one PyTorch call of the same function, which only
+    # phased_tile's contraction has
     kernels = [dict(name=k["name"], route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches[k["name"]],
                     max_abs_err=checks[k["name"]][0],
@@ -1282,6 +1614,24 @@ def main():
                     bound_ms=bounds[k["name"]][0],
                     bound_by=bounds[k["name"]][1], library_ms=None)
                for k in kernel_report()]
+    main_words = {"phased_tile": contraction_pair_words("phased", False),
+                  "parts_tile": contraction_pair_words(*MAIN_GROUP[:2]),
+                  "local_parts": contraction_pair_words(*MAIN_INSTANCE, 2)}
+    for k in kernels:
+        if k["name"] in main_words:
+            k["int8_ms"] = _int8_ms(main_words[k["name"]])
+            k["cuda_core_ms"] = _cuda_core_ms(main_words[k["name"]])
+        if k["name"] == "phased_tile":
+            # the operations at the rate the probe read in this run
+            k["probe_b1_ms"] = 64 * main_words["phased_tile"] \
+                / probe_rates[PROBE_KINDS[0][1]] * 1e3
+            k["library_ms"] = times["library_ms"]
+            k["library_note"] = ("torch._int_mm: contraction only, operands "
+                                 "pre-unpacked, no mask, no prefilter")
+        if k["name"] == "compact":
+            # the same call enqueued at the host's pace, as it was timed
+            # before the calls were queued
+            k["host_paced_ms"] = times["host_paced_ms"]
     _say(f"native host library loaded; no jax, no tomahawk_tpu in "
          f"sys.modules; {time.perf_counter() - t_start:.0f}s in all")
     report_card()

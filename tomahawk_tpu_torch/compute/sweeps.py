@@ -8,7 +8,11 @@ compaction
 (`compact_survivors`, csrc/compact.cu). The compaction keeps the running
 offset on the device, so a segment of tiles runs without a host sync and
 the host reads the counts once, after the whole segment. A sweep
-allocates the tile's output buffers once and reuses them for every tile.
+allocates the tile's output buffers, the compaction's scratch and, for
+the group whose tile kernel writes them (phased without missing data),
+the per-segment counts buffer once and reuses them for every tile; with
+the counts the compaction reads the mask only where a segment has a
+survivor, without them it counts the mask itself first.
 
 Survivor rows are [flat index k*B + l, payload...] int32 in the layout
 of the JAX package's `_pack_cols`: while the parts fit uint16
@@ -31,8 +35,9 @@ import torch
 
 from ..ops import _build
 from ..ops import ld_kernels as K
-from ..ops.tiles import (payload_cols, plane_keys, tile_buffers,
-                         tile_epilogue, tile_local_parts, tile_prefilter)
+from ..ops.tiles import (SEG, counts_buffer, payload_cols, plane_keys,
+                         tile_buffers, tile_epilogue, tile_local_parts,
+                         tile_prefilter)
 from ..parallel.distributed import all_reduce_parts
 
 #: device tensors the sweeps may read: uint32 planes (as int32),
@@ -171,19 +176,45 @@ def compact_survivors_plain(mask, parts, off, buf, n_pass, n_cand,
     off[0] = min(o + n, outcap)
 
 
+def compact_scratch(B: int, device):
+    """The compaction's scratch for tiles of B rows: int32 row totals,
+    row offsets and, for a mask that comes without counts, its segment
+    counts. A sweep allocates it once."""
+    return torch.empty(_scratch_len(B), dtype=torch.int32, device=device)
+
+
+def _scratch_len(B: int) -> int:
+    return 2 * B + 8 + B * -(-B // SEG)
+
+
+#: the scan's ticket counter of each (device, stream): one int32 that the
+#: kernel finds 0 and leaves 0, so it is zeroed once, here
+_TICKETS = {}
+
+
+def _ticket(device, stream: int):
+    key = (device, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
 def compact_survivors(mask, parts, off, buf, n_pass, n_cand, t: int,
-                      cap: int):
+                      cap: int, counts=None, scratch=None):
     """Write the first min(n, cap) survivors (mask == 2) of one tile,
     ascending in flat index, as [k*B + l, payload...] rows at buffer row
     min(off, outcap - cap), outcap = len(buf); set n_pass[t] and
     n_cand[t]; advance off to min(off + n, outcap). `parts` is i32
     [P, B, B]; the payload layout follows the buffer's width (buf_cols:
     pair-packed or one part per column). `off` is an int32 [1] tensor
-    updated in place. Launches csrc/compact.cu for CUDA tensors, the
+    updated in place. `counts` are the mask's per-segment counts where
+    its producer wrote them (tiles.counts_buffer): the kernel then skips
+    its own count of the mask. `scratch` (compact_scratch) is allocated
+    here when not given. Launches csrc/compact.cu for CUDA tensors, the
     plain version for CPU tensors."""
     if mask.is_cuda:
         return _launch_compact(mask, parts, off, buf, n_pass, n_cand, t,
-                               cap)
+                               cap, counts, scratch)
     if mask.device.type != "cpu":
         raise ValueError(f"no compaction kernel for device {mask.device}")
     _build.PLAIN_CALLS["compact"] += 1
@@ -191,16 +222,22 @@ def compact_survivors(mask, parts, off, buf, n_pass, n_cand, t: int,
                                    t, cap)
 
 
-def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap):
+def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
+                    scratch):
     B = mask.shape[0]
     P = parts.shape[0]
     outcap, ncol = buf.shape
     _payload_layout(P, ncol)
-    checks = (
+    if scratch is None:
+        scratch = compact_scratch(B, mask.device)
+    checks = [
         (mask, torch.uint8, (B, B)), (parts, torch.int32, (P, B, B)),
         (off, torch.int32, (1,)), (buf, torch.int32, (outcap, ncol)),
         (n_pass, torch.int32, tuple(n_pass.shape)),
-        (n_cand, torch.int32, tuple(n_pass.shape)))
+        (n_cand, torch.int32, tuple(n_pass.shape)),
+        (scratch, torch.int32, (_scratch_len(B),))]
+    if counts is not None:
+        checks.append((counts, torch.int32, (B, -(-B // SEG))))
     for x, dtype, shape in checks:
         if x.dtype != dtype or tuple(x.shape) != shape \
                 or not x.is_contiguous() or x.device != mask.device:
@@ -212,12 +249,14 @@ def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap):
     if not 0 < cap <= outcap or B * B >= 1 << 31:
         raise ValueError(f"bad compaction shape: B={B} cap={cap} "
                          f"outcap={outcap}")
-    scratch = torch.empty(3 * B + 2, dtype=torch.int32, device=mask.device)
     lib = _build.library()
+    stream = torch.cuda.current_stream(mask.device).cuda_stream
     rc = lib.twk_compact(
-        mask.data_ptr(), parts.data_ptr(), P, ncol, B, off.data_ptr(), cap,
-        outcap, n_pass.data_ptr(), n_cand.data_ptr(), t, scratch.data_ptr(),
-        buf.data_ptr(), torch.cuda.current_stream(mask.device).cuda_stream)
+        mask.data_ptr(), parts.data_ptr(),
+        None if counts is None else counts.data_ptr(), P, ncol, B,
+        off.data_ptr(), cap, outcap, n_pass.data_ptr(), n_cand.data_ptr(), t,
+        scratch.data_ptr(), _ticket(mask.device, stream).data_ptr(),
+        buf.data_ptr(), stream)
     _build.check(rc, "compact launch")
     _build.LAUNCHES["compact"] += 1
 
@@ -226,16 +265,25 @@ def _zeros(dev, *shape):
     return torch.zeros(shape, dtype=torch.int32, device=dev["valid"].device)
 
 
-def _tile(dev, i, j, diag, cfg, out):
-    """(mask, parts) of one tile into `out`: the fused tile kernel, or
-    in a samples-sharded sweep the local parts, their sum over the group
-    and the epilogue."""
+def _tile(dev, i, j, diag, cfg, out, counts=None):
+    """(mask, parts) of one tile into `out`: the fused tile kernel
+    (which also fills `counts` when given), or in a samples-sharded sweep
+    the local parts, their sum over the group and the epilogue."""
     group = cfg["psum_group"]
     if group is None:
-        return tile_prefilter(dev, i, j, diag, cfg, out)
+        return tile_prefilter(dev, i, j, diag, cfg, out, counts)
     tile_local_parts(dev, i, j, cfg, out)
     all_reduce_parts(out[1], group)
     return tile_epilogue(dev, i, j, diag, cfg, out)
+
+
+def _sweep_buffers(cfg, device):
+    """What a sweep allocates once and hands to every tile: the tile's
+    output buffers, its counts buffer (None unless the group's fused
+    kernel writes one) and the compaction's scratch."""
+    cnt = counts_buffer(cfg, device) if cfg["psum_group"] is None else None
+    return (tile_buffers(cfg, device), cnt,
+            compact_scratch(cfg["B"], device))
 
 
 def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
@@ -245,17 +293,19 @@ def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
     or beyond the clamp boundary are garbage whenever the total spills
     (detectable from n_pass), and tiles with more than `cap` survivors
     keep only their first `cap` rows -- the caller repairs both with
-    `extract_sweep`. Dead tiles (live False) count zero."""
+    `extract_sweep`. Dead tiles (live False) count zero. Where the
+    group's tile kernel writes per-segment counts it hands them to the
+    compaction, which otherwise counts the mask itself."""
     T = len(pi)
     n_pass, n_cand, off = _zeros(dev, T), _zeros(dev, T), _zeros(dev, 1)
     buf = _zeros(dev, outcap, buf_cols(cfg))
-    out = tile_buffers(cfg, buf.device)
+    out, cnt, scratch = _sweep_buffers(cfg, buf.device)
     for t in range(T):
         if live[t]:
             mask, parts = _tile(dev, int(pi[t]), int(pj[t]), bool(dg[t]),
-                                cfg, out)
+                                cfg, out, cnt)
             compact_survivors(mask, parts, off, buf, n_pass, n_cand, t,
-                              cap)
+                              cap, cnt, scratch)
     return n_pass, n_cand, buf
 
 
@@ -266,14 +316,14 @@ def extract_sweep(dev, pi, pj, dg, off, *, cfg, cap, outcap):
     survivors). Repair rows carry no Fisher bracket."""
     n_pass, n_cand = _zeros(dev, len(pi)), _zeros(dev, len(pi))
     buf = _zeros(dev, outcap, buf_cols(cfg))
-    out = tile_buffers(cfg, buf.device)
+    out, cnt, scratch = _sweep_buffers(cfg, buf.device)
     # a copy: the compaction advances each slot in place
     offs = torch.tensor(np.asarray(off), dtype=torch.int32, device=buf.device)
     for t in range(len(pi)):
         mask, parts = _tile(dev, int(pi[t]), int(pj[t]), bool(dg[t]), cfg,
-                            out)
+                            out, cnt)
         compact_survivors(mask, parts, offs[t:t + 1], buf, n_pass, n_cand,
-                          t, cap)
+                          t, cap, cnt, scratch)
     return buf
 
 

@@ -20,13 +20,25 @@
 // with ncol = 1 + P, one part per column. With P = 1 both are the part
 // unshifted.
 //
-// What bounds it on the H100: reading the B*B mask bytes twice (16 MB at
-// B = 4096, a few microseconds at HBM rate) and three launches; survivors
-// are sparse, so the writes (and the gathers of their parts) are small. Design: (1) one warp per row counts
-// survivors and candidates, (2) one block scans the row counts into row
-// offsets and advances the offset, (3) one warp per row with survivors
-// writes them in column order, each lane placing its survivor by the
-// popcount of the ballot below it.
+// What bounds it on the H100: launches and mask bytes. The work is tiny
+// (16 MB of mask at B = 4096 is 5 us at HBM rate, and survivors are
+// sparse), so each dependent launch (2-3 us) and each pass over the mask
+// counts. Design: everything runs from per-(row, 128-column segment)
+// counts, n_survivors | n_candidates << 16 in an int32 [B, ceil(B / 128)].
+// csrc/phased_tile.cu writes them from the registers that hold the mask
+// bytes, and then the mask is read here only where a segment has a
+// survivor; for a mask from a producer without counts, (0) a first launch
+// counts the segments with 16-byte loads into the scratch. Then (1) one
+// launch sums each row's segments across its blocks, and the block that
+// finishes last scans the row totals into row offsets and advances the
+// offset (a ticket counter, no block waits: a single block summing all
+// B * B / 128 cells is latency-bound and several times slower), and (2) one
+// warp a row with survivors walks the row's non-empty segments (128 mask
+// bytes a request, 4 a lane) and writes the survivors in column order,
+// each lane placing its own by a shuffle scan of the lanes' counts. The
+// scan stays a launch of its own: folding it into (2) behind a flag or a
+// look-back would save one launch gap (~2 us) at the price of blocks that
+// spin on another block's progress.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,51 +46,92 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRowThreads = 256;    // 8 rows per block in kernels 1 and 3
+constexpr int kSeg = 128;           // mask columns of one counts cell
+constexpr int kRowThreads = 256;    // 8 rows per block in kernels 0 and 2
 constexpr int kScanThreads = 1024;
+constexpr int kScanRows = kScanThreads / 8;  // rows a scan block totals
 
-__global__ void row_counts_kernel(const uint8_t* __restrict__ mask, int B,
-                                  int* __restrict__ row_pass,
-                                  int* __restrict__ row_cand) {
-  const int k = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (k >= B) return;  // uniform across the warp
-  const uint8_t* row = mask + (size_t)k * B;
-  int p = 0, c = 0;
-  for (int l = lane; l < B; l += 32) {
-    const uint8_t m = row[l];
-    p += m == 2;
-    c += m != 0;
-  }
-  for (int d = 16; d > 0; d >>= 1) {
-    p += __shfl_down_sync(kFull, p, d);
-    c += __shfl_down_sync(kFull, c, d);
-  }
-  if (lane == 0) {
-    row_pass[k] = p;
-    row_cand[k] = c;
-  }
+// survivors | candidates << 16 among the 4 mask bytes (0, 1 or 2) of a word
+__device__ __forceinline__ uint32_t count_word(uint32_t w) {
+  return __popc(w & 0x02020202u) |
+         __popc((w | (w >> 1)) & 0x01010101u) << 16;
 }
 
-// info[0] = first buffer row of this tile, info[1] = rows to write
-__global__ void scan_kernel(const int* __restrict__ row_pass,
-                            const int* __restrict__ row_cand, int B,
-                            int* __restrict__ row_off, int* off, int cap,
-                            int outcap, int* n_pass, int* n_cand, int t,
-                            int* info) {
+// One warp per (row, group of 4 segments): 8 lanes a segment, 16 bytes a
+// lane, so every lane has exactly one load in flight.
+__global__ void segment_counts_kernel(const uint8_t* __restrict__ mask,
+                                      int B, int n_seg, int n_group,
+                                      uint32_t* __restrict__ counts) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  const int k = warp / n_group;
+  if (k >= B) return;  // uniform across the warp
+  const int seg = (warp % n_group) * 4 + lane / 8;
+  const int l = seg * kSeg + (lane % 8) * 16;
+  const uint8_t* row = mask + (size_t)k * B;
+  uint32_t n = 0;
+  if (B % 16 == 0) {
+    if (l < B) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + l);
+      n = count_word(v.x) + count_word(v.y) + count_word(v.z) +
+          count_word(v.w);
+    }
+  } else {
+    for (int q = 0; q < 16; ++q)
+      if (l + q < B) n += count_word(row[l + q]);
+  }
+  n += __shfl_xor_sync(kFull, n, 1);
+  n += __shfl_xor_sync(kFull, n, 2);
+  n += __shfl_xor_sync(kFull, n, 4);
+  if (lane % 8 == 0 && seg < n_seg) counts[(size_t)k * n_seg + seg] = n;
+}
+
+// Row totals, then their scan, in one launch. Every block sums the
+// segment counts of kScanRows rows (8 lanes a row) into row_tot[k] =
+// survivors | candidates << 16 and takes a ticket; the block that draws
+// the last ticket, when every row total is written, scans them: row_off[k]
+// (exclusive scan of the survivors), info[0] = first buffer row of this
+// tile, info[1] = rows to write, the tile's counts and the new offset. No
+// block waits for another. *ticket is 0 on entry and is left 0.
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(const uint32_t* __restrict__ counts, int B, int n_seg,
+            uint32_t* row_tot, int* __restrict__ row_off, int* off, int cap,
+            int outcap, int* n_pass, int* n_cand, int t, int* info,
+            unsigned* ticket) {
   __shared__ int warp_pass[32];
   __shared__ int warp_cand[32];
+  __shared__ bool last;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int wid = tid / 32;
+  {
+    const int k = blockIdx.x * kScanRows + tid / 8;
+    uint32_t n = 0;
+    if (k < B)
+      for (int s = lane % 8; s < n_seg; s += 8)
+        n += counts[(size_t)k * n_seg + s];
+    n += __shfl_xor_sync(kFull, n, 1);
+    n += __shfl_xor_sync(kFull, n, 2);
+    n += __shfl_xor_sync(kFull, n, 4);
+    if (lane % 8 == 0 && k < B) row_tot[k] = n;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
   const int n_warps = blockDim.x / 32;
   const int per = (B + blockDim.x - 1) / blockDim.x;
   const int lo = min(tid * per, B);
   const int hi = min(lo + per, B);
   int sp = 0, sc = 0;
+#pragma unroll 4
   for (int i = lo; i < hi; ++i) {
-    sp += row_pass[i];
-    sc += row_cand[i];
+    const uint32_t v = __ldcg(row_tot + i);
+    sp += v & 0xffff;
+    sc += v >> 16;
   }
   int incl = sp;  // inclusive scan of sp within the warp
   for (int d = 1; d < 32; d <<= 1) {
@@ -102,9 +155,10 @@ __global__ void scan_kernel(const int* __restrict__ row_pass,
   }
   __syncthreads();
   int run = incl - sp + (wid > 0 ? warp_pass[wid - 1] : 0);
+#pragma unroll 4
   for (int i = lo; i < hi; ++i) {
     row_off[i] = run;
-    run += row_pass[i];
+    run += __ldcg(row_tot + i) & 0xffff;
   }
   if (tid == 0) {
     const int n = warp_pass[n_warps - 1];
@@ -114,74 +168,114 @@ __global__ void scan_kernel(const int* __restrict__ row_pass,
     n_pass[t] = n;
     n_cand[t] = warp_cand[0];
     *off = (int)min((long long)o + n, (long long)outcap);
+    *ticket = 0u;
   }
 }
 
 __global__ void write_kernel(const uint8_t* __restrict__ mask,
                              const int32_t* __restrict__ parts, int P,
-                             int ncol, int B,
-                             const int* __restrict__ row_pass,
+                             int ncol, int B, int n_seg,
+                             const uint32_t* __restrict__ counts,
+                             const uint32_t* __restrict__ row_tot,
                              const int* __restrict__ row_off,
                              const int* __restrict__ info,
                              int32_t* __restrict__ buf) {
   const int k = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
-  if (k >= B || row_pass[k] == 0) return;  // uniform across the warp
+  if (k >= B) return;  // uniform across the warp, like the next
+  const int row_pass = row_tot[k] & 0xffff;
+  if (row_pass == 0) return;
   const int base = info[0];
-  const int end = min(row_off[k] + row_pass[k], info[1]);
+  const int end = min(row_off[k] + row_pass, info[1]);
   int run = row_off[k];
   const uint8_t* row = mask + (size_t)k * B;
-  for (int c0 = 0; c0 < B && run < end; c0 += 32) {
-    const int l = c0 + lane;
-    const bool s = l < B && row[l] == 2;
-    const unsigned bal = __ballot_sync(kFull, s);
-    if (s) {
-      const int pos = run + __popc(bal & ((1u << lane) - 1u));
-      if (pos < end) {
-        int32_t* dst = buf + (size_t)(base + pos) * ncol;
-        const size_t f = (size_t)k * B + l;
-        const size_t BB = (size_t)B * B;
-        dst[0] = k * B + l;
-        if (ncol == 1 + P) {
-          for (int p = 0; p < P; ++p) dst[1 + p] = parts[p * BB + f];
-        } else {
-          for (int p = 0; p < P; p += 2) {
-            uint32_t v = (uint32_t)parts[p * BB + f];
-            if (p + 1 < P) v |= (uint32_t)parts[(p + 1) * BB + f] << 16;
-            dst[1 + p / 2] = (int32_t)v;
+  const size_t BB = (size_t)B * B;
+  const bool vec = B % 4 == 0;
+  for (int s0 = 0; s0 < n_seg && run < end; s0 += 32) {
+    const int mine = s0 + lane < n_seg
+        ? counts[(size_t)k * n_seg + s0 + lane] & 0xffff : 0;
+    unsigned live = __ballot_sync(kFull, mine != 0);
+    while (live != 0 && run < end) {
+      const int seg = s0 + __ffs(live) - 1;
+      live &= live - 1;
+      const int l0 = seg * kSeg + 4 * lane;
+      uint32_t w = 0;
+      if (vec) {
+        if (l0 < B) w = *reinterpret_cast<const uint32_t*>(row + l0);
+      } else {
+        for (int q = 0; q < 4; ++q)
+          if (l0 + q < B) w |= (uint32_t)row[l0 + q] << (8 * q);
+      }
+      w &= 0x02020202u;
+      const int cnt = __popc(w);
+      int incl = cnt;  // inclusive scan of the lanes' survivor counts
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += y;
+      }
+      int pos = run + incl - cnt;
+      for (int q = 0; q < 4 && w != 0; ++q, w >>= 8) {
+        if ((w & 0xff) == 0) continue;
+        if (pos < end) {
+          const int l = l0 + q;
+          int32_t* dst = buf + (size_t)(base + pos) * ncol;
+          const size_t f = (size_t)k * B + l;
+          dst[0] = k * B + l;
+          if (ncol == 1 + P) {
+            for (int p = 0; p < P; ++p) dst[1 + p] = parts[p * BB + f];
+          } else {
+            for (int p = 0; p < P; p += 2) {
+              uint32_t v = (uint32_t)parts[p * BB + f];
+              if (p + 1 < P) v |= (uint32_t)parts[(p + 1) * BB + f] << 16;
+              dst[1 + p / 2] = (int32_t)v;
+            }
           }
         }
+        ++pos;
       }
+      run += __shfl_sync(kFull, incl, 31);
     }
-    run += __popc(bal);
   }
 }
 
 }  // namespace
 
-// scratch: int32 [3 * B + 2] (row survivor counts, row candidate counts,
-// row offsets, info)
-extern "C" int twk_compact(const void* mask, const void* parts, int P,
-                           int ncol, int B, void* off, int cap, int outcap,
-                           void* n_pass, void* n_cand, int t, void* scratch,
+// counts: int32 [B, ceil(B / 128)] cells n_survivors | n_candidates << 16
+// of the mask's row segments, or null: they are then counted here, into
+// the scratch. scratch: int32 [2 * B + 8 + B * ceil(B / 128)], which need
+// not be initialised: row totals, row offsets, info [2], six unused, segment
+// counts. ticket: the scan's counter, one uint32 that is 0 on entry and is
+// left 0; calls that may overlap (other streams) need one each.
+extern "C" int twk_compact(const void* mask, const void* parts,
+                           const void* counts, int P, int ncol, int B,
+                           void* off, int cap, int outcap, void* n_pass,
+                           void* n_cand, int t, void* scratch, void* ticket,
                            void* buf, void* stream) {
-  if (B <= 0 || cap <= 0 || cap > outcap || P <= 0 ||
+  if (B <= 0 || B >= 1 << 16 || cap <= 0 || cap > outcap || P <= 0 ||
       (ncol != 1 + P && ncol != 1 + (P + 1) / 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int* row_pass = (int*)scratch;
-  int* row_cand = row_pass + B;
-  int* row_off = row_cand + B;
+  const int n_seg = (B + kSeg - 1) / kSeg;
+  uint32_t* row_tot = (uint32_t*)scratch;
+  int* row_off = (int*)scratch + B;
   int* info = row_off + B;
+  const uint32_t* seg_counts = (const uint32_t*)counts;
+  if (seg_counts == nullptr) {
+    // 16-byte aligned: 2 * B + 8 ints precede it
+    uint32_t* own = (uint32_t*)(info + 8);
+    const int n_group = (n_seg + 3) / 4;
+    const long long threads = 32LL * B * n_group;
+    segment_counts_kernel<<<(int)((threads + kRowThreads - 1) / kRowThreads),
+                            kRowThreads, 0, s>>>((const uint8_t*)mask, B,
+                                                 n_seg, n_group, own);
+    seg_counts = own;
+  }
+  scan_kernel<<<(B + kScanRows - 1) / kScanRows, kScanThreads, 0, s>>>(
+      seg_counts, B, n_seg, row_tot, row_off, (int*)off, cap, outcap,
+      (int*)n_pass, (int*)n_cand, t, info, (unsigned*)ticket);
   const int row_blocks = (B * 32 + kRowThreads - 1) / kRowThreads;
-  row_counts_kernel<<<row_blocks, kRowThreads, 0, s>>>(
-      (const uint8_t*)mask, B, row_pass, row_cand);
-  scan_kernel<<<1, kScanThreads, 0, s>>>(row_pass, row_cand, B, row_off,
-                                         (int*)off, cap, outcap,
-                                         (int*)n_pass, (int*)n_cand, t,
-                                         info);
   write_kernel<<<row_blocks, kRowThreads, 0, s>>>(
-      (const uint8_t*)mask, (const int32_t*)parts, P, ncol, B, row_pass,
-      row_off, info, (int32_t*)buf);
+      (const uint8_t*)mask, (const int32_t*)parts, P, ncol, B, n_seg,
+      seg_counts, row_tot, row_off, info, (int32_t*)buf);
   return (int)cudaGetLastError();
 }

@@ -27,9 +27,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "tomahawk_tpu_torch")
 SOURCES = ("phased_tile.cu", "parts_tile.cu", "compact.cu", "local_parts.cu",
-           "epilogue.cu")
+           "epilogue.cu", "mma_probe.cu")
 #: headers the sources include (part of the build hash)
-HEADERS = ("prefilter.cuh",)
+HEADERS = ("prefilter.cuh", "mma_tile.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -63,19 +63,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # alt_i, alt_j, ac_i, ac_j, valid_i, valid_j, an_i, an_j, pos_i, pos_j,
     # rid_i, rid_j, window, cls, B, W, n_hap, lo, hi, need_nonzero, diag,
-    # mask, altalt, stream
+    # mask, altalt, counts, stream
     "twk_phased_tile": [_P] * 12 + [_I] * 5 + [_F] * 2 + [_I] * 2
-    + [_P] * 3,
+    + [_P] * 4,
     # kind, x_i, y_i, z_i, x_j, y_j, z_j, ac_i, ac_j, valid_i, valid_j,
     # an_i, an_j, n_het_i, n_hom_i, n_het_j, n_hom_j, pos_i, pos_j, rid_i,
     # rid_j, window, cls, B, W, n_samples, lo, hi, need_nonzero, diag,
     # mask, parts, stream
     "twk_parts_tile": [_I] + [_P] * 20 + [_I] * 5 + [_F] * 2 + [_I] * 2
     + [_P] * 3,
-    # mask, parts, P, ncol, B, off, cap, outcap, n_pass, n_cand, t,
-    # scratch, buf, stream
-    "twk_compact": [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
-                    _P],
+    # mask, parts, counts, P, ncol, B, off, cap, outcap, n_pass, n_cand, t,
+    # scratch, ticket, buf, stream
+    "twk_compact": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
+                    _P, _P],
     # kind, x_i, y_i, z_i, x_j, y_j, z_j, B, W, parts, stream
     "twk_local_parts": [_I] + [_P] * 6 + [_I] * 2 + [_P] * 2,
     # kind, parts, ac_i, ac_j, valid_i, valid_j, an_i, an_j, n_het_i,
@@ -83,6 +83,8 @@ _SIGNATURES = {
     # n_samples, lo, hi, need_nonzero, diag, mask, stream
     "twk_tile_epilogue": [_I] + [_P] * 15 + [_I] * 4 + [_F] * 2 + [_I] * 2
     + [_P] * 2,
+    # kind, blocks, iters, out, stream
+    "twk_mma_probe": [_I] * 3 + [_P] * 2,
 }
 
 _lock = threading.Lock()

@@ -20,6 +20,14 @@ within `window` bp (`pos`), and the kernels skip the contraction of
 every thread block that can hold no such pair (`block_live`): its mask
 is 0 and its region of `parts` is left unwritten.
 
+`tile_prefilter` can also fill a counts buffer (`counts_buffer`): int32
+[B, ceil(B / 128)], the survivors and candidates of each 128-column
+segment of each mask row as n_survivors | n_candidates << 16
+(`tile_counts_plain` states it). phased_tile.cu writes it from the
+registers that hold the mask, and the compaction (compute/sweeps.py)
+then reads the mask only where a segment has a survivor; the other
+producers of a mask give no counts.
+
 Both versions return mask u8 [B, B] (0 = not a candidate, 1 =
 candidate, 2 = survivor of the f32 prefilter, the diagonal triangle
 applied) and parts i32 [P, B, B], the raw contractions in the column
@@ -41,6 +49,8 @@ import torch
 from . import _build
 from . import ld_kernels as K
 
+#: mask columns of one cell of a counts buffer
+SEG = 128
 _CLS = {"all": 0, "clean": 1, "missing": 2}
 #: parts_tile.cu's instance codes
 _KIND = {("phased", True): 0, ("unphased", False): 1, ("unphased", True): 2}
@@ -70,6 +80,30 @@ def tile_buffers(cfg, device):
     P = payload_cols(cfg["table"], cfg["has_missing"])
     return (torch.empty((B, B), dtype=torch.uint8, device=device),
             torch.empty((P, B, B), dtype=torch.int32, device=device))
+
+
+def counts_buffer(cfg, device):
+    """int32 [B, ceil(B / SEG)] for the per-segment counts of a tile's
+    mask, or None for a sweep group whose tile kernel gives none."""
+    if kernel_name(cfg) != "phased_tile":
+        return None
+    B = cfg["B"]
+    return torch.empty((B, -(-B // SEG)), dtype=torch.int32, device=device)
+
+
+def tile_counts_plain(mask, seg: int = SEG):
+    """The plain PyTorch version of the counts a tile kernel writes beside
+    its mask: int32 [B, ceil(B / seg)], cell [k, s] = n_survivors |
+    n_candidates << 16 over mask[k, s * seg:(s + 1) * seg] (survivor:
+    mask == 2, candidate: mask != 0)."""
+    B = mask.shape[0]
+    n_seg = -(-B // seg)
+    m = torch.zeros((B, n_seg * seg), dtype=torch.uint8, device=mask.device)
+    m[:, :B] = mask
+    m = m.view(B, n_seg, seg)
+    n_pass = (m == 2).sum(dim=2, dtype=torch.int32)
+    n_cand = (m != 0).sum(dim=2, dtype=torch.int32)
+    return n_pass | (n_cand << 16)
 
 
 def _sides(dev, i: int, j: int, cfg):
@@ -114,20 +148,35 @@ def kernel_name(cfg) -> str:
     return "parts_tile"
 
 
-def tile_prefilter(dev, i: int, j: int, diag: bool, cfg, out=None):
+def tile_prefilter(dev, i: int, j: int, diag: bool, cfg, out=None,
+                   counts=None):
     """(mask, parts) for the tile of super-blocks (i, j), written into
-    `out` (tile_buffers) when given, and returned."""
+    `out` (tile_buffers) when given, and returned. `counts`
+    (counts_buffer) is filled with the mask's per-segment counts; only
+    the phased no-missing group's kernel takes one."""
     valid = dev["valid"]
     if out is None:
         out = tile_buffers(cfg, valid.device)
+    if counts is not None:
+        shape = (cfg["B"], -(-cfg["B"] // SEG))
+        if kernel_name(cfg) != "phased_tile":
+            raise ValueError("only the phased_tile kernel writes counts")
+        if counts.dtype != torch.int32 or tuple(counts.shape) != shape \
+                or not counts.is_contiguous() \
+                or counts.device != out[0].device:
+            raise ValueError(f"counts {tuple(counts.shape)} {counts.dtype} "
+                             f"on {counts.device}: expected {shape} "
+                             f"torch.int32, contiguous, on {out[0].device}")
     if valid.is_cuda:
-        return _launch(dev, i, j, diag, cfg, out)
+        return _launch(dev, i, j, diag, cfg, out, counts)
     if valid.device.type != "cpu":
         raise ValueError(f"no tile kernel for device {valid.device}")
     _build.PLAIN_CALLS[kernel_name(cfg)] += 1
     mask, parts = tile_prefilter_plain(dev, i, j, diag, cfg)
     out[0].copy_(mask)
     out[1].copy_(parts)
+    if counts is not None:
+        counts.copy_(tile_counts_plain(mask))
     return out
 
 
@@ -180,7 +229,7 @@ def _check_inputs(dev, cfg, out, planes=True, meta=True):
     return NB, B, W
 
 
-def _launch(dev, i, j, diag, cfg, out):
+def _launch(dev, i, j, diag, cfg, out, counts=None):
     NB, B, W = _check_inputs(dev, cfg, out)
     _in_range(i, j, NB)
     table, miss, cls = cfg["table"], cfg["has_missing"], cfg["cls"]
@@ -206,7 +255,8 @@ def _launch(dev, i, j, diag, cfg, out):
             ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *win,
             window, cls_code, B, W, 2 * cfg["n_samples"], float(lo),
             float(hi), int(need_nonzero), int(bool(diag)), mask.data_ptr(),
-            parts.data_ptr(), stream)
+            parts.data_ptr(),
+            None if counts is None else counts.data_ptr(), stream)
     else:
         keys = plane_keys(table, miss)
         side = lambda s: [ptr(k, s) for k in keys] + [None] * (3 - len(keys))

@@ -1,0 +1,197 @@
+#!/usr/bin/env python3
+"""Where phased_tile's time goes, and what the compaction's redesign gained.
+
+    python3 -m tomahawk_tpu_torch.ops.time_variants [--old-compact FILE]
+
+A measurement, not part of the library or of chip_smoke.py; needs an
+NVIDIA GPU and nvcc. It builds csrc/phased_tile.cu whole and once per
+entry of CUTS, each from a copy with parts of the kernel edited out (the
+outputs of those builds are wrong by design), and times each on the -p
+tile (B = 4096, 2,504 samples, W = 160 words, off-diagonal). The
+differences say what the staging + MMA loop, the prefilter's arithmetic
+and the stores cost, and how far they overlap.
+
+With --old-compact FILE it also times the compaction of FILE, a compact.cu
+with the interface the compaction had while it ran three dependent
+launches and counted every mask itself (twk_compact without the `counts`
+and `ticket` arguments, scratch of 3 * B + 2 words allocated per call),
+against the library's on one mask (the LD-grouped diagonal tile, 30,720
+survivors, one part), with the counts given and without.
+
+Every timed call is queued behind ~4 ms of other device work, so the host
+stays ahead and the time is the device's, launch gaps included. Prints the
+card's name and power limit, one line a variant, and one JSON object.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+B, N_SAMPLES, MIN_R2 = 4096, 2504, 0.1
+
+_LOOP = (r"  Tile::run\(smem, xa, xb, row0, col0, B, W, acc\);\n", "")
+# the mask byte from two bits of the count, so that the stores still
+# depend on the contraction
+_PREFILTER = (r"    // twk::candidate on the hoisted metadata\n.*?"
+              r"s\.hi, s\.need_nonzero\);\n",
+              "    const bool m = (aa[q] & 2) != 0;\n"
+              "    const bool pf = (aa[q] & 1) != 0;\n")
+_ALTALT = (r"&aa4\[u\], row0 \+ first", "nullptr, row0 + first")
+#: variant -> edits (regular expression, replacement) of phased_tile.cu
+CUTS = {"whole": (), "no loop": (_LOOP,), "no prefilter": (_PREFILTER,),
+        "no ALTALT stores": (_ALTALT,),
+        "loop + mask stores only": (_PREFILTER, _ALTALT),
+        "stores only": (_LOOP, _PREFILTER),
+        "mask stores only": (_LOOP, _PREFILTER, _ALTALT)}
+
+
+def device_ms(fn, reps):
+    """Mean device milliseconds per call of fn after one warm-up, the
+    calls queued behind the MMA probe (~4 ms)."""
+    import torch
+    from . import _build
+    fn()
+    sink = torch.zeros(528 * 256, dtype=torch.int32, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    _build.check(_build.library().twk_mma_probe(0, 528, 20000,
+                                                sink.data_ptr(), stream),
+                 "mma_probe launch")
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _nvcc_shared(jobs):
+    """Build each (source, library) of `jobs`, all at once."""
+    from . import _build
+    _build._run([[_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
+                  "-shared", "-o", so, src] for src, so in jobs])
+
+
+def time_cuts(work):
+    import torch
+    from .. import workloads
+    from ..compute import sweeps
+    from . import _build, tiles
+    from . import ld_kernels as K
+    with open(os.path.join(_build.CSRC, "phased_tile.cu")) as fh:
+        source = fh.read()
+    jobs = []
+    for n, edits in enumerate(CUTS.values()):
+        text = source
+        for pattern, repl in edits:
+            text, hits = re.subn(pattern, repl, text, flags=re.S)
+            if hits != 1:
+                raise SystemExit(f"edit {pattern!r} matched {hits} times")
+        jobs.append((os.path.join(work, f"cut{n}.cu"),
+                     os.path.join(work, f"cut{n}.so")))
+        with open(jobs[-1][0], "w") as fh:
+            fh.write(text)
+    _nvcc_shared(jobs)
+    cfg = sweeps.make_cfg("phased", False, "all", B, N_SAMPLES, 0, MIN_R2,
+                          100.0)
+    dev = sweeps.planes_to_device(workloads.build_planes(2, B, N_SAMPLES),
+                                  "cuda", sweeps.dev_keys_for(cfg))
+    mask, parts = tiles.tile_buffers(cfg, "cuda")
+    counts = tiles.counts_buffer(cfg, "cuda")
+    lo, hi, nonzero = K.prefilter_bounds(MIN_R2, 100.0)
+    ptr = lambda k, s: dev[k][s].data_ptr()
+    W = dev["alt_bits"].shape[-1]
+    res = {}
+    for name, (_, so) in zip(CUTS, jobs):
+        lib = ctypes.CDLL(so)
+        lib.twk_phased_tile.argtypes = _build._SIGNATURES["twk_phased_tile"]
+
+        def launch():
+            rc = lib.twk_phased_tile(
+                ptr("alt_bits", 0), ptr("alt_bits", 1), ptr("ac", 0),
+                ptr("ac", 1), ptr("valid", 0), ptr("valid", 1), *[None] * 6,
+                0, 0, B, W, 2 * N_SAMPLES, float(lo), float(hi),
+                int(nonzero), 0, mask.data_ptr(), parts.data_ptr(),
+                counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"phased_tile ({name}): CUDA error {rc}")
+
+        res[name] = device_ms(launch, 40)
+        print(f"phased_tile, {name}: {res[name]:.4f} ms", flush=True)
+    return res
+
+
+def time_compact(work, old_source):
+    import torch
+    from .. import workloads
+    from ..compute import sweeps
+    from . import tiles
+    so = os.path.join(work, "old_compact.so")
+    _nvcc_shared([(old_source, so)])
+    old = ctypes.CDLL(so)
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    old.twk_compact.argtypes = [P_, P_, I_, I_, I_, P_, I_, I_, P_, P_, I_,
+                                P_, P_, P_]
+    cfg = sweeps.make_cfg("phased", False, "all", B, N_SAMPLES, 0, MIN_R2,
+                          100.0)
+    dev = sweeps.planes_to_device(
+        workloads.build_planes_grouped(1, B, N_SAMPLES), "cuda",
+        sweeps.dev_keys_for(cfg))
+    counts = tiles.counts_buffer(cfg, "cuda")
+    mask, parts = tiles.tile_prefilter(dev, 0, 0, True, cfg, counts=counts)
+    cap, outcap = 32768, 1 << 18
+    buf = torch.zeros((outcap, 2), dtype=torch.int32, device="cuda")
+    n_pass, n_cand, off = (torch.zeros(1, dtype=torch.int32, device="cuda")
+                           for _ in range(3))
+    scratch = sweeps.compact_scratch(B, "cuda")
+
+    def new(cnt):
+        sweeps.compact_survivors(mask, parts, off, buf, n_pass, n_cand, 0,
+                                 cap, cnt, scratch)
+
+    def before():
+        tmp = torch.empty(3 * B + 2, dtype=torch.int32, device="cuda")
+        rc = old.twk_compact(
+            mask.data_ptr(), parts.data_ptr(), 1, 2, B, off.data_ptr(), cap,
+            outcap, n_pass.data_ptr(), n_cand.data_ptr(), 0, tmp.data_ptr(),
+            buf.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"old compact: CUDA error {rc}")
+
+    res = {"old": device_ms(before, 50),
+           "counts given": device_ms(lambda: new(counts), 50),
+           "no counts given": device_ms(lambda: new(None), 50)}
+    print(f"compact, 1 part, {int((mask == 2).sum())} survivors: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in res.items()), flush=True)
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old-compact", metavar="FILE")
+    args = ap.parse_args()
+    from . import _build
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    work = os.path.join(_build.BUILD_DIR, "variants")
+    os.makedirs(work, exist_ok=True)
+    try:
+        out = {"phased_tile_cuts_ms": time_cuts(work)}
+        if args.old_compact:
+            out["compact_ms"] = time_compact(work, args.old_compact)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
