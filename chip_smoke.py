@@ -10,52 +10,61 @@ Phases, in order; any failure exits non-zero:
 1. report the card (torch's name and nvidia-smi's name and power limit);
 2. build the hand kernels from tomahawk_tpu_torch/csrc with nvcc (one
    process per source) and print ptxas's registers and spills for each
-   kernel instance; build the port's native host library with g++;
-   time the MMA probe (csrc/mma_probe.cu): the rates at which the card
-   runs the 1-bit AND+POPC MMA and the int8 MMAs (mma.sync, wgmma);
+   kernel instance (a spill fails the run); check with `cuobjdump -sass`
+   that every instance of phased_tile, parts_tile and local_parts
+   issues the 1-bit MMA (BMMA.168256.AND.POPC); build the port's native
+   host library with g++; time the MMA probe (csrc/mma_probe.cu): the
+   rates at which the card runs the 1-bit AND+POPC MMA and the int8
+   MMAs (mma.sync, wgmma);
 3. compare each kernel with its plain PyTorch version at the main
    paths' shapes (B = 4096 variants per tile, 2,504 samples):
    phased_tile (P = 1, W = 160 words) with its counts buffer (against
    tile_counts_plain of the mask) and compact, with the counts given
-   and without; torch._int_mm on the operands unpacked to int8
-   beforehand, timed beside phased_tile as the library's yardstick of
-   the contraction alone (its result equal to ALTALT; the port never
-   calls it); phased_tile, its counts and compact at odd shapes (63
-   words a row, so rows are not 16-byte aligned; 192 and 320 rows, so
-   the tile's edge cuts a thread block; cls all and clean, window
-   0 and 250,000 bp, a diagonal and an off-diagonal tile); every
-   parts_tile instance and phased_tile's clean class on planes with ~2%
-   missing genotypes, packed as bitpack.block_to_planes packs them, on
-   a diagonal and an off-diagonal tile; compact with 4- and 9-part
-   payloads, pair-packed (2,504 samples) and one part per column
-   (70,000 unphased samples); the time per call of each, and of the
-   unphased P = 4 instance at tools/probe_pallas.py's shape (random
-   het/hom words, W = 80). Outputs must be bit-identical. Then the
-   window instances: all six sweep groups at windows of 250,000 and
-   1,000,000 bp over positions ~275 bp apart, on a diagonal and the
-   neighbouring off-diagonal tile, and two groups on a super-block
-   with two contigs and invalid rows: the mask equal on every lane,
-   the parts equal wherever the mask is not 0, the set of thread blocks
-   the kernel skipped equal to ld_kernels.block_live's; the share of
-   live thread blocks and of candidates, the time per call, the card's
-   bound of the live blocks and the CUDA-core ceiling. Then the two kernels of the
-   samples-sharded sweep: local_parts in its four instances on word
-   slices S = 2 and S = 3 of the planes (every lane equal to its plain
-   version; the slices' sum equal to the plain full-width parts on
-   every lane and to the fused kernel's parts where its mask is not 0)
-   and tile_epilogue on that sum, for every pair class, windows 0 and
-   250,000 bp, a diagonal and the neighbouring tile (equal to its plain
-   version and to the fused kernel's mask on every lane); the time per
-   call of each instance beside its bound;
+   and without; every fused group (phased_tile, parts_tile), its counts,
+   local_parts and compact at odd shapes (63 words a row, so rows are
+   not 16-byte aligned; 192 and 320 rows, so the tile's edge cuts a
+   thread block; window 0 and 250,000 bp, a diagonal and an off-diagonal
+   tile); every parts_tile instance and phased_tile's clean class on
+   planes with ~2% missing genotypes, packed as bitpack.block_to_planes
+   packs them, on a diagonal and an off-diagonal tile, with their counts
+   and compact on their masks with the counts and without; compact
+   with 4- and 9-part payloads, pair-packed (2,504 samples) and one part
+   per column (70,000 unphased samples), the counts given and not; a
+   compaction on a stale scan ticket (it must raise at sweeps.host_counts
+   and leave the ticket 0, and the next compaction must be right); the
+   time per call of each, and of the unphased P = 4 instance at
+   tools/probe_pallas.py's shape (random het/hom words, W = 80). Beside
+   each contraction, torch._int_mm once a part on the operands unpacked
+   to int8 beforehand (`library_ms`: cuBLAS's int8 GEMM, the library's
+   yardstick of the contraction alone, each product equal to the
+   kernel's part; the port never calls it). Outputs must be
+   bit-identical. Then the window instances: all six sweep groups at
+   windows of 250,000 and 1,000,000 bp over positions ~275 bp apart, on
+   a diagonal and the neighbouring off-diagonal tile, and two groups on a
+   super-block with two contigs and invalid rows: the mask and the counts
+   equal on every lane, the parts equal wherever the mask is not 0, the
+   set of thread blocks the kernel skipped equal to
+   ld_kernels.block_live's; the share of live thread blocks and of
+   candidates, the time per call, the card's bound of the live blocks
+   and the CUDA-core ceiling. Then the two kernels of the samples-sharded
+   sweep: local_parts in its four instances on word slices S = 2 and S =
+   3 of the planes (every lane equal to its plain version; the slices'
+   sum equal to the plain full-width parts on every lane and to the
+   fused kernel's parts where its mask is not 0) and tile_epilogue on
+   that sum, for every pair class, windows 0 and 250,000 bp, a diagonal
+   and the neighbouring tile (equal to its plain version and to the
+   fused kernel's mask on every lane); the time per call of each
+   instance beside its bound;
    Bounds: each contraction's is the card's, the larger of 64
    operations a pair-word over the rate the card runs the 1-bit AND+POPC
    MMA at (10.2e15/s, the MMA probe's lowest reading) and its bytes over
    the HBM rate; beside it `int8_ms`, the same operations over the
    published int8 tensor-core peak (1.979e15/s), which a bit contraction
    need not pay, and `cuda_core_ms`, over the POPC rate of the CUDA cores
-   (4.2e12/s), the ceiling of the route parts_tile and local_parts still
-   take. compact's times are the device's, the calls queued ahead of it;
-   its time at the host's pace is printed beside them;
+   (4.2e12/s), the ceiling of the AND + __popc route the tile kernels
+   took before the tensor cores. compact's times are the device's, the
+   calls queued ahead of it; its time at the host's pace is printed
+   beside them;
 4. run `calc` through the user's entry points (`python -m
    tomahawk_tpu_torch import`, then `python -m tomahawk_tpu_torch calc`
    in this process, so its kernel launch counts are visible), each path
@@ -94,10 +103,11 @@ Phases, in order; any failure exits non-zero:
 5. time `LdEngine.run_phased_pairs` on the sparse and records-dense
    workloads (64 x 4096 random variants; 16 x 4096 LD-grouped
    variants), the sparse planes again over `Balancer.window_pairs` at
-   windows of 250,000 and 1,000,000 bp, and
-   `LdEngine.run_unphased_pairs` on 16 x 4096 random genotype variants
-   without missing data (P = 4) and with 2% (P = 9); after the timed
-   reps of the sparse and the dense workload one more rep of each under
+   windows of 250,000 and 1,000,000 bp, `LdEngine.run_unphased_pairs`
+   on 16 x 4096 random genotype variants without missing data (P = 4)
+   and with 2% (P = 9), and `LdEngine.run_mixed_pairs` on 16 x 4096
+   LD-grouped genotype variants, half of them missing 2%; after the
+   timed reps of each but the windowed ones, one more rep under
    torch.profiler (wall, device busy, idle share, ms by kernel); and
    `LdEngine.run_phased_pairs` over the first 16 blocks of the sparse
    planes (136 tiles) as two samples-sharded ranks on the one card,
@@ -145,11 +155,20 @@ B1_OPS_PER_S = 10.2e15
 INT8_OPS_PER_S = 1.979e15
 #: POPC rate of the CUDA cores of one H100 SXM, per second: 132 SMs x 16
 #: a clock x ~1.98 GHz. Not the card's bound: the ceiling of the AND +
-#: __popc route, which parts_tile and local_parts still take
-#: (`cuda_core_ms`)
+#: __popc route the tile kernels took before the tensor cores
+#: (`cuda_core_ms`), kept to read their earlier times against
 POPC_PER_S = 4.2e12
 #: HBM3 rate of the H100 SXM, bytes per second (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
+#: the planes of each part of a tile, (side i, side j), in the column
+#: order of pallas_tiles._chunk_parts (csrc/mma_tile.cuh's Products)
+PRODUCTS = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0), (1, 2), (2, 1),
+            (2, 2))
+#: SASS of the 1-bit MMA (mma.sync.m16n8k256.b1.and.popc)
+BMMA = "BMMA.168256.AND.POPC"
+#: the kernels that contract on the tensor cores, and their instances
+MMA_KERNELS = {"phased_tile_kernel": 1, "parts_tile_kernel": 3,
+               "local_parts_kernel": 4}
 #: seconds a spawned rank may take before it is killed
 RANK_LIMIT = 300
 #: super-blocks of the sparse planes the two-rank engine timing sweeps
@@ -242,6 +261,11 @@ def mma_probe():
 
 
 def build_kernels():
+    """Build the kernel library and the native host library; print
+    ptxas's registers and spills of every kernel instance (none may
+    spill) and check in the library's SASS that every tensor-core
+    instance issues the 1-bit MMA."""
+    import re
     from tomahawk_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.library()
@@ -250,6 +274,12 @@ def build_kernels():
     for line in _build.build_log.splitlines():
         if "entry function" in line or "Used" in line or "spill" in line:
             _say(f"  ptxas: {line.strip()}")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        _build.build_log)
+    if not spills or any(int(a) or int(b) for a, b in spills):
+        raise SystemExit("a kernel instance spills (or ptxas printed no "
+                         "report)")
+    check_sass(_build)
     from tomahawk_tpu_torch import native
     t0 = time.perf_counter()
     if not native.available():
@@ -257,6 +287,27 @@ def build_kernels():
                          "(g++ missing?)")
     _say(f"native host library built in {time.perf_counter() - t0:.1f}s "
          f"({native._SO})")
+
+
+def check_sass(_build):
+    """cuobjdump -sass of the built library: each instance of each kernel
+    in MMA_KERNELS issues BMMA (the 1-bit MMA), counted by function."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build._lib_path()],
+                          capture_output=True, text=True, check=True).stdout
+    found = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        for kernel in MMA_KERNELS:
+            if kernel in name:
+                found.setdefault(kernel, []).append(chunk.count(BMMA))
+    for kernel, n in MMA_KERNELS.items():
+        got = found.get(kernel, [])
+        if len(got) != n or 0 in got:
+            raise SystemExit(f"SASS: {kernel} has {len(got)} instances "
+                             f"(expected {n}) with {got} {BMMA} each")
+    _say("SASS: " + ", ".join(f"{k} {len(v)} instances, {v} {BMMA}"
+                               for k, v in found.items()))
 
 
 def _check_counts_buffer(label, counts, mask):
@@ -304,6 +355,37 @@ def _unpack_int8(words):
         .reshape(words.shape[0], -1)
 
 
+def _int8_operands(dev, s, keys):
+    """The planes `keys` of super-block s unpacked to int8 0/1 [B, 32 W],
+    the miss plane as valid = ~miss: the operands of a tile's parts."""
+    return [_unpack_int8(~dev[k][s] if k == "miss_bits" else dev[k][s])
+            for k in keys]
+
+
+def library_call(dev, i, j, keys, P):
+    """A function computing the P parts of tile (i, j) with torch._int_mm
+    (cuBLAS's int8 GEMM on the card) once a part, on the planes `keys`
+    unpacked to int8 beforehand: the library's yardstick of the
+    contraction alone (no mask, no prefilter), which the port never
+    calls."""
+    import torch
+    a = _int8_operands(dev, i, keys)
+    b = [x.t() for x in _int8_operands(dev, j, keys)]
+    return lambda: [torch._int_mm(a[x], b[y]) for x, y in PRODUCTS[:P]]
+
+
+def library_parts(dev, i, j, keys, parts):
+    """The ms per call of `library_call` for tile (i, j), after checking
+    each product against the kernel's parts (i32 [P, B, B])."""
+    import torch
+    run = library_call(dev, i, j, keys, parts.shape[0])
+    for p, got in enumerate(run()):
+        if not torch.equal(got, parts[p]):
+            raise SystemExit(f"torch._int_mm of part {p} {PRODUCTS[p]} "
+                             f"differs from the kernel's parts")
+    return _cuda_ms(run)
+
+
 def compare_kernels():
     """phased_tile (P = 1, cls "all") with its counts buffer, and compact
     (one payload part; with the counts given and without) against their
@@ -312,7 +394,6 @@ def compare_kernels():
     int8 GEMM: the contraction alone, the yardstick the port never
     calls). Returns {kernel: (max_abs_err, ms, plain_ms)} and a dict of
     the other times."""
-    import torch
     from tomahawk_tpu_torch import workloads
     from tomahawk_tpu_torch.compute import sweeps
     from tomahawk_tpu_torch.ops import tiles
@@ -366,14 +447,7 @@ def compare_kernels():
                                                     out, counts))
     tile_plain = _cuda_ms(
         lambda: tiles.tile_prefilter_plain(dev, 0, 1, False, cfg))
-    # the library's int8 GEMM on the same operands, unpacked beforehand
-    a8 = _unpack_int8(dev["alt_bits"][0])
-    b8t = _unpack_int8(dev["alt_bits"][1]).t()
-    if not torch.equal(torch._int_mm(a8, b8t), masks[1][1][0]):
-        raise SystemExit("torch._int_mm of the unpacked operands differs "
-                         "from phased_tile's ALTALT")
-    library_ms = _cuda_ms(lambda: torch._int_mm(a8, b8t))
-    del a8, b8t
+    library_ms = library_parts(dev, 0, 1, ("alt_bits",), masks[1][1])
     mask, parts, counts = masks[2]
     times = _time_compact(mask, parts, 2, counts)
     _say(f"  ms per call: phased_tile {tile_ms:.4f} (plain "
@@ -424,37 +498,52 @@ def _time_compact(mask, parts, ncol, counts=None):
         plain_ms=_cuda_ms(plain))
 
 
-#: odd shapes of the phased_tile check: (tile rows, words kept of the
-#: 64 a 1,000-sample plane has). 63 words hold all 2,000 haplotypes and
-#: make rows that are not 16-byte aligned; 192 and 320 rows are 1.5 and
-#: 2.5 thread blocks
-ODD_SHAPES = ((192, 63), (320, 63), (192, 64))
+#: odd shapes of the tile kernel checks: (tile rows, words kept of the 64
+#: a row has: 2,000 haplotypes of 1,000 samples phased, 2,000 samples
+#: unphased). 63 words hold every bit and make rows that are not 16-byte
+#: aligned; 27, 52 and 54 are the word slices of a three-rank
+#: samples-sharded run; 192 and 320 rows are 1.5 and 2.5 thread blocks of
+#: phased_tile, 3 and 5 of parts_tile
+ODD_SHAPES = ((192, 63), (320, 63), (192, 64), (192, 27), (192, 52),
+              (192, 54))
+#: the odd-shape check's groups: every (table, has_missing, cls), with the
+#: samples of its planes
+ODD_GROUPS = {(table, miss, cls): 1000 if table == "phased" else 2000
+              for table in ("phased", "unphased") for miss in (False, True)
+              for cls in ("all", "clean", "missing")}
 
 
 def compare_odd_shapes():
-    """phased_tile and its counts against the plain versions where the
-    staging cannot use 16-byte copies (W % 4 != 0) and where the tile's
-    edge cuts a thread block: cls all and clean, window 0 and 250 kb, a
-    diagonal and an off-diagonal tile; then compact on those masks, with
-    counts and without. Equal on every lane."""
+    """phased_tile and parts_tile with their counts, and local_parts,
+    against the plain versions where the staging cannot use 16-byte
+    copies (W % 4 != 0), where the last K step is partial (W % 8 != 0)
+    and where the tile's edge cuts a thread block: every instance and pair
+    class (ODD_GROUPS), window 0 and 250 kb, a diagonal and an
+    off-diagonal tile; then compact on those masks, with counts and
+    without. Equal on every lane (the parts where the mask is not 0 in
+    window mode)."""
     import torch
     from tomahawk_tpu_torch import workloads
     from tomahawk_tpu_torch.compute import sweeps
     from tomahawk_tpu_torch.ops import tiles
-    n_samples = 1000
     for Bt, W in ODD_SHAPES:
-        st = workloads.genotype_planes(2, Bt, n_samples, 0.02)
-        st = dict(st, alt_bits=st["alt_bits"][..., :W])
-        dev = sweeps.planes_to_device(st, "cuda")
+        devs = {}
+        for n_samples in (1000, 2000):
+            st = workloads.genotype_planes(2, Bt, n_samples, 0.02)
+            st = {k: v[..., :W] if k.endswith("_bits") else v
+                  for k, v in st.items()}
+            devs[n_samples] = sweeps.planes_to_device(st, "cuda")
         n = 0
-        for cls in ("all", "clean"):
+        for group, n_samples in ODD_GROUPS.items():
+            dev = devs[n_samples]
             for window in (0, WINDOWS[0]):
-                cfg = sweeps.make_cfg("phased", False, cls, Bt, n_samples,
-                                      window, MIN_R2, 100.0)
+                cfg = sweeps.make_cfg(*group, Bt, n_samples, window, MIN_R2,
+                                      100.0)
                 got = []
                 for i, j, diag in ((1, 1, True), (0, 1, False)):
-                    label = (f"phased_tile B={Bt} W={W} {cls} w={window} "
-                             f"({i},{j})")
+                    label = (f"{tiles.kernel_name(cfg)} "
+                             f"{'/'.join(map(str, group))} B={Bt} W={W} "
+                             f"w={window} ({i},{j})")
                     counts = tiles.counts_buffer(cfg, "cuda").fill_(-1)
                     mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg,
                                                        counts=counts)
@@ -466,15 +555,22 @@ def compare_odd_shapes():
                         raise SystemExit(f"{label} differs from its plain "
                                          f"version")
                     _check_counts_buffer(label, counts, mask)
+                    if window == 0 and group[2] == "all":
+                        out = tiles.tile_buffers(cfg, "cuda")
+                        lp = tiles.tile_local_parts(dev, i, j, cfg, out)
+                        if not torch.equal(lp, want_p):
+                            raise SystemExit(f"local_parts at {label} "
+                                             f"differs from its plain "
+                                             f"version")
                     got.append((mask, parts, counts))
                     n += int((mask == 2).sum())
-                outs = _compact_all_ways(got, 2, 256, 2)
+                outs = _compact_all_ways(got, sweeps.buf_cols(cfg), 256, 2)
                 if any(not torch.equal(a, b) for g in outs[:2]
                        for a, b in zip(g, outs[2])):
-                    raise SystemExit(f"compact B={Bt} {cls} w={window} "
+                    raise SystemExit(f"compact {group} B={Bt} w={window} "
                                      f"differs from its plain version")
-        _say(f"  phased_tile, counts and compact at B={Bt}, W={W} of "
-             f"{n_samples} samples: cls all / clean x window 0 / "
+        _say(f"  phased_tile, parts_tile, local_parts, counts and compact at "
+             f"B={Bt}, W={W}: {len(ODD_GROUPS)} groups x window 0 / "
              f"{WINDOWS[0]} x two tiles, {n} survivors, equal")
 
 
@@ -497,8 +593,12 @@ MAIN_GROUP = ("unphased", True, "missing")
 def compare_groups():
     """Every parts_tile instance and phased_tile's clean class against
     their plain versions on planes with ~2% missing genotypes, on an
-    off-diagonal and a diagonal tile; then the time per call of each.
-    Returns {group: (max_abs_err, ms, plain_ms)}."""
+    off-diagonal and a diagonal tile, with the counts buffer (against
+    tile_counts_plain) and compact on their masks (with the counts and
+    without, against the plain version); then the time per call of each,
+    and of torch._int_mm once a part on the pre-unpacked operands.
+    Returns {group: (max_abs_err, ms, plain_ms, library_ms)}."""
+    import torch
     from tomahawk_tpu_torch.compute import sweeps
     from tomahawk_tpu_torch.ops import tiles
     t0 = time.perf_counter()
@@ -512,39 +612,59 @@ def compare_groups():
     for group in GROUPS:
         cfg = sweeps.make_cfg(*group, B, N_SAMPLES, 0, MIN_R2, 100.0)
         name = tiles.kernel_name(cfg)
+        label = f"{name} {'/'.join(map(str, group))}"
+        got = []
         for i, j, diag in ((0, 1, False), (1, 1, True)):
-            mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg)
+            counts = tiles.counts_buffer(cfg, "cuda").fill_(-1)
+            mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg,
+                                               counts=counts)
             want_m, want_p = tiles.tile_prefilter_plain(dev, i, j, diag, cfg)
             err = max(int((mask.int() - want_m.int()).abs().max()),
                       int((parts - want_p).abs().max()))
-            _say(f"  {name} {'/'.join(map(str, group))} ({i},{j}): P="
-                 f"{parts.shape[0]}, {int((mask == 2).sum())} survivors, "
-                 f"{int((mask != 0).sum())} candidates, max |diff| {err}")
+            _say(f"  {label} ({i},{j}): P={parts.shape[0]}, "
+                 f"{int((mask == 2).sum())} survivors, "
+                 f"{int((mask != 0).sum())} candidates, max |diff| {err}, "
+                 f"counts equal")
             if err:
-                raise SystemExit(f"{name} {group} disagrees with its plain "
-                                 f"version")
+                raise SystemExit(f"{label} disagrees with its plain version")
+            _check_counts_buffer(f"{label} ({i},{j})", counts, mask)
+            got.append((mask, parts, counts))
             del want_m, want_p
+        ncol = sweeps.buf_cols(cfg)
+        for cap in (32768, 256):
+            outs = _compact_all_ways(got, ncol, cap, 2)
+            if any(not torch.equal(a, b) for g in outs[:2]
+                   for a, b in zip(g, outs[2])):
+                raise SystemExit(f"compact on the masks of {label} differs "
+                                 f"from its plain version")
         out = tiles.tile_buffers(cfg, "cuda")
+        counts = tiles.counts_buffer(cfg, "cuda")
         ms = _cuda_ms(lambda: tiles.tile_prefilter(dev, 0, 1, False, cfg,
-                                                   out))
+                                                   out, counts))
         plain = _cuda_ms(
             lambda: tiles.tile_prefilter_plain(dev, 0, 1, False, cfg), reps=3)
-        _say(f"  ms per call: {name} {'/'.join(map(str, group))} {ms:.4f} "
-             f"(plain {plain:.4f})")
-        res[group] = (0, ms, plain)
+        lib = library_parts(dev, 0, 1, tiles.plane_keys(*group[:2]),
+                            got[0][1])
+        _say(f"  ms per call: {label} {ms:.4f} (plain {plain:.4f}; "
+             f"torch._int_mm x {got[0][1].shape[0]} on the pre-unpacked "
+             f"operands, contraction only, {lib:.4f}); compact with the "
+             f"counts and without equal to the plain version")
+        res[group] = (0, ms, plain, lib)
+        del got, out, outs
     return res
 
 
 def compare_payloads():
-    """compact with 4- and 9-part payloads against its plain version:
-    pair-packed at 2,504 samples (B = 4096), one part per column at
-    70,000 unphased samples (a 512-row tile, where pack16_ok is false).
-    Their masks come from parts_tile on the calc paths, which writes no
-    counts, so this is the compaction's path that counts the mask
-    itself. Returns {P: (max_abs_err, ms, plain_ms, rows kept by the timed
-    call)} at 2,504 samples."""
+    """compact with 4- and 9-part payloads against its plain version, on
+    random masks with the counts given (tile_counts_plain of the mask, as
+    parts_tile writes them) and without: pair-packed at 2,504 samples (B
+    = 4096), one part per column at 70,000 unphased samples (a 512-row
+    tile, where pack16_ok is false). Returns {P: (max_abs_err, ms with
+    the counts, plain_ms, rows kept by the timed call, ms without the
+    counts)} at 2,504 samples."""
     import torch
     from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import tiles
     gen = torch.Generator(device="cuda").manual_seed(5)
     res = {}
     for n_samples, Bt in ((N_SAMPLES, B), (70_000, 512)):
@@ -558,29 +678,80 @@ def compare_payloads():
             parts = torch.randint(0, n_samples, (P, Bt, Bt),
                                   dtype=torch.int32, device="cuda",
                                   generator=gen)
+            counts = tiles.tile_counts_plain(mask)
             err = 0
             for cap in (32768, 256):
-                outs = _compact_all_ways([(mask, parts, None)], ncol, cap, 2)
+                outs = _compact_all_ways([(mask, parts, counts)], ncol, cap,
+                                         2)
                 err = max([err] + [int((a - b).abs().max())
-                                   for a, b in zip(outs[1], outs[2])])
+                                   for g in outs[:2]
+                                   for a, b in zip(g, outs[2])])
             _say(f"  compact P={P}, {n_samples} samples, {ncol} columns, "
-                 f"B={Bt}, no counts given: {int(outs[1][1][0])} survivors, "
-                 f"max |diff| {err}")
+                 f"B={Bt}, counts given / not given: {int(outs[1][1][0])} "
+                 f"survivors, max |diff| {err}")
             if err:
                 raise SystemExit("compact disagrees with its plain version")
             if n_samples == N_SAMPLES:
-                tm = _time_compact(mask, parts, ncol)
-                _say(f"  ms per call: compact, {P} parts, no counts given "
-                     f"{tm['no_counts_ms']:.4f}, at the host's pace "
-                     f"{tm['host_paced_ms']:.4f} (plain "
+                tm = _time_compact(mask, parts, ncol, counts)
+                _say(f"  ms per call: compact, {P} parts, counts given "
+                     f"{tm['ms']:.4f}, not given {tm['no_counts_ms']:.4f}, "
+                     f"at the host's pace {tm['host_paced_ms']:.4f} (plain "
                      f"{tm['plain_ms']:.4f})")
                 kept = min(int(outs[1][1][0]), 32768)
-                res[P] = (err, tm["no_counts_ms"], tm["plain_ms"], kept)
+                res[P] = (err, tm["ms"], tm["plain_ms"], kept,
+                          tm["no_counts_ms"])
     return res
 
 
+def check_ticket_fault():
+    """A compaction that finds its scan's ticket not 0 (as a scan that
+    died midway leaves it) marks its tile, sweeps.host_counts raises for
+    the mark, and the ticket is 0 again: the next compaction on the stream
+    equals the plain version. Stale values under and over the scan's
+    grid (32 blocks at B = 4096)."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import tiles
+    cfg = sweeps.make_cfg("phased", False, "all", B, N_SAMPLES, 0, MIN_R2,
+                          100.0)
+    dev = sweeps.planes_to_device(
+        workloads.build_planes_grouped(1, B, N_SAMPLES), "cuda",
+        sweeps.dev_keys_for(cfg))
+    counts = tiles.counts_buffer(cfg, "cuda")
+    mask, parts = tiles.tile_prefilter(dev, 0, 0, True, cfg, counts=counts)
+    ticket = sweeps._ticket(mask.device,
+                            torch.cuda.current_stream().cuda_stream)
+    for stale in (5, 1 << 20):
+        ticket.fill_(stale)
+        n_pass = torch.zeros(1, dtype=torch.int32, device="cuda")
+        n_cand = torch.zeros(1, dtype=torch.int32, device="cuda")
+        off = torch.zeros(1, dtype=torch.int32, device="cuda")
+        buf = torch.zeros((1 << 16, 2), dtype=torch.int32, device="cuda")
+        sweeps.compact_survivors(mask, parts, off, buf, n_pass, n_cand, 0,
+                                 32768, counts)
+        try:
+            sweeps.host_counts(n_pass, n_cand)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise SystemExit(f"a compaction on a ticket left at {stale} "
+                             f"raised nothing")
+        if int(ticket.item()) != 0:
+            raise SystemExit(f"the ticket is {int(ticket.item())} after the "
+                             f"fault, not 0")
+        outs = _compact_all_ways([(mask, parts, counts)], 2, 32768, 1)
+        if any(not torch.equal(a, b) for g in outs[:2]
+               for a, b in zip(g, outs[2])):
+            raise SystemExit("the compaction after a ticket fault differs "
+                             "from its plain version")
+        _say(f"  ticket left at {stale}: host_counts raised ({msg[:60]}...);"
+             f" the ticket is 0 again and the next compaction equals the "
+             f"plain version ({int(outs[0][1][0])} survivors)")
+
+
 #: pairs per thread block edge of each tile kernel, (rows, cols) by P
-BLOCK_SHAPE = {1: (128, 128), 4: (64, 64), 9: (64, 32)}
+BLOCK_SHAPE = {1: (128, 128), 4: (64, 64), 9: (32, 64)}
 #: all six sweep groups, (table, has_missing, cls)
 ALL_GROUPS = (("phased", False, "all"),) + GROUPS
 
@@ -589,24 +760,21 @@ def _check_window_tile(dev, host, i, j, diag, cfg, label):
     """One window instance on one tile against its plain version: mask
     on every lane, parts where mask >= 1, and the kernel's skipped
     thread blocks (parts left at the -1 they were filled with) against
-    ld_kernels.block_live; phased_tile's counts buffer, dead blocks'
-    cells included, against tile_counts_plain. Returns (live blocks, all blocks,
-    candidates)."""
+    ld_kernels.block_live; the counts buffer, dead blocks' cells
+    included, against tile_counts_plain. Returns (live blocks, all
+    blocks, candidates)."""
     import torch
     from tomahawk_tpu_torch.ops import ld_kernels as K
     from tomahawk_tpu_torch.ops import tiles
     out = tiles.tile_buffers(cfg, "cuda")
     out[1].fill_(-1)
-    counts = tiles.counts_buffer(cfg, "cuda")
-    if counts is not None:
-        counts.fill_(-1)
+    counts = tiles.counts_buffer(cfg, "cuda").fill_(-1)
     mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg, out, counts)
     want_m, want_p = tiles.tile_prefilter_plain(dev, i, j, diag, cfg)
     torch.cuda.synchronize()
     if not torch.equal(mask, want_m):
         raise SystemExit(f"{label}: mask differs from the plain version")
-    if counts is not None:
-        _check_counts_buffer(label, counts, mask)
+    _check_counts_buffer(label, counts, mask)
     on = (want_m != 0).unsqueeze(0)
     if not torch.equal(parts * on, want_p * on):
         raise SystemExit(f"{label}: parts differ from the plain version "
@@ -716,8 +884,8 @@ def compare_dcn_kernels():
     """The kernels of the samples-sharded sweep against their plain
     versions and against the fused tile kernels (see the module
     docstring, phase 3). Returns ({instance: (ms, plain_ms, bound_ms,
-    bound_by, int8_ms, cuda_core_ms)} for local_parts at S = 2, the same
-    for tile_epilogue, whose last two are None)."""
+    bound_by, int8_ms, cuda_core_ms, library_ms)} for local_parts at S =
+    2, the same for tile_epilogue, whose last three are None)."""
     import torch
     from tomahawk_tpu_torch.compute import sweeps
     from tomahawk_tpu_torch.ops import tiles
@@ -798,9 +966,11 @@ def compare_dcn_kernels():
         ms = _cuda_ms(lambda: tiles.tile_local_parts(dev, 0, 1, cfg0, out))
         plain = _cuda_ms(lambda: tiles.tile_local_parts_plain(dev, 0, 1,
                                                               cfg0), reps=3)
+        lib = library_parts(dev, 0, 1, keys,
+                            tiles.tile_local_parts(dev, 0, 1, cfg0, out))
         local[instance] = (ms, plain) + _bound(
             P * B * B * Wl, 2 * len(keys) * B * Wl * 4 + P * B * B * 4) \
-            + (_int8_ms(P * B * B * Wl), _cuda_core_ms(P * B * B * Wl))
+            + (_int8_ms(P * B * B * Wl), _cuda_core_ms(P * B * B * Wl), lib)
         tiles.tile_local_parts(full, 0, 1, cfg0, out)
         ms = _cuda_ms(lambda: tiles.tile_epilogue(full, 0, 1, False, cfg0,
                                                   out))
@@ -808,7 +978,7 @@ def compare_dcn_kernels():
             full, 0, 1, False, cfg0, out[1]), reps=3)
         epi[instance] = (ms, plain) + (
             ((4 * P + 1) * B * B + 2 * B * 13) / HBM_BYTES_PER_S * 1e3,
-            "bytes", None, None)
+            "bytes", None, None, None)
         for kname, r in (("local_parts", local), ("tile_epilogue", epi)):
             v = r[instance]
             _say(f"  ms per call: {kname} {name} P={P}"
@@ -816,7 +986,8 @@ def compare_dcn_kernels():
                  f"{v[0]:.4f} (plain {v[1]:.4f}, bound {v[2]:.4f} by "
                  f"{v[3]}"
                  + ("" if v[4] is None else
-                    f", as int8 {v[4]:.4f}, CUDA-core ceiling {v[5]:.4f}")
+                    f", as int8 {v[4]:.4f}, CUDA-core ceiling {v[5]:.4f}; "
+                    f"torch._int_mm x {P} {v[6]:.4f}")
                  + ")")
         del out, slices
         torch.cuda.empty_cache()
@@ -851,8 +1022,8 @@ def _cuda_core_ms(pair_words):
 def probe_shape():
     """The unphased P = 4 instance at tools/probe_pallas.py's shape:
     random het/hom words [4096, 80] on each side (the TPU probe's toy
-    epilogue is replaced by the real prefilter). Returns (max_abs_err,
-    ms, plain_ms)."""
+    epilogue is replaced by the real prefilter), and torch._int_mm x 4 on
+    the same operands. Returns (max_abs_err, ms, plain_ms, library_ms)."""
     import torch
     from tomahawk_tpu_torch.compute import sweeps
     from tomahawk_tpu_torch.ops.bitpack import _popcount_rows
@@ -877,13 +1048,15 @@ def probe_shape():
     ms = _cuda_ms(lambda: tiles.tile_prefilter(dev, 0, 1, False, cfg, out))
     plain = _cuda_ms(lambda: tiles.tile_prefilter_plain(dev, 0, 1, False,
                                                         cfg), reps=3)
+    lib = library_parts(dev, 0, 1, ("het_bits", "hom_bits"), parts)
     _say(f"K3 probe shape (B={B}, W={W}, random het/hom words): "
-         f"parts_tile unphased P=4 {ms:.4f} ms (plain {plain:.4f}), "
-         f"{int((mask == 2).sum())} survivors, max |diff| {err}")
+         f"parts_tile unphased P=4 {ms:.4f} ms (plain {plain:.4f}; "
+         f"torch._int_mm x 4 {lib:.4f}), {int((mask == 2).sum())} "
+         f"survivors, max |diff| {err}")
     if err:
         raise SystemExit("parts_tile disagrees with its plain version at "
                          "the probe shape")
-    return err, ms, plain
+    return err, ms, plain, lib
 
 
 def write_vcf(path, n_sites, seed=7, group=16, flip=0.02, phased=True,
@@ -1280,9 +1453,11 @@ def engine_rates(work):
     LdEngine.run_phased_pairs; the sparse planes again in window mode,
     over Balancer.window_pairs; random genotype variants through
     LdEngine.run_unphased_pairs with no missing data (P = 4) and 2%
-    missing genotypes (P = 9). After the timed reps of the two phased
-    workloads, one more rep of each under torch.profiler. No plain
-    version may run."""
+    missing genotypes (P = 9); LD-grouped genotype variants, half of them
+    missing 2% of their genotypes, through LdEngine.run_mixed_pairs (the
+    default dispatch: phased_tile's clean class and parts_tile P = 9).
+    After the timed reps of each workload but the windowed ones, one more
+    rep under torch.profiler. No plain version may run."""
     from tomahawk_tpu_torch import workloads
     from tomahawk_tpu_torch.compute.balancer import Balancer
     from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
@@ -1299,7 +1474,9 @@ def engine_rates(work):
             16, 0.0, seed=11, group=1, flip=0.0), 16, "unphased", False),
         ("unphased P=9", lambda: genotype_planes(
             16, 0.02, seed=12, group=1, flip=0.0, miss_rows=1.0), 16,
-         "unphased", True))
+         "unphased", True),
+        ("mixed", lambda: genotype_planes(16, 0.02, seed=13), 16, "mixed",
+         True))
     _build.reset_counts()
     for tag, build, nb, table, miss in jobs:
         t0 = time.perf_counter()
@@ -1311,15 +1488,17 @@ def engine_rates(work):
         _say(f"engine {tag}: {nb} x {B} variants built in "
              f"{time.perf_counter() - t0:.1f}s, {len(pairs)} tiles, "
              f"{n_pairs} pairs")
-        run = (engine.run_phased_pairs if table == "phased"
-               else engine.run_unphased_pairs)
-        stat_key = f"{table}/{'miss' if miss else 'nomiss'}/all"
-        _time_engine(work, tag.replace(" ", "_").replace("=", ""),
-                     lambda emit: run(pairs, miss, filt, emit), n_pairs,
-                     stat_key, engine)
-        if tag in ("sparse", "dense"):
-            _profile_engine(tag, lambda emit: run(pairs, miss, filt, emit),
-                            len(pairs))
+        if table == "mixed":
+            sweep = lambda emit: engine.run_mixed_pairs(pairs, filt, emit)
+            stat_key = "unphased/miss/missing"
+        else:
+            run = (engine.run_phased_pairs if table == "phased"
+                   else engine.run_unphased_pairs)
+            sweep = lambda emit: run(pairs, miss, filt, emit)
+            stat_key = f"{table}/{'miss' if miss else 'nomiss'}/all"
+        _time_engine(work, tag.replace(" ", "_").replace("=", ""), sweep,
+                     n_pairs, stat_key, engine)
+        _profile_engine(tag, sweep, len(pairs))
         del engine
         if tag != "sparse":
             continue
@@ -1469,13 +1648,13 @@ def tile_bytes(table, has_missing):
     """Bytes one fused tile kernel call moves at this script's shape,
     each input read once and each output written once: the word planes
     and 9 bytes of metadata a variant on both sides, the mask, the P
-    parts and, from phased_tile, its counts buffer."""
+    parts and the counts buffer."""
     from tomahawk_tpu_torch.ops.bitpack import words_for
     from tomahawk_tpu_torch.ops.tiles import payload_cols, plane_keys
     P = payload_cols(table, has_missing)
     W = words_for((2 if table == "phased" else 1) * N_SAMPLES)
     return (2 * len(plane_keys(table, has_missing)) * B * W * 4 + 2 * B * 9
-            + B * B * (1 + 4 * P) + (B * (B // 128) * 4 if P == 1 else 0))
+            + B * B * (1 + 4 * P) + B * (B // 128) * 4)
 
 
 def kernel_bounds(n_survivors):
@@ -1533,6 +1712,7 @@ def main():
     compare_odd_shapes()
     groups = compare_groups()
     payloads = compare_payloads()
+    check_ticket_fault()
     probe = probe_shape()
     torch.cuda.empty_cache()
     windows = compare_window()
@@ -1568,21 +1748,22 @@ def main():
         raise SystemExit(f"imported outside the port: {leaked}")
     # every fused-kernel instance and payload timed above, so that the end
     # of the output carries each measured time
-    def tile_row(kernel, group, v, table, miss):
+    def tile_row(kernel, group, v, table, miss, library_ms):
         words = contraction_pair_words(table, miss)
         bound, by = _bound(words, tile_bytes(table, miss))
         return dict(kernel=kernel, group=group, ms=v[1], plain_ms=v[2],
                     bound_ms=bound, bound_by=by, int8_ms=_int8_ms(words),
-                    cuda_core_ms=_cuda_core_ms(words))
+                    cuda_core_ms=_cuda_core_ms(words), library_ms=library_ms)
 
     _say(json.dumps({"tile_instances": [
         tile_row("phased_tile", "phased/False/all", checks["phased_tile"],
-                 "phased", False)]
+                 "phased", False, times["library_ms"])]
         + [tile_row("phased_tile" if g[:2] == ("phased", False)
-                    else "parts_tile", "/".join(map(str, g)), v, g[0], g[1])
+                    else "parts_tile", "/".join(map(str, g)), v, g[0], g[1],
+                    v[3])
            for g, v in groups.items()]
         + [tile_row("parts_tile", "unphased/False/all at the probe shape",
-                    probe, "unphased", False)]
+                    probe, "unphased", False, probe[3])]
         + [dict(kernel="compact", group="1 part, counts given",
                 ms=compact1[1], plain_ms=compact1[2]),
            dict(kernel="compact", group="1 part, no counts given",
@@ -1590,29 +1771,37 @@ def main():
            dict(kernel="compact", group="1 part, counts given, at the "
                 "host's pace with the offset reset",
                 ms=times["host_paced_ms"], plain_ms=compact1[2])]
-        + [dict(kernel="compact", group=f"{P} parts, no counts given",
+        + [dict(kernel="compact", group=f"{P} parts, counts given",
                 ms=v[1], plain_ms=v[2])
+           for P, v in sorted(payloads.items())]
+        + [dict(kernel="compact", group=f"{P} parts, no counts given",
+                ms=v[4], plain_ms=v[2])
            for P, v in sorted(payloads.items())]}))
     # window rows: (group, window, diagonal) -> ms, plain, bound, shares
     _say(json.dumps({"window_instances": [
         dict(group="/".join(map(str, g)), window=w, diagonal=d, **v)
         for (g, w, d), v in windows.items()]}))
     # samples-sharded rows: instance -> ms, plain, bound, the int8 figure,
-    # CUDA-core ceiling
+    # CUDA-core ceiling, torch._int_mm x P
     _say(json.dumps({"dcn_instances": [
         dict(kernel=name, instance="/".join(map(str, inst)), ms=v[0],
              plain_ms=v[1], bound_ms=v[2], bound_by=v[3], int8_ms=v[4],
-             cuda_core_ms=v[5])
+             cuda_core_ms=v[5], library_ms=v[6])
         for name, res in (("local_parts", local), ("tile_epilogue", epi))
         for inst, v in res.items()]}))
-    # library_ms: one PyTorch call of the same function, which only
-    # phased_tile's contraction has
+    # library_ms: torch._int_mm once a part on the pre-unpacked operands,
+    # the contraction alone (no PyTorch call computes the mask or the
+    # compaction)
+    library = {"phased_tile": times["library_ms"],
+               "parts_tile": groups[MAIN_GROUP][3],
+               "local_parts": local[MAIN_INSTANCE][6]}
     kernels = [dict(name=k["name"], route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches[k["name"]],
                     max_abs_err=checks[k["name"]][0],
                     ms=checks[k["name"]][1], plain_ms=checks[k["name"]][2],
                     bound_ms=bounds[k["name"]][0],
-                    bound_by=bounds[k["name"]][1], library_ms=None)
+                    bound_by=bounds[k["name"]][1],
+                    library_ms=library.get(k["name"]))
                for k in kernel_report()]
     main_words = {"phased_tile": contraction_pair_words("phased", False),
                   "parts_tile": contraction_pair_words(*MAIN_GROUP[:2]),
@@ -1625,9 +1814,10 @@ def main():
             # the operations at the rate the probe read in this run
             k["probe_b1_ms"] = 64 * main_words["phased_tile"] \
                 / probe_rates[PROBE_KINDS[0][1]] * 1e3
-            k["library_ms"] = times["library_ms"]
-            k["library_note"] = ("torch._int_mm: contraction only, operands "
-                                 "pre-unpacked, no mask, no prefilter")
+        if k["name"] in library:
+            k["library_note"] = ("torch._int_mm once a part: contraction "
+                                 "only, operands pre-unpacked, no mask, no "
+                                 "prefilter")
         if k["name"] == "compact":
             # the same call enqueued at the host's pace, as it was timed
             # before the calls were queued

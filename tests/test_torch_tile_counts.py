@@ -4,17 +4,23 @@ numpy planes; and the kernel bounds chip_smoke.py states.
 
 Everything compared here is an integer, and every comparison is exact:
 (a) `tile_counts_plain` of the port's mask, and the counts buffer
-`tile_prefilter` fills, against the counts of the fused TPU kernel's mask
-(Pallas interpret mode); (b) `compact_survivors` on CPU tensors, with the
-counts given and without, against the JAX package's fused sweep over the
-same tile list; (c) `fused_sweep` and `extract_sweep`, which allocate
-their buffers once, against the JAX sweeps, for a group whose kernel
-writes counts and two whose kernels do not; (d) `chip_smoke._bound`,
-`_int8_ms`, `_cuda_core_ms` and `kernel_bounds` against the figures they are meant to
-print (bounds are floats computed from integers and two constants:
-compared to the 3 decimals they are quoted with). The CUDA kernels
-themselves are held against these plain versions by chip_smoke.py on a
-card."""
+`tile_prefilter` fills in every sweep group, against the counts of the
+fused TPU kernel's mask (Pallas interpret mode); (b) `compact_survivors`
+on CPU tensors, with the counts given and without, against the JAX
+package's fused sweep over the same tile list, and the compaction's
+fault mark (a stale scan ticket) turned into an exception at the host's
+read of the counts; (c) `fused_sweep` and `extract_sweep`, which allocate
+their buffers once and hand the counts to every tile, against the JAX
+sweeps, window tiles included; (d) `chip_smoke._bound`, `_int8_ms`,
+`_cuda_core_ms` and `kernel_bounds` against the figures they are meant
+to print (bounds are floats computed from integers and two constants:
+compared to the 3 decimals they are quoted with), and
+`chip_smoke.library_call`, the library yardstick, against the parts. The
+CUDA kernels themselves are held against these plain versions by
+chip_smoke.py on a card."""
+
+import ctypes
+import types
 
 import numpy as np
 import pytest
@@ -91,19 +97,57 @@ def test_tile_counts_match_pallas_mask(cls, window, Bt, i, j, diag):
     assert total >> 16 == (jmask != 0).sum()
 
 
+#: every sweep group, (table, has_missing, cls)
+ALL_GROUPS = [("phased", False, "all"), ("phased", False, "clean"),
+              ("phased", True, "all"), ("unphased", False, "all"),
+              ("unphased", True, "all"), ("unphased", True, "missing")]
+GROUP_IDS = ["-".join(map(str, g)) for g in ALL_GROUPS]
+
+
 def test_counts_only_from_the_phased_tile_kernel():
-    cfg = sweeps.make_cfg("unphased", True, "all", 128, 64, 0, 0.1, 100.0)
-    assert tiles.counts_buffer(cfg, "cpu") is None
+    """The counts once came from phased_tile alone; now every fused tile
+    kernel (phased_tile and parts_tile) writes them, so every group gets
+    a buffer and tile_prefilter takes it. Only the samples-sharded sweep,
+    whose epilogue writes none, goes without. A buffer of the wrong shape
+    is refused."""
     st = group_planes(3, 1, 128, 64)
+    for group in ALL_GROUPS:
+        cfg = sweeps.make_cfg(*group, 128, 64, 0, 0.1, 100.0)
+        counts = tiles.counts_buffer(cfg, "cpu")
+        assert counts.shape == (128, 1) and counts.dtype == torch.int32
+        dev = sweeps.planes_to_device(st, "cpu", sweeps.dev_keys_for(cfg))
+        mask, _ = tiles.tile_prefilter(dev, 0, 0, True, cfg,
+                                       counts=counts.fill_(-1))
+        assert torch.equal(counts, tiles.tile_counts_plain(mask))
+        assert sweeps._sweep_buffers(cfg, "cpu")[1] is not None
+        sharded = dict(cfg, psum_group=object())
+        assert sweeps._sweep_buffers(sharded, "cpu")[1] is None
+        with pytest.raises(ValueError, match="counts"):
+            tiles.tile_prefilter(dev, 0, 0, True, cfg, counts=torch.zeros(
+                (128, 2), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("i,j,diag", [(0, 0, True), (0, 1, False)])
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("group", ALL_GROUPS, ids=GROUP_IDS)
+def test_every_fused_group_counts_match_pallas_mask(group, window, i, j,
+                                                    diag):
+    """tile_prefilter's counts buffer in every sweep group, with and
+    without a window, equals the counts of the TPU kernel's mask (Pallas
+    interpret mode) on planes with missing genotypes."""
+    Bt = 128
+    st = window_planes(5, B=Bt)
+    args = (*group, Bt, N_SAMPLES, window, MIN_R2, 100.0)
+    cfg, jcfg = sweeps.make_cfg(*args), jsweeps.make_cfg(*args)
     dev = sweeps.planes_to_device(st, "cpu", sweeps.dev_keys_for(cfg))
-    with pytest.raises(ValueError, match="phased_tile"):
-        tiles.tile_prefilter(dev, 0, 0, True, cfg,
-                             counts=torch.zeros((128, 1), dtype=torch.int32))
-    cfg1 = sweeps.make_cfg("phased", False, "all", 128, 64, 0, 0.1, 100.0)
-    dev1 = sweeps.planes_to_device(st, "cpu", sweeps.dev_keys_for(cfg1))
-    with pytest.raises(ValueError, match="counts"):
-        tiles.tile_prefilter(dev1, 0, 0, True, cfg1,
-                             counts=torch.zeros((128, 2), dtype=torch.int32))
+    pf, m, _ = PT.tile_prefilter_pallas(jax_dev(st), jnp.int32(i),
+                                        jnp.int32(j), jnp.asarray(diag), jcfg,
+                                        interpret=True)
+    jmask = np.asarray(m).astype(np.uint8) + np.asarray(pf).astype(np.uint8)
+    counts = tiles.counts_buffer(cfg, "cpu").fill_(-1)
+    mask, _ = tiles.tile_prefilter(dev, i, j, diag, cfg, counts=counts)
+    np.testing.assert_array_equal(mask.numpy(), jmask)
+    np.testing.assert_array_equal(counts.numpy(), counts_of(jmask, tiles.SEG))
 
 
 # -- (b) the compaction with and without counts ----------
@@ -121,8 +165,8 @@ def test_compact_survivors_matches_jax_fused_sweep(group, n_samples,
     """Tile by tile through tile_prefilter and compact_survivors, as the
     sweep does: n_pass, n_cand and the running offset equal the JAX fused
     sweep's, and so do the rows of every tile the cap and the buffer left
-    intact; a tile over the cap keeps its first `cap` rows. The counts are
-    given where the group's kernel writes them (P = 1)."""
+    intact; a tile over the cap keeps its first `cap` rows. The counts,
+    which every fused tile kernel writes, are given or not."""
     Bt, outcap = 64, 1 << 10
     # one tile under the cap and one over it, in every case
     cap = 128 if group[0] == "unphased" and n_samples == 64 else 64
@@ -139,8 +183,6 @@ def test_compact_survivors_matches_jax_fused_sweep(group, n_samples,
     off = torch.zeros(1, dtype=torch.int32)
     out = tiles.tile_buffers(cfg, "cpu")
     counts = tiles.counts_buffer(cfg, "cpu") if with_counts else None
-    assert (counts is not None) == (with_counts and group[:2]
-                                    == ("phased", False))
     scratch = sweeps.compact_scratch(Bt, "cpu")
     _build.reset_counts()
     for t in range(T):
@@ -245,9 +287,8 @@ def test_extract_sweep_with_counts_matches_jax():
 def test_sweeps_allocate_their_buffers_once(group, sweep, monkeypatch):
     """A sweep makes the tile buffers, the counts buffer and the
     compaction's scratch once and hands the same ones to every tile; the
-    compaction gets counts exactly where the group's kernel writes them
-    (P = 1), and otherwise counts the mask itself. The results equal the
-    JAX sweep's either way."""
+    compaction gets the counts in every group, equal to the mask's. The
+    results equal the JAX sweep's."""
     Bt, n_samples, cap, outcap = 64, 64, 2048, 1 << 13
     st = group_planes(11, 2, Bt, n_samples)
     args = (*group, Bt, n_samples, 0, 0.1, 100.0)
@@ -295,7 +336,107 @@ def test_sweeps_allocate_their_buffers_once(group, sweep, monkeypatch):
     assert made == {"tile_buffers": 1, "counts_buffer": 1,
                     "compact_scratch": 1}
     assert len(seen) == len(pi) and len(set(seen)) == 1
-    assert (seen[0][3] is not None) == (group[:2] == ("phased", False))
+    assert seen[0][3] is not None
+
+
+@pytest.mark.parametrize("window", [300, 2000])
+@pytest.mark.parametrize("group", ALL_GROUPS[2:], ids=GROUP_IDS[2:])
+def test_window_sweeps_with_counts_match_jax(group, window):
+    """The 4- and 9-part groups' window sweeps, where whole thread blocks
+    of a tile hold no candidate: fused_sweep (which hands each tile's
+    counts to its compaction) and extract_sweep against the JAX sweeps."""
+    Bt, cap, outcap = 128, 4096, 1 << 14
+    st = window_planes(9, n_blocks=3, B=Bt)
+    args = (*group, Bt, N_SAMPLES, window, MIN_R2, 100.0)
+    cfg, jcfg = sweeps.make_cfg(*args), jsweeps.make_cfg(*args)
+    pi, pj, dg, live = tile_list(3)
+    dev = sweeps.planes_to_device(st, "cpu", sweeps.dev_keys_for(cfg))
+    jn, jnc, jbuf = (np.asarray(x) for x in jsweeps.jit_fused_sweep(
+        jcfg, cap, outcap)(jax_dev(st), pi, pj, dg, live))
+    n, nc, buf = sweeps.fused_sweep(dev, pi, pj, dg, live, cfg=cfg, cap=cap,
+                                    outcap=outcap)
+    np.testing.assert_array_equal(n.numpy(), jn)
+    np.testing.assert_array_equal(nc.numpy(), jnc)
+    total = int(jn.sum())
+    assert total > 0 and (jnc < Bt * Bt).all()
+    np.testing.assert_array_equal(buf.numpy()[:total], jbuf[:total])
+    off = (np.cumsum(jn) - jn).astype(np.int32)
+    ebuf = sweeps.extract_sweep(dev, pi, pj, dg, off, cfg=cfg, cap=cap,
+                                outcap=outcap)
+    np.testing.assert_array_equal(ebuf.numpy()[:total], jbuf[:total])
+
+
+class _FaultingLibrary:
+    """Stands in for the kernel library: twk_compact does what compact.cu
+    does when its scan finds the ticket not 0 (marks n_pass[t], sets the
+    ticket to 0) and records the pointers it was handed."""
+
+    def __init__(self):
+        self.calls = []
+
+    def twk_compact(self, mask, parts, counts, P, ncol, B, off, cap, outcap,
+                    n_pass, n_cand, t, scratch, ticket, buf, stream):
+        self.calls.append(dict(n_pass=n_pass, t=t, ticket=ticket))
+        ctypes.c_int32.from_address(n_pass + 4 * t).value = \
+            sweeps.TICKET_FAULT
+        ctypes.c_int32.from_address(ticket).value = 0
+        return 0
+
+
+def test_compaction_fault_raises_at_the_host_read(monkeypatch):
+    """The compaction's wrapper hands the kernel n_pass, the tile index
+    and its (device, stream) ticket; the kernel's fault mark in n_pass[t]
+    becomes a RuntimeError where the host reads the counts
+    (sweeps.host_counts, the engine's one sync of a sweep), and the
+    counts read as before where there is none."""
+    lib = _FaultingLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    monkeypatch.setattr(sweeps, "_TICKETS", {})
+    Bt = 64
+    mask = torch.zeros((Bt, Bt), dtype=torch.uint8)
+    parts = torch.zeros((1, Bt, Bt), dtype=torch.int32)
+    n_pass = torch.tensor([3, 0, 5], dtype=torch.int32)
+    n_cand = torch.tensor([7, 0, 9], dtype=torch.int32)
+    off = torch.zeros(1, dtype=torch.int32)
+    buf = torch.zeros((256, 2), dtype=torch.int32)
+    ticket = sweeps._ticket(mask.device, 0).fill_(11)
+    n, nc = sweeps.host_counts(n_pass, n_cand)
+    assert n.tolist() == [3, 0, 5] and nc.tolist() == [7, 0, 9]
+    assert n.dtype == nc.dtype == np.int64
+    sweeps._launch_compact(mask, parts, off, buf, n_pass, n_cand, 1, 64,
+                           None, None)
+    assert lib.calls == [dict(n_pass=n_pass.data_ptr(), t=1,
+                              ticket=ticket.data_ptr())]
+    assert n_pass.tolist() == [3, sweeps.TICKET_FAULT, 5]
+    assert int(ticket[0]) == 0
+    with pytest.raises(RuntimeError, match=r"tiles \[1\].*ticket"):
+        sweeps.host_counts(n_pass, n_cand)
+
+
+def test_engine_raises_for_a_faulted_compaction(monkeypatch):
+    """LdEngine reads a segment's counts through sweeps.host_counts, so a
+    tile its compaction marked stops the run instead of emitting rows."""
+    from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
+    from tomahawk_tpu_torch.ops.ld_math import LdFilters
+    st = stacked_planes(2, 2, 128, N_SAMPLES)
+    engine = LdEngine(st, N_SAMPLES, CalcSettings(min_r2=MIN_R2), "cpu")
+    fused = sweeps.fused_sweep
+
+    def faulted(*a, **kw):
+        n_pass, n_cand, buf = fused(*a, **kw)
+        n_pass[0] = sweeps.TICKET_FAULT
+        return n_pass, n_cand, buf
+
+    monkeypatch.setattr(sweeps, "fused_sweep", faulted)
+    emitted = []
+    with pytest.raises(RuntimeError, match="ticket"):
+        engine.run_phased_pairs([(0, 0, True), (0, 1, False)], False,
+                                LdFilters(min_r2=MIN_R2),
+                                lambda recs, rev=None: emitted.append(recs))
+    assert emitted == []
 
 
 # -- (d) the bounds chip_smoke.py prints ----------
@@ -345,6 +486,28 @@ def test_chip_smoke_tile_bounds_are_the_bytes(group, ms):
     got = chip_smoke._bound(chip_smoke.contraction_pair_words(*group), n)
     assert got == (n / 3.35e12 * 1e3, "bytes")
     assert round(got[0], 3) == ms
+
+
+@pytest.mark.parametrize("group", ALL_GROUPS[::2] + ALL_GROUPS[3:4],
+                         ids=["-".join(map(str, g[:2])) for g in
+                              ALL_GROUPS[::2] + ALL_GROUPS[3:4]])
+def test_chip_smoke_library_call_computes_the_parts(group):
+    """The library yardstick chip_smoke.py times (torch._int_mm once a
+    part on int8 operands unpacked beforehand, miss as valid = ~miss, in
+    PRODUCTS' order) computes the tile's parts, equal to the plain
+    version's on every lane, for a slice of the words too."""
+    Bt = 64
+    st = window_planes(3, B=Bt)
+    cfg = sweeps.make_cfg(*group, Bt, N_SAMPLES, 0, MIN_R2, 100.0)
+    keys = tiles.plane_keys(*group[:2])
+    P = tiles.payload_cols(*group[:2])
+    for word_slice in (None, (1, 3)):
+        dev = sweeps.planes_to_device(st, "cpu", keys + ("valid",),
+                                      word_slice=word_slice)
+        want = torch.stack(tiles.tile_local_parts_plain(dev, 0, 1, cfg))
+        got = chip_smoke.library_call(dev, 0, 1, keys, P)()
+        assert len(got) == P
+        assert torch.equal(torch.stack(got), want)
 
 
 def test_chip_smoke_kernel_bounds():

@@ -419,7 +419,7 @@ def test_window_kernel_matches_plain_on_card(group, two_contigs):
     st = window_planes(7, spacing=40, two_contigs=two_contigs)
     cfg, _ = cfg_pair(group, 1500)
     dev = sweeps.planes_to_device(st, card, sweeps.dev_keys_for(cfg))
-    rows, cols = {1: (128, 128), 4: (64, 64), 9: (64, 32)}[
+    rows, cols = {1: (128, 128), 4: (64, 64), 9: (32, 64)}[
         tiles.payload_cols(*group[:2])]
     for i, j, diag in [(0, 0, True), (0, 1, False)]:
         out = tiles.tile_buffers(cfg, card)

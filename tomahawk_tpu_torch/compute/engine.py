@@ -413,8 +413,7 @@ class LdEngine:
         pi, pj, dg, buf = st["pi"], st["pj"], st["dg"], st["buf"]
         cap, outcap = st["cap"], st["outcap"]
         # the one host sync of the sweep: per-tile counts
-        n_pass = st["n_pass"].cpu().numpy().astype(np.int64)
-        n_cand = st["n_cand"].cpu().numpy().astype(np.int64)
+        n_pass, n_cand = sweeps.host_counts(st["n_pass"], st["n_cand"])
         stat["count_s"] += time.perf_counter() - t0
         total_cand = int(n_cand.sum())
         stat["n_cand"] += total_cand

@@ -7,12 +7,13 @@ launches, per tile, the tile kernel (ops/tiles.py) and the survivor
 compaction
 (`compact_survivors`, csrc/compact.cu). The compaction keeps the running
 offset on the device, so a segment of tiles runs without a host sync and
-the host reads the counts once, after the whole segment. A sweep
-allocates the tile's output buffers, the compaction's scratch and, for
-the group whose tile kernel writes them (phased without missing data),
-the per-segment counts buffer once and reuses them for every tile; with
-the counts the compaction reads the mask only where a segment has a
-survivor, without them it counts the mask itself first.
+the host reads the counts once, after the whole segment (`host_counts`,
+which also raises where a compaction reported a fault). A sweep
+allocates the tile's output buffers, the compaction's scratch and the
+per-segment counts buffer the fused tile kernels write once and reuses
+them for every tile; with the counts the compaction reads the mask only
+where a segment has a survivor. The samples-sharded sweep's epilogue
+writes none, and there the compaction counts the mask itself first.
 
 Survivor rows are [flat index k*B + l, payload...] int32 in the layout
 of the JAX package's `_pack_cols`: while the parts fit uint16
@@ -188,8 +189,12 @@ def _scratch_len(B: int) -> int:
 
 
 #: the scan's ticket counter of each (device, stream): one int32 that the
-#: kernel finds 0 and leaves 0, so it is zeroed once, here
+#: kernel finds 0 and leaves 0, so it is zeroed once, here. Found not 0,
+#: the kernel sets it to 0 and marks the tile's n_pass with TICKET_FAULT
 _TICKETS = {}
+#: n_pass of a tile whose compaction found its scan's ticket not 0 (a
+#: scan on the stream died midway): its count, offset and rows are wrong
+TICKET_FAULT = -1
 
 
 def _ticket(device, stream: int):
@@ -211,7 +216,9 @@ def compact_survivors(mask, parts, off, buf, n_pass, n_cand, t: int,
     its producer wrote them (tiles.counts_buffer): the kernel then skips
     its own count of the mask. `scratch` (compact_scratch) is allocated
     here when not given. Launches csrc/compact.cu for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. The kernel reports a stale scan
+    ticket as n_pass[t] = TICKET_FAULT, which `host_counts` raises for
+    where the host reads the counts."""
     if mask.is_cuda:
         return _launch_compact(mask, parts, off, buf, n_pass, n_cand, t,
                                cap, counts, scratch)
@@ -261,6 +268,21 @@ def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
     _build.LAUNCHES["compact"] += 1
 
 
+def host_counts(n_pass, n_cand):
+    """(n_pass, n_cand) of a sweep as int64 numpy arrays: the sweep's one
+    host sync. Raises RuntimeError where a compaction marked a tile with
+    TICKET_FAULT: the sweep's rows and offsets are not to be trusted (the
+    ticket is 0 again, so the stream can run the next sweep)."""
+    n = n_pass.cpu().numpy().astype(np.int64)
+    bad = np.flatnonzero(n == TICKET_FAULT)
+    if len(bad):
+        raise RuntimeError(f"the compaction of tiles {bad.tolist()} found "
+                           f"its scan's ticket not 0 (an earlier compaction "
+                           f"on this stream died midway); the sweep's "
+                           f"survivor rows are not to be trusted")
+    return n, n_cand.cpu().numpy().astype(np.int64)
+
+
 def _zeros(dev, *shape):
     return torch.zeros(shape, dtype=torch.int32, device=dev["valid"].device)
 
@@ -279,8 +301,9 @@ def _tile(dev, i, j, diag, cfg, out, counts=None):
 
 def _sweep_buffers(cfg, device):
     """What a sweep allocates once and hands to every tile: the tile's
-    output buffers, its counts buffer (None unless the group's fused
-    kernel writes one) and the compaction's scratch."""
+    output buffers, the counts buffer the fused tile kernels fill (None
+    in a samples-sharded sweep, whose epilogue writes none) and the
+    compaction's scratch."""
     cnt = counts_buffer(cfg, device) if cfg["psum_group"] is None else None
     return (tile_buffers(cfg, device), cnt,
             compact_scratch(cfg["B"], device))
@@ -293,9 +316,10 @@ def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
     or beyond the clamp boundary are garbage whenever the total spills
     (detectable from n_pass), and tiles with more than `cap` survivors
     keep only their first `cap` rows -- the caller repairs both with
-    `extract_sweep`. Dead tiles (live False) count zero. Where the
-    group's tile kernel writes per-segment counts it hands them to the
-    compaction, which otherwise counts the mask itself."""
+    `extract_sweep`. Dead tiles (live False) count zero. The fused tile
+    kernel hands its per-segment counts to the compaction, which counts
+    the mask itself in a samples-sharded sweep. Read the counts with
+    `host_counts`."""
     T = len(pi)
     n_pass, n_cand, off = _zeros(dev, T), _zeros(dev, T), _zeros(dev, 1)
     buf = _zeros(dev, outcap, buf_cols(cfg))

@@ -25,9 +25,10 @@
 // sparse), so each dependent launch (2-3 us) and each pass over the mask
 // counts. Design: everything runs from per-(row, 128-column segment)
 // counts, n_survivors | n_candidates << 16 in an int32 [B, ceil(B / 128)].
-// csrc/phased_tile.cu writes them from the registers that hold the mask
-// bytes, and then the mask is read here only where a segment has a
-// survivor; for a mask from a producer without counts, (0) a first launch
+// The fused tile kernels (csrc/phased_tile.cu, csrc/parts_tile.cu) write
+// them from the registers that hold the mask bytes, and then the mask is
+// read here only where a segment has a survivor; for a mask from a
+// producer without counts (csrc/epilogue.cu), (0) a first launch
 // counts the segments with 16-byte loads into the scratch. Then (1) one
 // launch sums each row's segments across its blocks, and the block that
 // finishes last scans the row totals into row offsets and advances the
@@ -39,6 +40,17 @@
 // scan stays a launch of its own: folding it into (2) behind a flag or a
 // look-back would save one launch gap (~2 us) at the price of blocks that
 // spin on another block's progress.
+//
+// The ticket is the scan's only state that outlives a call: a scan that
+// dies between its blocks' draws would leave it non-zero, and every later
+// scan on that stream would then elect its "last" block wrongly and write
+// wrong offsets. So nothing trusts it: the last block resets it by
+// subtracting the grid's draws, not by storing 0, and (2) takes it back
+// to 0 and finds it 0 after a sound scan; a ticket that was v != 0 on
+// entry is v or v + grid there. Then (2) writes n_pass[t] = -1, the mark
+// the host reads at its one sync of the sweep and raises for
+// (sweeps.host_counts), and its writes stay inside the tile's cap rows of
+// the buffer whatever the scratch holds. The next call finds the ticket 0.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -92,7 +104,8 @@ __global__ void segment_counts_kernel(const uint8_t* __restrict__ mask,
 // the last ticket, when every row total is written, scans them: row_off[k]
 // (exclusive scan of the survivors), info[0] = first buffer row of this
 // tile, info[1] = rows to write, the tile's counts and the new offset. No
-// block waits for another. *ticket is 0 on entry and is left 0.
+// block waits for another. *ticket is 0 on entry; the last block takes
+// the grid's draws off it again.
 __global__ void __launch_bounds__(kScanThreads)
 scan_kernel(const uint32_t* __restrict__ counts, int B, int n_seg,
             uint32_t* row_tot, int* __restrict__ row_off, int* off, int cap,
@@ -168,25 +181,33 @@ scan_kernel(const uint32_t* __restrict__ counts, int B, int n_seg,
     n_pass[t] = n;
     n_cand[t] = warp_cand[0];
     *off = (int)min((long long)o + n, (long long)outcap);
-    *ticket = 0u;
+    atomicSub(ticket, gridDim.x);
   }
 }
 
+// Every survivor row of the tile, after the scan; first the ticket check
+// (see the top of the file). Rows go to buffer rows base + [0, end) with
+// 0 <= base <= outcap - cap and end <= cap, so that a scan that ran on a
+// bad ticket can spoil only this tile's rows.
 __global__ void write_kernel(const uint8_t* __restrict__ mask,
                              const int32_t* __restrict__ parts, int P,
                              int ncol, int B, int n_seg,
                              const uint32_t* __restrict__ counts,
                              const uint32_t* __restrict__ row_tot,
                              const int* __restrict__ row_off,
-                             const int* __restrict__ info,
+                             const int* __restrict__ info, int cap,
+                             int outcap, unsigned* ticket, int* n_pass, int t,
                              int32_t* __restrict__ buf) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && atomicExch(ticket, 0u) != 0u)
+    n_pass[t] = -1;
   const int k = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (k >= B) return;  // uniform across the warp, like the next
   const int row_pass = row_tot[k] & 0xffff;
   if (row_pass == 0) return;
-  const int base = info[0];
-  const int end = min(row_off[k] + row_pass, info[1]);
+  const int base = min(max(info[0], 0), outcap - cap);
+  const int end = (int)min(min((long long)row_off[k] + row_pass,
+                               (long long)info[1]), (long long)cap);
   int run = row_off[k];
   const uint8_t* row = mask + (size_t)k * B;
   const size_t BB = (size_t)B * B;
@@ -216,7 +237,7 @@ __global__ void write_kernel(const uint8_t* __restrict__ mask,
       int pos = run + incl - cnt;
       for (int q = 0; q < 4 && w != 0; ++q, w >>= 8) {
         if ((w & 0xff) == 0) continue;
-        if (pos < end) {
+        if (pos >= 0 && pos < end) {
           const int l = l0 + q;
           int32_t* dst = buf + (size_t)(base + pos) * ncol;
           const size_t f = (size_t)k * B + l;
@@ -245,7 +266,8 @@ __global__ void write_kernel(const uint8_t* __restrict__ mask,
 // the scratch. scratch: int32 [2 * B + 8 + B * ceil(B / 128)], which need
 // not be initialised: row totals, row offsets, info [2], six unused, segment
 // counts. ticket: the scan's counter, one uint32 that is 0 on entry and is
-// left 0; calls that may overlap (other streams) need one each.
+// left 0; calls that may overlap (other streams) need one each. Found not
+// 0, it is set to 0 and n_pass[t] to -1.
 extern "C" int twk_compact(const void* mask, const void* parts,
                            const void* counts, int P, int ncol, int B,
                            void* off, int cap, int outcap, void* n_pass,
@@ -276,6 +298,7 @@ extern "C" int twk_compact(const void* mask, const void* parts,
   const int row_blocks = (B * 32 + kRowThreads - 1) / kRowThreads;
   write_kernel<<<row_blocks, kRowThreads, 0, s>>>(
       (const uint8_t*)mask, (const int32_t*)parts, P, ncol, B, n_seg,
-      seg_counts, row_tot, row_off, info, (int32_t*)buf);
+      seg_counts, row_tot, row_off, info, cap, outcap, (unsigned*)ticket,
+      (int*)n_pass, t, (int32_t*)buf);
   return (int)cudaGetLastError();
 }

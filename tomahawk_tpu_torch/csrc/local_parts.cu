@@ -1,4 +1,5 @@
-// One tile of variant pairs -> the P raw parts of a LOCAL word slice.
+// One tile of variant pairs -> the P raw parts of a LOCAL word slice, on
+// the tensor cores.
 //
 // Replaces tomahawk_tpu/ops/pallas_tiles.py::_make_parts_kernel (built by
 // _build_parts_call, cached by get_parts_call, called by tile_parts_pallas
@@ -21,30 +22,32 @@
 // (valid = ~miss for the phased table), the column order of
 // pallas_tiles._chunk_parts.
 //
-// What bounds it on the H100: the POPC rate, as for the fused tile kernels.
-// A part is the popcount of the AND of two packed rows of W_local words, so
-// a tile is P * B * B * W_local popcounts against about 4.2e12 a second,
-// and P * B * B * 4 bytes written (0.02 ms a part at B = 4096). The design
-// is the fused kernels': a block stages its rows' and columns' words of
-// every plane in shared memory (transposed, padded against bank conflicts)
-// and each of its 256 threads keeps R x C pairs x P parts in registers
-// (8 x 8 for P = 1, 4 x 4 for P = 4, 4 x 2 for P = 9), so each word read
-// from shared memory feeds C (or R) AND+POPC+ADD steps per part. AND+POPC
-// over packed words counts exactly what the TPU's int8 contraction of
-// unpacked bits counts.
+// The contraction is the fused tile kernels': twk::mma::Contraction of
+// mma_tile.cuh (1-bit AND+POPC MMAs on the packed words), with
+// phased_tile's 128 x 128 block for P = 1, parts_tile's 64 x 64 for P = 4
+// and 64 x 32 for P = 9 (127 registers, no spill: with no epilogue beside
+// the accumulators it needs not parts_tile's 32 x 64); the counts leave
+// the MMA's C layout straight to device memory, 8 bytes (two adjacent
+// columns) a part a lane. Any W_local
+// >= 1 is taken: rows that are not 16-byte aligned (three ranks at W = 160
+// hold 54 words each) are staged 4 bytes a request. valid = ~miss is taken
+// at fragment load with the words past W_local masked to zero; the miss
+// plane's padding words are all ones (the upload pads them so), so ~miss
+// is zero there and padding adds to no part, and the slices' parts sum to
+// the whole row's.
 //
-// Any W_local >= 1 is taken: loads are one word a thread, so a row need not
-// be 16-byte aligned (three ranks at W = 160 hold 54 words each). The miss
-// plane's padding words are all ones (the upload pads them so), and words
-// staged from past a row's end are filled the same way, so ~miss is zero
-// there and padding adds to no part.
+// What bounds it on the H100: its output, P * B * B * 4 bytes (0.020 ms a
+// part at B = 4096 and HBM rate), over its operations (64 a pair-word at
+// 10.2e15 a second: 0.008 ms for P = 1 on an 80-word slice).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mma_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads
+constexpr int kThreads = twk::mma::kThreads;
 
 struct Args {
   const uint32_t* pi[3];  // planes of the row super-block
@@ -53,141 +56,100 @@ struct Args {
   int32_t* parts;
 };
 
+// planes a side, parts, MMA patches a warp (rows x columns), words a stage
 template <int KIND>
 struct Shape;
 template <>
 struct Shape<0> {  // phased, no missing data
-  static constexpr int kPlanes = 1, kParts = 1, kR = 8, kC = 8, kWords = 32;
+  static constexpr int kPlanes = 1, kParts = 1, kMi = 4, kNi = 4, kWords = 32;
 };
 template <>
 struct Shape<1> {  // phased, missing data
-  static constexpr int kPlanes = 2, kParts = 4, kR = 4, kC = 4, kWords = 16;
+  static constexpr int kPlanes = 2, kParts = 4, kMi = 2, kNi = 2, kWords = 32;
 };
 template <>
 struct Shape<2> {  // unphased, no missing data
-  static constexpr int kPlanes = 2, kParts = 4, kR = 4, kC = 4, kWords = 16;
+  static constexpr int kPlanes = 2, kParts = 4, kMi = 2, kNi = 2, kWords = 32;
 };
 template <>
 struct Shape<3> {  // unphased, missing data
-  static constexpr int kPlanes = 3, kParts = 9, kR = 4, kC = 2, kWords = 16;
+  static constexpr int kPlanes = 3, kParts = 9, kMi = 2, kNi = 1, kWords = 16;
 };
 
-// the value a word past the row's end stands for
 template <int KIND>
-__device__ __forceinline__ uint32_t pad_word(int plane) {
-  return (KIND == 1 && plane == 1) ? 0xffffffffu : 0u;
-}
+using TileOf =
+    twk::mma::Contraction<Shape<KIND>::kPlanes, Shape<KIND>::kParts,
+                          Shape<KIND>::kMi, Shape<KIND>::kNi,
+                          twk::mma::Products<KIND == 1>, Shape<KIND>::kWords>;
 
 template <int KIND>
-__global__ void __launch_bounds__(kThreads) local_parts_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 2)
+local_parts_kernel(const Args a) {
   using S = Shape<KIND>;
-  constexpr int NP = S::kPlanes, P = S::kParts, R = S::kR, C = S::kC;
-  constexpr int KW = S::kWords;
-  constexpr int TI = 16 * R, TJ = 16 * C;
-  __shared__ uint32_t si[NP][KW][TI + 1];
-  __shared__ uint32_t sj[NP][KW][TJ + 1];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int row0 = blockIdx.y * TI;
-  const int col0 = blockIdx.x * TJ;
+  using Tile = TileOf<KIND>;
+  constexpr int P = S::kParts, kMi = S::kMi, kNi = S::kNi;
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int row0 = blockIdx.y * Tile::kRows;
+  const int col0 = blockIdx.x * Tile::kCols;
   const int B = a.B;
-  const int W = a.W;
 
-  int acc[P][R][C];
+  int acc[P][kMi][kNi][4];
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+    for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[p][r][c] = 0;
+      for (int ni = 0; ni < kNi; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][mi][ni][q] = 0;
+  const uint32_t* const xa[3] = {a.pi[0], a.pi[1], a.pi[2]};
+  const uint32_t* const xb[3] = {a.pj[0], a.pj[1], a.pj[2]};
+  Tile::run(smem, xa, xb, row0, col0, B, a.W, acc);
 
-  for (int w0 = 0; w0 < W; w0 += KW) {
-    // coalesced loads: consecutive threads read consecutive words of a row
-    for (int e = threadIdx.x; e < TI * KW; e += kThreads) {
-      const int r = e / KW;
-      const int k = e % KW;
-      const int w = w0 + k;
-      const int g = row0 + r;
-      const bool in = g < B && w < W;
-      const size_t o = (size_t)g * W + w;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wr = (warp / twk::mma::kWarpsN) * kMi * 16;
+  const int wc = (warp % twk::mma::kWarpsN) * kNi * 8;
+  const size_t BB = (size_t)B * B;
+  const bool even = B % 2 == 0;
 #pragma unroll
-      for (int pl = 0; pl < NP; ++pl)
-        si[pl][k][r] = in ? a.pi[pl][o] : pad_word<KIND>(pl);
-    }
-    for (int e = threadIdx.x; e < TJ * KW; e += kThreads) {
-      const int r = e / KW;
-      const int k = e % KW;
-      const int w = w0 + k;
-      const int g = col0 + r;
-      const bool in = g < B && w < W;
-      const size_t o = (size_t)g * W + w;
+  for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll
-      for (int pl = 0; pl < NP; ++pl)
-        sj[pl][k][r] = in ? a.pj[pl][o] : pad_word<KIND>(pl);
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int k = 0; k < KW; ++k) {
-      uint32_t x[NP][R], y[NP][C];
+    for (int h = 0; h < 2; ++h) {
+      const int k = row0 + wr + mi * 16 + h * 8 + g;
+      if (k >= B) continue;
 #pragma unroll
-      for (int pl = 0; pl < NP; ++pl) {
+      for (int ni = 0; ni < kNi; ++ni) {
+        const int l0 = col0 + wc + ni * 8 + 2 * t;
+        if (l0 >= B) continue;
+        const size_t f = (size_t)k * B + l0;
 #pragma unroll
-        for (int r = 0; r < R; ++r) x[pl][r] = si[pl][k][ty + 16 * r];
-#pragma unroll
-        for (int c = 0; c < C; ++c) y[pl][c] = sj[pl][k][tx + 16 * c];
-      }
-      if constexpr (KIND == 1) {
-        // valid = NOT missing, inverted at the packed-word level
-#pragma unroll
-        for (int r = 0; r < R; ++r) x[1][r] = ~x[1][r];
-#pragma unroll
-        for (int c = 0; c < C; ++c) y[1][c] = ~y[1][c];
-      }
-      // phased: x, y = (alt[, valid]); unphased: (het, hom[, valid])
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          acc[0][r][c] += __popc(x[0][r] & y[0][c]);
-          if constexpr (P >= 4) {
-            acc[1][r][c] += __popc(x[0][r] & y[1][c]);
-            acc[2][r][c] += __popc(x[1][r] & y[0][c]);
-            acc[3][r][c] += __popc(x[1][r] & y[1][c]);
-          }
-          if constexpr (P == 9) {
-            acc[4][r][c] += __popc(x[0][r] & y[2][c]);
-            acc[5][r][c] += __popc(x[2][r] & y[0][c]);
-            acc[6][r][c] += __popc(x[1][r] & y[2][c]);
-            acc[7][r][c] += __popc(x[2][r] & y[1][c]);
-            acc[8][r][c] += __popc(x[2][r] & y[2][c]);
+        for (int p = 0; p < P; ++p) {
+          if (even) {
+            *reinterpret_cast<int2*>(a.parts + p * BB + f) =
+                make_int2(acc[p][mi][ni][2 * h], acc[p][mi][ni][2 * h + 1]);
+          } else {
+            a.parts[p * BB + f] = acc[p][mi][ni][2 * h];
+            if (l0 + 1 < B) a.parts[p * BB + f + 1] = acc[p][mi][ni][2 * h + 1];
           }
         }
+      }
     }
-    __syncthreads();
-  }
-
-  const size_t BB = (size_t)B * B;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = row0 + ty + 16 * r;
-    if (k >= B) continue;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int l = col0 + tx + 16 * c;
-      if (l >= B) continue;
-      const size_t f = (size_t)k * B + l;
-#pragma unroll
-      for (int p = 0; p < P; ++p) a.parts[p * BB + f] = acc[p][r][c];
-    }
-  }
 }
 
 template <int KIND>
 int launch(const Args& a, cudaStream_t s) {
-  using S = Shape<KIND>;
-  const int TI = 16 * S::kR, TJ = 16 * S::kC;
-  const dim3 grid((a.B + TJ - 1) / TJ, (a.B + TI - 1) / TI);
-  local_parts_kernel<KIND><<<grid, kThreads, 0, s>>>(a);
+  using Tile = TileOf<KIND>;
+  // per device, so set on every launch (a host-side call of about 1 us)
+  const cudaError_t rc = cudaFuncSetAttribute(
+      local_parts_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile::kSmemBytes);
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid((a.B + Tile::kCols - 1) / Tile::kCols,
+                  (a.B + Tile::kRows - 1) / Tile::kRows);
+  local_parts_kernel<KIND><<<grid, kThreads, Tile::kSmemBytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -26,13 +26,20 @@
 // kStageWords words of every row of both operands, copied with cp.async
 // (16 bytes a request when rows are 16-byte aligned, W % 4 == 0, else 4
 // bytes), kStages deep. Rows are kLd = kStageWords + 4 words apart in
-// shared memory: the fragment loads of a warp then hit bank 4g + t, all
-// 32 distinct. Words past W and rows past B are filled with zeros (a
-// cp.async of source size 0), so they add nothing to any count.
+// shared memory: the fragment loads of a warp then hit bank (kLd g + t) %
+// 32, all 32 distinct for kStageWords = 32 or 16. Words past W and rows
+// past B are filled with zeros (a cp.async of source size 0), so they add
+// nothing to any count.
 //
 // kPlanes operand planes a side and kProducts products (Pairing::a(p),
 // Pairing::b(p) name the planes of product p) are template parameters; the
-// phased no-missing tile is one plane, one product.
+// phased no-missing tile is one plane, one product. A plane for which
+// Pairing::inverted(plane) holds is contracted as its complement (the
+// phased tables' valid = ~miss): its fragments are inverted as they leave
+// shared memory, and the words past W in the last K step, which the zero
+// fill would turn into ones, are masked back to zero. Rows past B are not
+// masked: their counts are never stored. The MMA has no complemented
+// operand, and inverting in place would need a pass over shared memory.
 
 #pragma once
 
@@ -45,8 +52,6 @@ namespace mma {
 constexpr int kThreads = 256;
 constexpr int kWarpsM = 2;
 constexpr int kWarpsN = 4;
-constexpr int kStageWords = 32;
-constexpr int kLd = kStageWords + 4;
 constexpr int kStages = 3;
 constexpr int kStepWords = 8;  // words of one m16n8k256 K step
 
@@ -81,8 +86,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-template <int kPlanes, int kProducts, int kMi, int kNi, class Pairing>
+// The products of pallas_tiles._chunk_parts' column order, (a plane, b
+// plane): (0,0), (0,1), (1,0), (1,1), then for 9 parts (0,2), (2,0),
+// (1,2), (2,1), (2,2); one nibble a product. kInvert1: plane 1 is miss,
+// contracted as valid = ~miss (the phased table with missing data).
+template <bool kInvert1>
+struct Products {
+  static __host__ __device__ constexpr int a(int p) {
+    return (int)((0x221201100ull >> (4 * p)) & 0xf);
+  }
+  static __host__ __device__ constexpr int b(int p) {
+    return (int)((0x212021010ull >> (4 * p)) & 0xf);
+  }
+  static __host__ __device__ constexpr bool inverted(int plane) {
+    return kInvert1 && plane == 1;
+  }
+};
+
+template <int kPlanes, int kProducts, int kMi, int kNi, class Pairing,
+          int kStageWords = 32>
 struct Contraction {
+  static_assert(kStageWords == 32 || kStageWords == 16,
+                "bank-conflict-free fragment loads");
+  static constexpr int kLd = kStageWords + 4;
   static constexpr int kRows = kWarpsM * kMi * 16;
   static constexpr int kCols = kWarpsN * kNi * 8;
   // words of one stage: every plane of side A, then every plane of side B
@@ -107,8 +133,8 @@ struct Contraction {
   }
 
   static __device__ __forceinline__ void load_stage(
-      uint32_t* stage, const uint32_t* const (&xa)[kPlanes],
-      const uint32_t* const (&xb)[kPlanes], int row0, int col0, int B, int W,
+      uint32_t* stage, const uint32_t* const* xa, const uint32_t* const* xb,
+      int row0, int col0, int B, int W,
       int w0, bool vec16) {
 #pragma unroll
     for (int p = 0; p < kPlanes; ++p) {
@@ -125,13 +151,13 @@ struct Contraction {
   }
 
   // acc[p][mi][ni][0..3] += product p's counts of the block's pairs over
-  // all W words. `smem` holds kSmemBytes, 16-byte aligned. Every thread of
-  // the block calls it; on return no copy is in flight and every thread has
-  // passed a barrier after its last read, so the caller may reuse `smem`.
+  // all W words; xa, xb hold the kPlanes [B, W] planes of each side.
+  // `smem` holds kSmemBytes, 16-byte aligned. Every thread of the block
+  // calls it; on return no copy is in flight and every thread has passed a
+  // barrier after its last read, so the caller may reuse `smem`.
   static __device__ __forceinline__ void run(
-      uint32_t* smem, const uint32_t* const (&xa)[kPlanes],
-      const uint32_t* const (&xb)[kPlanes], int row0, int col0, int B, int W,
-      int (&acc)[kProducts][kMi][kNi][4]) {
+      uint32_t* smem, const uint32_t* const* xa, const uint32_t* const* xb,
+      int row0, int col0, int B, int W, int (&acc)[kProducts][kMi][kNi][4]) {
     const int lane = threadIdx.x % 32;
     const int warp = threadIdx.x / 32;
     const int g = lane / 4;
@@ -166,6 +192,10 @@ struct Contraction {
 #pragma unroll
       for (int ks = 0; ks < kStageWords / kStepWords; ++ks) {
         if (ks * kStepWords >= left) break;  // only zeros from here on
+        // all ones where the lane's words (t, 4 + t of the K step) lie
+        // inside W: what an inverted plane keeps
+        const uint32_t keep_lo = ks * kStepWords + t < left ? ~0u : 0u;
+        const uint32_t keep_hi = ks * kStepWords + 4 + t < left ? ~0u : 0u;
         uint32_t a[kPlanes][kMi][4];
         uint32_t b[kPlanes][kNi][2];
 #pragma unroll
@@ -186,6 +216,20 @@ struct Contraction {
           for (int ni = 0; ni < kNi; ++ni) {
             b[p][ni][0] = sb[(ni * 8) * kLd];
             b[p][ni][1] = sb[(ni * 8) * kLd + 4];
+          }
+          if (Pairing::inverted(p)) {
+#pragma unroll
+            for (int mi = 0; mi < kMi; ++mi) {
+              a[p][mi][0] = ~a[p][mi][0] & keep_lo;
+              a[p][mi][1] = ~a[p][mi][1] & keep_lo;
+              a[p][mi][2] = ~a[p][mi][2] & keep_hi;
+              a[p][mi][3] = ~a[p][mi][3] & keep_hi;
+            }
+#pragma unroll
+            for (int ni = 0; ni < kNi; ++ni) {
+              b[p][ni][0] = ~b[p][ni][0] & keep_lo;
+              b[p][ni][1] = ~b[p][ni][1] & keep_hi;
+            }
           }
         }
 #pragma unroll

@@ -1,11 +1,12 @@
-// One tile of variant pairs -> (candidate/survivor mask, P raw parts), for
-// the tile instances with more than one contraction.
+// One tile of variant pairs -> (candidate/survivor mask, P raw parts,
+// per-segment survivor and candidate counts), for the tile instances with
+// more than one contraction, on the tensor cores.
 //
 // Replaces tomahawk_tpu/ops/pallas_tiles.py::_make_kernel (built by
 // _build_call, reached through sweeps.tile_prefilter) in its instances
 // with P = 4 or 9 parts, with and without a window, and with them
-// tools/probe_pallas.py's `fused` probe, whose 4 het/hom contractions are the unphased P = 4
-// instance with a toy epilogue:
+// tools/probe_pallas.py's `fused` probe, whose 4 het/hom contractions are
+// the unphased P = 4 instance with a toy epilogue:
 //
 //   kind  table, missing data   planes per side   parts (column order)
 //   0     phased, missing       alt, miss         altalt, alt_val,
@@ -21,47 +22,74 @@
 // pallas_tiles._chunk_parts; unlike it, it applies the diagonal triangle
 // itself. csrc/phased_tile.cu serves the phased no-missing instance (P=1).
 //
-// What bounds it on the H100: POPC issue, as for phased_tile. Each part is
-// the popcount of the AND of two packed rows of W words, so a B x B tile
-// is P * B * B * W popcounts: at B = 4096 and 2,504 samples, 10.7e9 for
-// the phased P=4 instance (W = 160), 5.4e9 for unphased P=4 and 12.1e9 for
-// P=9 (W = 80), against about 4.2e12 popcounts/s on 132 SMs. The design is
-// phased_tile's: a block stages its rows' and columns' words of every
-// plane in shared memory (transposed, padded against bank conflicts), and
-// each of its 256 threads keeps R x C pairs x P parts in registers, so each
-// word read from shared memory feeds C (or R) AND+POPC+ADD steps per part.
-// R x C is 4 x 4 for P = 4 and 4 x 2 for P = 9 (64 and 72 accumulators),
-// which keeps every instance under the register limit with no spills.
-// AND+POPC over packed words counts exactly what the TPU's int8
-// contraction of unpacked bits counts.
+// The contraction: each part is the popcount of the AND of two packed
+// rows of W words, which the H100's 1-bit MMA (mma.sync.m16n8k256.b1
+// .and.popc, SASS BMMA.168256.AND.POPC) computes on the packed words;
+// mma_tile.cuh holds the staging and MMA loop (twk::mma::Contraction, the
+// products in _chunk_parts' order as twk::mma::Products). valid = ~miss is
+// taken at fragment load, the words past W of the last K step masked back
+// to zero (route (a): the zero fill of the staging would otherwise turn
+// into ones); the miss plane's padding bits inside W are ones (bitpack and
+// the samples-sharded upload pad them so), so ~miss adds nothing there.
 //
-// Padding: every padding word of a miss plane is all ones (bitpack pads
-// the bits past 2N with 1), so ~miss is zero there; words staged from past
-// the row's end are filled the same way (all ones for miss, zero for the
-// other planes), so padding adds to no part. Padding rows (valid = 0) are
+// What bounds it on the H100: at B = 4096 and 2,504 samples a tile is 4 x
+// 4096^2 x 160 pair-words (phased P=4), 4 x 4096^2 x 80 (unphased P=4) or
+// 9 x 4096^2 x 80 (P=9): 0.067 / 0.034 / 0.076 ms of 1-bit MMA at 10.2e15
+// operations a second, under its bytes (1 + 4P bytes a pair written: 0.088
+// / 0.087 / 0.188 ms at HBM rate). The accumulators are P per pair, so the
+// block is smaller than phased_tile's 128 x 128: 64 x 64 for P = 4 (warp
+// tile 32 x 16, 64 accumulators a thread) and 32 x 64 for P = 9 (16 x 16,
+// 72), with 16-word stages for P = 9 so that two blocks share an SM (64 x
+// 32, with 6 more fragment registers, spilled at the 128-register cap of
+// two blocks an SM; one block an SM, or 32-word stages, took 1.7x as
+// long). Each operand row then comes from L2 B / 64 (+ B / 32) times: ~670
+// MB a tile for phased P = 4, ~750 MB for P = 9, which at the ~3.7 TB/s
+// phased_tile's loop reads from L2 is ~0.18-0.2 ms, above both bounds
+// (thread-block clusters sharing stages through distributed shared memory
+// would cut it). Cut out of the kernel one at a time (ops/time_variants.py,
+// NVIDIA H100 80GB HBM3, 700 W): phased P = 4 spends ~0.2 of its 0.33 ms
+// in the loop; the unphased instances ~0.39 of 0.58 ms (P = 4) and ~0.43
+// of 0.84 ms (P = 9) in the unphased prefilter's f32 arithmetic (a dozen
+// IEEE divisions a pair), which two blocks of 8 warps an SM cannot hide.
+//
+// The epilogue runs in the MMA's C layout, in registers: a thread holds
+// the same (row, column) pairs for every product, rows wr + 16 mi + 8 h + g
+// and columns wc + 8 ni + 2t + e, so each pair's cells, candidate test and
+// prefilter need no shared-memory pass. It follows ops/ld_kernels
+// .phased_cells / unphased_cells and the prefilters of prefilter.cuh
+// (built with -fmad=false: bit-identical to the plain versions). Without
+// missing data the unphased marginals come from the per-variant het/hom
+// counts and n_samples, as the host table does. The two adjacent columns
+// of a thread go out as one 2-byte mask store and one 8-byte store a part
+// (a quad: 32 contiguous bytes), the parts with a streaming hint (the
+// compaction reads them only at survivors). Padding rows (valid = 0) are
 // never candidates.
 //
-// The epilogue follows ops/ld_kernels.phased_cells / unphased_cells and
-// the prefilters of prefilter.cuh, which keep the plain versions'
-// expression order. Without missing data the unphased marginals come from
-// the per-variant het/hom counts and n_samples, as the host table does.
+// Counts: with `counts` given, the kernel also adds each row's survivors
+// and candidates of its columns, n_survivors | n_candidates << 16, into
+// counts[k, col0 / 128] (int32 [B, ceil(B / 128)], the cell phased_tile
+// writes and csrc/compact.cu reads): a quad's lanes are summed by
+// shuffles, a block's warps in shared memory, and the 128 / TJ blocks of a
+// segment with one global atomicAdd a row (none for a zero). The C entry
+// zeroes the buffer on the stream first.
 //
 // Window mode (window > 0, a runtime argument) is phased_tile's: the
 // candidate test adds same contig and |pos_i - pos_j| <= window, and a
-// block whose 64 x 64 (P = 4) or 64 x 32 (P = 9) pairs can hold no
-// in-window pair (twk::block_live) writes its mask region as 0, leaves its
-// parts unwritten and returns before the staging loop.
+// block whose 64 x 64 (P = 4) or 32 x 64 (P = 9) pairs can hold no
+// in-window pair (twk::block_live) writes its mask region as 0, adds
+// nothing to the counts, leaves its parts unwritten and returns before the
+// staging loop.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mma_tile.cuh"
 #include "prefilter.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kWords = 16;     // packed words staged per step (divides
-                               // W = 80 and 160 at 2,504 samples)
+constexpr int kThreads = twk::mma::kThreads;
+constexpr int kSeg = 128;  // mask columns of one counts cell
 
 struct Args {
   const uint32_t* pi[3];  // planes of the row super-block
@@ -82,42 +110,93 @@ struct Args {
   int need_nonzero, diag;
   uint8_t* mask;
   int32_t* parts;
+  int32_t* counts;  // null: none
 };
 
+// planes a side, parts, MMA patches a warp (rows x columns), words a stage
 template <int KIND>
 struct Shape;
 template <>
 struct Shape<0> {  // phased, missing data
-  static constexpr int kPlanes = 2, kParts = 4, kR = 4, kC = 4;
+  static constexpr int kPlanes = 2, kParts = 4, kMi = 2, kNi = 2, kWords = 32;
 };
 template <>
 struct Shape<1> {  // unphased, no missing data
-  static constexpr int kPlanes = 2, kParts = 4, kR = 4, kC = 4;
+  static constexpr int kPlanes = 2, kParts = 4, kMi = 2, kNi = 2, kWords = 32;
 };
 template <>
 struct Shape<2> {  // unphased, missing data
-  static constexpr int kPlanes = 3, kParts = 9, kR = 4, kC = 2;
+  static constexpr int kPlanes = 3, kParts = 9, kMi = 1, kNi = 2, kWords = 16;
 };
 
-// the value a word past the row's end stands for
 template <int KIND>
-__device__ __forceinline__ uint32_t pad_word(int plane) {
-  return (KIND == 0 && plane == 1) ? 0xffffffffu : 0u;
+using TileOf =
+    twk::mma::Contraction<Shape<KIND>::kPlanes, Shape<KIND>::kParts,
+                          Shape<KIND>::kMi, Shape<KIND>::kNi,
+                          twk::mma::Products<KIND == 0>, Shape<KIND>::kWords>;
+
+// survivors | candidates << 16 of one mask byte (0, 1 or 2)
+__device__ __forceinline__ unsigned count_byte(unsigned m) {
+  return (m >> 1) | (m != 0 ? 1u << 16 : 0u);
+}
+
+// The mask byte of pair (k, l) from its P parts v.
+template <int KIND>
+__device__ __forceinline__ unsigned pair_mask(const Args& a, const int* v,
+                                              int k, int l, int aci,
+                                              bool vi) {
+  if (!twk::candidate(vi, a.valid_j[l] != 0, aci, a.ac_j[l], k, l, a.diag,
+                      a.cls, a.an_i, a.an_j, a.win))
+    return 0;
+  bool pf;
+  if constexpr (KIND == 0) {
+    // ld_kernels.phased_cells, 4-part branch
+    const int altalt = v[0];
+    const int altref = v[1] - altalt;
+    const int refalt = v[2] - altalt;
+    const int refref = v[3] - altalt - altref - refalt;
+    pf = twk::phased_prefilter(refref, refalt, altref, altalt, a.lo, a.hi,
+                               a.need_nonzero);
+  } else {
+    // ld_kernels.unphased_cells
+    const int T11 = v[0], T12 = v[1], T21 = v[2], T22 = v[3];
+    int hv, vh, ov, vo, vv;
+    if constexpr (KIND == 2) {
+      hv = v[4];
+      vh = v[5];
+      ov = v[6];
+      vo = v[7];
+      vv = v[8];
+    } else {
+      hv = a.nhet_i[k];
+      ov = a.nhom_i[k];
+      vh = a.nhet_j[l];
+      vo = a.nhom_j[l];
+      vv = a.n_samples;
+    }
+    const int T10 = hv - T11 - T12;
+    const int T20 = ov - T21 - T22;
+    const int T01 = vh - T11 - T21;
+    const int T02 = vo - T12 - T22;
+    const int T00 = vv - (T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22);
+    const int T[9] = {T00, T01, T02, T10, T11, T12, T20, T21, T22};
+    pf = twk::unphased_prefilter(T, a.lo, a.hi);
+  }
+  return pf ? 2u : 1u;
 }
 
 template <int KIND>
-__global__ void __launch_bounds__(kThreads) parts_tile_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 2) parts_tile_kernel(const Args a) {
   using S = Shape<KIND>;
-  constexpr int NP = S::kPlanes, P = S::kParts, R = S::kR, C = S::kC;
-  constexpr int TI = 16 * R, TJ = 16 * C;
-  __shared__ uint32_t si[NP][kWords][TI + 1];
-  __shared__ uint32_t sj[NP][kWords][TJ + 1];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  using Tile = TileOf<KIND>;
+  constexpr int P = S::kParts, kMi = S::kMi, kNi = S::kNi;
+  constexpr int TI = Tile::kRows, TJ = Tile::kCols;
+  static_assert(kSeg % TJ == 0, "a block lies in one counts segment");
+  static_assert(TI * 4 <= Tile::kSmemBytes, "row counts fit");
+  extern __shared__ __align__(16) uint32_t smem[];
   const int row0 = blockIdx.y * TI;
   const int col0 = blockIdx.x * TJ;
   const int B = a.B;
-  const int W = a.W;
 
   if (a.win.window > 0 &&
       !twk::block_live(a.win, a.valid_i, a.valid_j, row0, TI, col0, TJ, B,
@@ -130,143 +209,109 @@ __global__ void __launch_bounds__(kThreads) parts_tile_kernel(const Args a) {
     return;
   }
 
-  int acc[P][R][C];
+  int acc[P][kMi][kNi][4];
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+    for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[p][r][c] = 0;
+      for (int ni = 0; ni < kNi; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][mi][ni][q] = 0;
+  const uint32_t* const xa[3] = {a.pi[0], a.pi[1], a.pi[2]};
+  const uint32_t* const xb[3] = {a.pj[0], a.pj[1], a.pj[2]};
+  Tile::run(smem, xa, xb, row0, col0, B, a.W, acc);
 
-  for (int w0 = 0; w0 < W; w0 += kWords) {
-    // coalesced loads: consecutive threads read consecutive words of a row
-    for (int e = threadIdx.x; e < TI * kWords; e += kThreads) {
-      const int r = e / kWords;
-      const int k = e % kWords;
-      const int w = w0 + k;
-      const int g = row0 + r;
-      const bool in = g < B && w < W;
-      const size_t o = (size_t)g * W + w;
-#pragma unroll
-      for (int pl = 0; pl < NP; ++pl)
-        si[pl][k][r] = in ? a.pi[pl][o] : pad_word<KIND>(pl);
-    }
-    for (int e = threadIdx.x; e < TJ * kWords; e += kThreads) {
-      const int r = e / kWords;
-      const int k = e % kWords;
-      const int w = w0 + k;
-      const int g = col0 + r;
-      const bool in = g < B && w < W;
-      const size_t o = (size_t)g * W + w;
-#pragma unroll
-      for (int pl = 0; pl < NP; ++pl)
-        sj[pl][k][r] = in ? a.pj[pl][o] : pad_word<KIND>(pl);
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int k = 0; k < kWords; ++k) {
-      uint32_t x[NP][R], y[NP][C];
-#pragma unroll
-      for (int pl = 0; pl < NP; ++pl) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) x[pl][r] = si[pl][k][ty + 16 * r];
-#pragma unroll
-        for (int c = 0; c < C; ++c) y[pl][c] = sj[pl][k][tx + 16 * c];
-      }
-      if constexpr (KIND == 0) {
-        // valid = NOT missing, inverted at the packed-word level
-#pragma unroll
-        for (int r = 0; r < R; ++r) x[1][r] = ~x[1][r];
-#pragma unroll
-        for (int c = 0; c < C; ++c) y[1][c] = ~y[1][c];
-      }
-      // phased: x, y = (alt, valid); unphased: (het, hom[, valid])
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          acc[0][r][c] += __popc(x[0][r] & y[0][c]);
-          acc[1][r][c] += __popc(x[0][r] & y[1][c]);
-          acc[2][r][c] += __popc(x[1][r] & y[0][c]);
-          acc[3][r][c] += __popc(x[1][r] & y[1][c]);
-          if constexpr (KIND == 2) {
-            acc[4][r][c] += __popc(x[0][r] & y[2][c]);
-            acc[5][r][c] += __popc(x[2][r] & y[0][c]);
-            acc[6][r][c] += __popc(x[1][r] & y[2][c]);
-            acc[7][r][c] += __popc(x[2][r] & y[1][c]);
-            acc[8][r][c] += __popc(x[2][r] & y[2][c]);
-          }
-        }
-    }
+  // the row counts of the block, in the freed staging buffers
+  unsigned* srow = reinterpret_cast<unsigned*>(smem);
+  if (a.counts != nullptr) {
+    for (int r = threadIdx.x; r < TI; r += kThreads) srow[r] = 0;
     __syncthreads();
   }
-
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wr = (warp / twk::mma::kWarpsN) * kMi * 16;
+  const int wc = (warp % twk::mma::kWarpsN) * kNi * 8;
   const size_t BB = (size_t)B * B;
+  const bool even = B % 2 == 0;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = row0 + ty + 16 * r;
-    if (k >= B) continue;
-    const int aci = a.ac_i[k];
-    const bool vi = a.valid_i[k] != 0;
+  for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int l = col0 + tx + 16 * c;
-      if (l >= B) continue;
-      const size_t f = (size_t)k * B + l;
-      uint8_t m = 0;
-      if (twk::candidate(vi, a.valid_j[l] != 0, aci, a.ac_j[l], k, l, a.diag,
-                         a.cls, a.an_i, a.an_j, a.win)) {
-        bool pf;
-        if constexpr (KIND == 0) {
-          // ld_kernels.phased_cells, 4-part branch
-          const int altalt = acc[0][r][c];
-          const int altref = acc[1][r][c] - altalt;
-          const int refalt = acc[2][r][c] - altalt;
-          const int refref = acc[3][r][c] - altalt - altref - refalt;
-          pf = twk::phased_prefilter(refref, refalt, altref, altalt, a.lo,
-                                     a.hi, a.need_nonzero);
-        } else {
-          // ld_kernels.unphased_cells
-          const int T11 = acc[0][r][c], T12 = acc[1][r][c];
-          const int T21 = acc[2][r][c], T22 = acc[3][r][c];
-          int hv, vh, ov, vo, vv;
-          if constexpr (KIND == 2) {
-            hv = acc[4][r][c];
-            vh = acc[5][r][c];
-            ov = acc[6][r][c];
-            vo = acc[7][r][c];
-            vv = acc[8][r][c];
-          } else {
-            hv = a.nhet_i[k];
-            ov = a.nhom_i[k];
-            vh = a.nhet_j[l];
-            vo = a.nhom_j[l];
-            vv = a.n_samples;
-          }
-          const int T10 = hv - T11 - T12;
-          const int T20 = ov - T21 - T22;
-          const int T01 = vh - T11 - T21;
-          const int T02 = vo - T12 - T22;
-          const int T00 =
-              vv - (T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22);
-          const int T[9] = {T00, T01, T02, T10, T11, T12, T20, T21, T22};
-          pf = twk::unphased_prefilter(T, a.lo, a.hi);
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + mi * 16 + h * 8 + g;
+      const int k = row0 + r;
+      const bool row_in = k < B;
+      const int aci = row_in ? a.ac_i[k] : 0;
+      const bool vi = row_in && a.valid_i[k] != 0;
+      unsigned n = 0;
+#pragma unroll
+      for (int ni = 0; ni < kNi; ++ni) {
+        const int l0 = col0 + wc + ni * 8 + 2 * t;
+        if (!row_in || l0 >= B) continue;
+        const size_t f = (size_t)k * B + l0;
+        unsigned m2 = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (l0 + e >= B) continue;
+          int v[P];
+#pragma unroll
+          for (int p = 0; p < P; ++p) v[p] = acc[p][mi][ni][2 * h + e];
+          const unsigned m = pair_mask<KIND>(a, v, k, l0 + e, aci, vi);
+          m2 |= m << (8 * e);
+          n += count_byte(m);
         }
-        m = pf ? 2 : 1;
-      }
-      a.mask[f] = m;
+        if (even) {
+          *reinterpret_cast<uint16_t*>(a.mask + f) = (uint16_t)m2;
 #pragma unroll
-      for (int p = 0; p < P; ++p) a.parts[p * BB + f] = acc[p][r][c];
+          for (int p = 0; p < P; ++p)
+            __stcs(reinterpret_cast<int2*>(a.parts + p * BB + f),
+                   make_int2(acc[p][mi][ni][2 * h], acc[p][mi][ni][2 * h + 1]));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (l0 + e < B) {
+              a.mask[f + e] = (uint8_t)(m2 >> (8 * e));
+#pragma unroll
+              for (int p = 0; p < P; ++p)
+                __stcs(a.parts + p * BB + f + e, acc[p][mi][ni][2 * h + e]);
+            }
+        }
+      }
+      if (a.counts != nullptr) {  // uniform across the block
+        n += __shfl_xor_sync(0xffffffffu, n, 1);
+        n += __shfl_xor_sync(0xffffffffu, n, 2);
+        if (t == 0 && n != 0) atomicAdd(srow + r, n);
+      }
     }
-  }
+  if (a.counts == nullptr) return;
+  __syncthreads();
+  const int n_seg = (B + kSeg - 1) / kSeg;
+  for (int r = threadIdx.x; r < TI; r += kThreads)
+    if (srow[r] != 0 && row0 + r < B)
+      atomicAdd(reinterpret_cast<unsigned*>(a.counts) +
+                    (size_t)(row0 + r) * n_seg + col0 / kSeg,
+                srow[r]);
 }
 
 template <int KIND>
 int launch(const Args& a, cudaStream_t s) {
-  using S = Shape<KIND>;
-  const int TI = 16 * S::kR, TJ = 16 * S::kC;
-  const dim3 grid((a.B + TJ - 1) / TJ, (a.B + TI - 1) / TI);
-  parts_tile_kernel<KIND><<<grid, kThreads, 0, s>>>(a);
+  using Tile = TileOf<KIND>;
+  if (a.counts != nullptr) {
+    const size_t n_seg = (a.B + kSeg - 1) / kSeg;
+    const cudaError_t rc =
+        cudaMemsetAsync(a.counts, 0, (size_t)a.B * n_seg * 4, s);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  // per device, so set on every launch (a host-side call of about 1 us)
+  const cudaError_t rc = cudaFuncSetAttribute(
+      parts_tile_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile::kSmemBytes);
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid((a.B + Tile::kCols - 1) / Tile::kCols,
+                  (a.B + Tile::kRows - 1) / Tile::kRows);
+  parts_tile_kernel<KIND><<<grid, kThreads, Tile::kSmemBytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -275,7 +320,8 @@ int launch(const Args& a, cudaStream_t s) {
 // kind: 0 phased with missing data (x = alt, y = miss), 1 unphased
 // (x = het, y = hom), 2 unphased with missing data (z = valid).
 // cls: 0 all, 1 clean, 2 missing (needs an_*). n_het/n_hom: kind 1 only.
-// window: 0 none, else bp (needs pos_* and rid_*).
+// window: 0 none, else bp (needs pos_* and rid_*). counts: int32
+// [B, ceil(B / 128)] or null.
 extern "C" int twk_parts_tile(
     int kind, const void* x_i, const void* y_i, const void* z_i,
     const void* x_j, const void* y_j, const void* z_j, const void* ac_i,
@@ -283,8 +329,9 @@ extern "C" int twk_parts_tile(
     const void* an_i, const void* an_j, const void* nhet_i,
     const void* nhom_i, const void* nhet_j, const void* nhom_j,
     const void* pos_i, const void* pos_j, const void* rid_i,
-    const void* rid_j, int window, int cls, int B, int W, int n_samples, float lo, float hi, int need_nonzero,
-    int diag, void* mask, void* parts, void* stream) {
+    const void* rid_j, int window, int cls, int B, int W, int n_samples,
+    float lo, float hi, int need_nonzero, int diag, void* mask, void* parts,
+    void* counts, void* stream) {
   const bool bad =
       B <= 0 || W <= 0 || kind < 0 || kind > 2 || cls < 0 || cls > 2 ||
       !x_i || !y_i || !x_j || !y_j || !ac_i || !ac_j || !valid_i ||
@@ -322,6 +369,7 @@ extern "C" int twk_parts_tile(
   a.diag = diag;
   a.mask = (uint8_t*)mask;
   a.parts = (int32_t*)parts;
+  a.counts = (int32_t*)counts;
   cudaStream_t s = (cudaStream_t)stream;
   if (kind == 0) return launch<0>(a, s);
   if (kind == 1) return launch<1>(a, s);

@@ -81,6 +81,7 @@ namespace {
 struct OnePlane {
   static __host__ __device__ constexpr int a(int) { return 0; }
   static __host__ __device__ constexpr int b(int) { return 0; }
+  static __host__ __device__ constexpr bool inverted(int) { return false; }
 };
 
 constexpr int kMi = 4;  // 16-row MMA patches a warp: 64 rows

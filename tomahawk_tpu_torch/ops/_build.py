@@ -69,9 +69,9 @@ _SIGNATURES = {
     # kind, x_i, y_i, z_i, x_j, y_j, z_j, ac_i, ac_j, valid_i, valid_j,
     # an_i, an_j, n_het_i, n_hom_i, n_het_j, n_hom_j, pos_i, pos_j, rid_i,
     # rid_j, window, cls, B, W, n_samples, lo, hi, need_nonzero, diag,
-    # mask, parts, stream
+    # mask, parts, counts, stream
     "twk_parts_tile": [_I] + [_P] * 20 + [_I] * 5 + [_F] * 2 + [_I] * 2
-    + [_P] * 3,
+    + [_P] * 4,
     # mask, parts, counts, P, ncol, B, off, cap, outcap, n_pass, n_cand, t,
     # scratch, ticket, buf, stream
     "twk_compact": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
@@ -89,7 +89,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-#: nvcc's report (registers, shared memory, spills) of the last build
+#: nvcc's report (registers, shared memory, spills) of the loaded
+#: library's build, kept beside it (`_log_path`)
 build_log = ""
 
 
@@ -118,6 +119,10 @@ def _lib_path() -> str:
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"libtwk_torch-{h.hexdigest()[:16]}.so")
+
+
+def _log_path(lib_path: str) -> str:
+    return lib_path + ".ptxas.txt"
 
 
 def _run(cmds):
@@ -149,17 +154,23 @@ def _compile(path: str):
             if os.path.exists(o):
                 os.remove(o)
     build_log = "".join(outs)
+    with open(f"{tmp}.log", "w") as fh:
+        fh.write(build_log)
+    os.replace(f"{tmp}.log", _log_path(path))
     os.replace(tmp, path)
 
 
 def library():
     """The loaded kernel library, built first if needed."""
-    global _lib
+    global _lib, build_log
     with _lock:
         if _lib is None:
             path = _lib_path()
             if not os.path.exists(path):
                 _compile(path)
+            elif os.path.exists(_log_path(path)):
+                with open(_log_path(path)) as fh:
+                    build_log = fh.read()
             lib = ctypes.CDLL(path)
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

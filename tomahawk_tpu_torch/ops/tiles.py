@@ -23,10 +23,10 @@ is 0 and its region of `parts` is left unwritten.
 `tile_prefilter` can also fill a counts buffer (`counts_buffer`): int32
 [B, ceil(B / 128)], the survivors and candidates of each 128-column
 segment of each mask row as n_survivors | n_candidates << 16
-(`tile_counts_plain` states it). phased_tile.cu writes it from the
+(`tile_counts_plain` states it). Both fused kernels write it from the
 registers that hold the mask, and the compaction (compute/sweeps.py)
-then reads the mask only where a segment has a survivor; the other
-producers of a mask give no counts.
+then reads the mask only where a segment has a survivor; the
+samples-sharded sweep's epilogue gives no counts.
 
 Both versions return mask u8 [B, B] (0 = not a candidate, 1 =
 candidate, 2 = survivor of the f32 prefilter, the diagonal triangle
@@ -84,9 +84,7 @@ def tile_buffers(cfg, device):
 
 def counts_buffer(cfg, device):
     """int32 [B, ceil(B / SEG)] for the per-segment counts of a tile's
-    mask, or None for a sweep group whose tile kernel gives none."""
-    if kernel_name(cfg) != "phased_tile":
-        return None
+    mask, which `tile_prefilter` fills in every sweep group."""
     B = cfg["B"]
     return torch.empty((B, -(-B // SEG)), dtype=torch.int32, device=device)
 
@@ -152,15 +150,12 @@ def tile_prefilter(dev, i: int, j: int, diag: bool, cfg, out=None,
                    counts=None):
     """(mask, parts) for the tile of super-blocks (i, j), written into
     `out` (tile_buffers) when given, and returned. `counts`
-    (counts_buffer) is filled with the mask's per-segment counts; only
-    the phased no-missing group's kernel takes one."""
+    (counts_buffer) is filled with the mask's per-segment counts."""
     valid = dev["valid"]
     if out is None:
         out = tile_buffers(cfg, valid.device)
     if counts is not None:
         shape = (cfg["B"], -(-cfg["B"] // SEG))
-        if kernel_name(cfg) != "phased_tile":
-            raise ValueError("only the phased_tile kernel writes counts")
         if counts.dtype != torch.int32 or tuple(counts.shape) != shape \
                 or not counts.is_contiguous() \
                 or counts.device != out[0].device:
@@ -249,14 +244,14 @@ def _launch(dev, i, j, diag, cfg, out, counts=None):
         lo, hi = K.unphased_bounds(cfg["min_r2"], cfg["max_r2"])
         need_nonzero = False
     name = kernel_name(cfg)
+    cnt = None if counts is None else counts.data_ptr()
     if name == "phased_tile":
         rc = lib.twk_phased_tile(
             ptr("alt_bits", i), ptr("alt_bits", j), ptr("ac", i),
             ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *win,
             window, cls_code, B, W, 2 * cfg["n_samples"], float(lo),
             float(hi), int(need_nonzero), int(bool(diag)), mask.data_ptr(),
-            parts.data_ptr(),
-            None if counts is None else counts.data_ptr(), stream)
+            parts.data_ptr(), cnt, stream)
     else:
         keys = plane_keys(table, miss)
         side = lambda s: [ptr(k, s) for k in keys] + [None] * (3 - len(keys))
@@ -268,7 +263,7 @@ def _launch(dev, i, j, diag, cfg, out, counts=None):
             ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *nh, *win,
             window, cls_code, B, W, cfg["n_samples"], float(lo), float(hi),
             int(need_nonzero), int(bool(diag)), mask.data_ptr(),
-            parts.data_ptr(), stream)
+            parts.data_ptr(), cnt, stream)
     _build.check(rc, f"{name} launch")
     _build.LAUNCHES[name] += 1
     return out

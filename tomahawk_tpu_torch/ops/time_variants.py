@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where phased_tile's time goes, and what the compaction's redesign gained.
+"""Where the tile kernels' time goes, and what the compaction's redesign
+gained.
 
     python3 -m tomahawk_tpu_torch.ops.time_variants [--old-compact FILE]
 
@@ -9,7 +10,11 @@ entry of CUTS, each from a copy with parts of the kernel edited out (the
 outputs of those builds are wrong by design), and times each on the -p
 tile (B = 4096, 2,504 samples, W = 160 words, off-diagonal). The
 differences say what the staging + MMA loop, the prefilter's arithmetic
-and the stores cost, and how far they overlap.
+and the stores cost, and how far they overlap. It does the same for
+csrc/parts_tile.cu (PARTS_CUTS) in its three instances, on the
+off-diagonal tile of genotype planes with ~1% of genotypes missing, and
+times PARTS_SHAPES, copies with another block shape or register budget
+whose outputs are right.
 
 With --old-compact FILE it also times the compaction of FILE, a compact.cu
 with the interface the compaction had while it ran three dependent
@@ -49,10 +54,40 @@ CUTS = {"whole": (), "no loop": (_LOOP,), "no prefilter": (_PREFILTER,),
         "stores only": (_LOOP, _PREFILTER),
         "mask stores only": (_LOOP, _PREFILTER, _ALTALT)}
 
+_P_LOOP = (r"  Tile::run\(smem, xa, xb, row0, col0, B, a\.W, acc\);\n", "")
+# the mask byte from a bit of two parts, so that the stores still depend
+# on the contraction
+_P_PREFILTER = (r"pair_mask<KIND>\(a, v, k, l0 \+ e, aci, vi\)",
+                "(unsigned)(v[0] & 1) + (unsigned)(v[1] & 1)")
+_P_PARTS = (r"__stcs\(reinterpret_cast<int2\*>\(a\.parts.*?\)\);\n",
+            "(void)0;\n")
+#: variant -> edits of parts_tile.cu, as CUTS
+PARTS_CUTS = {"whole": (), "no loop": (_P_LOOP,),
+              "no prefilter": (_P_PREFILTER,),
+              "no parts stores": (_P_PARTS,),
+              "loop + mask stores only": (_P_PREFILTER, _P_PARTS),
+              "stores only": (_P_LOOP, _P_PREFILTER)}
+_P9 = r"kParts = 9, kMi = 1, kNi = 2, kWords = 16;"
+#: copies of parts_tile.cu whose outputs stay right: the P = 9 instance
+#: (32 x 64 blocks, 16-word stages, two blocks an SM) with another block
+#: shape, stage or register budget
+PARTS_SHAPES = {
+    "P=9, 64 x 32 blocks": ((_P9, "kParts = 9, kMi = 2, kNi = 1, "
+                                  "kWords = 16;"),),
+    "P=9, one block an SM": (
+        (r"__launch_bounds__\(kThreads, 2\) parts_tile_kernel",
+         "__launch_bounds__(kThreads, 1) parts_tile_kernel"),),
+    "P=9, 32-word stages": ((_P9, "kParts = 9, kMi = 1, kNi = 2, "
+                                  "kWords = 32;"),)}
+#: the parts_tile instances timed: (table, has_missing, cls)
+PARTS_GROUPS = (("phased", True, "all"), ("unphased", False, "all"),
+                ("unphased", True, "missing"))
 
-def device_ms(fn, reps):
+
+def device_ms(fn, reps, probe_lib=None):
     """Mean device milliseconds per call of fn after one warm-up, the
-    calls queued behind the MMA probe (~4 ms)."""
+    calls queued behind the MMA probe (~4 ms) of `probe_lib` (the kernel
+    library by default)."""
     import torch
     from . import _build
     fn()
@@ -60,8 +95,8 @@ def device_ms(fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     stream = torch.cuda.current_stream().cuda_stream
-    _build.check(_build.library().twk_mma_probe(0, 528, 20000,
-                                                sink.data_ptr(), stream),
+    lib = probe_lib or _build.library()
+    _build.check(lib.twk_mma_probe(0, 528, 20000, sink.data_ptr(), stream),
                  "mma_probe launch")
     start.record()
     for _ in range(reps):
@@ -78,26 +113,35 @@ def _nvcc_shared(jobs):
                   "-shared", "-o", so, src] for src, so in jobs])
 
 
+def _edited_builds(work, source_name, variants, tag):
+    """Build one library per entry of `variants` (name -> edits, each a
+    regular expression that must match once in the source and its
+    replacement), all at once; their paths in order."""
+    from . import _build
+    with open(os.path.join(_build.CSRC, source_name)) as fh:
+        source = fh.read()
+    jobs = []
+    for n, edits in enumerate(variants.values()):
+        text = source
+        for pattern, repl in edits:
+            text, hits = re.subn(pattern, repl, text, flags=re.S)
+            if hits != 1:
+                raise SystemExit(f"edit {pattern!r} matched {hits} times")
+        jobs.append((os.path.join(work, f"{tag}{n}.cu"),
+                     os.path.join(work, f"{tag}{n}.so")))
+        with open(jobs[-1][0], "w") as fh:
+            fh.write(text)
+    _nvcc_shared(jobs)
+    return [so for _, so in jobs]
+
+
 def time_cuts(work):
     import torch
     from .. import workloads
     from ..compute import sweeps
     from . import _build, tiles
     from . import ld_kernels as K
-    with open(os.path.join(_build.CSRC, "phased_tile.cu")) as fh:
-        source = fh.read()
-    jobs = []
-    for n, edits in enumerate(CUTS.values()):
-        text = source
-        for pattern, repl in edits:
-            text, hits = re.subn(pattern, repl, text, flags=re.S)
-            if hits != 1:
-                raise SystemExit(f"edit {pattern!r} matched {hits} times")
-        jobs.append((os.path.join(work, f"cut{n}.cu"),
-                     os.path.join(work, f"cut{n}.so")))
-        with open(jobs[-1][0], "w") as fh:
-            fh.write(text)
-    _nvcc_shared(jobs)
+    libs = _edited_builds(work, "phased_tile.cu", CUTS, "cut")
     cfg = sweeps.make_cfg("phased", False, "all", B, N_SAMPLES, 0, MIN_R2,
                           100.0)
     dev = sweeps.planes_to_device(workloads.build_planes(2, B, N_SAMPLES),
@@ -108,7 +152,7 @@ def time_cuts(work):
     ptr = lambda k, s: dev[k][s].data_ptr()
     W = dev["alt_bits"].shape[-1]
     res = {}
-    for name, (_, so) in zip(CUTS, jobs):
+    for name, so in zip(CUTS, libs):
         lib = ctypes.CDLL(so)
         lib.twk_phased_tile.argtypes = _build._SIGNATURES["twk_phased_tile"]
 
@@ -124,6 +168,52 @@ def time_cuts(work):
 
         res[name] = device_ms(launch, 40)
         print(f"phased_tile, {name}: {res[name]:.4f} ms", flush=True)
+    return res
+
+
+def time_parts(work):
+    """parts_tile.cu's cuts (PARTS_CUTS) in each of PARTS_GROUPS and its
+    P = 9 variants (PARTS_SHAPES), each library swapped in for the
+    kernel library around tiles.tile_prefilter with a counts buffer; and
+    the same tile in two launches of the kernel library, local_parts over
+    the whole row and tile_epilogue, whose one mask byte a thread runs the
+    prefilter at full occupancy. Returns {group: {variant: ms}}."""
+    from .. import workloads
+    from ..compute import sweeps
+    from . import _build, tiles
+    main_lib = _build.library()
+    variants = dict(PARTS_CUTS, **PARTS_SHAPES)
+    libs = dict(zip(variants, _edited_builds(work, "parts_tile.cu",
+                                             variants, "parts")))
+    dev = sweeps.planes_to_device(
+        workloads.genotype_planes(2, B, N_SAMPLES), "cuda")
+    res = {}
+    for group in PARTS_GROUPS:
+        cfg = sweeps.make_cfg(*group, B, N_SAMPLES, 0, MIN_R2, 100.0)
+        out = tiles.tile_buffers(cfg, "cuda")
+        counts = tiles.counts_buffer(cfg, "cuda")
+        tag = "/".join(map(str, group))
+        res[tag] = {}
+        for name, so in libs.items():
+            if name in PARTS_SHAPES and group[:2] != ("unphased", True):
+                continue
+            lib = ctypes.CDLL(so)
+            lib.twk_parts_tile.argtypes = _build._SIGNATURES["twk_parts_tile"]
+            lib.twk_parts_tile.restype = ctypes.c_int
+            _build._lib = lib
+            try:
+                ms = device_ms(lambda: tiles.tile_prefilter(
+                    dev, 0, 1, False, cfg, out, counts), 20, main_lib)
+            finally:
+                _build._lib = main_lib
+            res[tag][name] = ms
+            print(f"parts_tile {tag}, {name}: {ms:.4f} ms", flush=True)
+        name = "local_parts + tile_epilogue"
+        res[tag][name] = device_ms(lambda: tiles.tile_epilogue(
+            dev, 0, 1, False, cfg, (out[0], tiles.tile_local_parts(
+                dev, 0, 1, cfg, out))), 20)
+        print(f"parts_tile {tag}, {name}: {res[tag][name]:.4f} ms",
+              flush=True)
     return res
 
 
@@ -184,7 +274,8 @@ def main():
     work = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(work, exist_ok=True)
     try:
-        out = {"phased_tile_cuts_ms": time_cuts(work)}
+        out = {"phased_tile_cuts_ms": time_cuts(work),
+               "parts_tile_cuts_ms": time_parts(work)}
         if args.old_compact:
             out["compact_ms"] = time_compact(work, args.old_compact)
     finally:
