@@ -54,7 +54,13 @@ Phases, in order; any failure exits non-zero:
    that sum, for every pair class, windows 0 and 250,000 bp, a diagonal
    and the neighbouring tile (equal to its plain version and to the
    fused kernel's mask on every lane); the time per call of each
-   instance beside its bound;
+   instance beside its bound. Then the segment's tile loop below Python:
+   sweeps.fused_sweep and extract_sweep through the C entry
+   (csrc/sweep.cu, one call a sweep) against the same sweeps made of
+   per-tile launches, bit for bit in n_pass, n_cand and the survivor
+   buffer, for every fused group at windows 0 and 250,000 bp, with room
+   for every survivor and with the per-tile cap overflowing and the
+   buffer spilling;
    Bounds: each contraction's is the card's, the larger of 64
    operations a pair-word over the rate the card runs the 1-bit AND+POPC
    MMA at (10.2e15/s, the MMA probe's lowest reading) and its bytes over
@@ -100,6 +106,13 @@ Phases, in order; any failure exits non-zero:
    i. `calc --distributed` (tile partition) on the archive of b: each
       rank sweeps every second tile into its own shard through the fused
       kernels; `merge_shards` of both equals the native engine's;
+   and, banded (in this process, between f and g):
+   j. `calc -p -r 0.1 -M 0.03` on the archive of a: a plane budget of 2
+      of its 4 super-blocks, so 4 bands and 10 band-pair loads with the
+      staging worker; its records also equal a's;
+   k. `calc -r 0.1 -M 0.03 --no-stage-prefetch` (mixed) on the archive of
+      b: the same plan with every band uploaded on demand;
+   each path prints its bands, loads, stage_stats and band uploads;
 5. time `LdEngine.run_phased_pairs` on the sparse and records-dense
    workloads (64 x 4096 random variants; 16 x 4096 LD-grouped
    variants), the sparse planes again over `Balancer.window_pairs` at
@@ -107,8 +120,16 @@ Phases, in order; any failure exits non-zero:
    on 16 x 4096 random genotype variants without missing data (P = 4)
    and with 2% (P = 9), and `LdEngine.run_mixed_pairs` on 16 x 4096
    LD-grouped genotype variants, half of them missing 2%; after the
-   timed reps of each but the windowed ones, one more rep under
-   torch.profiler (wall, device busy, idle share, ms by kernel); and
+   timed reps of each, one more rep under
+   torch.profiler (wall, device busy, idle share, ms by kernel), with
+   the pipeline depth each row took and its segments a rep; beside the
+   dense and mixed rows one timed and one traced rep with the segment
+   pipeline off (one segment at a time), beside the 250 kb window two
+   such reps; beside the sparse and 250 kb rows two reps with the tile
+   loop in Python (the per-tile launches); the sparse planes banded by `-M
+   1.0` (58 of 64 super-blocks: 4 bands, 10 loads) through the engine's
+   load loop (`run_loads`) with the staging worker, timed and traced,
+   with its stage_stats; and
    `LdEngine.run_phased_pairs` over the first 16 blocks of the sparse
    planes (136 tiles) as two samples-sharded ranks on the one card,
    with the time per tile of local_parts, the all-reduce, tile_epilogue
@@ -128,6 +149,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -171,6 +193,14 @@ MMA_KERNELS = {"phased_tile_kernel": 1, "parts_tile_kernel": 3,
                "local_parts_kernel": 4}
 #: seconds a spawned rank may take before it is killed
 RANK_LIMIT = 300
+#: `calc -M` of the banded paths j and k, GB: a plane budget of 2 of the
+#: archives' 4 super-blocks (9.17 MB of planes each at 2,504 samples), so
+#: 4 bands and 10 band-pair loads
+BANDED_GB = 0.03
+#: `-M` of the banded sparse engine row: 58 of its 64 super-blocks, so
+#: with the staging worker 4 bands of 19 / 19 / 19 / 7 and 10 loads, the
+#: plan shape the default 12 GB gives above 2.87M variants
+BANDED_ROW_GB = 1.0
 #: super-blocks of the sparse planes the two-rank engine timing sweeps
 DCN_BLOCKS = 16
 
@@ -693,11 +723,13 @@ def compare_payloads():
                 raise SystemExit("compact disagrees with its plain version")
             if n_samples == N_SAMPLES:
                 tm = _time_compact(mask, parts, ncol, counts)
+                kept = min(int(outs[1][1][0]), 32768)
                 _say(f"  ms per call: compact, {P} parts, counts given "
                      f"{tm['ms']:.4f}, not given {tm['no_counts_ms']:.4f}, "
                      f"at the host's pace {tm['host_paced_ms']:.4f} (plain "
-                     f"{tm['plain_ms']:.4f})")
-                kept = min(int(outs[1][1][0]), 32768)
+                     f"{tm['plain_ms']:.4f}; bound "
+                     f"{compact_bound_ms(P, ncol, kept):.4f} by bytes, "
+                     f"{kept} rows kept)")
                 res[P] = (err, tm["ms"], tm["plain_ms"], kept,
                           tm["no_counts_ms"])
     return res
@@ -748,6 +780,88 @@ def check_ticket_fault():
         _say(f"  ticket left at {stale}: host_counts raised ({msg[:60]}...);"
              f" the ticket is 0 again and the next compaction equals the "
              f"plain version ({int(outs[0][1][0])} survivors)")
+
+
+def _per_tile_sweep(dev, pi, pj, dg, live, cfg, cap, outcap, offs=None):
+    """A sweep as the per-tile launches make it (`sweeps._tile_loop`, the
+    tile loop in Python: tiles.tile_prefilter and sweeps.compact_survivors,
+    one call each a tile): the fused sweep with one running offset, or
+    with `offs` the repair sweep at those offsets. Returns (n_pass,
+    n_cand, buf)."""
+    import torch
+    from tomahawk_tpu_torch.compute import sweeps
+    T = len(pi)
+    n_pass = torch.zeros(T, dtype=torch.int32, device="cuda")
+    n_cand = torch.zeros(T, dtype=torch.int32, device="cuda")
+    buf = torch.zeros((outcap, sweeps.buf_cols(cfg)), dtype=torch.int32,
+                      device="cuda")
+    out, cnt, scratch = sweeps._sweep_buffers(cfg, "cuda")
+    off = (torch.zeros(1, dtype=torch.int32, device="cuda") if offs is None
+           else torch.tensor(offs, dtype=torch.int32, device="cuda"))
+    sweeps._tile_loop(dev, pi, pj, dg, live if offs is None else None, cfg,
+                      cap, out, cnt, scratch, off, buf, n_pass, n_cand)
+    return n_pass, n_cand, buf
+
+
+#: (cap, outcap) of the C-sweep check: room for every survivor, and a cap
+#: and buffer small enough that tiles overflow the cap and the buffer
+#: spills (rows written at the clamp boundary over one another)
+SWEEP_CAPS = ((32768, 1 << 20), (256, 4096))
+
+
+def compare_c_sweep():
+    """sweeps.fused_sweep and extract_sweep through the C tile loop
+    (csrc/sweep.cu, one call a sweep) against the same sweeps made of
+    per-tile launches, bit for bit in n_pass, n_cand and the whole
+    survivor buffer: every fused group, windows 0 and 250 kb, a tile list
+    with diagonal, off-diagonal and dead tiles, with room for every
+    survivor and with the cap overflowing and the buffer spilling; the
+    repair sweep at the exact offsets of the fused counts. Returns the
+    number of sweeps compared."""
+    import torch
+    from tomahawk_tpu_torch.compute import sweeps
+    st = genotype_planes(3)
+    dev = sweeps.planes_to_device(st, "cuda")
+    pi = np.array([0, 0, 1, 1, 2, 0], np.int32)
+    pj = np.array([0, 1, 1, 2, 2, 2], np.int32)
+    dg = pi == pj
+    live = np.array([1, 1, 1, 1, 1, 0], bool)
+    n = 0
+    for group in ALL_GROUPS:
+        for window in (0, WINDOWS[0]):
+            cfg = sweeps.make_cfg(*group, B, N_SAMPLES, window, MIN_R2,
+                                  100.0)
+            label = f"{'/'.join(map(str, group))} w={window}"
+            for cap, outcap in SWEEP_CAPS:
+                got = sweeps.fused_sweep(dev, pi, pj, dg, live, cfg=cfg,
+                                         cap=cap, outcap=outcap)
+                want = _per_tile_sweep(dev, pi, pj, dg, live, cfg, cap,
+                                       outcap)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise SystemExit(f"C sweep {label} cap={cap} "
+                                     f"outcap={outcap} differs from the "
+                                     f"per-tile launches")
+                n_pass = got[0].cpu().numpy()
+                total = int(n_pass.sum())
+                n += 1
+            # the repair sweep of every live tile at exact offsets
+            offs = (np.cumsum(n_pass) - n_pass).astype(np.int32)
+            rcap = max(int(n_pass.max()), 1)
+            routcap = total + rcap
+            got = sweeps.extract_sweep(dev, pi[:5], pj[:5], dg[:5], offs[:5],
+                                       cfg=cfg, cap=rcap, outcap=routcap)
+            want = _per_tile_sweep(dev, pi[:5], pj[:5], dg[:5], None, cfg,
+                                   rcap, routcap, offs[:5])[2]
+            if not torch.equal(got, want):
+                raise SystemExit(f"C extract sweep {label} differs from the "
+                                 f"per-tile launches")
+            n += 1
+            _say(f"  C sweep {label}: fused (caps {SWEEP_CAPS}) and repair "
+                 f"sweeps equal the per-tile launches; n_pass "
+                 f"{n_pass.tolist()}")
+            del got, want
+    torch.cuda.empty_cache()
+    return n
 
 
 #: pairs per thread block edge of each tile kernel, (rows, cols) by P
@@ -1165,8 +1279,16 @@ def make_archive(work, name, n_sites, **kw):
 
 def _run_cli(argv):
     """The port's CLI entry point (`python -m tomahawk_tpu_torch ...`)
-    in this process, so its kernel launch counts are visible."""
+    in this process, so its kernel launch counts are visible. Returns the
+    CalcResult of a `calc` (its stage_stats), which the CLI drops."""
+    from tomahawk_tpu_torch.compute import engine
+    real, kept = engine.compute_ld, []
+
+    def keep(*a, **kw):
+        kept.append(real(*a, **kw))
+        return kept[-1]
     saved, sys.argv = sys.argv, argv
+    engine.compute_ld = keep
     try:
         runpy.run_module("tomahawk_tpu_torch", run_name="__main__")
     except SystemExit as e:
@@ -1174,6 +1296,8 @@ def _run_cli(argv):
             raise
     finally:
         sys.argv = saved
+        engine.compute_ld = real
+    return kept[-1] if kept else None
 
 
 def _check_counts(label, launches, plain, need, idle=()):
@@ -1192,24 +1316,32 @@ def _check_counts(label, launches, plain, need, idle=()):
                          f"{plain}")
 
 
-def run_calc(label, twk, two, flags, mode, need, window=0):
+def run_calc(label, twk, two, flags, mode, need, window=0, plan=None):
     """One calc path through the CLI entry point, in this process: the
     launch counts are set to 0 just before it and read just after; each
     kernel in `need` must have launched and no plain version run. The
     records must equal the native CPU engine's under `mode`, and with a
-    window each must lie on one contig within it. Returns the launch
-    counts."""
+    window each must lie on one contig within it. `plan` = (bands, loads,
+    staged) is the banded plan the run must have taken (staged: whether
+    the staging worker prefetched bands). Returns the launch counts."""
     from tomahawk_tpu_torch.ops import _build
     argv = ["tomahawk_tpu_torch", "calc", "-i", twk, "-o", two,
             "-r", str(MIN_R2), *flags]
     _build.reset_counts()
     t0 = time.perf_counter()
-    _run_cli(argv)
+    res = _run_cli(argv)
     dt = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     plain = dict(_build.PLAIN_CALLS)
     _say(f"main path {label}: `calc {' '.join(flags + ['-r', str(MIN_R2)])}`"
          f" {dt:.2f}s wall, launches {launches}, plain {plain}")
+    ss = res.stage_stats
+    _say(f"  plan: {ss['n_bands']} bands, {ss['n_loads']} loads, "
+         f"{ss['n_uploads']} band plane uploads (n_band_uploads); "
+         f"stage_stats {json.dumps(ss)}")
+    if plan is not None and (ss["n_bands"], ss["n_loads"],
+                             ss["n_prefetched"] > 0) != plan:
+        raise SystemExit(f"calc {label}: banded plan {ss} is not {plan}")
     _check_counts(label, launches, plain, need,
                   ("local_parts", "tile_epilogue"))
     check_records(label, two, twk, mode, window)
@@ -1251,6 +1383,24 @@ def check_records(label, two, twk, mode, window=0):
                              f"{window} bp window")
         _say(f"  every record on one contig, max |pos_a - pos_b| "
              f"{int(dist.max())} <= {window}")
+
+
+def same_records(label, two, ref_label, ref):
+    """The record multisets of two .two files are equal, field by
+    field."""
+    from tomahawk_tpu_torch.io.two import TwoReader
+    got = []
+    for path in (two, ref):
+        r = TwoReader(path)
+        recs = r.records()
+        r.close()
+        got.append(np.sort(recs, order=list(recs.dtype.names)))
+    a, b = got
+    if len(a) != len(b) or any(not np.array_equal(a[f], b[f])
+                               for f in a.dtype.names):
+        raise SystemExit(f"calc {label}'s records differ from {ref_label}'s")
+    _say(f"  path {label}'s {len(a)} records equal path {ref_label}'s field "
+         f"by field")
 
 
 def _free_port() -> int:
@@ -1354,22 +1504,30 @@ def main_paths(work):
                         miss_frac=0.025)
     unph = make_archive(work, "unph", 8192, seed=8, phased=False,
                         miss_sites=4096, miss_frac=0.02)
-    two = os.path.join(work, "ld.two")
+    two = os.path.join(work, "{}.two")
     every = ("phased_tile", "parts_tile", "compact")
     win = ["-w", str(CALC_WINDOW)]
+    banded = ["-M", str(BANDED_GB)]
     paths = (
-        ("a", ld, ["-p"], "phased", ("phased_tile", "compact"), 0),
-        ("b", miss, [], "mixed", every, 0),
-        ("c", unph, ["-u"], "unphased", ("parts_tile", "compact"), 0),
-        ("d", miss, ["-p"], "phased", every, 0),
+        ("a", ld, ["-p"], "phased", ("phased_tile", "compact"), 0, None),
+        ("b", miss, [], "mixed", every, 0, None),
+        ("c", unph, ["-u"], "unphased", ("parts_tile", "compact"), 0, None),
+        ("d", miss, ["-p"], "phased", every, 0, None),
         ("e", ld, ["-p"] + win, "phased", ("phased_tile", "compact"),
-         CALC_WINDOW),
-        ("f", miss, win, "mixed", every, CALC_WINDOW))
+         CALC_WINDOW, None),
+        ("f", miss, win, "mixed", every, CALC_WINDOW, None),
+        ("j", ld, ["-p"] + banded, "phased", ("phased_tile", "compact"), 0,
+         (4, 10, True)),
+        ("k", miss, banded + ["--no-stage-prefetch"], "mixed", every, 0,
+         (4, 10, False)))
     total = {}
-    for label, twk, flags, mode, need, window in paths:
-        launches = run_calc(label, twk, two, flags, mode, need, window)
+    for label, twk, flags, mode, need, window, plan in paths:
+        launches = run_calc(label, twk, two.format(label), flags, mode, need,
+                            window, plan)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+    same_records("j", two.format("j"), "a", two.format("a"))
+    two = two.format("ranked")
     dcn = ("local_parts", "tile_epilogue", "compact")
     fused = ("phased_tile", "parts_tile")
     ranked = (("g", ld, ["-p"], "phased", dcn, fused, True),
@@ -1383,15 +1541,19 @@ def main_paths(work):
     return total
 
 
-def _time_engine(work, tag, run, n_pairs, stat_key, engine):
-    """Three reps (warm-up, rep0, rep1) of one engine workload into
-    .two files; prints pairs/s per rep."""
+def _time_engine(work, tag, run, n_pairs, stat_key, engine,
+                 reps=("warmup", "rep0", "rep1")):
+    """Reps of one engine workload into .two files (by default a warm-up
+    and two more); prints pairs/s per rep and returns the walls, s.
+    `engine` is the LdEngine whose stats to print, or a function giving
+    it."""
     from tomahawk_tpu_torch.compute.engine import _reverse_records
     from tomahawk_tpu_torch.io.header import VcfContig, VcfHeader
     from tomahawk_tpu_torch.io.two import TwoWriter
     hdr = VcfHeader(samples=[f"S{i}" for i in range(N_SAMPLES)],
                     contigs=[VcfContig(idx=0, name="bench")])
-    for rep in ("warmup", "rep0", "rep1"):
+    walls = []
+    for rep in reps:
         writer = TwoWriter(os.path.join(work, f"{tag}_{rep}.two"), hdr)
         n_rec = [0]
 
@@ -1404,12 +1566,53 @@ def _time_engine(work, tag, run, n_pairs, stat_key, engine):
         run(emit)
         writer.close()
         dt = time.perf_counter() - t0
+        walls.append(dt)
         _say(f"  {rep}: {dt:.3f}s, {n_pairs / dt:.0f} pairs/s, "
              f"{n_rec[0]} records")
+    if callable(engine):
+        engine = engine()
     st = engine.stats[stat_key]
     _say(f"  stats (all reps): count {st['count_s']:.2f}s, extract "
          f"{st['extract_s']:.2f}s, math {st['math_s']:.2f}s, repair "
-         f"tiles {st['n_repair']}, fused cap {engine._fused_cap}")
+         f"tiles {st['n_repair']}, supplementary copies {st['n_supp']}, "
+         f"fused cap {engine._fused_cap}")
+    return walls
+
+
+def _python_loop_reps(work, tag, run, n_pairs, stat_key, engine):
+    """Two timed reps with the segment's tile loop in Python
+    (`sweeps._tile_loop`: per tile the tile kernel's and the compaction's
+    wrappers, each checking its inputs) in place of the C entry, so the C
+    loop's gain is read in one call. Returns the walls."""
+    from tomahawk_tpu_torch.compute import sweeps
+    c_loop = sweeps._launch_sweep
+    sweeps._launch_sweep = sweeps._tile_loop
+    try:
+        return _time_engine(work, tag, run, n_pairs, stat_key, engine,
+                            reps=("python loop", "python loop 2"))
+    finally:
+        sweeps._launch_sweep = c_loop
+
+
+def _watch_depth(engine):
+    """Record each pipeline depth `run_group` takes (it asks before every
+    dispatch); returns the list it fills."""
+    seen = []
+    real = engine._pipeline_depth
+
+    def depth(cfg):
+        seen.append(real(cfg))
+        return seen[-1]
+    engine._pipeline_depth = depth
+    return seen
+
+
+def _serial(engine):
+    """The engine's segment pipeline off for the rest of its runs: one
+    segment at a time (without the retry limit a clean serial streak
+    would turn the pipeline back on)."""
+    engine._pipeline_enabled = False
+    engine._pipeline_retry_after = 1 << 30
 
 
 def _profile_engine(tag, run, n_tiles):
@@ -1437,13 +1640,23 @@ def _profile_engine(tag, run, n_tiles):
     if busy == 0:
         raise SystemExit(f"torch.profiler saw no device time in {tag}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the host side: the CUDA runtime and torch calls with the most time of
+    # their own on the host's clock, summed over the threads
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and e.self_cpu_time_total > 0),
+                  key=lambda kv: -kv[1])[:6]
     res = dict(workload=tag, tiles=n_tiles, wall_ms=wall * 1e3,
                device_busy_ms=busy, idle_share=1 - busy / (wall * 1e3),
-               ms_by_kernel=dict(top))
+               ms_by_kernel=dict(top),
+               host_ms_by_call={k: [ms, n] for k, ms, n in host})
     _say(f"  traced rep: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} "
          f"ms, idle share {res['idle_share']:.4f}; ms by kernel: "
          + ", ".join(f"{k} {v:.2f} ({v / n_tiles:.4f} a tile)"
                      for k, v in top))
+    _say("  host calls (ms of their own, calls): "
+         + ", ".join(f"{k} {ms:.2f} x{n}" for k, ms, n in host))
     _say(json.dumps({"engine_trace": res}))
     return res
 
@@ -1456,15 +1669,24 @@ def engine_rates(work):
     missing genotypes (P = 9); LD-grouped genotype variants, half of them
     missing 2% of their genotypes, through LdEngine.run_mixed_pairs (the
     default dispatch: phased_tile's clean class and parts_tile P = 9).
-    After the timed reps of each workload but the windowed ones, one more
-    rep under torch.profiler. No plain version may run."""
+    After the timed reps of each workload, one more rep under
+    torch.profiler; pipeline depth and segments of each row; a serial rep
+    beside dense, mixed and the 250 kb window, reps with the tile loop in
+    Python beside sparse and the 250 kb window; the banded sparse row
+    (`banded_engine`). No plain version may run."""
     from tomahawk_tpu_torch import workloads
     from tomahawk_tpu_torch.compute.balancer import Balancer
     from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
     from tomahawk_tpu_torch.ops import _build
     from tomahawk_tpu_torch.ops.ld_math import LdFilters
 
+    import torch
     filt = LdFilters(min_r2=MIN_R2)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        torch.cuda.mem_get_info()
+    _say(f"torch.cuda.mem_get_info (the pipeline's depth gate): "
+         f"{(time.perf_counter() - t0) / 200 * 1e6:.1f} us a call")
     jobs = (
         ("sparse", lambda: workloads.build_planes(64, B, N_SAMPLES), 64,
          "phased", False),
@@ -1478,11 +1700,13 @@ def engine_rates(work):
         ("mixed", lambda: genotype_planes(16, 0.02, seed=13), 16, "mixed",
          True))
     _build.reset_counts()
+    rows = []
     for tag, build, nb, table, miss in jobs:
         t0 = time.perf_counter()
         stacked = build()
         engine = LdEngine(stacked, N_SAMPLES, CalcSettings(min_r2=MIN_R2),
                           "cuda")
+        depths = _watch_depth(engine)
         pairs = [(i, j, i == j) for i in range(nb) for j in range(i, nb)]
         n_pairs = nb * B * (nb * B - 1) // 2
         _say(f"engine {tag}: {nb} x {B} variants built in "
@@ -1496,12 +1720,42 @@ def engine_rates(work):
                    else engine.run_unphased_pairs)
             sweep = lambda emit: run(pairs, miss, filt, emit)
             stat_key = f"{table}/{'miss' if miss else 'nomiss'}/all"
-        _time_engine(work, tag.replace(" ", "_").replace("=", ""), sweep,
-                     n_pairs, stat_key, engine)
-        _profile_engine(tag, sweep, len(pairs))
+        name = tag.replace(" ", "_").replace("=", "")
+        done0 = engine.units_done
+        walls = _time_engine(work, name, sweep, n_pairs, stat_key, engine)
+        row = dict(workload=tag, tiles=len(pairs), depth=sorted(set(depths)),
+                   segments=(engine.units_done - done0) // len(walls),
+                   wall_s=walls)
+        _say(f"  pipeline depth taken {row['depth']}, {row['segments']} "
+             f"segments a rep")
+        row["traced"] = _profile_engine(tag, sweep, len(pairs))
+        if tag == "sparse":
+            row["python_loop_wall_s"] = _python_loop_reps(
+                work, name, sweep, n_pairs, stat_key, engine)
+            tr = row["traced"]
+            _say(f"  sparse: wall {tr['wall_ms'] / len(pairs):.4f} ms a tile "
+                 f"traced ({min(walls[1:]) * 1e3 / len(pairs):.4f} "
+                 f"untraced) against device {tr['device_busy_ms'] / len(pairs):.4f} "
+                 f"ms a tile; with the tile loop in Python "
+                 f"{min(row['python_loop_wall_s']) * 1e3 / len(pairs):.4f}")
+        if tag in ("dense", "mixed"):
+            # the same engine with one segment at a time: the overlap,
+            # read on one machine
+            _serial(engine)
+            del depths[:]
+            row["serial_wall_s"] = _time_engine(work, name, sweep, n_pairs,
+                                                stat_key, engine,
+                                                reps=("serial",))
+            row["serial_traced"] = _profile_engine(f"{tag} serial", sweep,
+                                                   len(pairs))
+            if set(depths) != {1}:
+                raise SystemExit(f"engine {tag}: the serial rep took depth "
+                                 f"{sorted(set(depths))}")
+        rows.append(row)
         del engine
         if tag != "sparse":
             continue
+        rows.append(banded_engine(work, stacked, nb, filt))
         # the same planes in window mode: the tiles window_pairs keeps,
         # rated in candidate pairs (what the window leaves of each tile)
         ranges = workloads.super_ranges(stacked)
@@ -1509,21 +1763,103 @@ def engine_rates(work):
             wpairs = Balancer.build(nb).window_pairs(*ranges, window)
             engine = LdEngine(stacked, N_SAMPLES, CalcSettings(
                 min_r2=MIN_R2, window=True, l_window=window), "cuda")
+            depths = _watch_depth(engine)
             n_cand = engine.run_phased_pairs(wpairs, False, filt,
                                              lambda recs, rev=None: None)
             _say(f"engine sparse, window {window}: {len(wpairs)} of "
                  f"{len(pairs)} tiles swept, {n_cand} candidate pairs "
                  f"({n_cand / (len(wpairs) * B * B):.4f} of the swept "
                  f"tiles' pairs)")
-            _time_engine(work, f"sparse_w{window}",
-                         lambda emit: engine.run_phased_pairs(
-                             wpairs, False, filt, emit), n_cand, stat_key,
-                         engine)
+            wsweep = lambda emit: engine.run_phased_pairs(wpairs, False,
+                                                          filt, emit)
+            done0 = engine.units_done
+            walls = _time_engine(work, f"sparse_w{window}", wsweep, n_cand,
+                                 stat_key, engine)
+            row = dict(workload=f"sparse, window {window}",
+                       tiles=len(wpairs), depth=sorted(set(depths)),
+                       segments=(engine.units_done - done0) // len(walls),
+                       wall_s=walls)
+            _say(f"  pipeline depth taken {row['depth']}, {row['segments']} "
+                 f"segments a rep")
+            row["traced"] = _profile_engine(f"sparse, window {window}",
+                                            wsweep, len(wpairs))
+            if window == WINDOWS[0]:
+                row["python_loop_wall_s"] = _python_loop_reps(
+                    work, f"sparse_w{window}", wsweep, n_cand, stat_key,
+                    engine)
+                _serial(engine)
+                row["serial_wall_s"] = _time_engine(
+                    work, f"sparse_w{window}", wsweep, n_cand, stat_key,
+                    engine, reps=("serial", "serial2"))
+            rows.append(row)
             del engine
         del stacked
+    _say(json.dumps({"engine_rows": rows}))
     if any(_build.PLAIN_CALLS.values()):
         raise SystemExit(f"an engine workload took a plain version on "
                          f"CUDA: {_build.PLAIN_CALLS}")
+
+
+def banded_engine(work, stacked, nb, filt):
+    """The sparse planes banded by `-M BANDED_ROW_GB` through the engine's
+    load loop (`run_loads`, what `compute_ld` calls) with the staging
+    worker: the plan `compute_ld` makes (4 bands, 10 loads), a fresh
+    engine a rep, each band's planes cut from `stacked` by the provider
+    (the archive's inflation in `calc`). Three timed reps with their
+    stage_stats, then one traced. Returns the row."""
+    from tomahawk_tpu_torch.compute.engine import (CalcSettings, LdEngine,
+                                                   _plan_loads, _plane_budget,
+                                                   run_loads)
+    settings = CalcSettings(min_r2=MIN_R2, memory_gb=BANDED_ROW_GB)
+    budget, per_super = _plane_budget(settings, N_SAMPLES, B, 1)
+    pairs = [(i, j, i == j) for i in range(nb) for j in range(i, nb)]
+    bands, loads = _plan_loads(list(range(nb)), pairs, budget, parts=3)
+    sizes = [len(b) for b in bands]
+    _say(f"engine sparse banded by -M {BANDED_ROW_GB}: budget {budget} of "
+         f"{nb} super-blocks ({per_super} B of planes each), bands {sizes}, "
+         f"{len(loads)} loads")
+    if (budget, sizes, len(loads)) != (58, [19, 19, 19, 7], 10):
+        raise SystemExit("the banded sparse row's plan is not 58: 19 / 19 / "
+                         "19 / 7, 10 loads")
+    # seconds and calls of the provider, by thread: the main thread's
+    # (a band loaded on demand) against the staging worker's
+    made, lock = {}, threading.Lock()
+
+    def provider(b):
+        t0 = time.perf_counter()
+        out = {k: v[bands[b]] for k, v in stacked.items()}
+        who = threading.current_thread().name.split("_")[0]
+        with lock:
+            s, n = made.get(who, (0.0, 0))
+            made[who] = (s + time.perf_counter() - t0, n + 1)
+        return out
+    engines, depths = [], []
+
+    def run(emit):
+        engine = LdEngine(None, N_SAMPLES, settings, "cuda", B=B)
+        depths.append(_watch_depth(engine))
+        engines.append(engine)
+        try:
+            return run_loads(engine, bands, loads, provider, "phased", filt,
+                             emit, prefetch=True)
+        finally:
+            engine.stage_close()
+            ss = dict(engine.stage_stats, n_uploads=engine.n_band_uploads)
+            _say(f"    stage_stats {json.dumps(ss)}; bands made (s, calls) "
+                 f"by thread {made}")
+            made.clear()
+    n_pairs = nb * B * (nb * B - 1) // 2
+    walls = _time_engine(work, "sparse_banded", run, n_pairs,
+                         "phased/nomiss/all", lambda: engines[-1])
+    traced = _profile_engine("sparse banded", run, len(pairs))
+    depth = sorted({d for seen in depths for d in seen})
+    _say(f"  pipeline depth taken {depth}")
+    row = dict(workload=f"sparse banded -M {BANDED_ROW_GB}", tiles=len(pairs),
+               bands=sizes, loads=len(loads), depth=depth, wall_s=walls,
+               traced=traced,
+               stage_stats=[dict(e.stage_stats, n_uploads=e.n_band_uploads)
+                            for e in engines])
+    return row
 
 
 def dcn_engine():
@@ -1667,14 +2003,22 @@ def kernel_bounds(n_survivors):
     rows it keeps, one part gathered and 2 columns written (one
     comparison per mask byte is its arithmetic, far under the byte
     time)."""
-    out = {"compact": ((B * B + B * (B // 128) * 4
-                        + n_survivors * (1 + 2) * 4)
-                       / HBM_BYTES_PER_S * 1e3, "bytes")}
+    out = {"compact": (compact_bound_ms(1, 2, n_survivors), "bytes")}
     for name, group in (("phased_tile", ("phased", False)),
                         ("parts_tile", MAIN_GROUP[:2])):
         out[name] = _bound(contraction_pair_words(*group),
                            tile_bytes(*group))
     return out
+
+
+def compact_bound_ms(P, ncol, n_survivors):
+    """compact's bound at B = 4096 with the counts given, ms: the mask and
+    the counts read once and, for each of the `n_survivors` rows it keeps,
+    its P parts gathered and its `ncol` buffer columns written, over the
+    HBM rate (one comparison a mask byte is its arithmetic, far under the
+    byte time)."""
+    return ((B * B + B * (B // 128) * 4 + n_survivors * (P + ncol) * 4)
+            / HBM_BYTES_PER_S * 1e3)
 
 
 def contraction_pair_words(table, has_missing, slices=1):
@@ -1713,6 +2057,8 @@ def main():
     groups = compare_groups()
     payloads = compare_payloads()
     check_ticket_fault()
+    n_sweeps = compare_c_sweep()
+    _say(f"C tile loop: {n_sweeps} sweeps equal the per-tile launches")
     probe = probe_shape()
     torch.cuda.empty_cache()
     windows = compare_window()

@@ -4,7 +4,8 @@ the same sorted .two records in every field, with -p, with -u and in
 the default mixed dispatch, on archives with and without missing
 genotypes. Also: repair of cap overflow and buffer spill, the CLI's
 device rule, and the rejection of everything outside the slice (window
-mode is inside it: tests/test_torch_window.py)."""
+mode is inside it: tests/test_torch_window.py; banded streaming:
+tests/test_torch_banded.py)."""
 
 import numpy as np
 import pytest
@@ -278,7 +279,6 @@ def test_cli_calc_with_missing_matches_jax(missing_archives,
     dict(distributed=True, mesh="dcn", checkpoint="ck.json"),
     dict(distributed=True, mesh="2x2"), dict(mesh="2x1"),
     dict(backend="cpu"),
-    dict(memory_gb=1e-6),
 ])
 def test_out_of_slice_settings_rejected(archive, tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):

@@ -519,3 +519,7 @@ def test_chip_smoke_kernel_bounds():
     assert by == "bytes"
     want = (4096 * 4096 + 4096 * 32 * 4 + 30720 * 12) / 3.35e12 * 1e3
     assert ms == pytest.approx(want, rel=1e-12)
+    # 9 parts in 6 columns: 9 parts gathered and 6 columns written a row
+    want = (4096 * 4096 + 4096 * 32 * 4 + 1000 * 15 * 4) / 3.35e12 * 1e3
+    assert chip_smoke.compact_bound_ms(9, 6, 1000) == pytest.approx(
+        want, rel=1e-12)

@@ -82,7 +82,9 @@ def _add_calc(sub):
     p.add_argument("-b", "--b-size", type=int, default=10000)
     p.add_argument("-l", "-k", "--c-level", type=int, default=1)
     p.add_argument("-m", "--low-memory", action="store_true",
-                   help="accepted for reference compatibility")
+                   help="accepted for reference compatibility; banded "
+                   "streaming (the low-memory path) engages whenever the "
+                   "planes exceed --memory-gb")
     p.add_argument("--performance", action="store_true",
                    help="print the per-sweep-group dispatch and timing "
                    "report (reference ComputePerformance analogue)")
@@ -104,8 +106,12 @@ def _add_calc(sub):
     p.add_argument("-t", "--threads", type=int, default=0,
                    help="host threads for block unpacking (0 = all)")
     p.add_argument("-M", "--memory-gb", type=float, default=12.0,
-                   help="device-memory budget for genotype planes; "
-                   "larger inputs need banded streaming (not ported yet)")
+                   help="device-memory budget for the genotype planes, GB "
+                   "(the reference's calc -M); larger inputs stream in "
+                   "band-pair loads, with the next band uploaded while "
+                   "the current load computes. The budget is the user's, "
+                   "not the card's size: on an 80 GB card a larger value "
+                   "keeps more of an input resident")
     p.add_argument("--distributed", action="store_true",
                    help="run as one process of a torch.distributed group, "
                    "one device per process: the tile grid is partitioned "
@@ -123,7 +129,9 @@ def _add_calc(sub):
     p.add_argument("--checkpoint-interval", type=float, default=60.0)
     p.add_argument("--sweep-segment", type=int, default=4096,
                    help="upper limit of tiles per sweep segment")
-    p.add_argument("--no-stage-prefetch", action="store_true")
+    p.add_argument("--no-stage-prefetch", action="store_true",
+                   help="banded runs: no staging worker; every band is "
+                   "inflated and uploaded on demand")
     p.add_argument(
         "--device", default="cuda",
         help="torch device: 'cuda' (the default; raises without a card) "

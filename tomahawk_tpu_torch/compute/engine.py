@@ -2,50 +2,68 @@
 unphased (-u) and mixed, in one process or several (--distributed).
 
 The PyTorch port of tomahawk_tpu/compute/engine.py: its single-device
-path, and its multi-process run modes over `torch.distributed`
-(parallel/distributed.py has the mapping from the JAX mesh). Variant
-blocks regroup into super-blocks of up to `tile_rows` variants whose
-packed bit planes live on the device, and the block-pair tile grid --
-every pair, or in window mode the pairs `Balancer.window_pairs` keeps --
-is swept in segments, one (table, has_missing, cls) group at a time in
-the order of `group_tiles` (mixed mode: the reference's per-pair dispatch,
-ld_engine.cpp:2737-2880). For each
-segment the device runs the tile kernel and the survivor compaction on
-every tile (sweeps.fused_sweep) with no host sync in between; the host
-then reads the per-tile counts once, pulls the survivor rows, re-sweeps
-the rare tiles that overflowed the per-tile cap or spilled the buffer
-at exact offsets (sweeps.extract_sweep), runs the exact f64 statistics
-and Fisher P in the native record pipeline (ld_math.ld_records)
-and emits .two records. One segment is in flight at a time.
+path with its memory and pipeline layer, and its multi-process run modes
+over `torch.distributed` (parallel/distributed.py has the mapping from
+the JAX mesh). Variant blocks regroup into super-blocks of up to
+`tile_rows` variants whose packed bit planes live on the device, and the
+block-pair tile grid -- every pair, or in window mode the pairs
+`Balancer.window_pairs` keeps -- is swept in segments, one (table,
+has_missing, cls) group at a time in the order of `group_tiles` (mixed
+mode: the reference's per-pair dispatch, ld_engine.cpp:2737-2880).
+
+Memory: when the planes of all super-blocks exceed `memory_gb` (half of
+it, since a load's planes are also concatenated), the super-blocks split
+into bands and every band pair is one load (`_plan_loads`, `run_loads`):
+the engine keeps bands resident across loads, and a staging worker
+inflates and uploads the next load's band from pinned memory on a stream
+of its own while the current load computes (`stage_band_async`).
+
+Pipeline: for each segment the device runs the tile kernel and the
+survivor compaction on every tile (sweeps.fused_sweep, one C call that
+enqueues them all) and, behind them on the same stream, copies the
+per-tile counts and a prefix of the survivor rows into pinned host
+memory. A consumer thread waits on that copy's event, pulls the rest of
+the rows, re-sweeps the rare tiles that overflowed the per-tile cap or
+spilled the buffer at exact offsets (sweeps.extract_sweep, on its own
+stream), runs the exact f64 statistics and Fisher P in the native record
+pipeline (ld_math.ld_records) and emits .two records in segment order,
+while the main thread has the next segment's sweep in flight: two
+segments at a time where the card has room for a second sweep's buffers.
 
 `--distributed` runs one process per device. By default the tile list is
 partitioned round-robin: rank k of N sweeps `pairs[k::N]`, loads only
-the super-blocks those touch and writes `out.pKofN.two`
-(`parallel.merge_shards` folds the shards). With `--mesh dcn` the
-packed-word axis spans the ranks instead: every rank holds 1/N of every
-word plane, all sweep every tile jointly (local parts, all-reduce,
-epilogue: sweeps.py), every rank derives the same records and rank 0
-alone writes the one output. Every rank walks the same tiles in the same
-order with the same caps and repair decisions, because those follow from
-the global counts, so the collectives stay aligned.
+the super-blocks those touch (banded over them when they exceed the
+budget) and writes `out.pKofN.two` (`parallel.merge_shards` folds the
+shards). With `--mesh dcn` the packed-word axis spans the ranks instead:
+every rank holds 1/N of every word plane, all sweep every tile jointly
+(local parts, all-reduce, epilogue: sweeps.py), every rank derives the
+same records and rank 0 alone writes the one output. Every rank walks
+the same loads and tiles in the same order with the same caps and
+repair decisions, because those follow from the global counts, so the
+collectives stay aligned; such a run neither stages nor pipelines.
 
 The host layer (file formats, balancer, exact statistics, the native
 library) is this package's own. What the JAX engine also does and this
-port does not yet -- banded streaming, checkpoints, P x S device
-meshes, the CPU route, the in-sweep Fisher, D' bounds -- raises
-NotImplementedError naming the
+port does not yet -- checkpoints, P x S device meshes, the CPU route,
+the in-sweep Fisher, D' bounds -- raises NotImplementedError naming the
 ROADMAP.md item that adds it. A kernel that fails to build or launch is
-an error: there is no fallback path.
+an error, and so is a compaction fault: there is no fallback path. Only
+the card running out of memory with two segments in flight is retried,
+one segment at a time on the same kernels.
 """
 
+import contextlib
 import datetime
 import os
+import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
+import torch
 
 from .. import __version__
 from ..device import resolve_device
@@ -100,8 +118,10 @@ class CalcSettings:
     # distributed): the packed-word axis spans the processes; anything
     # else is rejected
     mesh: str = "auto"
-    # device-memory budget for the packed planes; inputs that exceed it
-    # need banded streaming, which is rejected
+    # the user's budget for the packed planes on the device, GB (the
+    # reference's calc -M); inputs whose planes exceed half of it stream
+    # in band-pair loads. The JAX package's default: an 80 GB card can
+    # take a larger value
     memory_gb: float = 12.0
     # host threads for block decompression and plane inflation; 0 = all
     threads: int = 0
@@ -127,6 +147,11 @@ class CalcResult:
     n_pairs: int = 0
     n_records: int = 0
     elapsed: float = 0.0
+    # banded-run staging telemetry (LdEngine.stage_stats, with n_bands,
+    # n_loads and n_uploads): upload time hidden behind the sweeps vs
+    # exposed on the main thread, bytes moved, bands prefetched by the
+    # staging worker vs loaded on demand
+    stage_stats: dict = None
 
     @property
     def pairs_per_sec(self) -> float:
@@ -274,14 +299,22 @@ def report_performance(stats):
 
 
 class LdEngine:
-    """Device planes and the segment loop for one run configuration on
-    one device. `LdEngine(stacked, n_samples, settings, device)` makes
-    `stacked` (bitpack.stack_planes output) the single resident band.
-    With `group` (a parallel.ProcessGroup) the engine is one rank of a
-    samples-sharded run: it uploads slice `samples_rank` of
-    `samples_size` of every word plane and its sweeps sum each tile's
-    parts over the group; every rank of the group must then make the
-    same calls in the same order."""
+    """Device planes and the segment pipeline for one run configuration
+    on one device. `LdEngine(stacked, n_samples, settings, device)` makes
+    `stacked` (bitpack.stack_planes output) the single resident band;
+    `LdEngine(None, ..., B=B)` starts empty for banded streaming, where
+    `set_load` names the bands of each load. With `group` (a
+    parallel.ProcessGroup) the engine is one rank of a samples-sharded
+    run: it uploads slice `samples_rank` of `samples_size` of every word
+    plane and its sweeps sum each tile's parts over the group; every rank
+    of the group must then make the same calls in the same order, so such
+    an engine neither stages bands nor pipelines segments.
+
+    Device planes are held per band (uploaded once while the band stays
+    resident) and concatenated on the device once per load; the sweep's
+    kernels run on the stream that is current where the engine is
+    called. Call `stage_close` when done: it joins the staging worker
+    and the segment consumer."""
 
     # survivors extracted per tile inside the fused sweep; tiles with
     # more go through the exact-offset repair pass, and the cap adapts
@@ -290,12 +323,25 @@ class LdEngine:
     FUSED_CAP_MAX = 32768
     # initial survivor-buffer rows per segment, grown when it spills
     OUTCAP0 = 1 << 18
-    # target segments per tile group (progress advances between them)
+    # target segments per tile group: the consumer handles segment k's
+    # host work while the device sweeps k+1, so a group swept as one
+    # segment would serialise its host work behind the sweep
     PIPELINE_SEGMENTS = 8
+    # survivor-buffer rows copied to the host right behind each sweep,
+    # before its counts are known; adapts per sweep group
+    PREFIX_ROWS0 = 4096
+    #: resident band limit: a banded load touches at most 2 bands (3 with
+    #: the staging worker's band in flight)
+    MAX_RESIDENT_BANDS = 2
+    #: per-variant host arrays of a band, concatenated per load for the
+    #: host math
+    META_KEYS = ("pos", "rid", "ac", "an", "n_het", "n_hom", "hwe",
+                 "has_missing", "valid", "n_rec")
 
     def __init__(self, stacked: dict, n_samples: int,
                  settings: CalcSettings, device, group=None,
-                 samples_rank: int = 0, samples_size: int = 1):
+                 samples_rank: int = 0, samples_size: int = 1,
+                 B: int = None):
         if (group is None) != (samples_size == 1) \
                 or not 0 <= samples_rank < samples_size:
             raise ValueError(
@@ -314,27 +360,247 @@ class LdEngine:
         self._fused_cap = self.FUSED_CAP
         # per-config dispatch statistics (report_performance reads them)
         self.stats = {}
-        self.set_load([("all", stacked)])
+        # segment pipeline (run_group): one consumer thread handles the
+        # dispatched segments in order while the main thread keeps the
+        # device queue fed. After a consumer ran out of device memory
+        # the run goes serial; this many clean serial segments in a row
+        # re-enable the pipeline (each disable doubles it)
+        self._pipeline_enabled = True
+        self._pipeline_retry_after = 8
+        self._serial_ok_streak = 0
+        self._seg_error = None       # first consumer failure, if any
+        self._seg_pool_ = None       # the consumer, a 1-thread pool
+        self._seg_stream = None      # its stream on a card
+        # survivor-buffer prefix rows per sweep group (_submit_segment)
+        self._prefix_rows = {}
+        # the depth gate's answers in the current group, by caps
+        self._headroom = {}
+        # segments completed, and a callback after each
+        self.units_done = 0
+        self.on_segment = None
+        # band residency: host planes, device planes per (key, band), the
+        # bands of the current load and their per-load concatenation
+        self._stage_lock = threading.Lock()
+        self._band_host = {}
+        self._band_dev = {}
+        self._band_meta = {}
+        self._band_nb = {}
+        self._load_bands = []
+        self._load_dev = {}
+        self.n_band_uploads = 0
+        # band staging: one worker inflates and uploads the next load's
+        # band while the current load computes. `exposed_s`: main-thread
+        # time blocked on uploads; `wait_s`: main-thread time blocked on
+        # an unfinished prefetch; `hidden_s`: the worker's upload time
+        self._stage_pool = None
+        self._stage_stream = None
+        self._stage_futures = []
+        self._seen_keys = set()
+        self.stage_stats = dict(hidden_s=0.0, exposed_s=0.0, wait_s=0.0,
+                                bytes=0, n_prefetched=0, n_blocking=0)
+        self.stacked = None
+        self.B = B
+        self.NB = 0
+        if stacked is not None:
+            self.set_load([("all", stacked)])
+        elif B is None:
+            raise ValueError("need either stacked planes or explicit B")
 
+    # -- band residency --------------------------------------------------
     def set_load(self, bands):
-        """Make the one band in `bands` ([(band_id, stacked)]) resident;
-        its planes upload on first use."""
-        if len(bands) != 1 or bands[0][1] is None:
-            raise NotImplementedError(
-                "banded streaming (more than one resident band) is not "
-                "ported yet (ROADMAP.md queue 1 item 10)")
-        self.stacked = bands[0][1]
-        self.B = self.stacked["alt_bits"].shape[1]
-        self._dev = {}
+        """Make `bands` (a list of (band_id, stacked-or-None)) the current
+        load, in order. A band passed with stacked=None must still be
+        resident from an earlier load. Evicts bands outside the load
+        beyond MAX_RESIDENT_BANDS."""
+        for band_id, stacked in bands:
+            if stacked is None:
+                if band_id not in self._band_meta:
+                    raise ValueError(f"band {band_id} not resident")
+                continue
+            self._register_band(band_id, stacked)
+        self._load_bands = [b for b, _ in bands]
+        self._load_dev = {}
+        self.NB = sum(self._band_nb[b] for b in self._load_bands)
+        self.stacked = {
+            k: np.concatenate([self._band_meta[b][k]
+                               for b in self._load_bands])
+            for k in self.META_KEYS}
+        with self._stage_lock:
+            resident = [b for b in self._band_host if b in self._load_bands]
+            others = [b for b in self._band_host
+                      if b not in self._load_bands]
+            for b in others[:max(0, len(resident) + len(others)
+                                 - self.MAX_RESIDENT_BANDS)]:
+                self._evict_locked(b)
+
+    def _register_band(self, band_id, stacked):
+        if self.B is None:
+            self.B = stacked["alt_bits"].shape[1]
+        elif stacked["alt_bits"].shape[1] != self.B:
+            raise ValueError("band tile_rows mismatch")
+        with self._stage_lock:
+            self._band_host[band_id] = {k: stacked[k]
+                                        for k in sweeps.DEV_KEYS}
+            self._band_meta[band_id] = {k: stacked[k]
+                                        for k in self.META_KEYS}
+            self._band_nb[band_id] = stacked["alt_bits"].shape[0]
+
+    def _evict_locked(self, band_id):
+        """Drop a band's host and device planes. A device plane the staging
+        worker uploaded was marked for the compute stream, so its memory
+        is not reused before the kernels queued there are done with it."""
+        self._band_host.pop(band_id, None)
+        self._band_meta.pop(band_id, None)
+        self._band_nb.pop(band_id, None)
+        for key in [k for k in self._band_dev if k[1] == band_id]:
+            self._band_dev.pop(key)
+
+    def _upload(self, k, host):
+        """Plane `k` of a band on the device, from the calling thread, on
+        its current stream: this rank's word slice in a samples-sharded
+        run (sweeps.planes_to_device)."""
+        return sweeps.planes_to_device({k: host}, self.device, (k,),
+                                       self.word_slice)[k]
+
+    def _band_dev_get(self, k, band_id):
+        key = (k, band_id)
+        self._seen_keys.add(k)
+        with self._stage_lock:
+            arr = self._band_dev.get(key)
+            if arr is not None:
+                return arr
+            host = self._band_host[band_id][k]
+        t0 = time.perf_counter()
+        arr = self._upload(k, host)
+        with self._stage_lock:
+            self._band_dev[key] = arr
+            self.n_band_uploads += 1
+            self.stage_stats["exposed_s"] += time.perf_counter() - t0
+            self.stage_stats["bytes"] += arr.numel() * arr.element_size()
+            self.stage_stats["n_blocking"] += 1
+        return arr
+
+    # -- band staging (upload / compute overlap) -------------------------
+    def _stage_upload(self, k, host, compute_stream):
+        """Plane `k` uploaded on the staging worker's stream: from pinned
+        host memory, so that the copy overlaps the sweeps, and complete
+        when this returns (the worker publishes the tensor only then).
+        The tensor is marked as used on `compute_stream`, where the
+        sweeps read it, so that once evicted its memory goes back to the
+        staging stream's pool only after the kernels queued there."""
+        if self.device.type != "cuda":
+            return self._upload(k, host)
+        src = torch.from_numpy(
+            sweeps.host_plane(host, k, self.word_slice)).pin_memory()
+        with torch.cuda.stream(self._stage_stream):
+            arr = src.to(self.device, non_blocking=True)
+        self._stage_stream.synchronize()
+        arr.record_stream(compute_stream)
+        return arr
+
+    def stage_band(self, band_id, stacked, compute_stream=None):
+        """Register `stacked` as band `band_id` and push its device planes
+        ahead of use, so the following `set_load` finds the band resident
+        with its transfers done. Runs on the staging worker; evicts
+        surplus non-load bands first so the staged band never pushes
+        residency past MAX_RESIDENT_BANDS."""
+        if band_id in self._band_meta:
+            return
+        with self._stage_lock:
+            others = [b for b in self._band_host
+                      if b not in self._load_bands and b != band_id]
+            for b in others[:max(0, len(self._band_host) + 1
+                                 - self.MAX_RESIDENT_BANDS)]:
+                self._evict_locked(b)
+        self._register_band(band_id, stacked)
+        # stage the planes the run has used (a phased sweep never pays
+        # for het/hom/valid planes); before any sweep ran, the alt plane
+        # is the one certainty
+        keys = (self._seen_keys & set(sweeps.DEV_KEYS)) or {"alt_bits"}
+        for k in sorted(keys):
+            with self._stage_lock:
+                if (k, band_id) in self._band_dev:
+                    continue
+                host = self._band_host[band_id][k]
+            t0 = time.perf_counter()
+            arr = self._stage_upload(k, host, compute_stream)
+            with self._stage_lock:
+                self._band_dev[(k, band_id)] = arr
+                self.n_band_uploads += 1
+                self.stage_stats["hidden_s"] += time.perf_counter() - t0
+                self.stage_stats["bytes"] += arr.numel() * arr.element_size()
+        self.stage_stats["n_prefetched"] += 1
+
+    def stage_band_async(self, band_id, provider):
+        """Queue background staging of one band: `provider()` builds its
+        stacked host planes (the archive's blocks inflated) and
+        `stage_band` uploads them, both overlapping the current load's
+        sweeps. The single worker thread is also the backpressure: at
+        most one band stages at a time. A samples-sharded engine does not
+        stage: every rank uploads in program order on its main thread."""
+        if band_id in self._band_meta or self.group is not None:
+            return
+        compute_stream = None
+        if self._stage_pool is None:
+            self._stage_pool = ThreadPoolExecutor(
+                1, thread_name_prefix="twk-stage")
+        if self.device.type == "cuda":
+            compute_stream = torch.cuda.current_stream(self.device)
+            if self._stage_stream is None:
+                self._stage_stream = torch.cuda.Stream(self.device)
+
+        def work():
+            with self._device_ctx():
+                if band_id not in self._band_meta:
+                    self.stage_band(band_id, provider(), compute_stream)
+        self._stage_futures.append((band_id, self._stage_pool.submit(work)))
+
+    def stage_wait(self):
+        """Drain outstanding staging work before the next `set_load`
+        touches the residency maps. A failed staging job is reported and
+        its band loads on demand at the next `set_load`: the same kernels
+        on the same card, where a device fault raises at that upload."""
+        t0 = time.perf_counter()
+        for band_id, fut in self._stage_futures:
+            try:
+                fut.result()
+            except Exception as e:   # noqa: BLE001 - loads on demand
+                log("WARNING", f"staging band {band_id} failed "
+                    f"({type(e).__name__}: {str(e)[:120]}); loading it on "
+                    f"demand", sub="MEMORY")
+        if self._stage_futures:
+            self.stage_stats["wait_s"] += time.perf_counter() - t0
+        self._stage_futures = []
+
+    def stage_close(self):
+        """Drain and join the staging worker and the segment consumer."""
+        self.stage_wait()
+        for attr in ("_stage_pool", "_seg_pool_"):
+            pool = getattr(self, attr)
+            if pool is not None:
+                pool.shutdown(wait=True)
+                setattr(self, attr, None)
+
+    def _device_ctx(self):
+        """The engine's card as the calling thread's current device (a new
+        thread starts on card 0); nothing on the CPU."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.device(self.device)
 
     def _dev_for(self, cfg) -> dict:
-        """The resident band's device tensors, uploading on first use
-        the keys this sweep config reads and no others."""
-        keys = [k for k in sweeps.dev_keys_for(cfg) if k not in self._dev]
-        if keys:
-            self._dev.update(sweeps.planes_to_device(
-                self.stacked, self.device, keys, self.word_slice))
-        return self._dev
+        """The current load's device tensors for one sweep config: each
+        band's plane uploads on first use (a phased run never pays for
+        the het/hom/valid planes), then the bands of the load are
+        concatenated on the device, once a load."""
+        out = {}
+        for k in sweeps.dev_keys_for(cfg):
+            if k not in self._load_dev:
+                parts = [self._band_dev_get(k, b) for b in self._load_bands]
+                self._load_dev[k] = (parts[0] if len(parts) == 1
+                                     else torch.cat(parts))
+            out[k] = self._load_dev[k]
+        return out
 
     def _cfg(self, table, has_missing, cls):
         s = self.settings
@@ -348,7 +614,7 @@ class LdEngine:
                f"/{cfg['cls']}")
         return self.stats.setdefault(key, dict(
             n_tiles=0, n_cand=0, n_pass=0, n_records=0, count_s=0.0,
-            extract_s=0.0, math_s=0.0, n_repair=0))
+            extract_s=0.0, math_s=0.0, n_supp=0, n_repair=0))
 
     def _segment_size(self, n_tiles: int) -> int:
         """Tiles per segment: at most settings.sweep_segment, at least
@@ -358,31 +624,162 @@ class LdEngine:
         want = _round_up(-(-n_tiles // self.PIPELINE_SEGMENTS), 16)
         return max(16, min(seg, want))
 
-    # -- public API ------------------------------------------------------
+    # -- the segment pipeline --------------------------------------------
+    def _seg_pool(self):
+        if self._seg_pool_ is None:
+            self._seg_pool_ = ThreadPoolExecutor(
+                1, thread_name_prefix="twk-seg")
+            if self.device.type == "cuda":
+                self._seg_stream = torch.cuda.Stream(self.device)
+        return self._seg_pool_
+
+    def _pipeline_depth(self, cfg) -> int:
+        """Segments in flight: 1 is serial (dispatch, consume, dispatch,
+        ...); 2 keeps the device sweeping segment k+1 while the consumer
+        thread reads back, repairs, does the host math of and emits
+        segment k. Gated on device memory for a second sweep's buffers
+        and on the survivor buffer's size. A samples-sharded engine stays
+        serial: its collectives are issued from one thread in program
+        order on every rank."""
+        if self.group is not None or not self._pipeline_enabled:
+            return 1
+        if self._outcap > (1 << 21):
+            return 1
+        # the free memory is read once a group and again when the caps
+        # grow: `run_group` asks before every dispatch, and one read of
+        # it took 17-326 us on the card's host (chip_smoke.py)
+        key = (self._outcap, self._fused_cap)
+        if key not in self._headroom:
+            self._headroom[key] = self._prefetch_headroom_ok(cfg)
+        return 2 if self._headroom[key] else 1
+
+    def _prefetch_headroom_ok(self, cfg) -> bool:
+        """Whether the card can hold a second sweep in flight: its tile
+        buffers, counts buffer, compaction scratch and survivor buffer
+        (sweeps.sweep_bytes), with a 2.5x margin, against the free device
+        memory and what PyTorch's allocator holds unused. The CPU has no
+        such limit here."""
+        if self.device.type != "cuda":
+            return True
+        free, _ = torch.cuda.mem_get_info(self.device)
+        free += torch.cuda.memory_reserved(self.device) \
+            - torch.cuda.memory_allocated(self.device)
+        cap = min(self._fused_cap, self.B * self.B)
+        need = sweeps.sweep_bytes(cfg, max(self._outcap, 2 * cap))
+        return free > 2.5 * need
+
     def run_group(self, tiles, table, has_missing, cls, filt, emit) -> int:
-        """Sweep one (table, missing, cls) tile group in segments.
-        Returns the number of candidate pairs evaluated."""
+        """Sweep one (table, missing, cls) tile group in segments; returns
+        the number of candidate pairs evaluated.
+
+        Segments are dispatched ahead of consumption: `_submit_segment`
+        enqueues the sweep and, behind it on the same stream, the copies
+        of its counts and a prefix of its survivor rows into pinned host
+        memory, and one consumer thread reads them back, repairs, runs the
+        exact host math and emits the records in segment order. A
+        consumer failure skips the segments still in flight (nothing of a
+        later segment is emitted) and raises, but for the card running out
+        of memory: the run then goes serial on the same kernels from the
+        failed segment on, with a warning. Returns only when nothing of
+        the group is in flight."""
         cfg = self._cfg(table, has_missing, cls)
         seg = self._segment_size(len(tiles))
-        return sum(self._run_segment(tiles[s:s + seg], cfg, filt, emit)
-                   for s in range(0, len(tiles), seg))
-
-    def run_phased_pairs(self, pairs, has_missing, filt, emit):
-        return self.run_group(pairs, "phased", has_missing, "all", filt,
-                              emit)
-
-    def run_unphased_pairs(self, pairs, has_missing, filt, emit):
-        return self.run_group(pairs, "unphased", has_missing, "all", filt,
-                              emit)
-
-    def run_mixed_pairs(self, pairs, filt, emit):
-        """Reference mixed-mode Calculate() semantics on tiles that
-        contain missing data: clean pairs take the phased math, pairs
-        with missing alleles take the unphased math
-        (reference: ld_engine.cpp:2737-2880)."""
-        n = self.run_group(pairs, "phased", False, "clean", filt, emit)
-        n += self.run_group(pairs, "unphased", True, "missing", filt, emit)
+        todo = [tiles[s:s + seg] for s in range(0, len(tiles), seg)]
+        n = 0
+        inflight = deque()       # (todo index, future)
+        k = 0
+        self._seg_error = None
+        self._headroom = {}
+        try:
+            while k < len(todo) or inflight:
+                depth = self._pipeline_depth(cfg)
+                if k < len(todo) and len(inflight) < depth:
+                    if depth == 1 and not inflight:
+                        n += self._run_segment(todo[k], cfg, filt, emit)
+                        self._note_serial_ok()
+                        k += 1
+                        continue
+                    try:
+                        st = self._submit_segment(todo[k], cfg)
+                    except torch.cuda.OutOfMemoryError as e:
+                        # no room for a second sweep: finish the ones in
+                        # flight, then go on serially
+                        self._go_serial(e)
+                        continue
+                    inflight.append((k, self._seg_pool().submit(
+                        self._seg_job, todo[k], cfg, filt, emit, st)))
+                    k += 1
+                    continue
+                j, fut = inflight.popleft()
+                try:
+                    n += fut.result()
+                except torch.cuda.OutOfMemoryError as e:
+                    # the later segments in flight skipped themselves;
+                    # re-run from j serially, on the same kernels
+                    self._drain(inflight)
+                    self._seg_error = None
+                    self._go_serial(e)
+                    n += self._run_segment(todo[j], cfg, filt, emit)
+                    k = j + 1
+        except BaseException as e:
+            if self._seg_error is None:
+                self._seg_error = e
+            self._drain(inflight)
+            raise
+        finally:
+            self._seg_error = None
         return n
+
+    @staticmethod
+    def _drain(inflight):
+        """Wait for every segment still in flight; each skips itself once
+        `_seg_error` is set, so only the first failure is raised."""
+        for _, fut in inflight:
+            try:
+                fut.result()
+            except BaseException:   # noqa: BLE001 - the first error raises
+                pass
+        inflight.clear()
+
+    def _go_serial(self, err):
+        self._pipeline_enabled = False
+        self._serial_ok_streak = 0
+        self._pipeline_retry_after = min(self._pipeline_retry_after * 2,
+                                         1 << 12)
+        log("WARNING", f"the card ran out of memory in the segment pipeline "
+            f"({str(err)[:160]}); running the same kernels one segment at a "
+            f"time", sub="ENGINE")
+
+    def _note_serial_ok(self):
+        """A segment ran cleanly without overlap; after enough in a row,
+        try the pipeline again."""
+        if self._pipeline_enabled:
+            return
+        self._serial_ok_streak += 1
+        if self._serial_ok_streak >= self._pipeline_retry_after:
+            log("LOG", f"re-enabling the segment pipeline after "
+                f"{self._serial_ok_streak} clean serial segments",
+                sub="ENGINE")
+            self._pipeline_enabled = True
+            self._serial_ok_streak = 0
+
+    def _seg_job(self, tiles, cfg, filt, emit, state):
+        """The consumer thread's wrapper of `_run_segment`: skip (without
+        emitting) when an earlier segment failed, so emission stays in
+        segment order. Its device work (the supplementary rows, repairs)
+        goes on the consumer's own stream, so it never waits behind the
+        next segment's sweep."""
+        if self._seg_error is not None:
+            return 0
+        try:
+            with self._device_ctx(), (
+                    torch.cuda.stream(self._seg_stream)
+                    if self._seg_stream is not None
+                    else contextlib.nullcontext()):
+                return self._run_segment(tiles, cfg, filt, emit, state=state)
+        except BaseException as e:
+            self._seg_error = e
+            raise
 
     # -- one segment -----------------------------------------------------
     def _dispatch_fused(self, tiles, cfg) -> dict:
@@ -397,29 +794,61 @@ class LdEngine:
             dev, pi, pj, dg, np.ones(len(tiles), bool), cfg=cfg, cap=cap,
             outcap=outcap)
         return dict(n_pass=n_pass, n_cand=n_cand, buf=buf, dev=dev, pi=pi,
-                    pj=pj, dg=dg, cap=cap, outcap=outcap)
+                    pj=pj, dg=dg, cap=cap, outcap=outcap,
+                    stacked=self.stacked)
 
-    def _run_segment(self, tiles, cfg, filt, emit) -> int:
-        """Dispatch one segment, read its counts, pull the survivor rows
-        (repairing what the fused pass could not hold), run the exact
-        host math and emit records."""
+    def _submit_segment(self, tiles, cfg) -> dict:
+        """Dispatch one segment's fused sweep and, on the same stream right
+        behind it, copy its counts and the first X rows of its survivor
+        buffer into pinned host memory (X from this group's recent
+        survivor volume, so the copies depend on nothing the host has
+        yet to read), then record one event. The consumer waits on that
+        event, not on the stream: a host read issued after the next
+        segment is enqueued would wait for that whole sweep. Rows past
+        the prefix are pulled with one exact supplementary copy once the
+        counts are known."""
+        st = self._dispatch_fused(tiles, cfg)
+        key = (cfg["table"], cfg["has_missing"], cfg["cls"])
+        X = min(self._prefix_rows.get(key, self.PREFIX_ROWS0), st["outcap"])
+        src = (st["n_pass"], st["n_cand"], st["buf"][:X])
+        st["X"], st["event"] = X, None
+        if st["buf"].is_cuda:
+            host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                    for x in src]
+            for h, x in zip(host, src):
+                h.copy_(x, non_blocking=True)
+            st["event"] = torch.cuda.Event()
+            st["event"].record(torch.cuda.current_stream(self.device))
+            src = host
+        st["host"] = src
+        return st
+
+    def _run_segment(self, tiles, cfg, filt, emit, state=None) -> int:
+        """Read a dispatched segment's counts, pull its survivor rows
+        (prefix, supplementary rows, and the exact-offset repair of what
+        the fused pass could not hold), run the exact host math and emit
+        records. Runs on the consumer thread in pipelined mode, inline
+        otherwise; `state=None` dispatches the sweep here (serial)."""
         if not tiles:
             return 0
         stat = self._stat(cfg)
         stat["n_tiles"] += len(tiles)
         B = self.B
         t0 = time.perf_counter()
-        st = self._dispatch_fused(tiles, cfg)
+        st = state if state is not None else self._submit_segment(tiles, cfg)
         pi, pj, dg, buf = st["pi"], st["pj"], st["dg"], st["buf"]
-        cap, outcap = st["cap"], st["outcap"]
-        # the one host sync of the sweep: per-tile counts
-        n_pass, n_cand = sweeps.host_counts(st["n_pass"], st["n_cand"])
+        cap, outcap, X = st["cap"], st["outcap"], st["X"]
+        if st["event"] is not None:
+            st["event"].synchronize()
+        # the segment's one wait: its counts, read from the pinned copies
+        n_pass, n_cand = sweeps.host_counts(*st["host"][:2])
         stat["count_s"] += time.perf_counter() - t0
         total_cand = int(n_cand.sum())
         stat["n_cand"] += total_cand
         if int(n_pass.sum()) == 0:
             if self.ticker:
                 self.ticker.add(pairs=total_cand)
+            self._finish_segment()
             return total_cand
         stat["n_pass"] += int(n_pass.sum())
 
@@ -430,11 +859,21 @@ class LdEngine:
         ok = (n_pass <= cap) & (offs + n_pass <= outcap - cap)
         rows_by_tile = {}
         sel = np.flatnonzero(ok & (n_pass > 0))
+        end = 0
         if len(sel):
             end = int(offs[sel[-1]] + n_pass[sel[-1]])
-            host = buf[:end].cpu().numpy()
+            host = st["host"][2].numpy()[:end]
+            if end > X:
+                stat["n_supp"] += 1
+                host = np.concatenate([host, buf[X:end].cpu().numpy()])
             for t in sel:
                 rows_by_tile[int(t)] = host[offs[t]:offs[t] + n_pass[t]]
+        # adapt the prefix so the next segments of this group fit it:
+        # grow at once, shrink by halves
+        key = (cfg["table"], cfg["has_missing"], cfg["cls"])
+        cur = self._prefix_rows.get(key, self.PREFIX_ROWS0)
+        want = min(_round_up(max(2048, end + (end >> 4)), 8192), 1 << 20)
+        self._prefix_rows[key] = max(want, cur // 2)
         bad = np.flatnonzero((n_pass > 0) & ~ok)
         if len(bad):
             rows_by_tile.update(self._repair(st["dev"], cfg, stat, pi, pj,
@@ -442,6 +881,7 @@ class LdEngine:
         stat["extract_s"] += time.perf_counter() - t0
 
         # exact host math, batched into one native call per segment
+        stacked = st["stacked"]
         hit = np.array(sorted(rows_by_tile), np.int64)
         rows = np.concatenate([rows_by_tile[int(t)] for t in hit])
         idx = rows[:, 0].astype(np.int64)
@@ -449,7 +889,7 @@ class LdEngine:
         tile_of = np.repeat(np.arange(len(hit)), n_pass[hit])
         bi = pi[hit][tile_of].astype(np.int64)
         bj = pj[hit][tile_of].astype(np.int64)
-        meta = _pair_meta_from(self.stacked, bi, bj, k, l)
+        meta = _pair_meta_from(stacked, bi, bj, k, l)
         table = cfg["table"]
         parts = sweeps.unpack_payload(rows[:, 1:], table,
                                       cfg["has_missing"], self.n_samples)
@@ -457,7 +897,8 @@ class LdEngine:
         if table == "phased":
             data = self._phased_counts_from_parts(parts, meta)
         else:
-            data = self._unphased_table_from_parts(parts, bi, bj, k, l)
+            data = self._unphased_table_from_parts(stacked, parts, bi, bj,
+                                                   k, l)
         out = ld_records(table, data, meta, filt)
         if out is not None:
             recs, rev = out[0], out[1]
@@ -472,7 +913,15 @@ class LdEngine:
         emit(recs, rev)
         if self.ticker:
             self.ticker.add(pairs=total_cand, records=len(recs))
+        self._finish_segment()
         return total_cand
+
+    def _finish_segment(self):
+        """Segment bookkeeping, on whichever thread handled the segment,
+        after its records were emitted."""
+        self.units_done += 1
+        if self.on_segment is not None:
+            self.on_segment()
 
     def _phased_counts_from_parts(self, parts, meta) -> np.ndarray:
         """[K, 4] (REFREF, REFALT, ALTREF, ALTALT) int64 from the raw
@@ -489,10 +938,11 @@ class LdEngine:
             refref = 2 * self.n_samples - (meta.ac_a + meta.ac_b) + altalt
         return np.stack([refref, refalt, altref, altalt], axis=1)
 
-    def _unphased_table_from_parts(self, parts, bi, bj, k, l) -> np.ndarray:
+    def _unphased_table_from_parts(self, st, parts, bi, bj, k,
+                                   l) -> np.ndarray:
         """[K, 3, 3] int64 genotype tables from the raw device
-        contractions (mirrors ops.ld_kernels.unphased_cells)."""
-        st = self.stacked
+        contractions (mirrors ops.ld_kernels.unphased_cells); `st` holds
+        the load's per-variant arrays."""
         if parts.shape[1] == 9:
             T11, T12, T21, T22, hv, vh, ov, vo, vv = parts.T
         else:
@@ -537,6 +987,64 @@ class LdEngine:
         host = rbuf[:total].cpu().numpy()
         return {int(t): host[o:o + n]
                 for t, o, n in zip(bad, hoff, ns_bad)}
+
+    # -- public API ------------------------------------------------------
+    def run_phased_pairs(self, pairs, has_missing, filt, emit):
+        return self.run_group(pairs, "phased", has_missing, "all", filt,
+                              emit)
+
+    def run_unphased_pairs(self, pairs, has_missing, filt, emit):
+        return self.run_group(pairs, "unphased", has_missing, "all", filt,
+                              emit)
+
+    def run_mixed_pairs(self, pairs, filt, emit):
+        """Reference mixed-mode Calculate() semantics on tiles that
+        contain missing data: clean pairs take the phased math, pairs
+        with missing alleles take the unphased math
+        (reference: ld_engine.cpp:2737-2880)."""
+        n = self.run_group(pairs, "phased", False, "clean", filt, emit)
+        n += self.run_group(pairs, "unphased", True, "missing", filt, emit)
+        return n
+
+
+def dispatch_pairs(engine: LdEngine, pairs, mode: str, filt: LdFilters,
+                   emit, stacked) -> int:
+    """Route block pairs through the group_tiles dispatch plan."""
+    blk_missing = stacked["has_missing"].any(axis=1)
+    n = 0
+    for table, has_missing, cls, tiles in group_tiles(pairs, mode,
+                                                      blk_missing):
+        n += engine.run_group(tiles, table, has_missing, cls, filt, emit)
+    return n
+
+
+def run_loads(engine: LdEngine, bands, loads, provider, mode: str,
+              filt: LdFilters, emit, prefetch: bool = False) -> int:
+    """Sweep a `_plan_loads` plan: for each load, the band pair (p, q) is
+    made resident (`provider(b)` gives band b's stacked host planes, for
+    a band not resident yet) and its tiles are dispatched. With
+    `prefetch` the staging worker inflates and uploads the next load's
+    new band while the current load computes (a third resident band).
+    Returns the candidate pairs evaluated."""
+    if prefetch:
+        engine.MAX_RESIDENT_BANDS = 3
+    n = 0
+    for li, ((p, q), load_tiles) in enumerate(loads):
+        engine.stage_wait()
+        load = [(p, None if p in engine._band_host else provider(p))]
+        if q != p:
+            load.append((q, None if q in engine._band_host
+                         else provider(q)))
+        engine.set_load(load)
+        if prefetch and li + 1 < len(loads):
+            for b in set(loads[li + 1][0]):
+                if b not in engine._band_host:
+                    engine.stage_band_async(b, lambda b=b: provider(b))
+        load_ids = bands[p] if p == q else bands[p] + bands[q]
+        slot = {g: s for s, g in enumerate(load_ids)}
+        tiles = [(slot[i], slot[j], d) for i, j, d in load_tiles]
+        n += dispatch_pairs(engine, tiles, mode, filt, emit, engine.stacked)
+    return n
 
 
 def _check_settings(settings: CalcSettings):
@@ -587,8 +1095,10 @@ def compute_ld(settings: CalcSettings, device="cuda") -> CalcResult:
         log("LOG", f"Opening {settings.input}...", sub="READER")
         reader = TwkReader(settings.input)
         try:
-            return _compute(settings, device, reader, timer, proc_id,
-                            n_procs)
+            with (torch.cuda.device(device) if device.type == "cuda"
+                  else contextlib.nullcontext()):
+                return _compute(settings, device, reader, timer, proc_id,
+                                n_procs)
         finally:
             reader.close()
     finally:
@@ -596,41 +1106,16 @@ def compute_ld(settings: CalcSettings, device="cuda") -> CalcResult:
             dist.shutdown()
 
 
-def _load_engine(settings, device, reader, supers, super_ids, pairs, B,
-                 dcn, proc_id, n_procs):
-    """(engine, sweep groups) for this process's tiles: inflate the
-    super-blocks `super_ids` into planes, make them the engine's band
-    and group the tiles in dispatch order. A dcn rank shares the
-    process group and holds slice `proc_id` of `n_procs` of the words."""
-    n_samples = reader.header.n_samples
-    n_threads = settings.threads if settings.threads > 0 \
-        else (os.cpu_count() or 1)
-    blocks = []
-    for s in super_ids:
-        sup = supers[s]
-        blk = reader.read_block(sup["ids"][0])
-        for b in sup["ids"][1:]:
-            for rec in reader.read_block(b).rcds:
-                blk.add(rec)
-        blocks.append(blk)
-    with ThreadPoolExecutor(n_threads) as pool:
-        stacked = stack_planes(list(pool.map(
-            lambda blk: block_to_planes(blk, n_samples, pad_to=B), blocks)))
-    slot = {g: s for s, g in enumerate(super_ids)}
-    tiles = [(slot[i], slot[j], d) for i, j, d in pairs]
-    mode = ("phased" if settings.force_phased else
-            "unphased" if settings.forced_unphased else "mixed")
-    groups = [g for g in group_tiles(tiles, mode,
-                                     stacked["has_missing"].any(axis=1))
-              if g[3]]
-
-    engine = LdEngine(stacked, n_samples, settings, device,
-                      group=dist.group() if dcn else None,
-                      samples_rank=proc_id if dcn else 0,
-                      samples_size=n_procs if dcn else 1)
-    for table, has_missing, cls, _ in groups:
-        engine._cfg(table, has_missing, cls)   # reject before any output
-    return engine, groups
+def _plane_budget(settings, n_samples, B, n_samp_shards):
+    """(super-blocks a load may hold, bytes of one super-block's planes
+    on a rank): the JAX engine's budget. The device holds the resident
+    bands plus the per-load concatenation, so a load may take half of
+    `memory_gb`; a samples-sharded rank holds 1/S of every word plane."""
+    Wh = (2 * n_samples + 127) // 128 * 4
+    Ws = (n_samples + 127) // 128 * 4
+    per_super = -(-B * (2 * Wh + 3 * Ws) * 4 // n_samp_shards)
+    return (max(2, int(settings.memory_gb * (1 << 30) / 2 / per_super)),
+            per_super)
 
 
 def _compute(settings, device, reader, timer, proc_id,
@@ -678,25 +1163,30 @@ def _compute(settings, device, reader, timer, proc_id,
         f"{'window' if settings.window else 'square'} mode...",
         sub="BALANCING")
 
-    # the JAX engine's plane budget: one band must hold every super
-    Wh = (2 * n_samples + 127) // 128 * 4
-    Ws = (n_samples + 127) // 128 * 4
-    per_super = B * (2 * Wh + 3 * Ws) * 4
-    # a dcn rank holds only 1/S of every word plane
-    n_samp_shards = n_procs if dcn else 1
-    per_super = -(-per_super // n_samp_shards)
-    budget = max(2, int(settings.memory_gb * (1 << 30) / 2 / per_super))
-    bands, _ = _plan_loads(super_ids, pairs, budget)
-    if len(bands) > 1:
-        raise NotImplementedError(
-            f"the planes exceed --memory-gb {settings.memory_gb}: banded "
-            f"streaming is not ported yet (ROADMAP.md queue 1 item 10)")
-
-    engine, groups = None, []
+    # band the super-blocks when their planes exceed the budget
+    # (low-memory streaming, the reference's calc -M); the staging worker
+    # needs a third resident band, so bands shrink to a third of it
+    budget, per_super = _plane_budget(settings, n_samples, B,
+                                      n_procs if dcn else 1)
+    prefetch_on = settings.stage_prefetch and not dcn \
+        and len(super_ids) > budget
+    bands, loads = _plan_loads(super_ids, pairs, budget,
+                               parts=3 if prefetch_on else 2)
+    if len(loads) > 1:
+        log("LOG", f"Streaming {len(super_ids)} super-blocks in "
+            f"{len(loads)} band-pair loads over {len(bands)} bands "
+            f"(~{per_super * budget / 2**30:.1f} GB plane budget)...",
+            sub="MEMORY")
+    mode = ("phased" if settings.force_phased else
+            "unphased" if settings.forced_unphased else "mixed")
+    engine = None
     if pairs:
-        engine, groups = _load_engine(settings, device, reader, supers,
-                                      super_ids, pairs, B, dcn, proc_id,
-                                      n_procs)
+        engine = LdEngine(None, n_samples, settings, device, B=B,
+                          group=dist.group() if dcn else None,
+                          samples_rank=proc_id if dcn else 0,
+                          samples_size=n_procs if dcn else 1)
+        for table, has_missing, cls, _ in group_tiles([], mode, []):
+            engine._cfg(table, has_missing, cls)   # reject before output
     filt = LdFilters(min_p=settings.min_p, min_r2=settings.min_r2,
                      max_r2=settings.max_r2, min_dprime=settings.min_dprime,
                      max_dprime=settings.max_dprime)
@@ -718,7 +1208,9 @@ def _compute(settings, device, reader, timer, proc_id,
     if engine is not None:
         engine.ticker = ticker
     # dcn: every process derives identical records (the counts are the
-    # same on every rank); only process 0 writes the single output
+    # same on every rank); only process 0 writes the single output.
+    # The segment consumer is the writer's one caller while segments are
+    # in flight.
     writer = None
     if not (dcn and proc_id != 0):
         writer = TwoWriter(out, hdr, c_level=settings.c_level,
@@ -732,14 +1224,48 @@ def _compute(settings, device, reader, timer, proc_id,
             writer.add(rev if rev is not None else _reverse_records(recs))
         result.n_records += 2 * len(recs)
 
+    n_threads = settings.threads if settings.threads > 0 \
+        else (os.cpu_count() or 1)
+    pool = ThreadPoolExecutor(n_threads)
+
+    def inflate_band(b):
+        """Band b's stacked host planes: its super-blocks' records
+        inflated on `pool`'s threads (the staging worker calls this for
+        the next load's band)."""
+        blocks = []
+        for s in bands[b]:
+            sup = supers[s]
+            blk = reader.read_block(sup["ids"][0])
+            for i in sup["ids"][1:]:
+                for rec in reader.read_block(i).rcds:
+                    blk.add(rec)
+            blocks.append(blk)
+        return stack_planes(list(pool.map(
+            lambda blk: block_to_planes(blk, n_samples, pad_to=B), blocks)))
+
     try:
-        for table, has_missing, cls, group in groups:
-            result.n_pairs += engine.run_group(group, table, has_missing,
-                                               cls, filt, emit)
+        if engine is not None:
+            result.n_pairs += run_loads(engine, bands, loads, inflate_band,
+                                        mode, filt, emit, prefetch_on)
     finally:
+        if engine is not None:
+            engine.stage_close()
+        pool.shutdown()
         if writer is not None:
             writer.close()
         ticker.finalize()
+    if engine is not None:
+        result.stage_stats = dict(engine.stage_stats, n_bands=len(bands),
+                                  n_loads=len(loads),
+                                  n_uploads=engine.n_band_uploads)
+        if len(loads) > 1:
+            ss = engine.stage_stats
+            log("LOG", f"Band uploads: {engine.n_band_uploads} device plane "
+                f"transfers over {len(loads)} loads "
+                f"({ss['bytes'] / 2**20:.0f} MB; "
+                f"{ss['hidden_s']:.1f}s overlapped with compute, "
+                f"{ss['exposed_s'] + ss['wait_s']:.1f}s exposed)",
+                sub="MEMORY")
     if writer is not None and settings.sort_shards and out != "-":
         from ..post.sort import sort_two
         tmp_sorted = out[:-4] + ".sorting.two"

@@ -2,18 +2,22 @@
 
 Counterpart of tomahawk_tpu/compute/sweeps.py for every sweep group,
 with or without a distance window, with the Fisher column off. The JAX
-package scans a jitted body over the tile list; here a Python loop
-launches, per tile, the tile kernel (ops/tiles.py) and the survivor
-compaction
-(`compact_survivors`, csrc/compact.cu). The compaction keeps the running
-offset on the device, so a segment of tiles runs without a host sync and
-the host reads the counts once, after the whole segment (`host_counts`,
-which also raises where a compaction reported a fault). A sweep
-allocates the tile's output buffers, the compaction's scratch and the
-per-segment counts buffer the fused tile kernels write once and reuses
-them for every tile; with the counts the compaction reads the mask only
-where a segment has a survivor. The samples-sharded sweep's epilogue
-writes none, and there the compaction counts the mask itself first.
+package scans a jitted body over the tile list; here, on a card, one C
+call (`_launch_sweep`, csrc/sweep.cu) walks the segment's tile list and
+enqueues, per tile, the fused tile kernel (ops/tiles.py) and the
+survivor compaction (`compact_survivors`, csrc/compact.cu), with every
+input checked once a sweep. The CPU's plain versions, the
+samples-sharded sweep (an all-reduce between its kernels) and
+`count_sweep` keep a Python loop over the tiles. The compaction keeps
+the running offset on the device, so a segment of tiles runs without a
+host sync and the host reads the counts once, after the whole segment
+(`host_counts`, which also raises where a compaction reported a fault).
+A sweep allocates the tile's output buffers, the compaction's scratch
+and the per-segment counts buffer the fused tile kernels write once and
+reuses them for every tile; with the counts the compaction reads the
+mask only where a segment has a survivor. The samples-sharded sweep's
+epilogue writes none, and there the compaction counts the mask itself
+first.
 
 Survivor rows are [flat index k*B + l, payload...] int32 in the layout
 of the JAX package's `_pack_cols`: while the parts fit uint16
@@ -31,14 +35,16 @@ on the global counts, then the same compaction. Counts and survivor rows
 are then identical on every rank.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ..ops import _build
 from ..ops import ld_kernels as K
-from ..ops.tiles import (SEG, counts_buffer, payload_cols, plane_keys,
-                         tile_buffers, tile_epilogue, tile_local_parts,
-                         tile_prefilter)
+from ..ops.tiles import (SEG, _check_inputs, counts_buffer, kernel_name,
+                         payload_cols, plane_keys, sweep_args, tile_buffers,
+                         tile_epilogue, tile_local_parts, tile_prefilter)
 from ..parallel.distributed import all_reduce_parts
 
 #: device tensors the sweeps may read: uint32 planes (as int32),
@@ -63,32 +69,33 @@ def dev_keys_for(cfg) -> tuple:
     return tuple(k for k in DEV_KEYS if k in keys)
 
 
+def host_plane(a, k: str, word_slice=None) -> np.ndarray:
+    """Array `a` of key `k` as the device holds it: contiguous, uint32
+    planes as int32 views of the same bits and, with `word_slice=(s, S)`,
+    a word plane cut to the s-th of S equal slices of its word axis, the
+    axis first padded to a multiple of S: with zeros, and with ones for
+    `miss_bits` (padding is "missing"), as the JAX engine pads for a
+    'samples' mesh axis."""
+    if word_slice is not None and k in WORD_KEYS:
+        s, S = word_slice
+        wl = -(-a.shape[-1] // S)
+        a = a[..., s * wl:(s + 1) * wl]
+        if a.shape[-1] < wl:
+            pad = np.zeros((*a.shape[:-1], wl - a.shape[-1]), a.dtype)
+            a = np.concatenate([a, ~pad if k == "miss_bits" else pad],
+                               axis=-1)
+    a = np.ascontiguousarray(a)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
 def planes_to_device(stacked: dict, device, keys=DEV_KEYS,
                      word_slice=None) -> dict:
-    """The port's device tensors for `keys`, from the numpy
-    plane dict (`bitpack.stack_planes` output): the counterpart of the
-    JAX engine's band upload (`LdEngine._upload` / `_band_dev_get`).
-    uint32 planes become int32 views of the same bits. With
-    `word_slice=(s, S)` each word plane uploads only the s-th of S equal
-    slices of its word axis, the axis first padded to a multiple of S:
-    with zeros, and with ones for `miss_bits` (padding is "missing"), as
-    the JAX engine pads for a 'samples' mesh axis."""
-    out = {}
-    for k in keys:
-        a = stacked[k]
-        if word_slice is not None and k in WORD_KEYS:
-            s, S = word_slice
-            wl = -(-a.shape[-1] // S)
-            a = a[..., s * wl:(s + 1) * wl]
-            if a.shape[-1] < wl:
-                pad = np.zeros((*a.shape[:-1], wl - a.shape[-1]), a.dtype)
-                a = np.concatenate([a, ~pad if k == "miss_bits" else pad],
-                                   axis=-1)
-        a = np.ascontiguousarray(a)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        out[k] = torch.from_numpy(a).to(device)
-    return out
+    """The port's device tensors for `keys`, from the numpy plane dict
+    (`bitpack.stack_planes` output; `host_plane` of each): the
+    counterpart of the JAX engine's band upload (`LdEngine._upload` /
+    `_band_dev_get`)."""
+    return {k: torch.from_numpy(host_plane(stacked[k], k, word_slice))
+            .to(device) for k in keys}
 
 
 def make_cfg(table: str, has_missing: bool, cls: str, B: int,
@@ -177,6 +184,16 @@ def compact_survivors_plain(mask, parts, off, buf, n_pass, n_cand,
     off[0] = min(o + n, outcap)
 
 
+def sweep_bytes(cfg, outcap: int) -> int:
+    """Device bytes one fused sweep of a segment allocates beside the
+    planes: its tile buffers (mask and parts), the counts buffer, the
+    compaction's scratch and the survivor buffer of `outcap` rows."""
+    B = cfg["B"]
+    P = payload_cols(cfg["table"], cfg["has_missing"])
+    return (B * B * (1 + 4 * P) + 4 * B * -(-B // SEG)
+            + 4 * _scratch_len(B) + 4 * outcap * buf_cols(cfg))
+
+
 def compact_scratch(B: int, device):
     """The compaction's scratch for tiles of B rows: int32 row totals,
     row offsets and, for a mask that comes without counts, its segment
@@ -224,22 +241,22 @@ def compact_survivors(mask, parts, off, buf, n_pass, n_cand, t: int,
                                cap, counts, scratch)
     if mask.device.type != "cpu":
         raise ValueError(f"no compaction kernel for device {mask.device}")
-    _build.PLAIN_CALLS["compact"] += 1
+    _build.count(_build.PLAIN_CALLS, "compact")
     return compact_survivors_plain(mask, parts, off, buf, n_pass, n_cand,
                                    t, cap)
 
 
-def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
-                    scratch):
+def _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, counts,
+                   scratch, n_off=1):
+    """Check every tensor the compaction reads and writes: dtype, shape,
+    contiguity and device. `off` holds `n_off` offsets."""
     B = mask.shape[0]
     P = parts.shape[0]
     outcap, ncol = buf.shape
     _payload_layout(P, ncol)
-    if scratch is None:
-        scratch = compact_scratch(B, mask.device)
     checks = [
         (mask, torch.uint8, (B, B)), (parts, torch.int32, (P, B, B)),
-        (off, torch.int32, (1,)), (buf, torch.int32, (outcap, ncol)),
+        (off, torch.int32, (n_off,)), (buf, torch.int32, (outcap, ncol)),
         (n_pass, torch.int32, tuple(n_pass.shape)),
         (n_cand, torch.int32, tuple(n_pass.shape)),
         (scratch, torch.int32, (_scratch_len(B),))]
@@ -251,11 +268,24 @@ def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
             raise ValueError(f"compaction input {tuple(x.shape)} "
                              f"{x.dtype} on {x.device}: expected {shape} "
                              f"{dtype}, contiguous, on {mask.device}")
-    if n_pass.dim() != 1 or not 0 <= t < n_pass.shape[0]:
-        raise ValueError(f"tile index {t} outside n_pass")
+    if n_pass.dim() != 1:
+        raise ValueError("n_pass must be one-dimensional")
     if not 0 < cap <= outcap or B * B >= 1 << 31:
         raise ValueError(f"bad compaction shape: B={B} cap={cap} "
                          f"outcap={outcap}")
+
+
+def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
+                    scratch):
+    B = mask.shape[0]
+    P = parts.shape[0]
+    outcap, ncol = buf.shape
+    if scratch is None:
+        scratch = compact_scratch(B, mask.device)
+    _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, counts,
+                   scratch)
+    if not 0 <= t < n_pass.shape[0]:
+        raise ValueError(f"tile index {t} outside n_pass")
     lib = _build.library()
     stream = torch.cuda.current_stream(mask.device).cuda_stream
     rc = lib.twk_compact(
@@ -265,7 +295,7 @@ def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
         scratch.data_ptr(), _ticket(mask.device, stream).data_ptr(),
         buf.data_ptr(), stream)
     _build.check(rc, "compact launch")
-    _build.LAUNCHES["compact"] += 1
+    _build.count(_build.LAUNCHES, "compact")
 
 
 def host_counts(n_pass, n_cand):
@@ -324,12 +354,8 @@ def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
     n_pass, n_cand, off = _zeros(dev, T), _zeros(dev, T), _zeros(dev, 1)
     buf = _zeros(dev, outcap, buf_cols(cfg))
     out, cnt, scratch = _sweep_buffers(cfg, buf.device)
-    for t in range(T):
-        if live[t]:
-            mask, parts = _tile(dev, int(pi[t]), int(pj[t]), bool(dg[t]),
-                                cfg, out, cnt)
-            compact_survivors(mask, parts, off, buf, n_pass, n_cand, t,
-                              cap, cnt, scratch)
+    _loop(cfg, buf)(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
+                    buf, n_pass, n_cand)
     return n_pass, n_cand, buf
 
 
@@ -343,12 +369,73 @@ def extract_sweep(dev, pi, pj, dg, off, *, cfg, cap, outcap):
     out, cnt, scratch = _sweep_buffers(cfg, buf.device)
     # a copy: the compaction advances each slot in place
     offs = torch.tensor(np.asarray(off), dtype=torch.int32, device=buf.device)
-    for t in range(len(pi)):
-        mask, parts = _tile(dev, int(pi[t]), int(pj[t]), bool(dg[t]), cfg,
-                            out, cnt)
-        compact_survivors(mask, parts, offs[t:t + 1], buf, n_pass, n_cand,
-                          t, cap, cnt, scratch)
+    _loop(cfg, buf)(dev, pi, pj, dg, None, cfg, cap, out, cnt, scratch, offs,
+                    buf, n_pass, n_cand)
     return buf
+
+
+def _loop(cfg, buf):
+    """The tile loop of a sweep: the C entry on a card, the Python loop
+    on the CPU and in a samples-sharded sweep."""
+    if buf.is_cuda and cfg["psum_group"] is None:
+        return _launch_sweep
+    return _tile_loop
+
+
+def _tile_loop(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off, buf,
+               n_pass, n_cand):
+    """The tile loop in Python, with `_launch_sweep`'s arguments: for each
+    live tile the tile (`_tile`: the fused kernel, or the samples-sharded
+    steps with their all-reduce) and its compaction, at the one running
+    offset, or with `live` None at offset `off[t]`."""
+    for t in range(len(pi)):
+        if live is None or live[t]:
+            mask, parts = _tile(dev, int(pi[t]), int(pj[t]), bool(dg[t]),
+                                cfg, out, cnt)
+            compact_survivors(mask, parts,
+                              off if live is not None else off[t:t + 1],
+                              buf, n_pass, n_cand, t, cap, cnt, scratch)
+
+
+def _launch_sweep(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
+                  buf, n_pass, n_cand):
+    """The tile loop of `fused_sweep` (live given, one running offset) or
+    of `extract_sweep` (live None, `off` an offset a tile) as one call of
+    csrc/sweep.cu's `twk_sweep`, on the current stream: every tensor is
+    checked here once, and the C loop launches each live tile's fused
+    tile kernel and its compaction in tile order. Each kernel's launches
+    are counted as the C loop reports them."""
+    NB, B, _ = _check_inputs(dev, cfg, out)
+    mask, parts = out
+    T = len(pi)
+    _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, cnt, scratch,
+                   n_off=1 if live is not None else T)
+    if tuple(n_pass.shape) != (T,):
+        raise ValueError(f"n_pass holds {n_pass.shape[0]} tiles, not {T}")
+    pi = np.ascontiguousarray(pi, np.int32)
+    pj = np.ascontiguousarray(pj, np.int32)
+    dg = np.ascontiguousarray(dg, np.uint8)
+    if T and not (0 <= min(pi.min(), pj.min())
+                  and max(pi.max(), pj.max()) < NB):
+        raise ValueError(f"a tile of the list lies outside [{NB}]")
+    if live is not None:
+        live = np.ascontiguousarray(live, np.uint8)
+    if not all(len(a) == T for a in (pj, dg) + (() if live is None
+                                                 else (live,))):
+        raise ValueError("the tile arrays differ in length")
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    done = (ctypes.c_int32 * 2)()
+    rc = _build.library().twk_sweep(
+        *sweep_args(dev, cfg), T, pi.ctypes.data, pj.ctypes.data,
+        dg.ctypes.data, None if live is None else live.ctypes.data,
+        mask.data_ptr(), parts.data_ptr(), cnt.data_ptr(), parts.shape[0],
+        buf.shape[1], off.data_ptr(), int(live is None), cap, buf.shape[0],
+        n_pass.data_ptr(), n_cand.data_ptr(), scratch.data_ptr(),
+        _ticket(buf.device, stream).data_ptr(), buf.data_ptr(), stream,
+        done)
+    _build.count(_build.LAUNCHES, kernel_name(cfg), done[0])
+    _build.count(_build.LAUNCHES, "compact", done[1])
+    _build.check(rc, "sweep launch")
 
 
 def count_sweep(dev, pi, pj, dg, live, *, cfg):

@@ -27,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "tomahawk_tpu_torch")
 SOURCES = ("phased_tile.cu", "parts_tile.cu", "compact.cu", "local_parts.cu",
-           "epilogue.cu", "mma_probe.cu")
+           "epilogue.cu", "mma_probe.cu", "sweep.cu")
 #: headers the sources include (part of the build hash)
 HEADERS = ("prefilter.cuh", "mma_tile.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -85,9 +85,16 @@ _SIGNATURES = {
     + [_P] * 2,
     # kind, blocks, iters, out, stream
     "twk_mma_probe": [_I] * 3 + [_P] * 2,
+    # kind, x, y, z, W, ac, valid, an, n_het, n_hom, pos, rid, window, cls,
+    # B, n_samples, lo, hi, need_nonzero, T, pi, pj, dg, live, mask, parts,
+    # counts, P, ncol, off, per_tile_off, cap, outcap, n_pass, n_cand,
+    # scratch, ticket, buf, stream, done (csrc/sweep.cu: the tile loop)
+    "twk_sweep": [_I] + [_P] * 3 + [_I] + [_P] * 7 + [_I] * 4 + [_F] * 2
+    + [_I] * 2 + [_P] * 7 + [_I] * 2 + [_P] + [_I] * 3 + [_P] * 7,
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 #: nvcc's report (registers, shared memory, spills) of the loaded
 #: library's build, kept beside it (`_log_path`)
@@ -95,9 +102,18 @@ build_log = ""
 
 
 def reset_counts():
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
+    with _count_lock:
+        for d in (LAUNCHES, PLAIN_CALLS):
+            for k in d:
+                d[k] = 0
+
+
+def count(counts: dict, name: str, n: int = 1):
+    """Add n to counts[name] (LAUNCHES or PLAIN_CALLS). A segment's
+    consumer thread launches repair sweeps while the main thread enqueues
+    the next segment, so the read-modify-write holds a lock."""
+    with _count_lock:
+        counts[name] += n
 
 
 def _nvcc() -> str:

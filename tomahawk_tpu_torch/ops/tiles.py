@@ -166,7 +166,7 @@ def tile_prefilter(dev, i: int, j: int, diag: bool, cfg, out=None,
         return _launch(dev, i, j, diag, cfg, out, counts)
     if valid.device.type != "cpu":
         raise ValueError(f"no tile kernel for device {valid.device}")
-    _build.PLAIN_CALLS[kernel_name(cfg)] += 1
+    _build.count(_build.PLAIN_CALLS, kernel_name(cfg))
     mask, parts = tile_prefilter_plain(dev, i, j, diag, cfg)
     out[0].copy_(mask)
     out[1].copy_(parts)
@@ -224,6 +224,33 @@ def _check_inputs(dev, cfg, out, planes=True, meta=True):
     return NB, B, W
 
 
+def _bounds(cfg):
+    """(lo, hi, need_nonzero): the f32 prefilter's r2 bounds."""
+    if cfg["table"] == "phased":
+        return K.prefilter_bounds(cfg["min_r2"], cfg["max_r2"])
+    return (*K.unphased_bounds(cfg["min_r2"], cfg["max_r2"]), False)
+
+
+def sweep_args(dev, cfg) -> list:
+    """The arguments of csrc/sweep.cu's `twk_sweep` that hold for every
+    tile of a sweep: the instance, the base pointers of the word planes
+    and of the metadata the group reads (None for the rest), the word
+    count and the prefilter's terms. Check the tensors first
+    (`_check_inputs`)."""
+    table, miss = cfg["table"], cfg["has_missing"]
+    keys = plane_keys(table, miss)
+    planes = [dev[k].data_ptr() for k in keys] + [None] * (3 - len(keys))
+    meta = set(_meta_keys(cfg))
+    ptr = lambda k: dev[k].data_ptr() if k in meta else None
+    lo, hi, need_nonzero = _bounds(cfg)
+    return [-1 if kernel_name(cfg) == "phased_tile" else _KIND[(table, miss)],
+            *planes, dev[keys[0]].shape[-1],
+            *[ptr(k) for k in ("ac", "valid", "an", "n_het", "n_hom", "pos",
+                               "rid")],
+            int(cfg["window"]), _CLS[cfg["cls"]], cfg["B"], cfg["n_samples"],
+            float(lo), float(hi), int(need_nonzero)]
+
+
 def _launch(dev, i, j, diag, cfg, out, counts=None):
     NB, B, W = _check_inputs(dev, cfg, out)
     _in_range(i, j, NB)
@@ -237,12 +264,7 @@ def _launch(dev, i, j, diag, cfg, out, counts=None):
     win = ([ptr("pos", i), ptr("pos", j), ptr("rid", i), ptr("rid", j)]
            if window > 0 else [None] * 4)
     lib = _build.library()
-    if table == "phased":
-        lo, hi, need_nonzero = K.prefilter_bounds(cfg["min_r2"],
-                                                  cfg["max_r2"])
-    else:
-        lo, hi = K.unphased_bounds(cfg["min_r2"], cfg["max_r2"])
-        need_nonzero = False
+    lo, hi, need_nonzero = _bounds(cfg)
     name = kernel_name(cfg)
     cnt = None if counts is None else counts.data_ptr()
     if name == "phased_tile":
@@ -265,7 +287,7 @@ def _launch(dev, i, j, diag, cfg, out, counts=None):
             int(need_nonzero), int(bool(diag)), mask.data_ptr(),
             parts.data_ptr(), cnt, stream)
     _build.check(rc, f"{name} launch")
-    _build.LAUNCHES[name] += 1
+    _build.count(_build.LAUNCHES, name)
     return out
 
 
@@ -284,7 +306,7 @@ def tile_local_parts(dev, i: int, j: int, cfg, out):
         return _launch_local_parts(dev, i, j, cfg, out)
     if parts.device.type != "cpu":
         raise ValueError(f"no tile kernel for device {parts.device}")
-    _build.PLAIN_CALLS["local_parts"] += 1
+    _build.count(_build.PLAIN_CALLS, "local_parts")
     parts.copy_(torch.stack(tile_local_parts_plain(dev, i, j, cfg)))
     return parts
 
@@ -298,7 +320,7 @@ def tile_epilogue(dev, i: int, j: int, diag: bool, cfg, out):
         return _launch_epilogue(dev, i, j, diag, cfg, out)
     if parts.device.type != "cpu":
         raise ValueError(f"no tile kernel for device {parts.device}")
-    _build.PLAIN_CALLS["tile_epilogue"] += 1
+    _build.count(_build.PLAIN_CALLS, "tile_epilogue")
     mask.copy_(tile_epilogue_plain(dev, i, j, diag, cfg, parts))
     return out
 
@@ -320,7 +342,7 @@ def _launch_local_parts(dev, i, j, cfg, out):
         B, W, parts.data_ptr(),
         torch.cuda.current_stream(parts.device).cuda_stream)
     _build.check(rc, "local_parts launch")
-    _build.LAUNCHES["local_parts"] += 1
+    _build.count(_build.LAUNCHES, "local_parts")
     return parts
 
 
@@ -337,12 +359,7 @@ def _launch_epilogue(dev, i, j, diag, cfg, out):
     window = int(cfg["window"])
     win = ([ptr("pos", i), ptr("pos", j), ptr("rid", i), ptr("rid", j)]
            if window > 0 else [None] * 4)
-    if table == "phased":
-        lo, hi, need_nonzero = K.prefilter_bounds(cfg["min_r2"],
-                                                  cfg["max_r2"])
-    else:
-        lo, hi = K.unphased_bounds(cfg["min_r2"], cfg["max_r2"])
-        need_nonzero = False
+    lo, hi, need_nonzero = _bounds(cfg)
     rc = _build.library().twk_tile_epilogue(
         _LOCAL_KIND[(table, miss)], parts.data_ptr(), ptr("ac", i),
         ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *nh, *win,
@@ -350,5 +367,5 @@ def _launch_epilogue(dev, i, j, diag, cfg, out):
         int(need_nonzero), int(bool(diag)), mask.data_ptr(),
         torch.cuda.current_stream(mask.device).cuda_stream)
     _build.check(rc, "tile_epilogue launch")
-    _build.LAUNCHES["tile_epilogue"] += 1
+    _build.count(_build.LAUNCHES, "tile_epilogue")
     return out
