@@ -22,10 +22,10 @@ Phases, in order; any failure exits non-zero:
    tile_counts_plain of the mask) and compact, with the counts given
    and without; every fused group (phased_tile, parts_tile), its counts,
    local_parts and compact at odd shapes (63 words a row, so rows are
-   not 16-byte aligned; 192 and 320 rows, so the tile's edge cuts a
-   thread block; window 0 and 250,000 bp, a diagonal and an off-diagonal
-   tile); every parts_tile instance and phased_tile's clean class on
-   planes with ~2% missing genotypes, packed as bitpack.block_to_planes
+   not 16-byte aligned; 100, 192 and 320 rows, so the tile's edge cuts a
+   thread block and, at scalc's 100 rows, MMA fragments; window 0 and
+   250,000 bp, a diagonal and an off-diagonal tile); every parts_tile
+   instance and phased_tile's clean class on planes with ~2% missing genotypes, packed as bitpack.block_to_planes
    packs them, on a diagonal and an off-diagonal tile, with their counts
    and compact on their masks with the counts and without; compact
    with 4- and 9-part payloads, pair-packed (2,504 samples) and one part
@@ -60,7 +60,19 @@ Phases, in order; any failure exits non-zero:
    per-tile launches, bit for bit in n_pass, n_cand and the survivor
    buffer, for every fused group at windows 0 and 250,000 bp, with room
    for every survivor and with the per-tile cap overflowing and the
-   buffer spilling;
+   buffer spilling. Then the in-sweep D' filter (-d 0.9 -D 0.95, a term of
+   csrc/prefilter.cuh) in phased_tile, every parts_tile instance and
+   tile_epilogue, bit for bit in the mask, the parts, the counts and the
+   compacted survivors, and the time per call of phased_tile and
+   parts_tile with the bounds and without, in turns. Then the in-sweep
+   Fisher bracket (csrc/fisher_bracket.cu) against its plain version on
+   the survivor rows of a fused sweep of 10 LD-grouped tiles, in the
+   bf16-packed layout and the f32 column: the kernel flags no lane its
+   plain version does not, the other brackets agree within 1e-6
+   relative, every unflagged P is within 1e-5 of the native fisher_exact;
+   its time per call, and its bound, the larger of 12 bytes a row over
+   the HBM rate and the plain walk's steps x 4 f64 operations over the
+   card's FP64 rate (34e12/s, NVIDIA's data sheet);
    Bounds: each contraction's is the card's, the larger of 64
    operations a pair-word over the rate the card runs the 1-bit AND+POPC
    MMA at (10.2e15/s, the MMA probe's lowest reading) and its bytes over
@@ -76,7 +88,9 @@ Phases, in order; any failure exits non-zero:
    in this process, so its kernel launch counts are visible), each path
    with the counts set to 0 just before it and read just after, and
    hold its .two record multiset against the port's native C++ CPU tile
-   engine's on the same archive, field by field with P included:
+   engine's on the same archive, field by field, P within the
+   reference's 1e-5 guard (a phased path's P comes from the in-sweep
+   Fisher bracket where a segment holds 16,384 survivors):
    a. `calc -p -r 0.1` on a 2,504-sample x 16,384-site phased VCF with
       LD groups and no missing genotypes;
    b. `calc -r 0.1` (the default mixed dispatch) on a 2,504 x 16,384
@@ -112,7 +126,16 @@ Phases, in order; any failure exits non-zero:
       staging worker; its records also equal a's;
    k. `calc -r 0.1 -M 0.03 --no-stage-prefetch` (mixed) on the archive of
       b: the same plan with every band uploaded on demand;
-   each path prints its bands, loads, stage_stats and band uploads;
+   l. `calc -p -d 0.9 -D 0.95 -r 0.1` on the archive of a and
+   m. `calc -d 0.3 -r 0.1` (mixed) on the archive of b: the in-sweep D'
+      filter in phased_tile and parts_tile, against the native engine with
+      the same D' bounds;
+   n. `scalc -I <300 sites>` on the archive of b: targets and their
+      neighbours within 500 kb in blocks of 100 rows, the mixed dispatch
+      over target x target and target x neighbour tiles; its reference is
+      the native engine over the same tiles, kept by the same rule (the A
+      side a target);
+   each calc path prints its bands, loads, stage_stats and band uploads;
 5. time `LdEngine.run_phased_pairs` on the sparse and records-dense
    workloads (64 x 4096 random variants; 16 x 4096 LD-grouped
    variants), the sparse planes again over `Balancer.window_pairs` at
@@ -129,7 +152,9 @@ Phases, in order; any failure exits non-zero:
    loop in Python (the per-tile launches); the sparse planes banded by `-M
    1.0` (58 of 64 super-blocks: 4 bands, 10 loads) through the engine's
    load loop (`run_loads`) with the staging worker, timed and traced,
-   with its stage_stats; and
+   with its stage_stats; the dense and mixed rows again on fresh engines
+   with the in-sweep Fisher bracket on and off (TWK_DEVICE_FISHER=0), in
+   turns: wall, the host's math_s a rep and the traced idle share; and
    `LdEngine.run_phased_pairs` over the first 16 blocks of the sparse
    planes (136 tiles) as two samples-sharded ranks on the one card,
    with the time per tile of local_parts, the all-reduce, tile_epilogue
@@ -143,6 +168,7 @@ line. Everything here comes from tomahawk_tpu_torch, torch and numpy.
 """
 
 import json
+import math
 import os
 import runpy
 import shutil
@@ -203,6 +229,24 @@ BANDED_GB = 0.03
 BANDED_ROW_GB = 1.0
 #: super-blocks of the sparse planes the two-rank engine timing sweeps
 DCN_BLOCKS = 16
+#: D' bounds (-d, -D) of the D' kernel checks and of calc path l: the
+#: LD groups' 2% noise puts most of their pairs' D' between 0.5 and 0.9,
+#: so these bounds cut most survivors of a phased tile
+DPRIME = (0.9, 0.95)
+#: f64 operations of one step of the Fisher walk that its bound counts:
+#: the ratio's division, its product with the chain, the difference to 1
+#: and that difference's comparison with the band
+F64_OPS_PER_STEP = 4
+#: FP64 rate of one H100 SXM outside the tensor cores, operations per
+#: second (NVIDIA's H100 data sheet: 34 TFLOP/s)
+F64_OPS_PER_S = 34e12
+#: P agrees with the native kernel's within the reference's rounding
+#: guard (TWK_ALLOWED_ROUNDING_ERROR) where it comes from the in-sweep
+#: Fisher bracket
+P_GUARD = 1e-5
+#: scalc's target interval (path n), as positions of the archive of b: 300
+#: sites in the middle of its second super-block
+SCALC_TARGETS = (6000, 6300)
 
 
 def _say(msg):
@@ -535,7 +579,7 @@ def _time_compact(mask, parts, ncol, counts=None):
 #: samples-sharded run; 192 and 320 rows are 1.5 and 2.5 thread blocks of
 #: phased_tile, 3 and 5 of parts_tile
 ODD_SHAPES = ((192, 63), (320, 63), (192, 64), (192, 27), (192, 52),
-              (192, 54))
+              (192, 54), (100, 63), (100, 32))
 #: the odd-shape check's groups: every (table, has_missing, cls), with the
 #: samples of its planes
 ODD_GROUPS = {(table, miss, cls): 1000 if table == "phased" else 2000
@@ -559,7 +603,8 @@ def compare_odd_shapes():
     for Bt, W in ODD_SHAPES:
         devs = {}
         for n_samples in (1000, 2000):
-            st = workloads.genotype_planes(2, Bt, n_samples, 0.02)
+            st = workloads.genotype_planes(2, Bt, n_samples, 0.02,
+                                           group=math.gcd(Bt, 16))
             st = {k: v[..., :W] if k.endswith("_bits") else v
                   for k, v in st.items()}
             devs[n_samples] = sweeps.planes_to_device(st, "cuda")
@@ -780,6 +825,228 @@ def check_ticket_fault():
         _say(f"  ticket left at {stale}: host_counts raised ({msg[:60]}...);"
              f" the ticket is 0 again and the next compaction equals the "
              f"plain version ({int(outs[0][1][0])} survivors)")
+
+
+#: the D' check's groups, with the planes each reads: the LD-grouped
+#: phased planes, or the genotype planes with ~2% missing genotypes
+DPRIME_GROUPS = ((("phased", False, "all"), "grouped"),
+                 (("phased", False, "clean"), "genotypes"),
+                 (("phased", True, "all"), "genotypes"),
+                 (("unphased", False, "all"), "genotypes"),
+                 (("unphased", True, "all"), "genotypes"),
+                 (("unphased", True, "missing"), "genotypes"))
+
+
+def compare_dprime():
+    """The in-sweep D' filter (X6, a term of csrc/prefilter.cuh) in the
+    three kernels that write masks, with D' bounds DPRIME, against their
+    plain versions: phased_tile and every parts_tile instance with their
+    counts, on a diagonal and an off-diagonal tile, bit for bit in the
+    mask, the parts and the counts; compact on those masks with the
+    counts and without, bit for bit in the survivor rows; tile_epilogue
+    of every instance on the same parts, bit for bit in the mask. Then
+    the time per call of phased_tile and of parts_tile's MAIN_GROUP
+    instance with the D' bounds and without, in turns. Returns {kernel:
+    (ms with the bounds, ms without, plain ms with the bounds)}."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import tiles
+    t0 = time.perf_counter()
+    devs = {"grouped": sweeps.planes_to_device(
+                workloads.build_planes_grouped(2, B, N_SAMPLES), "cuda"),
+            "genotypes": sweeps.planes_to_device(genotype_planes(2),
+                                                 "cuda")}
+    _say(f"D' check: bounds {DPRIME}, B={B}, {N_SAMPLES} samples, planes "
+         f"in {time.perf_counter() - t0:.1f}s")
+    res = {}
+    for group, planes in DPRIME_GROUPS:
+        dev = devs[planes]
+        cfg = sweeps.make_cfg(*group, B, N_SAMPLES, 0, MIN_R2, 100.0,
+                              *DPRIME)
+        base = sweeps.make_cfg(*group, B, N_SAMPLES, 0, MIN_R2, 100.0)
+        name = tiles.kernel_name(cfg)
+        label = f"{name} {'/'.join(map(str, group))} with D' {DPRIME}"
+        got, cut = [], []
+        for i, j, diag in ((0, 1, False), (1, 1, True)):
+            counts = tiles.counts_buffer(cfg, "cuda").fill_(-1)
+            mask, parts = tiles.tile_prefilter(dev, i, j, diag, cfg,
+                                               counts=counts)
+            want_m, want_p = tiles.tile_prefilter_plain(dev, i, j, diag, cfg)
+            if not torch.equal(mask, want_m) or not torch.equal(parts,
+                                                                want_p):
+                raise SystemExit(f"{label} ({i},{j}) differs from its "
+                                 f"plain version")
+            _check_counts_buffer(f"{label} ({i},{j})", counts, mask)
+            # the same parts through tile_epilogue (the dcn sweep's mask)
+            out = (torch.empty_like(mask), parts)
+            tiles.tile_epilogue(dev, i, j, diag, cfg, out)
+            if not torch.equal(out[0], want_m):
+                raise SystemExit(f"tile_epilogue at {label} ({i},{j}) "
+                                 f"differs from its plain version")
+            m0 = tiles.tile_prefilter_plain(dev, i, j, diag, base)[0]
+            cut.append((int((mask == 2).sum()), int((m0 == 2).sum())))
+            got.append((mask, parts, counts))
+            del want_m, want_p, m0
+        for cap in (32768, 256):
+            outs = _compact_all_ways(got, sweeps.buf_cols(cfg), cap, 2)
+            if any(not torch.equal(a, b) for g in outs[:2]
+                   for a, b in zip(g, outs[2])):
+                raise SystemExit(f"compact on the masks of {label} differs "
+                                 f"from its plain version")
+        _say(f"  {label}: survivors with / without the bounds "
+             f"{cut}; mask, parts, counts, tile_epilogue and compact "
+             f"equal")
+        if group[0] == "phased" and sum(a for a, _ in cut) \
+                >= sum(b for _, b in cut):
+            raise SystemExit(f"{label}: the bounds cut no survivor")
+        del got, outs
+        if group in (("phased", False, "all"), MAIN_GROUP):
+            out = tiles.tile_buffers(cfg, "cuda")
+            counts = tiles.counts_buffer(cfg, "cuda")
+            ms = {}
+            for tag in ("off", "on", "on2", "off2"):
+                c = cfg if tag.startswith("on") else base
+                ms[tag] = _cuda_ms(lambda: tiles.tile_prefilter(
+                    dev, 0, 1, False, c, out, counts))
+            plain = _cuda_ms(lambda: tiles.tile_prefilter_plain(
+                dev, 0, 1, False, cfg), reps=3)
+            res[name] = (min(ms["on"], ms["on2"]), min(ms["off"], ms["off2"]),
+                         plain)
+            _say(f"  ms per call, {label}: {ms['on']:.4f} / {ms['on2']:.4f} "
+                 f"(without the bounds, before and after: {ms['off']:.4f} / "
+                 f"{ms['off2']:.4f}; plain {plain:.4f})")
+            del out
+    del devs
+    return res
+
+
+def _bracket_bits(buf, cfg):
+    """(bracket f32, flagged) of every row of a fused buffer: the bf16 in
+    the top 16 bits of payload column 1, flagged as bf16 NaN, or the f32
+    column, flagged as -1."""
+    import torch
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import fisher_dev as F
+    if sweeps.fisher_packed(cfg):
+        bits = (buf[:, 1] >> 16) & 0xFFFF
+        return (bits << 16).view(torch.float32), bits == F.BF16_NAN
+    br = buf[:, sweeps.buf_cols(cfg)].contiguous().view(torch.float32)
+    return br, br < 0
+
+
+def compare_fisher():
+    """The in-sweep Fisher bracket (X2, csrc/fisher_bracket.cu) against its
+    plain version on the survivor rows of a fused sweep of the dense
+    workload's tiles (10 tiles of 4 LD-grouped super-blocks; ~70,000
+    survivors, so the volume gate opens as it does in the engine), in both
+    layouts: bf16 packed (phased, no missing data) and the f32 column
+    (phased with missing data, on the genotype planes). The kernel flags
+    the lanes the plain version flags or fewer; the brackets of the lanes
+    neither flags agree within 1e-6 relative (both walk in f64, step for
+    step; the step counts must agree too); every unflagged P is within
+    P_GUARD of the port's native fisher_exact. Then the time per call of
+    each layout, the plain version's, and the bound from this run's rows
+    and the plain walk's steps. Returns {layout: (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, steps, rows)}."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.native import fisher_exact
+    from tomahawk_tpu_torch.ops import fisher_dev as F
+    res = {}
+    nb = 4
+    pairs = [(i, j, i == j) for i in range(nb) for j in range(i, nb)]
+    pi = np.array([p[0] for p in pairs], np.int32)
+    pj = np.array([p[1] for p in pairs], np.int32)
+    dg = np.array([p[2] for p in pairs])
+    lf = F.log_factorial_table(2 * N_SAMPLES + 1)
+    for layout, build, group in (
+            ("packed", lambda: workloads.build_planes_grouped(
+                nb, B, N_SAMPLES), ("phased", False, "all")),
+            ("column", lambda: genotype_planes(nb, 0.02, seed=13),
+             ("phased", True, "all"))):
+        dev = sweeps.planes_to_device(build(), "cuda")
+        cfg = sweeps.make_cfg(*group, B, N_SAMPLES, 0, MIN_R2, 100.0,
+                              fisher=True)
+        cap, outcap = 32768, 1 << 20
+        n_pass, _, buf = sweeps.fused_sweep(dev, pi, pj, dg,
+                                            np.ones(len(pairs), bool),
+                                            cfg=cfg, cap=cap, outcap=outcap)
+        sel = sweeps.fisher_rows(n_pass, cap, outcap)
+        if sel is None:
+            raise SystemExit(f"Fisher check ({layout}): "
+                             f"{int(n_pass.sum())} survivors do not open "
+                             f"the gate at {sweeps.FISHER_MIN_ROWS}")
+        rows, t = sel
+        cleared = buf.clone()
+        if sweeps.fisher_packed(cfg):
+            cleared[:, 1] &= 0xFFFF
+        else:
+            cleared[:, sweeps.buf_cols(cfg)] = 0
+        ref = cleared.clone()
+        steps_plain = sweeps.append_fisher_col_plain(dev, n_pass, ref, pi,
+                                                     pj, cfg, cap)
+        ker = cleared.clone()
+        steps = torch.zeros(1, dtype=torch.uint64, device="cuda")
+        sweeps.append_fisher_col(dev, n_pass, ker, pi, pj, cfg, cap, steps)
+        torch.cuda.synchronize()
+        if not torch.equal(ker, buf):
+            raise SystemExit(f"Fisher ({layout}): two launches on the same "
+                             f"rows differ")
+        kb, kf = (x[rows] for x in _bracket_bits(ker, cfg))
+        pb, pf = (x[rows] for x in _bracket_bits(ref, cfg))
+        if bool((kf & ~pf).any()):
+            raise SystemExit(f"Fisher ({layout}): the kernel flags "
+                             f"{int((kf & ~pf).sum())} lanes its plain "
+                             f"version does not")
+        both = ~kf & ~pf
+        err = float((kb[both] - pb[both]).abs().max()) if both.any() else 0.0
+        rel = float(((kb[both] - pb[both]).abs()
+                     / pb[both].abs().clamp(min=1e-30)).max()) \
+            if both.any() else 0.0
+        if rel > 1e-6:
+            raise SystemExit(f"Fisher ({layout}): brackets differ by {rel} "
+                             f"relative")
+        # payload bits outside the bracket are the compaction's
+        if sweeps.fisher_packed(cfg) and not torch.equal(
+                ker[:, 1] & 0xFFFF, cleared[:, 1]):
+            raise SystemExit(f"Fisher ({layout}): the payload's low 16 bits "
+                             f"changed")
+        cells = torch.stack(sweeps.fisher_cells(dev, ker, rows, t, pi, pj,
+                                                cfg), 1).cpu().numpy()
+        br = torch.where(kf, float("nan"), kb).cpu().numpy()
+        P = F.host_p_from_bracket(cells, br, lf)
+        Pn = fisher_exact(*(cells[:, q] for q in range(4)))
+        sure = ~np.isnan(P)
+        p_err = float(np.abs(P[sure] - Pn[sure]).max())
+        if p_err > P_GUARD:
+            raise SystemExit(f"Fisher ({layout}): P differs from "
+                             f"fisher_exact by {p_err}")
+        ms = _cuda_ms(lambda: sweeps.append_fisher_col(dev, n_pass, ker, pi,
+                                                       pj, cfg, cap))
+        plain = _cuda_ms(lambda: sweeps.append_fisher_col_plain(
+            dev, n_pass, ref, pi, pj, cfg, cap), reps=1, rounds=1)
+        n_rows = len(rows)
+        bound_b = 12 * n_rows / HBM_BYTES_PER_S * 1e3
+        bound_o = steps_plain * F64_OPS_PER_STEP / F64_OPS_PER_S * 1e3
+        bound = (bound_b, "bytes") if bound_b >= bound_o \
+            else (bound_o, "operations")
+        _say(f"  fisher_bracket {layout}: {n_rows} rows of {int(n_pass.sum())}"
+             f" survivors, flagged {int(kf.sum())} (plain {int(pf.sum())}), "
+             f"bracket max |diff| {err:.3g} ({rel:.3g} relative), host-sure "
+             f"{int(sure.sum())} with P max |diff| {p_err:.3g} from "
+             f"fisher_exact; steps {int(steps)} (plain {steps_plain}, "
+             f"{steps_plain / max(n_rows, 1):.0f} a row); {ms:.4f} ms a call"
+             f" (plain {plain:.1f}), bound {bound[0]:.4f} ms ({bound[1]}: "
+             f"{bound_b:.4f} bytes, {bound_o:.4f} operations)")
+        if int(steps) != steps_plain:
+            _say(f"  NOTE: the kernel's steps ({int(steps)}) are not the "
+                 f"plain walk's ({steps_plain})")
+        res[layout] = (err, ms, plain, *bound, steps_plain, n_rows)
+        del dev, buf, ker, ref, cleared
+    return res
+
 
 
 def _per_tile_sweep(dev, pi, pj, dg, live, cfg, cap, outcap, offs=None):
@@ -1211,11 +1478,23 @@ def write_vcf(path, n_sites, seed=7, group=16, flip=0.02, phased=True,
             fh.write(cells[s].tobytes())
 
 
-def native_reference(twk, mode, window=0):
+#: native_reference's results by its arguments: several paths share one
+_NATIVE = {}
+
+
+def native_reference(twk, mode, window=0, dprime=(0.0, 100.0)):
     """The port's native C++ CPU tile engine's records for `calc -r 0.1`
-    (`-w window` when window > 0) on the same archive under the
-    engine's dispatch for `mode` ("phased", "unphased" or "mixed"),
-    with the engine's super-block and tile plan."""
+    (`-w window` when window > 0, `-d -D` with `dprime`) on the same
+    archive under the engine's dispatch for `mode` ("phased", "unphased"
+    or "mixed"), with the engine's super-block and tile plan; computed
+    once for each set of arguments."""
+    key = (twk, mode, window, tuple(dprime))
+    if key not in _NATIVE:
+        _NATIVE[key] = _native_reference(twk, mode, window, dprime)
+    return _NATIVE[key]
+
+
+def _native_reference(twk, mode, window, dprime):
     from tomahawk_tpu_torch.compute.balancer import Balancer
     from tomahawk_tpu_torch.compute.cpu_engine import run_native_cpu
     from tomahawk_tpu_torch.compute.engine import (CalcSettings, _round_up,
@@ -1249,7 +1528,9 @@ def native_reference(twk, mode, window=0):
         tiles = balancer.tile_pairs()
     groups = group_tiles(tiles, mode, stacked["has_missing"].any(axis=1))
     out = []
-    n = run_native_cpu(stacked, groups, LdFilters(min_r2=MIN_R2),
+    filt = LdFilters(min_r2=MIN_R2, min_dprime=dprime[0],
+                     max_dprime=dprime[1])
+    n = run_native_cpu(stacked, groups, filt,
                        lambda f, r: out.extend([f.copy(), r.copy()]), None,
                        N_SAMPLES, CalcSettings(min_r2=MIN_R2,
                                                window=bool(window),
@@ -1316,7 +1597,8 @@ def _check_counts(label, launches, plain, need, idle=()):
                          f"{plain}")
 
 
-def run_calc(label, twk, two, flags, mode, need, window=0, plan=None):
+def run_calc(label, twk, two, flags, mode, need, window=0, plan=None,
+             dprime=(0.0, 100.0)):
     """One calc path through the CLI entry point, in this process: the
     launch counts are set to 0 just before it and read just after; each
     kernel in `need` must have launched and no plain version run. The
@@ -1344,37 +1626,47 @@ def run_calc(label, twk, two, flags, mode, need, window=0, plan=None):
         raise SystemExit(f"calc {label}: banded plan {ss} is not {plan}")
     _check_counts(label, launches, plain, need,
                   ("local_parts", "tile_epilogue"))
-    check_records(label, two, twk, mode, window)
+    check_records(label, two, twk, mode, window, dprime)
     return launches
 
 
-def check_records(label, two, twk, mode, window=0):
+def _same_fields(got, want):
+    """The fields in which two sorted record arrays differ: every field
+    but P must be equal, P within P_GUARD (a P from the in-sweep Fisher
+    bracket is the exact kernel's within the reference's guard). Returns
+    (fields that differ, max |P difference|)."""
+    bad = [f for f in got.dtype.names
+           if f != "P" and not np.array_equal(got[f], want[f])]
+    p_err = float(np.abs(got["P"] - want["P"]).max()) if len(got) else 0.0
+    if p_err > P_GUARD:
+        bad.append("P")
+    return bad, p_err
+
+
+def _sort(recs):
+    """Records in the order of every field but P (which may differ within
+    P_GUARD between two equal record multisets)."""
+    return np.sort(recs, order=[f for f in recs.dtype.names if f != "P"])
+
+
+def check_records(label, two, twk, mode, window=0, dprime=(0.0, 100.0)):
     """The records of `two` equal the native CPU engine's for `calc -r
-    0.1` on `twk` under `mode`, field by field, and with a window each
-    lies on one contig within it."""
+    0.1` (with D' bounds `dprime`) on `twk` under `mode`, field by field
+    (P within P_GUARD), and with a window each lies on one contig within
+    it."""
     from tomahawk_tpu_torch.io.two import TwoReader
     r = TwoReader(two)
     got = r.records()
     r.close()
     t0 = time.perf_counter()
-    want, groups = native_reference(twk, mode, window)
+    want, groups = native_reference(twk, mode, window, dprime)
     _say(f"  native CPU engine reference ({mode}: {groups}) in "
          f"{time.perf_counter() - t0:.1f}s")
-    fields = list(got.dtype.names)
-    got, want = np.sort(got, order=fields), np.sort(want, order=fields)
-    if len(got) != len(want) or len(got) == 0:
-        raise SystemExit(f"record count {len(got)} != reference "
-                         f"{len(want)}")
-    for f in fields:
-        if not np.array_equal(got[f], want[f]):
-            raise SystemExit(f".two field {f} differs from the native "
-                             f"CPU engine")
-    for f in ("D", "Dprime", "R", "R2", "P"):
-        if not np.isfinite(got[f]).all():
-            raise SystemExit(f"non-finite {f} in the output")
-    _say(f"  {len(got)} records equal the native CPU engine's field by "
-         f"field (P included); R2 in [{got['R2'].min():.3f}, "
-         f"{got['R2'].max():.3f}]")
+    _check_same(label, got, want)
+    if dprime != (0.0, 100.0):
+        dp = np.abs(got["Dprime"])
+        _say(f"  |D'| in [{dp.min():.3f}, {dp.max():.3f}] under -d "
+             f"{dprime[0]} -D {dprime[1]}")
     if window:
         dist = np.abs((got["packA"] >> 2).astype(np.int64)
                       - (got["packB"] >> 2).astype(np.int64))
@@ -1385,22 +1677,41 @@ def check_records(label, two, twk, mode, window=0):
              f"{int(dist.max())} <= {window}")
 
 
+def _check_same(label, got, want):
+    """`got` equals the native CPU engine's records `want` as multisets:
+    every field, P within P_GUARD; all statistics finite."""
+    got, want = _sort(got), _sort(want)
+    if len(got) != len(want) or len(got) == 0:
+        raise SystemExit(f"{label}: record count {len(got)} != reference "
+                         f"{len(want)}")
+    bad, p_err = _same_fields(got, want)
+    if bad:
+        raise SystemExit(f"{label}: .two fields {bad} differ from the "
+                         f"native CPU engine (P by {p_err})")
+    for f in ("D", "Dprime", "R", "R2", "P"):
+        if not np.isfinite(got[f]).all():
+            raise SystemExit(f"non-finite {f} in the output")
+    _say(f"  {len(got)} records equal the native CPU engine's field by "
+         f"field, P within {p_err:.3g} (limit {P_GUARD}); R2 in "
+         f"[{got['R2'].min():.3f}, {got['R2'].max():.3f}]")
+
+
 def same_records(label, two, ref_label, ref):
-    """The record multisets of two .two files are equal, field by
-    field."""
+    """The record multisets of two .two files are equal, field by field
+    (P within P_GUARD)."""
     from tomahawk_tpu_torch.io.two import TwoReader
     got = []
     for path in (two, ref):
         r = TwoReader(path)
-        recs = r.records()
+        got.append(_sort(r.records()))
         r.close()
-        got.append(np.sort(recs, order=list(recs.dtype.names)))
     a, b = got
-    if len(a) != len(b) or any(not np.array_equal(a[f], b[f])
-                               for f in a.dtype.names):
-        raise SystemExit(f"calc {label}'s records differ from {ref_label}'s")
+    bad, p_err = _same_fields(a, b) if len(a) == len(b) else (["len"], 0.0)
+    if bad:
+        raise SystemExit(f"calc {label}'s records differ from {ref_label}'s "
+                         f"in {bad}")
     _say(f"  path {label}'s {len(a)} records equal path {ref_label}'s field "
-         f"by field")
+         f"by field, P within {p_err:.3g}")
 
 
 def _free_port() -> int:
@@ -1505,28 +1816,37 @@ def main_paths(work):
     unph = make_archive(work, "unph", 8192, seed=8, phased=False,
                         miss_sites=4096, miss_frac=0.02)
     two = os.path.join(work, "{}.two")
-    every = ("phased_tile", "parts_tile", "compact")
+    # the phased paths carry the in-sweep Fisher bracket (fisher_bracket)
+    every = ("phased_tile", "parts_tile", "compact", "fisher_bracket")
+    phased = ("phased_tile", "compact", "fisher_bracket")
     win = ["-w", str(CALC_WINDOW)]
     banded = ["-M", str(BANDED_GB)]
+    dp = ["-d", str(DPRIME[0]), "-D", str(DPRIME[1])]
     paths = (
-        ("a", ld, ["-p"], "phased", ("phased_tile", "compact"), 0, None),
-        ("b", miss, [], "mixed", every, 0, None),
-        ("c", unph, ["-u"], "unphased", ("parts_tile", "compact"), 0, None),
-        ("d", miss, ["-p"], "phased", every, 0, None),
-        ("e", ld, ["-p"] + win, "phased", ("phased_tile", "compact"),
-         CALC_WINDOW, None),
-        ("f", miss, win, "mixed", every, CALC_WINDOW, None),
-        ("j", ld, ["-p"] + banded, "phased", ("phased_tile", "compact"), 0,
-         (4, 10, True)),
+        ("a", ld, ["-p"], "phased", phased, 0, None, None),
+        ("b", miss, [], "mixed", every, 0, None, None),
+        ("c", unph, ["-u"], "unphased", ("parts_tile", "compact"), 0, None,
+         None),
+        ("d", miss, ["-p"], "phased", every, 0, None, None),
+        ("e", ld, ["-p"] + win, "phased", phased, CALC_WINDOW, None, None),
+        ("f", miss, win, "mixed", every, CALC_WINDOW, None, None),
+        ("j", ld, ["-p"] + banded, "phased", phased, 0, (4, 10, True), None),
         ("k", miss, banded + ["--no-stage-prefetch"], "mixed", every, 0,
-         (4, 10, False)))
-    total = {}
-    for label, twk, flags, mode, need, window, plan in paths:
+         (4, 10, False), None),
+        ("l", ld, ["-p"] + dp, "phased", phased, 0, None, DPRIME),
+        ("m", miss, ["-d", "0.3"], "mixed", every, 0, None, (0.3, 100.0)))
+    total, dprime_launches = {}, {}
+    for label, twk, flags, mode, need, window, plan, dprime in paths:
         launches = run_calc(label, twk, two.format(label), flags, mode, need,
-                            window, plan)
+                            window, plan, dprime or (0.0, 100.0))
+        if dprime:
+            dprime_launches[label] = launches
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     same_records("j", two.format("j"), "a", two.format("a"))
+    launches = run_scalc("n", miss, two.format("n"))
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
     two = two.format("ranked")
     dcn = ("local_parts", "tile_epilogue", "compact")
     fused = ("phased_tile", "parts_tile")
@@ -1538,7 +1858,73 @@ def main_paths(work):
                                    is_dcn)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-    return total
+    return total, dprime_launches
+
+
+def run_scalc(label, twk, two):
+    """`scalc` through the CLI entry point, in this process, on the
+    archive of b: the SCALC_TARGETS sites are the targets, 100-row blocks
+    of targets and of their neighbours within 500 kb, the mixed dispatch
+    over target x target and target x neighbour tiles, with the launch
+    counts set to 0 just before it and read just after. Its records
+    equal the native CPU engine's over the same tiles of the same blocks
+    (captured from scalc's call of dispatch_pairs), kept by the same rule:
+    rows whose A side is a target. Returns the launch counts."""
+    from tomahawk_tpu_torch.compute import scalc
+    from tomahawk_tpu_torch.compute.cpu_engine import run_native_cpu
+    from tomahawk_tpu_torch.compute.engine import CalcSettings, group_tiles
+    from tomahawk_tpu_torch.io.two import TwoReader
+    from tomahawk_tpu_torch.io.twk import TwkReader
+    from tomahawk_tpu_torch.ops import _build
+    with TwkReader(twk) as r:
+        per = r.index.ent[0].n
+        pos = [r.read_block(s // per).rcds[s % per].pos
+               for s in (SCALC_TARGETS[0], SCALC_TARGETS[1] - 1)]
+    interval = f"20:{pos[0] + 1}-{pos[1] + 1}"
+    seen = {}
+    real = scalc.dispatch_pairs
+
+    def capture(engine, pairs, mode, filt, emit, stacked):
+        seen.update(pairs=pairs, filt=filt, stacked=stacked)
+        return real(engine, pairs, mode, filt, emit, stacked)
+    argv = ["tomahawk_tpu_torch", "scalc", "-i", twk, "-o", two, "-I",
+            interval]
+    _build.reset_counts()
+    scalc.dispatch_pairs = capture
+    t0 = time.perf_counter()
+    try:
+        _run_cli(argv)
+    finally:
+        scalc.dispatch_pairs = real
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    st, pairs = seen["stacked"], seen["pairs"]
+    _say(f"main path {label}: `scalc -I {interval}` {dt:.2f}s wall, "
+         f"{len(pairs)} tiles of {st['alt_bits'].shape[1]} rows, launches "
+         f"{launches}, plain {dict(_build.PLAIN_CALLS)}")
+    _check_counts(label, launches, dict(_build.PLAIN_CALLS),
+                  ("phased_tile", "parts_tile", "compact", "fisher_bracket"),
+                  ("local_parts", "tile_epilogue"))
+    targets = sorted({i for i, _, _ in pairs})
+    target_pos = st["pos"][targets][st["valid"][targets]].astype(np.int64)
+    rid = int(st["rid"][targets[0]][0])
+    out = []
+
+    def keep(f, rv):
+        m = (f["ridA"] == rid) \
+            & np.isin((f["packA"] >> 2).astype(np.int64), target_pos)
+        out.extend([f[m].copy(), rv[m].copy()])
+    t0 = time.perf_counter()
+    groups = group_tiles(pairs, "mixed", st["has_missing"].any(axis=1))
+    run_native_cpu(st, groups, seen["filt"], keep, None, N_SAMPLES,
+                   CalcSettings(min_r2=0.0), {})
+    _say(f"  native CPU engine reference over the same {len(pairs)} tiles "
+         f"in {time.perf_counter() - t0:.1f}s ({len(target_pos)} targets)")
+    r = TwoReader(two)
+    got = r.records()
+    r.close()
+    _check_same(f"scalc {label}", got, np.concatenate(out))
+    return launches
 
 
 def _time_engine(work, tag, run, n_pairs, stat_key, engine,
@@ -1751,6 +2137,8 @@ def engine_rates(work):
             if set(depths) != {1}:
                 raise SystemExit(f"engine {tag}: the serial rep took depth "
                                  f"{sorted(set(depths))}")
+            row["fisher"] = _fisher_reps(work, tag, stacked, pairs, table,
+                                         miss, n_pairs, filt)
         rows.append(row)
         del engine
         if tag != "sparse":
@@ -1798,6 +2186,73 @@ def engine_rates(work):
     if any(_build.PLAIN_CALLS.values()):
         raise SystemExit(f"an engine workload took a plain version on "
                          f"CUDA: {_build.PLAIN_CALLS}")
+
+
+def _fisher_reps(work, tag, stacked, pairs, table, miss, n_pairs, filt):
+    """The dense or mixed workload with the in-sweep Fisher bracket on (the
+    default) and off (TWK_DEVICE_FISHER=0), each on a fresh engine, on
+    then off: a warm-up rep and two timed reps, the host's math_s of each
+    rep (summed over the sweep groups; the bracket spares the host's
+    exact Fisher where a row has one), then one traced rep with its idle
+    share. Returns {"on" / "off": dict}."""
+    from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
+    res = {}
+    saved = os.environ.get("TWK_DEVICE_FISHER")
+    for state, flag in (("on", "1"), ("off", "0")):
+        os.environ["TWK_DEVICE_FISHER"] = flag
+        try:
+            engine = LdEngine(stacked, N_SAMPLES,
+                              CalcSettings(min_r2=MIN_R2), "cuda")
+        finally:
+            if saved is None:
+                os.environ.pop("TWK_DEVICE_FISHER")
+            else:
+                os.environ["TWK_DEVICE_FISHER"] = saved
+        if table == "mixed":
+            sweep = lambda emit: engine.run_mixed_pairs(pairs, filt, emit)
+        else:
+            sweep = lambda emit: engine.run_phased_pairs(pairs, miss, filt,
+                                                         emit)
+        math = lambda: sum(v["math_s"] for v in engine.stats.values())
+        walls, maths = [], []
+        _say(f"engine {tag}, in-sweep Fisher {state}:")
+        for rep in ("warmup", "rep0", "rep1"):
+            m0 = math()
+            walls.append(_one_rep(work, f"{tag}_fisher_{state}", rep, sweep,
+                                  n_pairs))
+            maths.append(math() - m0)
+        traced = _profile_engine(f"{tag}, in-sweep Fisher {state}", sweep,
+                                 len(pairs))
+        res[state] = dict(wall_s=walls, math_s=maths,
+                          traced_wall_ms=traced["wall_ms"],
+                          idle_share=traced["idle_share"],
+                          device_busy_ms=traced["device_busy_ms"])
+        _say(f"  Fisher {state}: wall {[round(w, 4) for w in walls]} s, "
+             f"math_s {[round(m, 4) for m in maths]} s a rep, traced "
+             f"{traced['wall_ms']:.1f} ms, idle {traced['idle_share']:.4f}")
+        engine.stage_close()
+        del engine
+    return res
+
+
+def _one_rep(work, tag, rep, run, n_pairs):
+    """One rep of an engine workload into a .two file: the wall, s."""
+    from tomahawk_tpu_torch.compute.engine import _reverse_records
+    from tomahawk_tpu_torch.io.header import VcfContig, VcfHeader
+    from tomahawk_tpu_torch.io.two import TwoWriter
+    hdr = VcfHeader(samples=[f"S{i}" for i in range(N_SAMPLES)],
+                    contigs=[VcfContig(idx=0, name="bench")])
+    writer = TwoWriter(os.path.join(work, f"{tag}_{rep}.two"), hdr)
+
+    def emit(recs, rev=None):
+        writer.add(recs)
+        writer.add(rev if rev is not None else _reverse_records(recs))
+    t0 = time.perf_counter()
+    run(emit)
+    writer.close()
+    dt = time.perf_counter() - t0
+    _say(f"  {rep}: {dt:.3f}s, {n_pairs / dt:.0f} pairs/s")
+    return dt
 
 
 def banded_engine(work, stacked, nb, filt):
@@ -2063,6 +2518,10 @@ def main():
     torch.cuda.empty_cache()
     windows = compare_window()
     local, epi = compare_dcn_kernels()
+    dprime = compare_dprime()
+    torch.cuda.empty_cache()
+    fisher = compare_fisher()
+    torch.cuda.empty_cache()
     # the kernels line: phased_tile and compact at the -p path's shape
     # (one part, the counts given); parts_tile at the default (mixed)
     # dispatch's 9-part sweep
@@ -2077,10 +2536,13 @@ def main():
     for name, res in (("local_parts", local), ("tile_epilogue", epi)):
         checks[name] = (0,) + res[MAIN_INSTANCE][:2]
         bounds[name] = res[MAIN_INSTANCE][2:]
+    # fisher_bracket in the -p path's layout (bf16 in the payload column)
+    checks["fisher_bracket"] = fisher["packed"][:3]
+    bounds["fisher_bracket"] = fisher["packed"][3:5]
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     try:
-        launches = main_paths(work)
+        launches, dprime_launches = main_paths(work)
         engine_rates(work)
         dcn_engine()
     finally:
@@ -2129,6 +2591,13 @@ def main():
         for (g, w, d), v in windows.items()]}))
     # samples-sharded rows: instance -> ms, plain, bound, the int8 figure,
     # CUDA-core ceiling, torch._int_mm x P
+    _say(json.dumps({"fisher_instances": [
+        dict(layout=k, max_abs_err=v[0], ms=v[1], plain_ms=v[2], bound_ms=v[3],
+             bound_by=v[4], walk_steps=v[5], rows=v[6])
+        for k, v in fisher.items()]}))
+    _say(json.dumps({"dprime_instances": [
+        dict(kernel=k, ms=v[0], ms_without_bounds=v[1], plain_ms=v[2])
+        for k, v in dprime.items()]}))
     _say(json.dumps({"dcn_instances": [
         dict(kernel=name, instance="/".join(map(str, inst)), ms=v[0],
              plain_ms=v[1], bound_ms=v[2], bound_by=v[3], int8_ms=v[4],
@@ -2168,6 +2637,20 @@ def main():
             # the same call enqueued at the host's pace, as it was timed
             # before the calls were queued
             k["host_paced_ms"] = times["host_paced_ms"]
+    # the D' instances (X6, a term of the prefilter): the kernels with D'
+    # bounds, timed at DPRIME, launched on calc paths l (-p -d -D) and m
+    # (mixed -d); bound and library call as without the bounds, the term
+    # reads nothing more
+    for name, group, path in (("phased_tile", ("phased", False, "all"), "l"),
+                              ("parts_tile", MAIN_GROUP, "m")):
+        base = next(k for k in kernels if k["name"] == name)
+        kernels.append(dict(
+            base, name=f"{name} with D' bounds",
+            replaces="tomahawk_tpu/ops/ld_kernels.py:215",
+            launches=dprime_launches[path][name], max_abs_err=0,
+            ms=dprime[name][0], plain_ms=dprime[name][2],
+            ms_without_bounds=dprime[name][1], launches_on=f"path {path}",
+            instance="/".join(map(str, group)) + f", D' {DPRIME}"))
     _say(f"native host library loaded; no jax, no tomahawk_tpu in "
          f"sys.modules; {time.perf_counter() - t_start:.0f}s in all")
     report_card()

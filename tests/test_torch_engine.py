@@ -2,10 +2,13 @@
 imported archive through both engines (host Fisher on both sides) gives
 the same sorted .two records in every field, with -p, with -u and in
 the default mixed dispatch, on archives with and without missing
-genotypes. Also: repair of cap overflow and buffer spill, the CLI's
-device rule, and the rejection of everything outside the slice (window
+genotypes, and with D' bounds. Also: repair of cap overflow and buffer
+spill, the CLI's device rule, and the rejection of everything outside
+the slice (window
 mode is inside it: tests/test_torch_window.py; banded streaming:
 tests/test_torch_banded.py)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -182,11 +185,14 @@ def test_pair_runners_match_jax(runner, monkeypatch):
                    JaxLdEngine(st, n_samples, CalcSettings(min_r2=0.05))):
         out = []
         emit = lambda r, rev=None: out.append(r.copy())
-        if runner == "mixed":
-            engine.run_mixed_pairs(pairs, filt, emit)
-        else:
-            engine.run_unphased_pairs(pairs, runner != "unphased", filt,
-                                      emit)
+        try:
+            if runner == "mixed":
+                engine.run_mixed_pairs(pairs, filt, emit)
+            else:
+                engine.run_unphased_pairs(pairs, runner != "unphased", filt,
+                                          emit)
+        finally:
+            engine.stage_close()
         recs = np.concatenate(out)
         got.append(np.sort(recs, order=list(recs.dtype.names)))
     _assert_same(*got)
@@ -275,6 +281,31 @@ def test_cli_calc_with_missing_matches_jax(missing_archives,
 
 @pytest.mark.parametrize("kw", [
     dict(min_dprime=0.5), dict(window=True, l_window=1000, max_dprime=0.9),
+])
+def test_dprime_settings_match_jax(archive, tmp_path, monkeypatch, kw):
+    """D' bounds (-d/-D), all-vs-all and windowed: the port's records
+    equal the JAX engine's, field by field (host Fisher on both sides),
+    and the bounds cut records."""
+    monkeypatch.setenv("TWK_DEVICE_FISHER", "0")
+    got = []
+    for run, tag in ((compute_ld, "port"), (jax_compute_ld, "jax")):
+        for bounds in (kw, {k: v for k, v in kw.items()
+                            if "dprime" not in k}):
+            path = str(tmp_path / f"{tag}{len(bounds)}.two")
+            settings = CalcSettings(input=archive, output=path,
+                                    min_r2=0.05, tile_rows=128, **bounds)
+            if tag == "port":
+                run(settings, device="cpu")
+            else:
+                run(dataclasses.replace(settings, mesh="off",
+                                        backend="device"))
+            got.append(_sorted(path))
+    port, port_all, jax_dp, _ = got
+    _assert_same(port, jax_dp)
+    assert len(port) < len(port_all)
+
+
+@pytest.mark.parametrize("kw", [
     dict(checkpoint="ck.json"),
     dict(distributed=True, mesh="dcn", checkpoint="ck.json"),
     dict(distributed=True, mesh="2x2"), dict(mesh="2x1"),

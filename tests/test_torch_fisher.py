@@ -1,0 +1,204 @@
+"""The port's in-sweep Fisher bracket (ops/fisher_dev.py, the fused sweep's
+Fisher column and the engine's host side) against the JAX package's and
+against the exact native Fisher test, on the CPU.
+
+Tolerances: P from a bracket is within 1e-5 of the native kernel's (the
+reference's TWK_ALLOWED_ROUNDING_ERROR contract) or flagged for the host;
+the port walks in f64 and the JAX package in double-single f32 (~1e-6
+relative), so their unflagged brackets agree within 2e-6 relative; every
+other record field is equal."""
+
+import numpy as np
+import pytest
+import torch
+
+import tomahawk_tpu_torch  # noqa: F401  (binds libzstd where needed)
+
+jnp = pytest.importorskip("jax.numpy")
+
+from tomahawk_tpu.compute import sweeps as jsweeps
+from tomahawk_tpu.compute.engine import CalcSettings as JaxCalcSettings
+from tomahawk_tpu.compute.engine import LdEngine as JaxLdEngine
+from tomahawk_tpu.ops import fisher_dev as JF
+from tomahawk_tpu.ops.ld_math import LdFilters as JaxLdFilters
+
+from tomahawk_tpu_torch.compute import sweeps
+from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
+from tomahawk_tpu_torch.native import fisher_exact
+from tomahawk_tpu_torch.ops import _build
+from tomahawk_tpu_torch.ops import fisher_dev as F
+from tomahawk_tpu_torch.ops.ld_math import LdFilters
+
+from test_fisher_dev import _tables
+from test_torch_groups import group_planes
+from test_torch_sweeps import grouped_planes
+
+
+def _walk(C, **kw):
+    return F.fisher_bracket(*(torch.from_numpy(C[:, k]) for k in range(4)),
+                         **kw)
+
+
+def _trivial(C):
+    n1, m1, n = C[:, 0] + C[:, 1], C[:, 0] + C[:, 2], C.sum(axis=1)
+    return (n <= 0) | (np.minimum(n1, m1) <= np.maximum(0, n1 + m1 - n))
+
+
+@pytest.mark.parametrize("tot,seed", [(1000, 0), (400, 1), (5008, 2)])
+def test_plain_bracket_matches_jax_and_native(tot, seed):
+    """The cases of tests/test_fisher_dev.py (random, symmetric with exact
+    ties, tiny, degenerate), and at 1000 Genomes' 5,008 haplotypes."""
+    C = _tables(np.random.default_rng(seed), tot)
+    br, log2_pb, steps = (x.numpy() for x in _walk(C))
+    lf = F.log_factorial_table(int(C.sum(axis=1).max()) + 1)
+    P = F.host_p_from_bracket(C, br, lf)
+    Pn = fisher_exact(*(C[:, k] for k in range(4)))
+    unc = np.isnan(P)
+    assert unc.mean() < 0.02
+    assert np.abs(P[~unc] - Pn[~unc]).max() <= 1e-5
+    jb, _ = JF.fisher_bracket(*(jnp.asarray(C[:, k], jnp.int32)
+                                for k in range(4)))
+    jb = np.asarray(jb)
+    both = (br >= 0) & (jb >= 0)
+    assert both.mean() > 0.97
+    np.testing.assert_allclose(br[both], jb[both], rtol=2e-6)
+    # the bf16 gate's bound holds on every lane that walked
+    ok = ~unc & (Pn > 0) & ~_trivial(C)
+    assert (log2_pb[ok] >= np.log2(Pn[ok]) - 1e-3).all()
+    assert steps[_trivial(C)].sum() == 0 and steps.sum() > len(C)
+
+
+def test_min_p_guard_is_relative_to_min_p():
+    """At min_p = 0.5 every P the bracket returns makes the native
+    kernel's keep decision: the guard band scales with min_p (the JAX
+    package's absolute 1e-7 band does not cover an f32 or bf16 bracket's
+    error there)."""
+    C = _tables(np.random.default_rng(3), 400, n_rand=3000, n_sym=200,
+                n_small=200)
+    Pn = fisher_exact(*(C[:, k] for k in range(4)))
+    br = _walk(C)[0].numpy()
+    lf = F.log_factorial_table(int(C.sum(axis=1).max()) + 1)
+    near = np.abs(Pn - 0.5) < 0.05
+    assert near.sum() > 20
+    for bits in (br, br.astype(jnp.bfloat16).astype(np.float32)):
+        P = F.host_p_from_bracket(C, bits, lf, min_p=0.5)
+        sure = ~np.isnan(P)
+        assert ((P[sure] <= 0.5) == (Pn[sure] <= 0.5)).all()
+        assert (np.abs(P[sure] - 0.5) >= F.MIN_P_GUARD * 0.5).all()
+        assert sure[near].any()
+
+
+def test_trivial_lanes_and_the_step_cap():
+    C = np.array([(0, 0, 0, 0), (0, 0, 0, 9), (7, 0, 0, 0), (0, 3, 4, 0),
+                  (14000, 1000, 1000, 24000)], np.int64)
+    br, log2_pb, _ = _walk(C, max_steps=1024)
+    assert br[:3].tolist() == [1.0] * 3 and (log2_pb[:3] == 0).all()
+    # a wide support whose crossing lies past the cap: flagged, never a
+    # partial sum; with room for the walk it resolves
+    assert float(br[4]) == -1.0
+    br = _walk(C[4:])[0].numpy()
+    P = F.host_p_from_bracket(C[4:], br, F.log_factorial_table(40001))
+    Pn = fisher_exact(*(C[4:, k] for k in range(4)))
+    assert abs(P[0] - Pn[0]) <= 1e-5
+    # packed lanes: flagged, trivial or P possibly >= 1e-4 carry bf16 NaN
+    bits = F.packed_bits(*_walk(C)[:2])
+    assert bits[:3].tolist() == [F.BF16_NAN] * 3
+
+
+def _engine_records(planes, n_samples, has_missing, monkeypatch, device_on,
+                    jax=False, fused_cap=1 << 14, min_rows=1):
+    monkeypatch.setattr(sweeps, "FISHER_MIN_ROWS", min_rows)
+    monkeypatch.setattr(jsweeps, "FISHER_MIN_ROWS", min_rows)
+    monkeypatch.setenv("TWK_DEVICE_FISHER", "1" if device_on else "0")
+    nb = planes["alt_bits"].shape[0]
+    pairs = [(i, j, i == j) for i in range(nb) for j in range(i, nb)]
+    if jax:
+        e = JaxLdEngine(planes, n_samples, JaxCalcSettings(min_r2=0.05))
+        filt = JaxLdFilters(min_r2=0.05)
+    else:
+        e = LdEngine(planes, n_samples, CalcSettings(min_r2=0.05), "cpu")
+        filt = LdFilters(min_r2=0.05)
+    e._fused_cap = fused_cap
+    out = []
+    try:
+        e.run_phased_pairs(pairs, has_missing, filt,
+                           lambda r, rev=None: out.append(r.copy()))
+    finally:
+        e.stage_close()
+    recs = np.concatenate(out)
+    order = [f for f in recs.dtype.names if f != "P"]
+    return np.sort(recs, order=order), order
+
+
+@pytest.mark.parametrize("layout", ["packed", "column"])
+def test_engine_bracket_records_match_host_fisher(monkeypatch, layout):
+    """The gate forced open in both packages: the port's records with the
+    bracket equal those with TWK_DEVICE_FISHER=0 and the JAX engine's with
+    its bracket, P within 1e-5, in the bf16-packed layout (phased, no
+    missing data) and the f32 column (with missing data); also with a
+    fused cap of 8, where repaired tiles' rows take the host's Fisher (a
+    cap that holds every tile elsewhere, so that rows carry brackets)."""
+    has_missing = layout == "column"
+    n_samples = 96
+    planes = (group_planes(5, 2, 128, n_samples) if has_missing
+              else grouped_planes(5, 2, 128, n_samples, group=8))
+    _build.reset_counts()
+    got, order = _engine_records(planes, n_samples, has_missing,
+                                 monkeypatch, True)
+    assert _build.PLAIN_CALLS["fisher_bracket"] > 0
+    host, _ = _engine_records(planes, n_samples, has_missing, monkeypatch,
+                              False)
+    jax, _ = _engine_records(planes, n_samples, has_missing, monkeypatch,
+                             True, jax=True)
+    capped, _ = _engine_records(planes, n_samples, has_missing,
+                                monkeypatch, True, fused_cap=8)
+    assert len(got) > 200
+    for other in (host, jax, capped):
+        assert len(other) == len(got)
+        for f in order:
+            np.testing.assert_array_equal(got[f], other[f], err_msg=f)
+        assert np.abs(got["P"] - other["P"]).max() <= 1e-5
+    # the bracket, not the host kernel, gave the P of many records
+    assert (got["P"] != host["P"]).mean() > 0.1
+
+
+@pytest.mark.parametrize("layout", ["packed", "column"])
+def test_volume_gate_on_both_sides(monkeypatch, layout):
+    """FISHER_MIN_ROWS at the segment's survivors and one above: the fused
+    sweep writes brackets exactly when the gate is open, and the engine's
+    host mirror reads them exactly then, from the same integer counts."""
+    has_missing = layout == "column"
+    n_samples = 96
+    planes = (group_planes(7, 2, 128, n_samples) if has_missing
+              else grouped_planes(7, 2, 128, n_samples, group=8))
+    cfg = sweeps.make_cfg("phased", has_missing, "all", 128, n_samples, 0,
+                          0.05, 100.0, fisher=True)
+    dev = sweeps.planes_to_device(planes, "cpu")
+    tl = (np.array([0, 0, 1], np.int32), np.array([0, 1, 1], np.int32),
+          np.array([True, False, True]), np.ones(3, bool))
+    cap, outcap = 1 << 14, 1 << 16
+    monkeypatch.setattr(sweeps, "FISHER_MIN_ROWS", 1 << 30)
+    n_pass, _, closed = sweeps.fused_sweep(dev, *tl, cfg=cfg, cap=cap,
+                                           outcap=outcap)
+    total = int(n_pass.sum())
+    assert total > 100
+    engine = LdEngine(planes, n_samples, CalcSettings(min_r2=0.05), "cpu")
+    n_host = n_pass.numpy().astype(np.int64)
+    for min_rows, opened in ((total, True), (total + 1, False)):
+        monkeypatch.setattr(sweeps, "FISHER_MIN_ROWS", min_rows)
+        _, _, buf = sweeps.fused_sweep(dev, *tl, cfg=cfg, cap=cap,
+                                       outcap=outcap)
+        rows = buf.numpy()[:total]
+        if layout == "packed":
+            bracket = rows[:, 1] >> 16
+            assert (rows[:, 1] & 0xFFFF == closed.numpy()[:total, 1]).all()
+        else:
+            bracket = rows[:, sweeps.buf_cols(cfg)]
+        assert bool((bracket != 0).all()) == opened
+        assert bool((bracket != 0).any()) == opened
+        data = np.zeros((total, 4), np.int64) + 1
+        p = engine._fisher_p(cfg, rows, data, n_host,
+                             np.zeros(total, np.int64), np.array([], int),
+                             LdFilters())
+        assert (p is not None) == opened
+    engine.stage_close()

@@ -50,15 +50,37 @@ COPIED = [
     "io/bcf.py", "io/importer.py",
     "native/__init__.py", "native/twk_native.cpp",
     "ops/bitpack.py", "ops/fisher.py", "ops/hwe.py", "ops/ld_math.py",
-    "compute/balancer.py", "compute/cpu_engine.py",
+    "compute/balancer.py", "compute/cpu_engine.py", "compute/scalc.py",
     "post/__init__.py", "post/intervals.py", "post/sort.py",
 ]
 
 #: the lines that differ, (lines the original has more of, lines the
 #: copy has more of), in file order: header literals name the package
-#: that wrote the file, and the native library builds under build/ under
-#: its own name and raises when the compiler fails
+#: that wrote the file, the native library builds under build/ under
+#: its own name and raises when the compiler fails, and scalc's engine
+#: runs on the device it is given and is closed after the run
 DIFFS = {
+    "compute/scalc.py": (
+        ['def compute_single(settings: ScalcSettings) -> CalcResult:',
+         '    engine = LdEngine(stacked, n_samples, calc)',
+         '    hdr.literals += (f"\\n##tomahawk_tpu_scalcVersion='
+         '{__version__}\\n"',
+         '                     f"##tomahawk_tpu_scalcCommand=scalc "',
+         '    result.n_pairs = dispatch_pairs(engine, pairs, "mixed", filt, '
+         'emit,',
+         '                                    stacked)'],
+        ['def compute_single(settings: ScalcSettings, device="cuda") -> '
+         'CalcResult:',
+         '    engine = LdEngine(stacked, n_samples, calc, device)',
+         '    hdr.literals += (f"\\n##tomahawk_tpu_torch_scalcVersion='
+         '{__version__}\\n"',
+         '                     f"##tomahawk_tpu_torch_scalcCommand=scalc "',
+         '    try:',
+         '        result.n_pairs = dispatch_pairs(engine, pairs, "mixed", '
+         'filt, emit,',
+         '                                        stacked)',
+         '    finally:',
+         '        engine.stage_close()']),
     "utils/logging.py": (
         ['    header.literals += (f"\\n##tomahawk_tpu_{tool}Version='
          '{__version__}\\n"',

@@ -47,7 +47,7 @@ def test_every_module_imports_without_jax(tmp_path):
     # every .py below the package but its own __init__ and __main__
     modules = [f for f in PKG.rglob("*.py") if "_compat" not in f.parts
                and f not in (PKG / "__init__.py", PKG / "__main__.py")]
-    assert int(out.split()[-1]) == len(modules) == 38
+    assert int(out.split()[-1]) == len(modules) == 40
 
 
 def test_entry_points_import_without_the_jax_package(tmp_path):
@@ -135,7 +135,7 @@ def test_kernel_report_names_sources_and_tpu_code():
     rows = D.kernel_report()
     assert [r["name"] for r in rows] == ["phased_tile", "parts_tile",
                                          "compact", "local_parts",
-                                         "tile_epilogue"]
+                                         "tile_epilogue", "fisher_bracket"]
     for r in rows:
         assert (REPO / r["source"]).exists()
         path, line = r["replaces"].split(":")

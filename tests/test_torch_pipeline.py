@@ -93,12 +93,23 @@ def _run(engine, runner="mixed", emit=None):
     return np.concatenate(got) if got else None, threads
 
 
-def _seg_threads():
-    return [t for t in threading.enumerate() if t.name.startswith("twk-")]
+@pytest.fixture
+def threads_before():
+    """The threads alive when the test starts: an engine that another test
+    left open in this process (the JAX engine names its pools `twk-` as
+    well) is not this test's."""
+    return set(threading.enumerate())
+
+
+def _seg_threads(before):
+    """The `twk-` threads started since `before` and still alive."""
+    return [t for t in threading.enumerate()
+            if t.name.startswith("twk-") and t not in before]
 
 
 @pytest.mark.parametrize("runner", ["mixed", "unphased"])
-def test_depth_two_emits_the_serial_records_in_order(planes, runner):
+def test_depth_two_emits_the_serial_records_in_order(planes, runner,
+                                                    threads_before):
     """Four segments a group, a cap of 8 and a 64-row buffer: tiles
     overflow the cap and segments spill, and the repairs run on the
     consumer thread beside the next sweep. The record stream equals the
@@ -116,7 +127,7 @@ def test_depth_two_emits_the_serial_records_in_order(planes, runner):
         assert sum(s["n_repair"] for s in st) > 0
         assert e._fused_cap > 8 and e._outcap > 64
         assert e.units_done == (8 if runner == "mixed" else 4)
-    assert _seg_threads() == []
+    assert _seg_threads(threads_before) == []
 
 
 @pytest.mark.parametrize("depth", [1, 2])
@@ -143,7 +154,7 @@ def test_group_stats_match_jax(planes, monkeypatch, depth):
         assert sum(s["n_repair"] for s in port.stats.values()) > 0
 
 
-def test_emit_failure_stops_the_run(planes):
+def test_emit_failure_stops_the_run(planes, threads_before):
     """An emit that raises in segment 2: the error comes out of the run,
     segment 3 and later emit nothing, and no engine thread lives on."""
     engine = _engine(planes, 2, cap=1 << 14, outcap=1 << 18)
@@ -156,7 +167,7 @@ def test_emit_failure_stops_the_run(planes):
     with pytest.raises(OSError, match="disk full"):
         _run(engine, emit=emit)
     assert len(calls) == 2
-    assert _seg_threads() == []
+    assert _seg_threads(threads_before) == []
 
 
 def test_out_of_memory_goes_serial(planes, monkeypatch, capfd):
@@ -219,8 +230,9 @@ class _Library:
         return 0
 
     def twk_sweep(self, kind, x, y, z, W, ac, valid, an, nhet, nhom, pos,
-                  rid, window, cls, B, n_samples, lo, hi, need_nonzero, T,
-                  pi, pj, dg, live, mask, parts, counts, P, ncol, off,
+                  rid, window, cls, B, n_samples, lo, hi, dp_lo, dp_hi,
+                  need_nonzero, T,
+                  pi, pj, dg, live, mask, parts, counts, P, ncol, ld, off,
                   per_tile_off, cap, outcap, n_pass, n_cand, scratch, ticket,
                   buf, stream, done):
         at = lambda base, s, row: None if base is None else base + s * row
@@ -239,17 +251,18 @@ class _Library:
                 self.twk_phased_tile(
                     at(x, i, plane), at(x, j, plane), *m(ac), *v, *m(an),
                     *m(pos), *m(rid), window, cls, B, W, 2 * n_samples, lo,
-                    hi, need_nonzero, dg[t], mask, parts, counts, stream)
+                    hi, dp_lo, dp_hi, need_nonzero, dg[t], mask, parts,
+                    counts, stream)
             else:
                 self.twk_parts_tile(
                     kind, at(x, i, plane), at(y, i, plane), at(z, i, plane),
                     at(x, j, plane), at(y, j, plane), at(z, j, plane),
                     *m(ac), *v, *m(an), at(nhet, i, meta), at(nhom, i, meta),
                     at(nhet, j, meta), at(nhom, j, meta), *m(pos), *m(rid),
-                    window, cls, B, W, n_samples, lo, hi, need_nonzero, dg[t],
-                    mask, parts, counts, stream)
+                    window, cls, B, W, n_samples, lo, hi, dp_lo, dp_hi,
+                    need_nonzero, dg[t], mask, parts, counts, stream)
             done[0] += 1
-            self.twk_compact(mask, parts, counts, P, ncol, B,
+            self.twk_compact(mask, parts, counts, P, ncol, ld, B,
                              off + 4 * t if per_tile_off else off, cap,
                              outcap, n_pass, n_cand, t, scratch, ticket, buf,
                              stream)

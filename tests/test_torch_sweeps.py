@@ -1,7 +1,8 @@
 """The port's sweeps against the JAX package's on the same numpy planes
 (Fisher column off): per-tile counts identical, survivor rows of intact
 tiles identical, the running offset clamped at outcap, exact-offset
-repair rows identical, and the host payload helpers the same."""
+repair rows identical, the host payload helpers the same, and the D'
+bounds carried into every group's count sweep."""
 
 import numpy as np
 import pytest
@@ -176,11 +177,29 @@ def test_payload_helpers_match_jax(table, miss, n_samples):
     ("phased", False, "all", 0, 0.2, 100.0),
     ("unphased", False, "all", 0, 0.0, 0.5),
 ])
-def test_make_cfg_rejects_what_is_not_ported(args):
+def test_make_cfg_carries_dprime_bounds(args):
+    """D' bounds ride the config as in the JAX make_cfg, and the count
+    sweep with them (the in-sweep D' filter in the group's prefilter, a
+    window where one is set) gives the JAX count sweep's per-tile survivor
+    and candidate counts, equal."""
+    # test_torch_window imports this module
+    from test_torch_window import N_SAMPLES as WIN_SAMPLES
+    from test_torch_window import window_planes
     table, miss, cls, window, dmin, dmax = args
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sweeps.make_cfg(table, miss, cls, 128, 64, window, 0.1, 100.0,
-                        dmin, dmax)
+    cfg = sweeps.make_cfg(table, miss, cls, 128, WIN_SAMPLES, window, 0.1,
+                          100.0, dmin, dmax)
+    jcfg = jsweeps.make_cfg(table, miss, cls, 128, WIN_SAMPLES, window, 0.1,
+                            100.0, min_dprime=dmin, max_dprime=dmax)
+    assert (cfg["min_dprime"], cfg["max_dprime"]) \
+        == (jcfg["min_dprime"], jcfg["max_dprime"]) == (dmin, dmax)
+    st = window_planes(3, n_blocks=2, B=128)
+    tl = tile_list(2)
+    got = sweeps.count_sweep(sweeps.planes_to_device(st, "cpu"), *tl,
+                             cfg=cfg)
+    want = jsweeps.jit_count_sweep(jcfg)(jax_dev(st), *tl)
+    assert int(got[1].sum()) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_planes_to_device_keeps_bits():

@@ -310,14 +310,15 @@ def test_sweeps_allocate_their_buffers_once(group, sweep, monkeypatch):
         monkeypatch.setattr(sweeps, name, counting(name))
     compact = sweeps.compact_survivors
 
-    def spy(mask, parts, off, buf, n_pass, n_cand, t, cap, counts, scratch):
+    def spy(mask, parts, off, buf, n_pass, n_cand, t, cap, counts, scratch,
+            ncol=None):
         seen.append((mask.data_ptr(), parts.data_ptr(), scratch.data_ptr(),
                      None if counts is None else counts.data_ptr()))
         if counts is not None:
             np.testing.assert_array_equal(
                 counts.numpy(), tiles.tile_counts_plain(mask).numpy())
         return compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
-                       scratch)
+                       scratch, ncol)
 
     monkeypatch.setattr(sweeps, "compact_survivors", spy)
     jn, _, jbuf = (np.asarray(x) for x in jsweeps.jit_fused_sweep(
@@ -374,8 +375,8 @@ class _FaultingLibrary:
     def __init__(self):
         self.calls = []
 
-    def twk_compact(self, mask, parts, counts, P, ncol, B, off, cap, outcap,
-                    n_pass, n_cand, t, scratch, ticket, buf, stream):
+    def twk_compact(self, mask, parts, counts, P, ncol, ld, B, off, cap,
+                    outcap, n_pass, n_cand, t, scratch, ticket, buf, stream):
         self.calls.append(dict(n_pass=n_pass, t=t, ticket=ticket))
         ctypes.c_int32.from_address(n_pass + 4 * t).value = \
             sweeps.TICKET_FAULT
@@ -432,10 +433,14 @@ def test_engine_raises_for_a_faulted_compaction(monkeypatch):
 
     monkeypatch.setattr(sweeps, "fused_sweep", faulted)
     emitted = []
-    with pytest.raises(RuntimeError, match="ticket"):
-        engine.run_phased_pairs([(0, 0, True), (0, 1, False)], False,
-                                LdFilters(min_r2=MIN_R2),
-                                lambda recs, rev=None: emitted.append(recs))
+    try:
+        with pytest.raises(RuntimeError, match="ticket"):
+            engine.run_phased_pairs(
+                [(0, 0, True), (0, 1, False)], False,
+                LdFilters(min_r2=MIN_R2),
+                lambda recs, rev=None: emitted.append(recs))
+    finally:
+        engine.stage_close()
     assert emitted == []
 
 

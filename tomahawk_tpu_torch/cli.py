@@ -1,11 +1,11 @@
 """Command line of the port: `python -m tomahawk_tpu_torch <subcommand>`.
 
-`import` turns a VCF/BCF into a .twk archive on the host. `calc` runs on
-the port's GPU engine and takes `--device` (default `cuda`, which raises
-where torch sees no card); with `--distributed` it is one process of a
-multi-process run (compute/engine.py). The post-processing subcommands and `scalc`
-are not ported yet: they raise, naming the ROADMAP.md item that brings
-each.
+`import` turns a VCF/BCF into a .twk archive on the host. `calc` and
+`scalc` run on the port's GPU engine and take `--device` (default `cuda`,
+which raises where torch sees no card); with `--distributed`, `calc` is
+one process of a multi-process run (compute/engine.py). The
+post-processing subcommands are not ported yet: they raise, naming the
+ROADMAP.md item that brings each.
 """
 
 import argparse
@@ -14,12 +14,13 @@ import sys
 #: subcommands of the reference CLI this port does not own yet, with the
 #: ROADMAP.md queue 1 item that ports each
 UNPORTED = {
-    "scalc": "item 12 (scalc)",
-    **{name: "item 13b (post-processing subcommands: post/ copied, "
-       "relationship's GEMM as X4)"
-       for name in ("view", "sort", "concat", "aggregate", "stats", "decay",
-                    "haplotype", "relationship")},
-}
+    name: "item 13b (post-processing subcommands: post/ copied, "
+    "relationship's GEMM as X4)"
+    for name in ("view", "sort", "concat", "aggregate", "stats", "decay",
+                 "haplotype", "relationship")}
+
+_DEVICE_HELP = ("torch device: 'cuda' (the default; raises without a card) "
+                "or 'cpu' (the kernels' plain PyTorch versions)")
 
 
 def _add_import(sub):
@@ -72,10 +73,8 @@ def _add_calc(sub):
     p.add_argument("-P", "--min-p", type=float, default=1.0)
     p.add_argument("-r", "--min-r2", type=float, default=0.1)
     p.add_argument("-R", "--max-r2", type=float, default=100.0)
-    p.add_argument("-d", "--min-dprime", type=float, default=0.0,
-                   help="not ported yet")
-    p.add_argument("-D", "--max-dprime", type=float, default=100.0,
-                   help="not ported yet")
+    p.add_argument("-d", "--min-dprime", type=float, default=0.0)
+    p.add_argument("-D", "--max-dprime", type=float, default=100.0)
     p.add_argument("-c", "--n-chunks", type=int, default=1)
     p.add_argument("-C", "--c-chunk", type=int, default=0)
     p.add_argument("-I", "--interval", action="append", default=[])
@@ -132,10 +131,7 @@ def _add_calc(sub):
     p.add_argument("--no-stage-prefetch", action="store_true",
                    help="banded runs: no staging worker; every band is "
                    "inflated and uploaded on demand")
-    p.add_argument(
-        "--device", default="cuda",
-        help="torch device: 'cuda' (the default; raises without a card) "
-        "or 'cpu' (the kernels' plain PyTorch versions)")
+    p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
 
 
 def _cmd_calc(args):
@@ -170,7 +166,42 @@ def _cmd_calc(args):
     return 0
 
 
-COMMANDS = {"import": _cmd_import, "calc": _cmd_calc}
+def _add_scalc(sub):
+    """The JAX package's `scalc` options (its cli.py), and `--device`."""
+    p = sub.add_parser("scalc", help="single-site LD against neighbours")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", default="-")
+    p.add_argument("-I", "--interval", required=True,
+                   help="target site, e.g. chr20:60000")
+    p.add_argument("-w", "-l", "--l-surrounding", type=float,
+                   default=500_000,
+                   help="bases to include around the target site")
+    p.add_argument("-P", "--min-p", type=float, default=1.0)
+    p.add_argument("-r", "--min-r2", type=float, default=0.0,
+                   help="min r2 (the reference scalc pins this to 0, "
+                        "scalc.h:189; honored here if set)")
+    p.add_argument("-R", "--max-r2", type=float, default=100.0)
+    p.add_argument("-d", "--min-dprime", type=float, default=0.0)
+    p.add_argument("-D", "--max-dprime", type=float, default=100.0)
+    p.add_argument("-k", "--c-level", type=int, default=1)
+    p.add_argument("-t", "--threads", type=int, default=0,
+                   help="accepted for reference compatibility")
+    p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+
+
+def _cmd_scalc(args):
+    from .compute.scalc import ScalcSettings, compute_single
+    s = ScalcSettings(input=args.input, output=args.output,
+                      interval=args.interval,
+                      l_surrounding=int(args.l_surrounding),
+                      min_p=args.min_p, min_r2=args.min_r2,
+                      max_r2=args.max_r2, min_dprime=args.min_dprime,
+                      max_dprime=args.max_dprime, c_level=args.c_level)
+    compute_single(s, device=args.device)
+    return 0
+
+
+COMMANDS = {"import": _cmd_import, "calc": _cmd_calc, "scalc": _cmd_scalc}
 
 
 def build_parser():
@@ -181,6 +212,7 @@ def build_parser():
     sub = ap.add_subparsers(dest="command")
     _add_import(sub)
     _add_calc(sub)
+    _add_scalc(sub)
     return ap
 
 

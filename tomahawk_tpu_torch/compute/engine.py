@@ -20,13 +20,16 @@ of its own while the current load computes (`stage_band_async`).
 
 Pipeline: for each segment the device runs the tile kernel and the
 survivor compaction on every tile (sweeps.fused_sweep, one C call that
-enqueues them all) and, behind them on the same stream, copies the
+enqueues them all), for phased tables the in-sweep Fisher bracket of its
+survivors (sweeps.append_fisher_col, when the segment holds
+FISHER_MIN_ROWS of them) and, behind them on the same stream, copies the
 per-tile counts and a prefix of the survivor rows into pinned host
 memory. A consumer thread waits on that copy's event, pulls the rest of
 the rows, re-sweeps the rare tiles that overflowed the per-tile cap or
 spilled the buffer at exact offsets (sweeps.extract_sweep, on its own
 stream), runs the exact f64 statistics and Fisher P in the native record
-pipeline (ld_math.ld_records) and emits .two records in segment order,
+pipeline (ld_math.ld_records; P from the bracket times the exact q where
+the row has one) and emits .two records in segment order,
 while the main thread has the next segment's sweep in flight: two
 segments at a time where the card has room for a second sweep's buffers.
 
@@ -44,10 +47,10 @@ collectives stay aligned; such a run neither stages nor pipelines.
 
 The host layer (file formats, balancer, exact statistics, the native
 library) is this package's own. What the JAX engine also does and this
-port does not yet -- checkpoints, P x S device meshes, the CPU route,
-the in-sweep Fisher, D' bounds -- raises NotImplementedError naming the
-ROADMAP.md item that adds it. A kernel that fails to build or launch is
-an error, and so is a compaction fault: there is no fallback path. Only
+port does not yet -- checkpoints, P x S device meshes, the CPU route --
+raises NotImplementedError naming the ROADMAP.md item that adds it. A
+kernel that fails to build or launch is an error, and so is a compaction
+fault: there is no fallback path. Only
 the card running out of memory with two segments in flight is retried,
 one segment at a time on the same kernels.
 """
@@ -70,6 +73,7 @@ from ..device import resolve_device
 from ..io.twk import TwkReader
 from ..io.two import TwoWriter
 from ..ops.bitpack import block_to_planes, stack_planes
+from ..ops.fisher_dev import host_p_from_bracket, log_factorial_table
 from ..ops.ld_math import (LdFilters, PairMeta, ld_records, phased_math,
                            unphased_math)
 from ..parallel import distributed as dist
@@ -358,6 +362,17 @@ class LdEngine:
         self.ticker = None           # optional ProgressTicker
         self._outcap = self.OUTCAP0
         self._fused_cap = self.FUSED_CAP
+        # in-sweep Fisher (phased tables): the fused sweep carries a
+        # bracket per survivor and the host multiplies by the exact f64 q.
+        # Above 2**15 haplotypes the walk's distance to the mirror
+        # crossing (about D * 2N cells) overruns its step cap, so most
+        # lanes would flag for the host anyway: wide cohorts keep Fisher
+        # on the host, as does TWK_DEVICE_FISHER=0 (the JAX package's
+        # switch)
+        self._device_fisher = \
+            os.environ.get("TWK_DEVICE_FISHER", "1") == "1" \
+            and 2 * n_samples <= (1 << 15)
+        self._lf_host = None
         # per-config dispatch statistics (report_performance reads them)
         self.stats = {}
         # segment pipeline (run_group): one consumer thread handles the
@@ -607,7 +622,15 @@ class LdEngine:
         return sweeps.make_cfg(table, has_missing, cls, self.B,
                                self.n_samples, self.window, s.min_r2,
                                s.max_r2, s.min_dprime, s.max_dprime,
-                               psum_group=self.group)
+                               psum_group=self.group,
+                               fisher=self._device_fisher)
+
+    def _lf_host_get(self) -> np.ndarray:
+        """Host f64 log-factorial table: the exact q of the in-sweep
+        Fisher split P = q * bracket (ops/fisher_dev.py)."""
+        if self._lf_host is None:
+            self._lf_host = log_factorial_table(2 * self.n_samples + 1)
+        return self._lf_host
 
     def _stat(self, cfg):
         key = (f"{cfg['table']}/{'miss' if cfg['has_missing'] else 'nomiss'}"
@@ -875,9 +898,15 @@ class LdEngine:
         want = min(_round_up(max(2048, end + (end >> 4)), 8192), 1 << 20)
         self._prefix_rows[key] = max(want, cur // 2)
         bad = np.flatnonzero((n_pass > 0) & ~ok)
+        ncol = sweeps.buf_cols(cfg)
         if len(bad):
-            rows_by_tile.update(self._repair(st["dev"], cfg, stat, pi, pj,
-                                             dg, bad, n_pass[bad], cap))
+            rep = self._repair(st["dev"], cfg, stat, pi, pj, dg, bad,
+                               n_pass[bad], cap)
+            if sweeps.fisher_cols(cfg):
+                # repair rows carry no bracket: pad them to the fused width
+                rep = {t: np.concatenate([r, np.zeros((len(r), 1), np.int32)],
+                                         axis=1) for t, r in rep.items()}
+            rows_by_tile.update(rep)
         stat["extract_s"] += time.perf_counter() - t0
 
         # exact host math, batched into one native call per segment
@@ -891,7 +920,7 @@ class LdEngine:
         bj = pj[hit][tile_of].astype(np.int64)
         meta = _pair_meta_from(stacked, bi, bj, k, l)
         table = cfg["table"]
-        parts = sweeps.unpack_payload(rows[:, 1:], table,
+        parts = sweeps.unpack_payload(rows[:, 1:ncol], table,
                                       cfg["has_missing"], self.n_samples)
         t0 = time.perf_counter()
         if table == "phased":
@@ -899,7 +928,9 @@ class LdEngine:
         else:
             data = self._unphased_table_from_parts(stacked, parts, bi, bj,
                                                    k, l)
-        out = ld_records(table, data, meta, filt)
+        p_pre = self._fisher_p(cfg, rows, data, n_pass, hit[tile_of], bad,
+                               filt)
+        out = ld_records(table, data, meta, filt, p_pre=p_pre)
         if out is not None:
             recs, rev = out[0], out[1]
         elif table == "phased":
@@ -915,6 +946,28 @@ class LdEngine:
             self.ticker.add(pairs=total_cand, records=len(recs))
         self._finish_segment()
         return total_cand
+
+    def _fisher_p(self, cfg, rows, data, n_pass, row_tile, bad, filt):
+        """P of each row from its in-sweep Fisher bracket (NaN: the native
+        kernel computes it), or None where the segment carries none. The
+        device's volume gate mirrored from the same integer n_pass; rows
+        of repaired tiles carry no bracket."""
+        if not sweeps.fisher_on(cfg) \
+                or int(n_pass.sum()) < sweeps.FISHER_MIN_ROWS:
+            return None
+        valid = ~np.isin(row_tile, bad)
+        if not valid.any():
+            return None
+        if sweeps.fisher_packed(cfg):
+            u = np.ascontiguousarray(rows[:, 1]).view(np.uint32)
+            bits = (u & np.uint32(0xFFFF0000)).view(np.float32)
+        else:
+            bits = np.ascontiguousarray(
+                rows[:, sweeps.buf_cols(cfg)]).view(np.float32)
+        p_pre = host_p_from_bracket(data, bits, self._lf_host_get(),
+                                    filt.min_p)
+        p_pre[~valid] = np.nan
+        return p_pre
 
     def _finish_segment(self):
         """Segment bookkeeping, on whichever thread handled the segment,
@@ -1052,8 +1105,6 @@ def _check_settings(settings: CalcSettings):
     ROADMAP.md queue 1 item that adds each."""
     mesh = settings.mesh or "off"
     unported = (
-        ((settings.min_dprime, settings.max_dprime) != (0.0, 100.0),
-         "D' bounds (-d/-D)", 16),
         (settings.checkpoint, "--checkpoint", 11),
         (mesh not in ("auto", "off", "dcn"),
          f"--mesh {settings.mesh} (device meshes beyond one device per "

@@ -1,7 +1,7 @@
 """Tile sweeps on one device: counts and survivor compaction.
 
 Counterpart of tomahawk_tpu/compute/sweeps.py for every sweep group,
-with or without a distance window, with the Fisher column off. The JAX
+with or without a distance window and D' bounds. The JAX
 package scans a jitted body over the tile list; here, on a card, one C
 call (`_launch_sweep`, csrc/sweep.cu) walks the segment's tile list and
 enqueues, per tile, the fused tile kernel (ops/tiles.py) and the
@@ -23,7 +23,12 @@ Survivor rows are [flat index k*B + l, payload...] int32 in the layout
 of the JAX package's `_pack_cols`: while the parts fit uint16
 (`pack16_ok`) they ride two per column as `lo | hi << 16`, an odd last
 part unshifted; otherwise one part per column. `unpack_payload` is the
-host inverse, as the JAX package has it.
+host inverse, as the JAX package has it. A phased fused sweep with
+`fisher` set adds the in-sweep Fisher bracket of its survivors
+(`append_fisher_col`, csrc/fisher_bracket.cu, behind the compactions on
+the same stream): bf16 in the top 16 bits of the payload column
+(`fisher_packed`), or an f32 column after the payload (`fisher_cols`,
+`out_cols`), when the segment holds FISHER_MIN_ROWS survivors.
 
 Samples-sharded sweeps (`make_cfg(..., psum_group=...)`, the counterpart
 of the JAX sweeps under a mesh with a 'samples' axis): every rank of the
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from ..ops import _build
+from ..ops import fisher_dev as F
 from ..ops import ld_kernels as K
 from ..ops.tiles import (SEG, _check_inputs, counts_buffer, kernel_name,
                          payload_cols, plane_keys, sweep_args, tile_buffers,
@@ -101,22 +107,21 @@ def planes_to_device(stacked: dict, device, keys=DEV_KEYS,
 def make_cfg(table: str, has_missing: bool, cls: str, B: int,
              n_samples: int, window: int, min_r2: float, max_r2: float,
              min_dprime: float = 0.0, max_dprime: float = 100.0,
-             psum_group=None) -> dict:
-    """Sweep configuration. `psum_group` (a parallel.ProcessGroup) makes
-    the sweeps samples-sharded: the parts of every tile are summed over
-    its ranks. Raises NotImplementedError for what this slice of the port
-    does not run yet, naming the ROADMAP.md queue 1 item that adds it."""
+             psum_group=None, fisher: bool = False) -> dict:
+    """Sweep configuration. D' bounds other than (0, 100) add the
+    in-sweep D' filter to the prefilter of every tile. `psum_group` (a
+    parallel.ProcessGroup) makes the sweeps samples-sharded: the parts of
+    every tile are summed over its ranks. `fisher` asks the fused sweep
+    for the in-sweep Fisher bracket (`fisher_on`)."""
     if table not in ("phased", "unphased") or cls not in ("all", "clean",
                                                           "missing"):
         raise ValueError(f"no sweep group ({table!r}, {cls!r})")
     if not 0 <= window < 1 << 31:
         raise ValueError(f"window {window} outside [0, 2**31) bp")
-    if (min_dprime, max_dprime) != (0.0, 100.0):
-        raise NotImplementedError("the in-sweep D' filter is not ported "
-                                  "yet (ROADMAP.md queue 1 item 16)")
     return dict(table=table, has_missing=has_missing, cls=cls, B=B,
                 n_samples=n_samples, window=window, min_r2=min_r2,
-                max_r2=max_r2, psum_group=psum_group)
+                max_r2=max_r2, psum_group=psum_group, min_dprime=min_dprime,
+                max_dprime=max_dprime, fisher=fisher)
 
 
 def pack16_ok(cfg) -> bool:
@@ -132,6 +137,40 @@ def buf_cols(cfg) -> int:
     payload cols."""
     p = payload_cols(cfg["table"], cfg["has_missing"])
     return 1 + ((p + 1) // 2 if pack16_ok(cfg) else p)
+
+
+def fisher_on(cfg) -> bool:
+    """Whether the fused sweep carries the in-sweep Fisher bracket
+    (phased tables; the unphased EM path keeps Fisher on the host)."""
+    return bool(cfg.get("fisher")) and cfg["table"] == "phased"
+
+
+def fisher_packed(cfg) -> bool:
+    """Whether the bracket rides the unused top 16 bits of the single
+    payload column as bf16 instead of a column of its own: phased, no
+    missing data, parts that fit uint16. Safe only where the device can
+    bound P < 1e-4 (bf16's 2**-9 relative error is then < 2e-7 absolute);
+    larger-P lanes are flagged for the exact host recompute."""
+    return fisher_on(cfg) and not cfg["has_missing"] and pack16_ok(cfg)
+
+
+def fisher_cols(cfg) -> int:
+    """Columns the Fisher bracket adds to the fused sweep's buffer."""
+    return 1 if fisher_on(cfg) and not fisher_packed(cfg) else 0
+
+
+def out_cols(cfg) -> int:
+    """Columns of the fused sweep's survivor buffer: `buf_cols`, then the
+    Fisher column where there is one (the repair sweep's rows have none)."""
+    return buf_cols(cfg) + fisher_cols(cfg)
+
+
+#: segment survivors below which the fused sweep leaves the bracket out:
+#: the host's exact Fisher of a sparse segment costs less than a walk
+#: over the buffer. The host mirrors the rule from the same integer
+#: n_pass (the JAX package's FISHER_MIN_ROWS), so both sides agree on
+#: which rows carry a bracket
+FISHER_MIN_ROWS = 16384
 
 
 def unpack_payload(cols, table: str, has_missing: bool,
@@ -163,9 +202,10 @@ def _payload_layout(P: int, ncol: int) -> bool:
 
 
 def compact_survivors_plain(mask, parts, off, buf, n_pass, n_cand,
-                            t: int, cap: int):
+                            t: int, cap: int, ncol: int = None):
     outcap = buf.shape[0]
-    packed = _payload_layout(parts.shape[0], buf.shape[1])
+    ncol = ncol or buf.shape[1]
+    packed = _payload_layout(parts.shape[0], ncol)
     n, idx = K.compact_indices_small(mask == 2, cap)
     n = int(n)
     o = int(off[0])
@@ -178,7 +218,7 @@ def compact_survivors_plain(mask, parts, off, buf, n_pass, n_cand,
             vals = [vals[q] | (vals[q + 1] << 16) if q + 1 < len(vals)
                     else vals[q] for q in range(0, len(vals), 2)]
         buf[base:base + k, 0] = idx.to(torch.int32)
-        buf[base:base + k, 1:] = torch.stack(vals, dim=1)
+        buf[base:base + k, 1:ncol] = torch.stack(vals, dim=1)
     n_pass[t] = n
     n_cand[t] = int((mask != 0).sum())
     off[0] = min(o + n, outcap)
@@ -191,7 +231,7 @@ def sweep_bytes(cfg, outcap: int) -> int:
     B = cfg["B"]
     P = payload_cols(cfg["table"], cfg["has_missing"])
     return (B * B * (1 + 4 * P) + 4 * B * -(-B // SEG)
-            + 4 * _scratch_len(B) + 4 * outcap * buf_cols(cfg))
+            + 4 * _scratch_len(B) + 4 * outcap * out_cols(cfg))
 
 
 def compact_scratch(B: int, device):
@@ -222,13 +262,14 @@ def _ticket(device, stream: int):
 
 
 def compact_survivors(mask, parts, off, buf, n_pass, n_cand, t: int,
-                      cap: int, counts=None, scratch=None):
+                      cap: int, counts=None, scratch=None, ncol=None):
     """Write the first min(n, cap) survivors (mask == 2) of one tile,
     ascending in flat index, as [k*B + l, payload...] rows at buffer row
     min(off, outcap - cap), outcap = len(buf); set n_pass[t] and
     n_cand[t]; advance off to min(off + n, outcap). `parts` is i32
-    [P, B, B]; the payload layout follows the buffer's width (buf_cols:
-    pair-packed or one part per column). `off` is an int32 [1] tensor
+    [P, B, B]; the payload layout follows `ncol`, the buffer's width by
+    default (buf_cols: pair-packed or one part per column), and columns
+    past it (the Fisher column) are left alone. `off` is an int32 [1] tensor
     updated in place. `counts` are the mask's per-segment counts where
     its producer wrote them (tiles.counts_buffer): the kernel then skips
     its own count of the mask. `scratch` (compact_scratch) is allocated
@@ -238,25 +279,30 @@ def compact_survivors(mask, parts, off, buf, n_pass, n_cand, t: int,
     where the host reads the counts."""
     if mask.is_cuda:
         return _launch_compact(mask, parts, off, buf, n_pass, n_cand, t,
-                               cap, counts, scratch)
+                               cap, counts, scratch, ncol)
     if mask.device.type != "cpu":
         raise ValueError(f"no compaction kernel for device {mask.device}")
     _build.count(_build.PLAIN_CALLS, "compact")
     return compact_survivors_plain(mask, parts, off, buf, n_pass, n_cand,
-                                   t, cap)
+                                   t, cap, ncol)
 
 
 def _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, counts,
-                   scratch, n_off=1):
+                   scratch, n_off=1, ncol=None):
     """Check every tensor the compaction reads and writes: dtype, shape,
-    contiguity and device. `off` holds `n_off` offsets."""
+    contiguity and device. `off` holds `n_off` offsets; the payload
+    layout has `ncol` columns (the buffer's width by default). Returns
+    ncol."""
     B = mask.shape[0]
     P = parts.shape[0]
-    outcap, ncol = buf.shape
+    outcap, ld = buf.shape
+    ncol = ncol or ld
     _payload_layout(P, ncol)
+    if ncol > ld:
+        raise ValueError(f"a payload of {ncol} columns in a buffer of {ld}")
     checks = [
         (mask, torch.uint8, (B, B)), (parts, torch.int32, (P, B, B)),
-        (off, torch.int32, (n_off,)), (buf, torch.int32, (outcap, ncol)),
+        (off, torch.int32, (n_off,)), (buf, torch.int32, (outcap, ld)),
         (n_pass, torch.int32, tuple(n_pass.shape)),
         (n_cand, torch.int32, tuple(n_pass.shape)),
         (scratch, torch.int32, (_scratch_len(B),))]
@@ -273,24 +319,25 @@ def _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, counts,
     if not 0 < cap <= outcap or B * B >= 1 << 31:
         raise ValueError(f"bad compaction shape: B={B} cap={cap} "
                          f"outcap={outcap}")
+    return ncol
 
 
 def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
-                    scratch):
+                    scratch, ncol=None):
     B = mask.shape[0]
     P = parts.shape[0]
-    outcap, ncol = buf.shape
+    outcap, ld = buf.shape
     if scratch is None:
         scratch = compact_scratch(B, mask.device)
-    _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, counts,
-                   scratch)
+    ncol = _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, counts,
+                          scratch, ncol=ncol)
     if not 0 <= t < n_pass.shape[0]:
         raise ValueError(f"tile index {t} outside n_pass")
     lib = _build.library()
     stream = torch.cuda.current_stream(mask.device).cuda_stream
     rc = lib.twk_compact(
         mask.data_ptr(), parts.data_ptr(),
-        None if counts is None else counts.data_ptr(), P, ncol, B,
+        None if counts is None else counts.data_ptr(), P, ncol, ld, B,
         off.data_ptr(), cap, outcap, n_pass.data_ptr(), n_cand.data_ptr(), t,
         scratch.data_ptr(), _ticket(mask.device, stream).data_ptr(),
         buf.data_ptr(), stream)
@@ -342,21 +389,150 @@ def _sweep_buffers(cfg, device):
 def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
     """Per-tile counts AND capped survivor extraction at a running
     offset over a tile list: (n_pass [T], n_cand [T], buf [outcap,
-    ncol]) on the planes' device. Writes clamp at outcap - cap; rows at
-    or beyond the clamp boundary are garbage whenever the total spills
+    out_cols]) on the planes' device. Writes clamp at outcap - cap; rows
+    at or beyond the clamp boundary are garbage whenever the total spills
     (detectable from n_pass), and tiles with more than `cap` survivors
     keep only their first `cap` rows -- the caller repairs both with
     `extract_sweep`. Dead tiles (live False) count zero. The fused tile
     kernel hands its per-segment counts to the compaction, which counts
-    the mask itself in a samples-sharded sweep. Read the counts with
-    `host_counts`."""
+    the mask itself in a samples-sharded sweep. With `fisher_on(cfg)`
+    the rows of the tiles the caller keeps carry the Fisher bracket
+    (`append_fisher_col`) when the segment has FISHER_MIN_ROWS survivors.
+    Read the counts with `host_counts`."""
     T = len(pi)
     n_pass, n_cand, off = _zeros(dev, T), _zeros(dev, T), _zeros(dev, 1)
-    buf = _zeros(dev, outcap, buf_cols(cfg))
+    buf = _zeros(dev, outcap, out_cols(cfg))
     out, cnt, scratch = _sweep_buffers(cfg, buf.device)
     _loop(cfg, buf)(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
-                    buf, n_pass, n_cand)
+                    buf, n_pass, n_cand, ncol=buf_cols(cfg))
+    if fisher_on(cfg) and T:
+        append_fisher_col(dev, n_pass, buf, pi, pj, cfg, cap)
     return n_pass, n_cand, buf
+
+
+def fisher_rows(n_pass, cap: int, outcap: int):
+    """(rows, tiles) int64: the survivor rows that carry a bracket and
+    each one's tile, or None below the volume gate. Tile t's rows are
+    [ends[t] - n_pass[t], ends[t]), ends the inclusive sum of n_pass, for
+    the tiles the caller keeps from the fused pass (n_pass[t] <= cap,
+    ends[t] <= outcap - cap, as `LdEngine._run_segment` decides)."""
+    n = n_pass.to(torch.int64)
+    total = int(n.sum())
+    if total < FISHER_MIN_ROWS:
+        return None
+    ends = torch.cumsum(n, 0)
+    rows = torch.arange(min(total, outcap), device=n.device)
+    t = torch.searchsorted(ends, rows, right=True)
+    keep = (n[t] <= cap) & (ends[t] <= outcap - cap)
+    return rows[keep], t[keep]
+
+
+def fisher_cells(dev, buf, rows, t, pi, pj, cfg):
+    """(REFREF, REFALT, ALTREF, ALTALT) int64 of survivor rows `rows` of
+    tiles `t` (indices into pi, pj), decoded from the fused buffer's
+    payload as ld_kernels.phased_cells does: the 4 parts with missing
+    data, else ALTALT and the allele counts of both variants."""
+    r = buf[rows].to(torch.int64) & 0xFFFFFFFF
+    if cfg["has_missing"]:
+        if pack16_ok(cfg):
+            aa, alt_val = r[:, 1] & 0xFFFF, r[:, 1] >> 16
+            val_alt, val_val = r[:, 2] & 0xFFFF, r[:, 2] >> 16
+        else:
+            aa, alt_val, val_alt, val_val = (buf[rows, c].to(torch.int64)
+                                             for c in range(1, 5))
+        ar = alt_val - aa
+        ra = val_alt - aa
+        return val_val - aa - ar - ra, ra, ar, aa
+    B = cfg["B"]
+    k, l = r[:, 0] // B, r[:, 0] % B
+    aa = r[:, 1] & 0xFFFF if pack16_ok(cfg) else buf[rows, 1].to(torch.int64)
+    tiles = torch.as_tensor(np.stack([pi, pj]).astype(np.int64),
+                            device=buf.device)[:, t]
+    ac_a = dev["ac"][tiles[0], k].to(torch.int64)
+    ac_b = dev["ac"][tiles[1], l].to(torch.int64)
+    return (2 * cfg["n_samples"] - ac_a - ac_b + aa, ac_b - aa, ac_a - aa,
+            aa)
+
+
+def append_fisher_col_plain(dev, n_pass, buf, pi, pj, cfg, cap):
+    """The plain PyTorch version of `append_fisher_col`; returns the
+    walk's steps over the rows (fisher_dev.fisher_bracket), 0 below the
+    gate."""
+    sel = fisher_rows(n_pass, cap, buf.shape[0])
+    if sel is None:
+        return 0
+    rows, t = sel
+    br, log2_pb, steps = F.fisher_bracket(
+        *fisher_cells(dev, buf, rows, t, pi, pj, cfg))
+    if fisher_packed(cfg):
+        bits = F.packed_bits(br, log2_pb)
+        buf[rows, 1] = (buf[rows, 1] & 0xFFFF) | (bits << 16)
+    else:
+        buf[rows, buf_cols(cfg)] = br.view(torch.int32)
+    return int(steps.sum())
+
+
+def append_fisher_col(dev, n_pass, buf, pi, pj, cfg, cap, steps=None):
+    """Write the Fisher bracket of every survivor row of a fused sweep's
+    buffer that the caller keeps (`fisher_rows`), in place: with
+    `fisher_packed(cfg)` as bf16 in the top 16 bits of payload column 1,
+    else as the f32 bits of column `buf_cols(cfg)`. Nothing below the
+    volume gate (FISHER_MIN_ROWS survivors in the segment). The
+    counterpart of the JAX package's append_fisher_col behind the gate of
+    its fused_sweep. Launches csrc/fisher_bracket.cu on the sweep's
+    stream for CUDA tensors (the gate read on the device, no host sync;
+    `steps`, a uint64 [1] tensor, adds up the walk's steps), the plain
+    version for CPU tensors. Repair rows carry no bracket."""
+    if buf.is_cuda:
+        return _launch_fisher(dev, n_pass, buf, pi, pj, cfg, cap, steps)
+    if buf.device.type != "cpu":
+        raise ValueError(f"no Fisher kernel for device {buf.device}")
+    _build.count(_build.PLAIN_CALLS, "fisher_bracket")
+    return append_fisher_col_plain(dev, n_pass, buf, pi, pj, cfg, cap)
+
+
+def _launch_fisher(dev, n_pass, buf, pi, pj, cfg, cap, steps=None):
+    outcap, ld = buf.shape
+    T, B = len(pi), cfg["B"]
+    miss = cfg["has_missing"]
+    device = buf.device
+    ac = dev["ac"]
+    for name, x, dtype, shape in (
+            ("buf", buf, torch.int32, (outcap, ld)),
+            ("n_pass", n_pass, torch.int32, (T,)),
+            ("ac", ac, torch.int32, (ac.shape[0], B))):
+        if x.dtype != dtype or tuple(x.shape) != shape \
+                or not x.is_contiguous() or x.device != device:
+            raise ValueError(f"Fisher input {name} {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}: expected {shape} "
+                             f"{dtype}, contiguous, on {device}")
+    if ld != out_cols(cfg) or not fisher_on(cfg) or not 0 < cap <= outcap:
+        raise ValueError(f"no Fisher column for a [{outcap}, {ld}] buffer "
+                         f"of this sweep group (cap {cap})")
+    if steps is not None and (steps.dtype != torch.uint64
+                              or steps.numel() != 1
+                              or steps.device != device):
+        raise ValueError("steps must be one uint64 on the buffer's device")
+    tl = None
+    if not miss:
+        pij = np.stack([np.asarray(pi, np.int32), np.asarray(pj, np.int32)])
+        if T and not (0 <= pij.min() and pij.max() < ac.shape[0]):
+            raise ValueError(f"a tile of the list lies outside "
+                             f"[{ac.shape[0]}]")
+        # pinned, so the copy queues behind the sweep without a host sync
+        tl = torch.from_numpy(pij).pin_memory().to(device, non_blocking=True)
+    ends = torch.empty(T + 1, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _build.library().twk_fisher_bracket(
+        buf.data_ptr(), ld, int(miss), int(pack16_ok(cfg)),
+        int(fisher_packed(cfg)), buf_cols(cfg), B, 2 * cfg["n_samples"], cap,
+        outcap, n_pass.data_ptr(), T, ends.data_ptr(),
+        None if miss else ac.data_ptr(),
+        None if miss else tl[0].data_ptr(),
+        None if miss else tl[1].data_ptr(), FISHER_MIN_ROWS, F.MAX_STEPS,
+        None if steps is None else steps.data_ptr(), stream)
+    _build.check(rc, "fisher_bracket launch")
+    _build.count(_build.LAUNCHES, "fisher_bracket")
 
 
 def extract_sweep(dev, pi, pj, dg, off, *, cfg, cap, outcap):
@@ -383,7 +559,7 @@ def _loop(cfg, buf):
 
 
 def _tile_loop(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off, buf,
-               n_pass, n_cand):
+               n_pass, n_cand, ncol=None):
     """The tile loop in Python, with `_launch_sweep`'s arguments: for each
     live tile the tile (`_tile`: the fused kernel, or the samples-sharded
     steps with their all-reduce) and its compaction, at the one running
@@ -394,22 +570,25 @@ def _tile_loop(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off, buf,
                                 cfg, out, cnt)
             compact_survivors(mask, parts,
                               off if live is not None else off[t:t + 1],
-                              buf, n_pass, n_cand, t, cap, cnt, scratch)
+                              buf, n_pass, n_cand, t, cap, cnt, scratch,
+                              ncol)
 
 
 def _launch_sweep(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
-                  buf, n_pass, n_cand):
+                  buf, n_pass, n_cand, ncol=None):
     """The tile loop of `fused_sweep` (live given, one running offset) or
     of `extract_sweep` (live None, `off` an offset a tile) as one call of
     csrc/sweep.cu's `twk_sweep`, on the current stream: every tensor is
     checked here once, and the C loop launches each live tile's fused
     tile kernel and its compaction in tile order. Each kernel's launches
-    are counted as the C loop reports them."""
+    are counted as the C loop reports them. `ncol`: the payload layout's
+    columns, when the buffer has more (the Fisher column)."""
     NB, B, _ = _check_inputs(dev, cfg, out)
     mask, parts = out
     T = len(pi)
-    _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, cnt, scratch,
-                   n_off=1 if live is not None else T)
+    ncol = _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, cnt,
+                          scratch, n_off=1 if live is not None else T,
+                          ncol=ncol)
     if tuple(n_pass.shape) != (T,):
         raise ValueError(f"n_pass holds {n_pass.shape[0]} tiles, not {T}")
     pi = np.ascontiguousarray(pi, np.int32)
@@ -429,7 +608,8 @@ def _launch_sweep(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
         *sweep_args(dev, cfg), T, pi.ctypes.data, pj.ctypes.data,
         dg.ctypes.data, None if live is None else live.ctypes.data,
         mask.data_ptr(), parts.data_ptr(), cnt.data_ptr(), parts.shape[0],
-        buf.shape[1], off.data_ptr(), int(live is None), cap, buf.shape[0],
+        ncol, buf.shape[1], off.data_ptr(), int(live is None), cap,
+        buf.shape[0],
         n_pass.data_ptr(), n_cand.data_ptr(), scratch.data_ptr(),
         _ticket(buf.device, stream).data_ptr(), buf.data_ptr(), stream,
         done)

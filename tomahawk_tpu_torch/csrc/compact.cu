@@ -11,7 +11,8 @@
 // Contract (the one resume, the .two byte order and the parity tests rely
 // on): of the n survivors (mask == 2) of a B x B tile, the first
 // min(n, cap) in ascending flat index k*B + l are written as int32 rows
-// [k*B + l, payload...] starting at row min(off, outcap - cap) of buf;
+// [k*B + l, payload...] starting at row min(off, outcap - cap) of buf
+// (rows `ld` int32 apart: a buffer may carry columns past the payload);
 // then n_pass[t] = n, n_cand[t] = #(mask != 0) and off = min(off + n,
 // outcap). The payload is the survivor's P parts (parts i32 [P, B, B];
 // P = 1, 4 or 9) in _pack_cols' layout: with ncol = 1 + ceil(P/2) columns
@@ -191,7 +192,7 @@ scan_kernel(const uint32_t* __restrict__ counts, int B, int n_seg,
 // bad ticket can spoil only this tile's rows.
 __global__ void write_kernel(const uint8_t* __restrict__ mask,
                              const int32_t* __restrict__ parts, int P,
-                             int ncol, int B, int n_seg,
+                             int ncol, int ld, int B, int n_seg,
                              const uint32_t* __restrict__ counts,
                              const uint32_t* __restrict__ row_tot,
                              const int* __restrict__ row_off,
@@ -239,7 +240,7 @@ __global__ void write_kernel(const uint8_t* __restrict__ mask,
         if ((w & 0xff) == 0) continue;
         if (pos >= 0 && pos < end) {
           const int l = l0 + q;
-          int32_t* dst = buf + (size_t)(base + pos) * ncol;
+          int32_t* dst = buf + (size_t)(base + pos) * ld;
           const size_t f = (size_t)k * B + l;
           dst[0] = k * B + l;
           if (ncol == 1 + P) {
@@ -267,14 +268,15 @@ __global__ void write_kernel(const uint8_t* __restrict__ mask,
 // not be initialised: row totals, row offsets, info [2], six unused, segment
 // counts. ticket: the scan's counter, one uint32 that is 0 on entry and is
 // left 0; calls that may overlap (other streams) need one each. Found not
-// 0, it is set to 0 and n_pass[t] to -1.
+// 0, it is set to 0 and n_pass[t] to -1. ld: the buffer's row stride,
+// ncol or more (the columns past ncol are left alone).
 extern "C" int twk_compact(const void* mask, const void* parts,
-                           const void* counts, int P, int ncol, int B,
+                           const void* counts, int P, int ncol, int ld, int B,
                            void* off, int cap, int outcap, void* n_pass,
                            void* n_cand, int t, void* scratch, void* ticket,
                            void* buf, void* stream) {
   if (B <= 0 || B >= 1 << 16 || cap <= 0 || cap > outcap || P <= 0 ||
-      (ncol != 1 + P && ncol != 1 + (P + 1) / 2))
+      (ncol != 1 + P && ncol != 1 + (P + 1) / 2) || ld < ncol)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int n_seg = (B + kSeg - 1) / kSeg;
@@ -297,7 +299,7 @@ extern "C" int twk_compact(const void* mask, const void* parts,
       (int*)n_pass, (int*)n_cand, t, info, (unsigned*)ticket);
   const int row_blocks = (B * 32 + kRowThreads - 1) / kRowThreads;
   write_kernel<<<row_blocks, kRowThreads, 0, s>>>(
-      (const uint8_t*)mask, (const int32_t*)parts, P, ncol, B, n_seg,
+      (const uint8_t*)mask, (const int32_t*)parts, P, ncol, ld, B, n_seg,
       seg_counts, row_tot, row_off, info, cap, outcap, (unsigned*)ticket,
       (int*)n_pass, t, (int32_t*)buf);
   return (int)cudaGetLastError();

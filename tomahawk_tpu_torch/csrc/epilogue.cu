@@ -44,13 +44,14 @@ struct Args {
   const int32_t* nhom_j;
   twk::Window win;
   int cls, B, n_samples;
-  float lo, hi;
-  int need_nonzero, diag;
+  twk::Bounds bnd;
+  int diag;
   uint8_t* mask;
 };
 
-template <int KIND>
-__global__ void __launch_bounds__(kThreads) epilogue_kernel(const Args a) {
+// The mask byte of one pair; DP: with the D' term.
+template <int KIND, bool DP>
+__device__ __forceinline__ void pair_mask(const Args& a) {
   const int B = a.B;
   const size_t BB = (size_t)B * B;
   // one grid row per variant k, so no thread divides by B
@@ -70,16 +71,16 @@ __global__ void __launch_bounds__(kThreads) epilogue_kernel(const Args a) {
       const int altref = aci - altalt;
       const int refalt = acj - altalt;
       const int refref = 2 * a.n_samples - (aci + acj) + altalt;
-      pf = twk::phased_prefilter(refref, refalt, altref, altalt, a.lo, a.hi,
-                                 a.need_nonzero);
+      pf = twk::phased_prefilter<DP>(refref, refalt, altref, altalt,
+                                     a.bnd);
     } else if constexpr (KIND == 1) {
       // ld_kernels.phased_cells, 4-part branch
       const int altalt = a.parts[f];
       const int altref = a.parts[BB + f] - altalt;
       const int refalt = a.parts[2 * BB + f] - altalt;
       const int refref = a.parts[3 * BB + f] - altalt - altref - refalt;
-      pf = twk::phased_prefilter(refref, refalt, altref, altalt, a.lo, a.hi,
-                                 a.need_nonzero);
+      pf = twk::phased_prefilter<DP>(refref, refalt, altref, altalt,
+                                     a.bnd);
     } else {
       // ld_kernels.unphased_cells
       const int T11 = a.parts[f], T12 = a.parts[BB + f];
@@ -104,11 +105,19 @@ __global__ void __launch_bounds__(kThreads) epilogue_kernel(const Args a) {
       const int T02 = vo - T12 - T22;
       const int T00 = vv - (T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22);
       const int T[9] = {T00, T01, T02, T10, T11, T12, T20, T21, T22};
-      pf = twk::unphased_prefilter(T, a.lo, a.hi);
+      pf = twk::unphased_prefilter<DP>(T, a.bnd);
     }
     m = pf ? 2 : 1;
   }
   a.mask[f] = m;
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(kThreads) epilogue_kernel(const Args a) {
+  if (twk::dprime_on(a.bnd))
+    pair_mask<KIND, true>(a);
+  else
+    pair_mask<KIND, false>(a);
 }
 
 template <int KIND>
@@ -129,8 +138,8 @@ extern "C" int twk_tile_epilogue(
     const void* an_j, const void* nhet_i, const void* nhom_i,
     const void* nhet_j, const void* nhom_j, const void* pos_i,
     const void* pos_j, const void* rid_i, const void* rid_j, int window,
-    int cls, int B, int n_samples, float lo, float hi, int need_nonzero,
-    int diag, void* mask, void* stream) {
+    int cls, int B, int n_samples, float lo, float hi, float dp_lo,
+    float dp_hi, int need_nonzero, int diag, void* mask, void* stream) {
   const bool bad =
       B <= 0 || B > 46340 || kind < 0 || kind > 3 || cls < 0 || cls > 2 ||
       !parts || !ac_i || !ac_j || !valid_i || !valid_j || !mask ||
@@ -155,9 +164,7 @@ extern "C" int twk_tile_epilogue(
   a.cls = cls;
   a.B = B;
   a.n_samples = n_samples;
-  a.lo = lo;
-  a.hi = hi;
-  a.need_nonzero = need_nonzero;
+  a.bnd = {lo, hi, dp_lo, dp_hi, need_nonzero};
   a.diag = diag;
   a.mask = (uint8_t*)mask;
   cudaStream_t s = (cudaStream_t)stream;

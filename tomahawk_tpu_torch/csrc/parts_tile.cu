@@ -106,8 +106,8 @@ struct Args {
   const int32_t* nhom_j;
   twk::Window win;
   int cls, B, W, n_samples;
-  float lo, hi;
-  int need_nonzero, diag;
+  twk::Bounds bnd;
+  int diag;
   uint8_t* mask;
   int32_t* parts;
   int32_t* counts;  // null: none
@@ -140,8 +140,8 @@ __device__ __forceinline__ unsigned count_byte(unsigned m) {
   return (m >> 1) | (m != 0 ? 1u << 16 : 0u);
 }
 
-// The mask byte of pair (k, l) from its P parts v.
-template <int KIND>
+// The mask byte of pair (k, l) from its P parts v; DP: with the D' term.
+template <int KIND, bool DP>
 __device__ __forceinline__ unsigned pair_mask(const Args& a, const int* v,
                                               int k, int l, int aci,
                                               bool vi) {
@@ -155,8 +155,7 @@ __device__ __forceinline__ unsigned pair_mask(const Args& a, const int* v,
     const int altref = v[1] - altalt;
     const int refalt = v[2] - altalt;
     const int refref = v[3] - altalt - altref - refalt;
-    pf = twk::phased_prefilter(refref, refalt, altref, altalt, a.lo, a.hi,
-                               a.need_nonzero);
+    pf = twk::phased_prefilter<DP>(refref, refalt, altref, altalt, a.bnd);
   } else {
     // ld_kernels.unphased_cells
     const int T11 = v[0], T12 = v[1], T21 = v[2], T22 = v[3];
@@ -180,9 +179,94 @@ __device__ __forceinline__ unsigned pair_mask(const Args& a, const int* v,
     const int T02 = vo - T12 - T22;
     const int T00 = vv - (T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22);
     const int T[9] = {T00, T01, T02, T10, T11, T12, T20, T21, T22};
-    pf = twk::unphased_prefilter(T, a.lo, a.hi);
+    pf = twk::unphased_prefilter<DP>(T, a.bnd);
   }
   return pf ? 2u : 1u;
+}
+
+// The epilogue of a block from its accumulators: the mask bytes, the
+// parts and the row counts; DP: with the D' term.
+template <int KIND, bool DP>
+__device__ __forceinline__ void epilogue(
+    const Args& a,
+    const int (&acc)[Shape<KIND>::kParts][Shape<KIND>::kMi]
+                    [Shape<KIND>::kNi][4],
+    uint32_t* smem, int row0, int col0) {
+  using S = Shape<KIND>;
+  constexpr int P = S::kParts, kMi = S::kMi, kNi = S::kNi;
+  constexpr int TI = TileOf<KIND>::kRows;
+  const int B = a.B;
+  // the row counts of the block, in the freed staging buffers
+  unsigned* srow = reinterpret_cast<unsigned*>(smem);
+  if (a.counts != nullptr) {
+    for (int r = threadIdx.x; r < TI; r += kThreads) srow[r] = 0;
+    __syncthreads();
+  }
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wr = (warp / twk::mma::kWarpsN) * kMi * 16;
+  const int wc = (warp % twk::mma::kWarpsN) * kNi * 8;
+  const size_t BB = (size_t)B * B;
+  const bool even = B % 2 == 0;
+#pragma unroll
+  for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + mi * 16 + h * 8 + g;
+      const int k = row0 + r;
+      const bool row_in = k < B;
+      const int aci = row_in ? a.ac_i[k] : 0;
+      const bool vi = row_in && a.valid_i[k] != 0;
+      unsigned n = 0;
+#pragma unroll
+      for (int ni = 0; ni < kNi; ++ni) {
+        const int l0 = col0 + wc + ni * 8 + 2 * t;
+        if (!row_in || l0 >= B) continue;
+        const size_t f = (size_t)k * B + l0;
+        unsigned m2 = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (l0 + e >= B) continue;
+          int v[P];
+#pragma unroll
+          for (int p = 0; p < P; ++p) v[p] = acc[p][mi][ni][2 * h + e];
+          const unsigned m = pair_mask<KIND, DP>(a, v, k, l0 + e, aci, vi);
+          m2 |= m << (8 * e);
+          n += count_byte(m);
+        }
+        if (even) {
+          *reinterpret_cast<uint16_t*>(a.mask + f) = (uint16_t)m2;
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            __stcs(reinterpret_cast<int2*>(a.parts + p * BB + f),
+                   make_int2(acc[p][mi][ni][2 * h], acc[p][mi][ni][2 * h + 1]));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (l0 + e < B) {
+              a.mask[f + e] = (uint8_t)(m2 >> (8 * e));
+#pragma unroll
+              for (int p = 0; p < P; ++p)
+                __stcs(a.parts + p * BB + f + e, acc[p][mi][ni][2 * h + e]);
+            }
+        }
+      }
+      if (a.counts != nullptr) {  // uniform across the block
+        n += __shfl_xor_sync(0xffffffffu, n, 1);
+        n += __shfl_xor_sync(0xffffffffu, n, 2);
+        if (t == 0 && n != 0) atomicAdd(srow + r, n);
+      }
+    }
+  if (a.counts == nullptr) return;
+  __syncthreads();
+  const int n_seg = (B + kSeg - 1) / kSeg;
+  for (int r = threadIdx.x; r < TI; r += kThreads)
+    if (srow[r] != 0 && row0 + r < B)
+      atomicAdd(reinterpret_cast<unsigned*>(a.counts) +
+                    (size_t)(row0 + r) * n_seg + col0 / kSeg,
+                srow[r]);
 }
 
 template <int KIND>
@@ -222,77 +306,10 @@ __global__ void __launch_bounds__(kThreads, 2) parts_tile_kernel(const Args a) {
   const uint32_t* const xb[3] = {a.pj[0], a.pj[1], a.pj[2]};
   Tile::run(smem, xa, xb, row0, col0, B, a.W, acc);
 
-  // the row counts of the block, in the freed staging buffers
-  unsigned* srow = reinterpret_cast<unsigned*>(smem);
-  if (a.counts != nullptr) {
-    for (int r = threadIdx.x; r < TI; r += kThreads) srow[r] = 0;
-    __syncthreads();
-  }
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wr = (warp / twk::mma::kWarpsN) * kMi * 16;
-  const int wc = (warp % twk::mma::kWarpsN) * kNi * 8;
-  const size_t BB = (size_t)B * B;
-  const bool even = B % 2 == 0;
-#pragma unroll
-  for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wr + mi * 16 + h * 8 + g;
-      const int k = row0 + r;
-      const bool row_in = k < B;
-      const int aci = row_in ? a.ac_i[k] : 0;
-      const bool vi = row_in && a.valid_i[k] != 0;
-      unsigned n = 0;
-#pragma unroll
-      for (int ni = 0; ni < kNi; ++ni) {
-        const int l0 = col0 + wc + ni * 8 + 2 * t;
-        if (!row_in || l0 >= B) continue;
-        const size_t f = (size_t)k * B + l0;
-        unsigned m2 = 0;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (l0 + e >= B) continue;
-          int v[P];
-#pragma unroll
-          for (int p = 0; p < P; ++p) v[p] = acc[p][mi][ni][2 * h + e];
-          const unsigned m = pair_mask<KIND>(a, v, k, l0 + e, aci, vi);
-          m2 |= m << (8 * e);
-          n += count_byte(m);
-        }
-        if (even) {
-          *reinterpret_cast<uint16_t*>(a.mask + f) = (uint16_t)m2;
-#pragma unroll
-          for (int p = 0; p < P; ++p)
-            __stcs(reinterpret_cast<int2*>(a.parts + p * BB + f),
-                   make_int2(acc[p][mi][ni][2 * h], acc[p][mi][ni][2 * h + 1]));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (l0 + e < B) {
-              a.mask[f + e] = (uint8_t)(m2 >> (8 * e));
-#pragma unroll
-              for (int p = 0; p < P; ++p)
-                __stcs(a.parts + p * BB + f + e, acc[p][mi][ni][2 * h + e]);
-            }
-        }
-      }
-      if (a.counts != nullptr) {  // uniform across the block
-        n += __shfl_xor_sync(0xffffffffu, n, 1);
-        n += __shfl_xor_sync(0xffffffffu, n, 2);
-        if (t == 0 && n != 0) atomicAdd(srow + r, n);
-      }
-    }
-  if (a.counts == nullptr) return;
-  __syncthreads();
-  const int n_seg = (B + kSeg - 1) / kSeg;
-  for (int r = threadIdx.x; r < TI; r += kThreads)
-    if (srow[r] != 0 && row0 + r < B)
-      atomicAdd(reinterpret_cast<unsigned*>(a.counts) +
-                    (size_t)(row0 + r) * n_seg + col0 / kSeg,
-                srow[r]);
+  if (twk::dprime_on(a.bnd))
+    epilogue<KIND, true>(a, acc, smem, row0, col0);
+  else
+    epilogue<KIND, false>(a, acc, smem, row0, col0);
 }
 
 template <int KIND>
@@ -330,8 +347,8 @@ extern "C" int twk_parts_tile(
     const void* nhom_i, const void* nhet_j, const void* nhom_j,
     const void* pos_i, const void* pos_j, const void* rid_i,
     const void* rid_j, int window, int cls, int B, int W, int n_samples,
-    float lo, float hi, int need_nonzero, int diag, void* mask, void* parts,
-    void* counts, void* stream) {
+    float lo, float hi, float dp_lo, float dp_hi, int need_nonzero, int diag,
+    void* mask, void* parts, void* counts, void* stream) {
   const bool bad =
       B <= 0 || W <= 0 || kind < 0 || kind > 2 || cls < 0 || cls > 2 ||
       !x_i || !y_i || !x_j || !y_j || !ac_i || !ac_j || !valid_i ||
@@ -363,9 +380,7 @@ extern "C" int twk_parts_tile(
   a.B = B;
   a.W = W;
   a.n_samples = n_samples;
-  a.lo = lo;
-  a.hi = hi;
-  a.need_nonzero = need_nonzero;
+  a.bnd = {lo, hi, dp_lo, dp_hi, need_nonzero};
   a.diag = diag;
   a.mask = (uint8_t*)mask;
   a.parts = (int32_t*)parts;

@@ -54,7 +54,8 @@
 //
 // The epilogue follows ops/ld_kernels.phased_cells (no-missing branch) and
 // phased_prefilter_cells (prefilter.cuh's phased_prefilter, the one
-// statement of it that every kernel shares), bit for bit (-fmad=false).
+// statement of it that every kernel shares, with its D' term where the run
+// sets D' bounds), bit for bit (-fmad=false).
 // Padding rows (valid = 0) and rows past B are never candidates, and
 // padding words are zero, so they add nothing. A second form of the
 // prefilter that took the table's marginals from the row and the column,
@@ -111,8 +112,8 @@ struct Cols {
 // What the epilogue reads beside the counts: the kernel's scalar arguments.
 struct Scalars {
   twk::Window win;
-  int cls, B, n_hap, need_nonzero, diag, n_seg;
-  float lo, hi;
+  int cls, B, n_hap, diag, n_seg;
+  twk::Bounds bnd;
 };
 
 // Metadata of one row, the same in every lane.
@@ -129,7 +130,8 @@ __device__ __forceinline__ unsigned count_bytes(uint32_t m4) {
 }
 
 // The mask bytes of row `row` at the lane's 4 columns, from their counts
-// aa.
+// aa; DP: with the D' term.
+template <bool DP>
 __device__ __forceinline__ uint32_t row_mask(const Scalars& s, const Cols& col,
                                              const Row& row, const int (&aa)[4],
                                              int l0) {
@@ -150,8 +152,8 @@ __device__ __forceinline__ uint32_t row_mask(const Scalars& s, const Cols& col,
     const int altref = row.ac - aa[q];
     const int refalt = col.ac[q] - aa[q];
     const int refref = s.n_hap - (row.ac + col.ac[q]) + aa[q];
-    const bool pf = twk::phased_prefilter(refref, refalt, altref, aa[q], s.lo,
-                                          s.hi, s.need_nonzero);
+    const bool pf =
+        twk::phased_prefilter<DP>(refref, refalt, altref, aa[q], s.bnd);
     m4 |= (m ? (pf ? 2u : 1u) : 0u) << (8 * q);
   }
   return m4;
@@ -193,6 +195,7 @@ __device__ __forceinline__ void store_row(const Scalars& s, uint32_t m4,
 // them, then their warp reductions, then their stores, so that the
 // reductions and the stores' branches of one row do not hold back the
 // next (one row at a time took a fifth of the kernel longer).
+template <bool DP>
 __device__ __forceinline__ void warp_rows(
     const Scalars& s, const Cols& col, const int* sacc, int row0, int l0,
     const int32_t* __restrict__ ac_i, const uint8_t* __restrict__ valid_i,
@@ -235,7 +238,7 @@ __device__ __forceinline__ void warp_rows(
       aa4[u] = *reinterpret_cast<const int4*>(sacc + (first + i) * kAccLd +
                                               4 * lane);
       const int aa[4] = {aa4[u].x, aa4[u].y, aa4[u].z, aa4[u].w};
-      m4[u] = row_mask(s, col, row, aa, l0);
+      m4[u] = row_mask<DP>(s, col, row, aa, l0);
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u)
@@ -257,8 +260,7 @@ phased_tile_kernel(const uint32_t* __restrict__ alt_i,
                    const int32_t* __restrict__ an_i,
                    const int32_t* __restrict__ an_j,
                    const twk::Window win, int cls, int B, int W, int n_hap,
-                   float lo, float hi,
-                   int need_nonzero, int diag,
+                   const twk::Bounds bnd, int diag,
                    uint8_t* __restrict__ mask,
                    int32_t* __restrict__ altalt,
                    int32_t* __restrict__ counts) {
@@ -268,8 +270,7 @@ phased_tile_kernel(const uint32_t* __restrict__ alt_i,
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int l0 = col0 + 4 * lane;  // the lane's first epilogue column
-  const Scalars s = {win,          cls,  B,          n_hap,
-                     need_nonzero, diag, (int)gridDim.x, lo, hi};
+  const Scalars s = {win, cls, B, n_hap, diag, (int)gridDim.x, bnd};
 
   if (win.window > 0 &&
       !twk::block_live(win, valid_i, valid_j, row0, kTile, col0, kTile, B,
@@ -324,8 +325,12 @@ phased_tile_kernel(const uint32_t* __restrict__ alt_i,
     col.pos[q] = win.window > 0 && in ? win.pos_j[l] : 0;
     col.rid[q] = win.window > 0 && in ? win.rid_j[l] : 0;
   }
-  warp_rows(s, col, sacc, row0, l0, ac_i, valid_i, an_i, mask, altalt,
-            counts);
+  if (twk::dprime_on(bnd))
+    warp_rows<true>(s, col, sacc, row0, l0, ac_i, valid_i, an_i, mask,
+                    altalt, counts);
+  else
+    warp_rows<false>(s, col, sacc, row0, l0, ac_i, valid_i, an_i, mask,
+                     altalt, counts);
 }
 
 }  // namespace
@@ -337,7 +342,8 @@ extern "C" int twk_phased_tile(const void* alt_i, const void* alt_j,
                                const void* an_i, const void* an_j,
                                const void* pos_i, const void* pos_j,
                                const void* rid_i, const void* rid_j,
-                               int window, int cls, int B, int W, int n_hap, float lo, float hi,
+                               int window, int cls, int B, int W, int n_hap,
+                               float lo, float hi, float dp_lo, float dp_hi,
                                int need_nonzero, int diag, void* mask,
                                void* altalt, void* counts, void* stream) {
   if (B <= 0 || W <= 0 || cls < 0 || cls > 2 ||
@@ -358,10 +364,9 @@ extern "C" int twk_phased_tile(const void* alt_i, const void* alt_j,
       (const uint32_t*)alt_i, (const uint32_t*)alt_j,
       (const int32_t*)ac_i, (const int32_t*)ac_j,
       (const uint8_t*)valid_i, (const uint8_t*)valid_j,
-      (const int32_t*)an_i, (const int32_t*)an_j, win, cls, B, W, n_hap, lo,
-      hi,
-      need_nonzero, diag, (uint8_t*)mask, (int32_t*)altalt,
-      (int32_t*)counts);
+      (const int32_t*)an_i, (const int32_t*)an_j, win, cls, B, W, n_hap,
+      twk::Bounds{lo, hi, dp_lo, dp_hi, need_nonzero}, diag, (uint8_t*)mask,
+      (int32_t*)altalt, (int32_t*)counts);
   return (int)cudaGetLastError();
 }
 

@@ -6,8 +6,8 @@
 // expression. The library is built with -fmad=false and without fast math,
 // so every product, sum and quotient rounds on its own as IEEE f32 (nvcc's
 // default -prec-div=true divides exactly), and the decisions are
-// bit-identical to the plain versions'. lo and hi arrive from the host,
-// rounded the way the JAX package rounds them.
+// bit-identical to the plain versions'. The bounds arrive from the host
+// (Bounds), rounded the way the JAX package rounds them.
 
 #pragma once
 
@@ -114,11 +114,51 @@ __device__ __forceinline__ bool block_live(const Window& win,
   return rid_meet && !(one_rid && far) && !below_diag;
 }
 
-// ld_kernels.phased_prefilter_cells (default D' bounds) on one 2x2 table.
+// The bounds of the f32 prefilter, as the host rounds them: the r2 range
+// [lo, hi] (with need_nonzero: exact D = 0 fails), and the D' range
+// [dp_lo, dp_hi] with its 1e-3 slack already applied; (-inf, inf) when the
+// run sets no D' bounds, which keeps every pair and skips the term.
+struct Bounds {
+  float lo, hi, dp_lo, dp_hi;
+  int need_nonzero;
+};
+
+__device__ __forceinline__ bool dprime_on(const Bounds& bnd) {
+  return bnd.dp_lo != -__int_as_float(0x7f800000) ||
+         bnd.dp_hi != __int_as_float(0x7f800000);
+}
+
+// ld_kernels.dprime_prefilter_cells on one 2x2 table of f32 cells: D' =
+// d_num / dmax_num in t^2 units (D and Dmax share the t^2 factor), 0 where
+// dmax_num is 0, inside [dp_lo, dp_hi]; a pair whose d_num is within 8 f32
+// ulps of its products (cancellation) passes, since its f32 sign is not to
+// be trusted. One IEEE division, every product and sum rounded on its own
+// (-fmad=false), so the decision is the plain version's.
+__device__ __forceinline__ bool dprime_ok(float rr, float ra, float ar,
+                                          float aa, float dp_lo,
+                                          float dp_hi) {
+  const float p1 = rr * aa;
+  const float p2 = ar * ra;
+  const float d_num = p1 - p2;
+  const float g0 = rr + ra, g1 = ar + aa;
+  const float h0 = rr + ar, h1 = ra + aa;
+  const float dmax_num = d_num >= 0.0f ? fminf(g0 * h1, h0 * g1)
+                                       : -fminf(g0 * g1, h0 * h1);
+  const float dprime = dmax_num != 0.0f ? __fdiv_rn(d_num, dmax_num) : 0.0f;
+  constexpr float kEps = 8.0f * 1.2e-7f;  // exact: a power of two times
+  const bool trusted = fabsf(d_num) > kEps * (p1 + p2);
+  return (dprime >= dp_lo && dprime <= dp_hi) || !trusted;
+}
+
+// ld_kernels.phased_prefilter_cells on one 2x2 table; with DP the D' term
+// too. A kernel takes the DP instance where dprime_on(bnd), by one uniform
+// branch around its whole epilogue, so that the instance without D' bounds
+// carries no code of the term (predicated, its division would run for
+// every pair).
+template <bool DP>
 __device__ __forceinline__ bool phased_prefilter(int refref, int refalt,
                                                  int altref, int altalt,
-                                                 float lo, float hi,
-                                                 int need_nonzero) {
+                                                 const Bounds& bnd) {
   const int t = refref + refalt + altref + altalt;
   const int guard = refref < altalt ? refalt + altref + refref
                                     : altalt + refalt + altref;
@@ -130,8 +170,12 @@ __device__ __forceinline__ bool phased_prefilter(int refref, int refalt,
   const float d_num = rr * aa - ar * ra;
   const float d2 = d_num * d_num;
   const float denom = (rr + ra) * (ar + aa) * (rr + ar) * (ra + aa);
-  if (need_nonzero) pf = pf && d_num != 0.0f;
-  return pf && d2 >= lo * denom && d2 <= hi * denom;
+  if (bnd.need_nonzero) pf = pf && d_num != 0.0f;
+  pf = pf && d2 >= bnd.lo * denom && d2 <= bnd.hi * denom;
+  if constexpr (DP) {
+    if (pf) pf = dprime_ok(rr, ra, ar, aa, bnd.dp_lo, bnd.dp_hi);
+  }
+  return pf;
 }
 
 // ld_kernels.phased_r2_cells: approximate r2, inf where a marginal is 0.
@@ -150,10 +194,13 @@ __device__ __forceinline__ float phased_r2(float rr, float ra, float ar,
 
 // ld_kernels.unphased_prefilter_cells on one 3x3 genotype table
 // (T[0..8] = T00, T01, T02, T10, T11, T12, T20, T21, T22): the phased
-// fold's r2 when there is no double heterozygote, else the exact r2 range
-// of the EM estimator over the plausible interval [minhap, maxhap].
-__device__ __forceinline__ bool unphased_prefilter(const int* T, float lo,
-                                                   float hi) {
+// fold's r2 (and D', with D' bounds) when there is no double
+// heterozygote, else the exact r2 range of the EM estimator over the
+// plausible interval [minhap, maxhap]. DP as phased_prefilter's.
+template <bool DP>
+__device__ __forceinline__ bool unphased_prefilter(const int* T,
+                                                   const Bounds& bnd) {
+  const float lo = bnd.lo, hi = bnd.hi;
   const float t00 = (float)T[0], t01 = (float)T[1], t02 = (float)T[2];
   const float t10 = (float)T[3], t11 = (float)T[4], t12 = (float)T[5];
   const float t20 = (float)T[6], t21 = (float)T[7], t22 = (float)T[8];
@@ -174,7 +221,12 @@ __device__ __forceinline__ bool unphased_prefilter(const int* T, float lo,
   const float altalt = 2.0f * t22 + t21 + t12;
   const float r2_fold = phased_r2(refref, refalt, altref, altalt);
   const float t = refref + refalt + altref + altalt;
-  const bool fold_ok = t >= 5.0f && r2_fold >= lo && r2_fold <= hi;
+  bool fold_ok = t >= 5.0f && r2_fold >= lo && r2_fold <= hi;
+  if constexpr (DP) {
+    if (fold_ok)
+      fold_ok = dprime_ok(refref, refalt, altref, altalt, bnd.dp_lo,
+                          bnd.dp_hi);
+  }
 
   // EM case: r2(f11) = (f11 - pq)^2 / denom over [minhap, maxhap]
   const float minhap = n11 / (2.0f * ns);

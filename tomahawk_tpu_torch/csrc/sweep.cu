@@ -27,9 +27,9 @@ extern "C" int twk_phased_tile(const void* alt_i, const void* alt_j,
                                const void* pos_i, const void* pos_j,
                                const void* rid_i, const void* rid_j,
                                int window, int cls, int B, int W, int n_hap,
-                               float lo, float hi, int need_nonzero, int diag,
-                               void* mask, void* altalt, void* counts,
-                               void* stream);
+                               float lo, float hi, float dp_lo, float dp_hi,
+                               int need_nonzero, int diag, void* mask,
+                               void* altalt, void* counts, void* stream);
 extern "C" int twk_parts_tile(
     int kind, const void* x_i, const void* y_i, const void* z_i,
     const void* x_j, const void* y_j, const void* z_j, const void* ac_i,
@@ -38,10 +38,10 @@ extern "C" int twk_parts_tile(
     const void* nhom_i, const void* nhet_j, const void* nhom_j,
     const void* pos_i, const void* pos_j, const void* rid_i,
     const void* rid_j, int window, int cls, int B, int W, int n_samples,
-    float lo, float hi, int need_nonzero, int diag, void* mask, void* parts,
-    void* counts, void* stream);
+    float lo, float hi, float dp_lo, float dp_hi, int need_nonzero, int diag,
+    void* mask, void* parts, void* counts, void* stream);
 extern "C" int twk_compact(const void* mask, const void* parts,
-                           const void* counts, int P, int ncol, int B,
+                           const void* counts, int P, int ncol, int ld, int B,
                            void* off, int cap, int outcap, void* n_pass,
                            void* n_cand, int t, void* scratch, void* ticket,
                            void* buf, void* stream);
@@ -63,10 +63,13 @@ inline const void* at(const void* base, int s, long long row_bytes) {
 // word planes int32 [NB, B, W] a side reads (y and z null where the
 // instance reads fewer). ac, an, nhet, nhom, pos, rid: int32 [NB, B];
 // valid: bool [NB, B]; null where the sweep group reads none. n_samples:
-// the samples (phased_tile takes 2 * n_samples haplotypes). pi, pj: int32
+// the samples (phased_tile takes 2 * n_samples haplotypes). lo, hi, dp_lo,
+// dp_hi, need_nonzero: the prefilter's bounds (prefilter.cuh's Bounds; the
+// D' pair -inf, inf when the run sets none). pi, pj: int32
 // [T] super-block indices; dg: uint8 [T] diagonal flags; live: uint8 [T]
 // or null (every tile live); host memory, all of them. mask, parts,
-// counts: the tile buffers every tile reuses. off: int32 on the device,
+// counts: the tile buffers every tile reuses. P, ncol, ld: the compaction's
+// parts, payload layout and buffer row stride. off: int32 on the device,
 // one running offset, or with per_tile_off an [T] array whose slot t tile
 // t compacts at. n_pass, n_cand: int32 [T] on the device. done: int32 [2]
 // on the host, set to the tile kernels and the compactions launched.
@@ -76,10 +79,11 @@ extern "C" int twk_sweep(int kind, const void* x, const void* y,
                          const void* valid, const void* an, const void* nhet,
                          const void* nhom, const void* pos, const void* rid,
                          int window, int cls, int B, int n_samples, float lo,
-                         float hi, int need_nonzero, int T, const int32_t* pi,
+                         float hi, float dp_lo, float dp_hi, int need_nonzero,
+                         int T, const int32_t* pi,
                          const int32_t* pj, const uint8_t* dg,
                          const uint8_t* live, void* mask, void* parts,
-                         void* counts, int P, int ncol, void* off,
+                         void* counts, int P, int ncol, int ld, void* off,
                          int per_tile_off, int cap, int outcap, void* n_pass,
                          void* n_cand, void* scratch, void* ticket, void* buf,
                          void* stream, int32_t* done) {
@@ -98,8 +102,8 @@ extern "C" int twk_sweep(int kind, const void* x, const void* y,
                            at(an, i, meta), at(an, j, meta), at(pos, i, meta),
                            at(pos, j, meta), at(rid, i, meta),
                            at(rid, j, meta), window, cls, B, W, 2 * n_samples,
-                           lo, hi, need_nonzero, dg[t], mask, parts, counts,
-                           stream);
+                           lo, hi, dp_lo, dp_hi, need_nonzero, dg[t], mask,
+                           parts, counts, stream);
     else
       rc = twk_parts_tile(
           kind, at(x, i, plane), at(y, i, plane), at(z, i, plane),
@@ -108,14 +112,14 @@ extern "C" int twk_sweep(int kind, const void* x, const void* y,
           at(an, j, meta), at(nhet, i, meta), at(nhom, i, meta),
           at(nhet, j, meta), at(nhom, j, meta), at(pos, i, meta),
           at(pos, j, meta), at(rid, i, meta), at(rid, j, meta), window, cls, B,
-          W, n_samples, lo, hi, need_nonzero, dg[t], mask, parts, counts,
-          stream);
+          W, n_samples, lo, hi, dp_lo, dp_hi, need_nonzero, dg[t], mask,
+          parts, counts, stream);
     if (rc != 0) return rc;
     ++done[0];
     void* o = per_tile_off ? static_cast<void*>(static_cast<int32_t*>(off) + t)
                            : off;
-    rc = twk_compact(mask, parts, counts, P, ncol, B, o, cap, outcap, n_pass,
-                     n_cand, t, scratch, ticket, buf, stream);
+    rc = twk_compact(mask, parts, counts, P, ncol, ld, B, o, cap, outcap,
+                     n_pass, n_cand, t, scratch, ticket, buf, stream);
     if (rc != 0) return rc;
     ++done[1];
   }

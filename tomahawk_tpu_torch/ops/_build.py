@@ -27,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "tomahawk_tpu_torch")
 SOURCES = ("phased_tile.cu", "parts_tile.cu", "compact.cu", "local_parts.cu",
-           "epilogue.cu", "mma_probe.cu", "sweep.cu")
+           "epilogue.cu", "mma_probe.cu", "sweep.cu", "fisher_bracket.cu")
 #: headers the sources include (part of the build hash)
 HEADERS = ("prefilter.cuh", "mma_tile.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -52,6 +52,9 @@ KERNELS = {
     "tile_epilogue": dict(
         source="tomahawk_tpu_torch/csrc/epilogue.cu",
         replaces="tomahawk_tpu/compute/sweeps.py:279"),
+    "fisher_bracket": dict(
+        source="tomahawk_tpu_torch/csrc/fisher_bracket.cu",
+        replaces="tomahawk_tpu/ops/fisher_dev.py:110"),
 }
 
 #: launches of each kernel, counted by its wrapper where it launches
@@ -60,38 +63,52 @@ LAUNCHES = {name: 0 for name in KERNELS}
 PLAIN_CALLS = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # alt_i, alt_j, ac_i, ac_j, valid_i, valid_j, an_i, an_j, pos_i, pos_j,
-    # rid_i, rid_j, window, cls, B, W, n_hap, lo, hi, need_nonzero, diag,
-    # mask, altalt, counts, stream
-    "twk_phased_tile": [_P] * 12 + [_I] * 5 + [_F] * 2 + [_I] * 2
+    # rid_i, rid_j, window, cls, B, W, n_hap, lo, hi, dp_lo, dp_hi,
+    # need_nonzero, diag, mask, altalt, counts, stream
+    "twk_phased_tile": [_P] * 12 + [_I] * 5 + [_F] * 4 + [_I] * 2
     + [_P] * 4,
     # kind, x_i, y_i, z_i, x_j, y_j, z_j, ac_i, ac_j, valid_i, valid_j,
     # an_i, an_j, n_het_i, n_hom_i, n_het_j, n_hom_j, pos_i, pos_j, rid_i,
-    # rid_j, window, cls, B, W, n_samples, lo, hi, need_nonzero, diag,
-    # mask, parts, counts, stream
-    "twk_parts_tile": [_I] + [_P] * 20 + [_I] * 5 + [_F] * 2 + [_I] * 2
+    # rid_j, window, cls, B, W, n_samples, lo, hi, dp_lo, dp_hi,
+    # need_nonzero, diag, mask, parts, counts, stream
+    "twk_parts_tile": [_I] + [_P] * 20 + [_I] * 5 + [_F] * 4 + [_I] * 2
     + [_P] * 4,
-    # mask, parts, counts, P, ncol, B, off, cap, outcap, n_pass, n_cand, t,
-    # scratch, ticket, buf, stream
-    "twk_compact": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
-                    _P, _P],
+    # mask, parts, counts, P, ncol, ld, B, off, cap, outcap, n_pass, n_cand,
+    # t, scratch, ticket, buf, stream
+    "twk_compact": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P,
+                    _P, _P, _P],
     # kind, x_i, y_i, z_i, x_j, y_j, z_j, B, W, parts, stream
     "twk_local_parts": [_I] + [_P] * 6 + [_I] * 2 + [_P] * 2,
     # kind, parts, ac_i, ac_j, valid_i, valid_j, an_i, an_j, n_het_i,
     # n_hom_i, n_het_j, n_hom_j, pos_i, pos_j, rid_i, rid_j, window, cls, B,
-    # n_samples, lo, hi, need_nonzero, diag, mask, stream
-    "twk_tile_epilogue": [_I] + [_P] * 15 + [_I] * 4 + [_F] * 2 + [_I] * 2
+    # n_samples, lo, hi, dp_lo, dp_hi, need_nonzero, diag, mask, stream
+    "twk_tile_epilogue": [_I] + [_P] * 15 + [_I] * 4 + [_F] * 4 + [_I] * 2
     + [_P] * 2,
     # kind, blocks, iters, out, stream
     "twk_mma_probe": [_I] * 3 + [_P] * 2,
+    # buf, ld, has_missing, pack16, packed, fcol, B, n_hap, cap, outcap,
+    # n_pass, T, ends, ac, pi, pj, min_rows, max_steps, steps, stream
+    "twk_fisher_bracket": [_P] + [_I] * 9 + [_P, _I] + [_P] * 4
+    + [_L, _I] + [_P] * 2,
     # kind, x, y, z, W, ac, valid, an, n_het, n_hom, pos, rid, window, cls,
-    # B, n_samples, lo, hi, need_nonzero, T, pi, pj, dg, live, mask, parts,
-    # counts, P, ncol, off, per_tile_off, cap, outcap, n_pass, n_cand,
-    # scratch, ticket, buf, stream, done (csrc/sweep.cu: the tile loop)
-    "twk_sweep": [_I] + [_P] * 3 + [_I] + [_P] * 7 + [_I] * 4 + [_F] * 2
-    + [_I] * 2 + [_P] * 7 + [_I] * 2 + [_P] + [_I] * 3 + [_P] * 7,
+    # B, n_samples, lo, hi, dp_lo, dp_hi, need_nonzero, T, pi, pj, dg, live,
+    # mask, parts, counts, P, ncol, ld, off, per_tile_off, cap, outcap,
+    # n_pass, n_cand, scratch, ticket, buf, stream, done (csrc/sweep.cu: the
+    # tile loop)
+    "twk_sweep": [_I] + [_P] * 3 + [_I] + [_P] * 7 + [_I] * 4 + [_F] * 4
+    + [_I] * 2 + [_P] * 7 + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 7,
 }
+
+#: entry points called with the GIL held (ctypes.PyDLL): short calls the
+#: main thread makes between a segment's sweep and its prefix copy. Each
+#: call that releases the GIL lets the consumer thread take it, and the
+#: main thread may then wait out the interpreter's switch interval (5 ms)
+#: to get it back, a segment at a time (the windowed rows of chip_smoke.py
+#: phase 5 show it)
+HOLD_GIL = ("twk_fisher_bracket",)
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -188,7 +205,10 @@ def library():
                 with open(_log_path(path)) as fh:
                     build_log = fh.read()
             lib = ctypes.CDLL(path)
+            held = ctypes.PyDLL(path)
             for name, argtypes in _SIGNATURES.items():
+                if name in HOLD_GIL:
+                    setattr(lib, name, getattr(held, name))
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

@@ -19,6 +19,9 @@ version does: `>>` is not implemented for uint32 on the CPU.
 import numpy as np
 import torch
 
+#: the D' bounds that switch the in-sweep D' filter off
+DPRIME_OFF = (0.0, 100.0)
+
 
 def unpack_bits(x: torch.Tensor) -> torch.Tensor:
     """[..., W] int32 (uint32 bits) -> [..., W*32] int8 of 0/1,
@@ -133,19 +136,23 @@ def local_parts_tile(planes_a, planes_b, table: str, has_missing: bool):
 
 def epilogue_tile(parts, pair_mask, table: str, n_samples: int,
                   min_r2: float, max_r2: float, ac_a, ac_b, n_het_a=None,
-                  n_hom_a=None, n_het_b=None, n_hom_b=None):
+                  n_hom_a=None, n_het_b=None, n_hom_b=None,
+                  dprime=DPRIME_OFF):
     """mask u8 [I, J] (0 = not a candidate, 1 = candidate, 2 = survivor
     of the f32 prefilter) from a tile's global `parts` and its candidate
     mask `pair_mask` (pair_mask_tile): the cells and the prefilter that
     sweeps.tile_prefilter runs after the psum of the samples-sharded
-    sweep. The n_het/n_hom counts serve the unphased table only."""
+    sweep. The n_het/n_hom counts serve the unphased table only;
+    `dprime` is (min_dprime, max_dprime)."""
     if table == "phased":
         cells = phased_cells(parts, ac_a, ac_b, n_samples)
-        pf = phased_prefilter_cells(cells, pair_mask, min_r2, max_r2)
+        pf = phased_prefilter_cells(cells, pair_mask, min_r2, max_r2,
+                                    *dprime)
     else:
         cells = unphased_cells(parts, n_het_a, n_hom_a, n_het_b, n_hom_b,
                                n_samples)
-        pf = unphased_prefilter_cells(cells, pair_mask, min_r2, max_r2)
+        pf = unphased_prefilter_cells(cells, pair_mask, min_r2, max_r2,
+                                      *dprime)
     return pair_mask.to(torch.uint8) + pf.to(torch.uint8)
 
 
@@ -241,12 +248,50 @@ def unphased_bounds(min_r2: float, max_r2: float):
     return f(lo), f(hi)
 
 
+def dprime_bounds(min_dprime: float, max_dprime: float):
+    """(lo, hi) f32 of the in-sweep D' filter, rounded as
+    ld_kernels.dprime_prefilter_cells rounds them, `float32(min) - 1e-3`
+    and `float32(max) + 1e-3` in f32; (-inf, inf), which keeps every
+    pair, for the default bounds, where the JAX package skips the term.
+    The kernels take these two numbers as arguments."""
+    if (min_dprime, max_dprime) == DPRIME_OFF:
+        return np.float32(-np.inf), np.float32(np.inf)
+    f = np.float32
+    return f(f(min_dprime) - f(1e-3)), f(f(max_dprime) + f(1e-3))
+
+
+def dprime_prefilter_cells(cells, min_dprime: float, max_dprime: float):
+    """The in-sweep D' range filter of ld_kernels.dprime_prefilter_cells
+    (f32, its expression order): D' = d_num / dmax_num in t**2 units, 0
+    where dmax_num is 0, kept inside [min - 1e-3, max + 1e-3]; a pair
+    whose d_num is cancellation-dominated (|d_num| within 8 f32 ulps of
+    the products) passes untouched. The host filters survivors exactly."""
+    rr, ra, ar, aa = (c.to(torch.float32) for c in cells)
+    p1, p2 = rr * aa, ar * ra
+    d_num = p1 - p2
+    g0, g1 = rr + ra, ar + aa
+    h0, h1 = rr + ar, ra + aa
+    dmax_num = torch.where(d_num >= 0, torch.minimum(g0 * h1, h0 * g1),
+                           -torch.minimum(g0 * g1, h0 * h1))
+    nz = dmax_num != 0
+    dprime = torch.where(nz, d_num / torch.where(nz, dmax_num, 1.0), 0.0)
+    lo, hi = dprime_bounds(min_dprime, max_dprime)
+    lo = torch.tensor(lo, device=d_num.device)
+    hi = torch.tensor(hi, device=d_num.device)
+    eps = torch.tensor(np.float32(8.0) * np.float32(1.2e-7),
+                       device=d_num.device)
+    trusted = d_num.abs() > eps * (p1 + p2)
+    return ((dprime >= lo) & (dprime <= hi)) | ~trusted
+
+
 def phased_prefilter_cells(cells, pair_mask, min_r2: float,
-                           max_r2: float):
+                           max_r2: float, min_dprime: float = 0.0,
+                           max_dprime: float = 100.0):
     """Conservative f32 r2 filter, the expression order of
-    ld_kernels.phased_prefilter_cells (default D' bounds): integer
-    guards, then D2 >= lo * denom and D2 <= hi * denom in
-    multiplicative form. The host recomputes survivors exactly in f64."""
+    ld_kernels.phased_prefilter_cells: integer guards, then D2 >= lo *
+    denom and D2 <= hi * denom in multiplicative form, and with D'
+    bounds other than the default the in-sweep D' filter. The host
+    recomputes survivors exactly in f64."""
     refref, refalt, altref, altalt = cells
     t = refref + refalt + altref + altalt
     m = pair_mask & (t >= 5)
@@ -269,6 +314,8 @@ def phased_prefilter_cells(cells, pair_mask, min_r2: float,
         # zero-marginal tables (denom = 0 implies d_num = 0)
         m &= d_num != 0
     m &= (d2 >= lo * denom) & (d2 <= hi * denom)
+    if (min_dprime, max_dprime) != DPRIME_OFF:
+        m &= dprime_prefilter_cells(cells, min_dprime, max_dprime)
     return m
 
 
@@ -293,13 +340,15 @@ def phased_r2_cells(refref, refalt, altref, altalt):
 
 
 def unphased_prefilter_cells(cells, pair_mask, min_r2: float,
-                             max_r2: float):
+                             max_r2: float, min_dprime: float = 0.0,
+                             max_dprime: float = 100.0):
     """The unphased superset prefilter of
     ld_kernels.unphased_prefilter_cells, in its expression order (f32):
-    pairs with no double heterozygote take the exact phased fold's r2;
-    the others pass when the exact r2 range over the plausible
-    haplotype-frequency interval [minhap, maxhap] meets [lo, hi]. The
-    host redoes the cubic-EM root choice exactly in f64."""
+    pairs with no double heterozygote take the exact phased fold's r2
+    (and, with D' bounds, the D' filter on the fold's table); the others
+    pass when the exact r2 range over the plausible haplotype-frequency
+    interval [minhap, maxhap] meets [lo, hi]. The host redoes the
+    cubic-EM root choice exactly in f64."""
     T00, T01, T02, T10, T11, T12, T20, T21, T22 = (
         c.to(torch.float32) for c in cells)
     n = T00 + T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22
@@ -321,6 +370,11 @@ def unphased_prefilter_cells(cells, pair_mask, min_r2: float,
     r2_fold = phased_r2_cells(refref, refalt, altref, altalt)
     t = refref + refalt + altref + altalt
     fold_ok = (t >= 5) & (r2_fold >= lo) & (r2_fold <= hi)
+    if (min_dprime, max_dprime) != DPRIME_OFF:
+        # the fold has an exact phased table; the EM case stays a
+        # pass-through superset (its D' follows the host's root choice)
+        fold_ok &= dprime_prefilter_cells(
+            (refref, refalt, altref, altalt), min_dprime, max_dprime)
 
     # EM case: r2(f11) = (f11 - pq)^2 / denom over [minhap, maxhap]
     minhap = n11 / (2.0 * ns)

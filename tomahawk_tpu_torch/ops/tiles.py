@@ -18,7 +18,10 @@ dispatch, read from the per-variant `an` (missing-allele counts). With
 cfg["window"] > 0 a pair must also share its contig (`rid`) and lie
 within `window` bp (`pos`), and the kernels skip the contraction of
 every thread block that can hold no such pair (`block_live`): its mask
-is 0 and its region of `parts` is left unwritten.
+is 0 and its region of `parts` is left unwritten. With D' bounds
+(cfg["min_dprime"], cfg["max_dprime"] other than 0, 100) the prefilter
+adds the in-sweep D' filter (ld_kernels.dprime_prefilter_cells; in the
+kernels a term of csrc/prefilter.cuh whose bounds are runtime arguments).
 
 `tile_prefilter` can also fill a counts buffer (`counts_buffer`): int32
 [B, ceil(B / 128)], the survivors and candidates of each 128-column
@@ -129,7 +132,7 @@ def tile_epilogue_plain(dev, i: int, j: int, diag: bool, cfg, parts):
            dev["n_hom"][j]) if cfg["table"] == "unphased" else ())
     return K.epilogue_tile(tuple(parts), m, cfg["table"], cfg["n_samples"],
                            cfg["min_r2"], cfg["max_r2"], dev["ac"][i],
-                           dev["ac"][j], *nh)
+                           dev["ac"][j], *nh, dprime=_dprime(cfg))
 
 
 def tile_prefilter_plain(dev, i: int, j: int, diag: bool, cfg):
@@ -224,11 +227,20 @@ def _check_inputs(dev, cfg, out, planes=True, meta=True):
     return NB, B, W
 
 
+def _dprime(cfg):
+    return cfg["min_dprime"], cfg["max_dprime"]
+
+
 def _bounds(cfg):
-    """(lo, hi, need_nonzero): the f32 prefilter's r2 bounds."""
+    """(lo, hi, dp_lo, dp_hi, need_nonzero): the f32 prefilter's r2
+    bounds and its D' bounds, (-inf, inf) where the D' filter is off."""
     if cfg["table"] == "phased":
-        return K.prefilter_bounds(cfg["min_r2"], cfg["max_r2"])
-    return (*K.unphased_bounds(cfg["min_r2"], cfg["max_r2"]), False)
+        lo, hi, need_nonzero = K.prefilter_bounds(cfg["min_r2"],
+                                                  cfg["max_r2"])
+    else:
+        (lo, hi), need_nonzero = K.unphased_bounds(cfg["min_r2"],
+                                                   cfg["max_r2"]), False
+    return (lo, hi, *K.dprime_bounds(*_dprime(cfg)), need_nonzero)
 
 
 def sweep_args(dev, cfg) -> list:
@@ -242,13 +254,13 @@ def sweep_args(dev, cfg) -> list:
     planes = [dev[k].data_ptr() for k in keys] + [None] * (3 - len(keys))
     meta = set(_meta_keys(cfg))
     ptr = lambda k: dev[k].data_ptr() if k in meta else None
-    lo, hi, need_nonzero = _bounds(cfg)
+    *bounds, need_nonzero = _bounds(cfg)
     return [-1 if kernel_name(cfg) == "phased_tile" else _KIND[(table, miss)],
             *planes, dev[keys[0]].shape[-1],
             *[ptr(k) for k in ("ac", "valid", "an", "n_het", "n_hom", "pos",
                                "rid")],
             int(cfg["window"]), _CLS[cfg["cls"]], cfg["B"], cfg["n_samples"],
-            float(lo), float(hi), int(need_nonzero)]
+            *map(float, bounds), int(need_nonzero)]
 
 
 def _launch(dev, i, j, diag, cfg, out, counts=None):
@@ -264,15 +276,15 @@ def _launch(dev, i, j, diag, cfg, out, counts=None):
     win = ([ptr("pos", i), ptr("pos", j), ptr("rid", i), ptr("rid", j)]
            if window > 0 else [None] * 4)
     lib = _build.library()
-    lo, hi, need_nonzero = _bounds(cfg)
+    *bounds, need_nonzero = map(float, _bounds(cfg))
     name = kernel_name(cfg)
     cnt = None if counts is None else counts.data_ptr()
     if name == "phased_tile":
         rc = lib.twk_phased_tile(
             ptr("alt_bits", i), ptr("alt_bits", j), ptr("ac", i),
             ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *win,
-            window, cls_code, B, W, 2 * cfg["n_samples"], float(lo),
-            float(hi), int(need_nonzero), int(bool(diag)), mask.data_ptr(),
+            window, cls_code, B, W, 2 * cfg["n_samples"], *bounds,
+            int(need_nonzero), int(bool(diag)), mask.data_ptr(),
             parts.data_ptr(), cnt, stream)
     else:
         keys = plane_keys(table, miss)
@@ -283,7 +295,7 @@ def _launch(dev, i, j, diag, cfg, out, counts=None):
         rc = lib.twk_parts_tile(
             _KIND[(table, miss)], *side(i), *side(j), ptr("ac", i),
             ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *nh, *win,
-            window, cls_code, B, W, cfg["n_samples"], float(lo), float(hi),
+            window, cls_code, B, W, cfg["n_samples"], *bounds,
             int(need_nonzero), int(bool(diag)), mask.data_ptr(),
             parts.data_ptr(), cnt, stream)
     _build.check(rc, f"{name} launch")
@@ -359,11 +371,11 @@ def _launch_epilogue(dev, i, j, diag, cfg, out):
     window = int(cfg["window"])
     win = ([ptr("pos", i), ptr("pos", j), ptr("rid", i), ptr("rid", j)]
            if window > 0 else [None] * 4)
-    lo, hi, need_nonzero = _bounds(cfg)
+    *bounds, need_nonzero = map(float, _bounds(cfg))
     rc = _build.library().twk_tile_epilogue(
         _LOCAL_KIND[(table, miss)], parts.data_ptr(), ptr("ac", i),
         ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *nh, *win,
-        window, _CLS[cls], B, cfg["n_samples"], float(lo), float(hi),
+        window, _CLS[cls], B, cfg["n_samples"], *bounds,
         int(need_nonzero), int(bool(diag)), mask.data_ptr(),
         torch.cuda.current_stream(mask.device).cuda_stream)
     _build.check(rc, "tile_epilogue launch")

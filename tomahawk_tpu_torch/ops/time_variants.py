@@ -3,6 +3,7 @@
 gained.
 
     python3 -m tomahawk_tpu_torch.ops.time_variants [--old-compact FILE]
+        [--old-tiles DIR]
 
 A measurement, not part of the library or of chip_smoke.py; needs an
 NVIDIA GPU and nvcc. It builds csrc/phased_tile.cu whole and once per
@@ -22,6 +23,12 @@ launches and counted every mask itself (twk_compact without the `counts`
 and `ticket` arguments, scratch of 3 * B + 2 words allocated per call),
 against the library's on one mask (the LD-grouped diagonal tile, 30,720
 survivors, one part), with the counts given and without.
+
+With --old-tiles DIR it also builds phased_tile.cu and parts_tile.cu of
+DIR, the csrc/ of an earlier tree whose launchers take no D' bounds (the
+interface before the D' term), and times them against the library's on
+the -p tile and the three parts_tile groups, in turns (old, new, new,
+old), each after checking that both give the same mask.
 
 Every timed call is queued behind ~4 ms of other device work, so the host
 stays ahead and the time is the device's, launch gaps included. Prints the
@@ -43,7 +50,7 @@ _LOOP = (r"  Tile::run\(smem, xa, xb, row0, col0, B, W, acc\);\n", "")
 # the mask byte from two bits of the count, so that the stores still
 # depend on the contraction
 _PREFILTER = (r"    // twk::candidate on the hoisted metadata\n.*?"
-              r"s\.hi, s\.need_nonzero\);\n",
+              r"aa\[q\], s\.bnd\);\n",
               "    const bool m = (aa[q] & 2) != 0;\n"
               "    const bool pf = (aa[q] & 1) != 0;\n")
 _ALTALT = (r"&aa4\[u\], row0 \+ first", "nullptr, row0 + first")
@@ -57,7 +64,7 @@ CUTS = {"whole": (), "no loop": (_LOOP,), "no prefilter": (_PREFILTER,),
 _P_LOOP = (r"  Tile::run\(smem, xa, xb, row0, col0, B, a\.W, acc\);\n", "")
 # the mask byte from a bit of two parts, so that the stores still depend
 # on the contraction
-_P_PREFILTER = (r"pair_mask<KIND>\(a, v, k, l0 \+ e, aci, vi\)",
+_P_PREFILTER = (r"pair_mask<KIND, DP>\(a, v, k, l0 \+ e, aci, vi\)",
                 "(unsigned)(v[0] & 1) + (unsigned)(v[1] & 1)")
 _P_PARTS = (r"__stcs\(reinterpret_cast<int2\*>\(a\.parts.*?\)\);\n",
             "(void)0;\n")
@@ -161,8 +168,9 @@ def time_cuts(work):
                 ptr("alt_bits", 0), ptr("alt_bits", 1), ptr("ac", 0),
                 ptr("ac", 1), ptr("valid", 0), ptr("valid", 1), *[None] * 6,
                 0, 0, B, W, 2 * N_SAMPLES, float(lo), float(hi),
-                int(nonzero), 0, mask.data_ptr(), parts.data_ptr(),
-                counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                -float("inf"), float("inf"), int(nonzero), 0,
+                mask.data_ptr(), parts.data_ptr(), counts.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f"phased_tile ({name}): CUDA error {rc}")
 
@@ -262,9 +270,77 @@ def time_compact(work, old_source):
     return res
 
 
+class _OldTiles:
+    """An earlier library's two tile launchers, handed the library's
+    arguments less the D' bounds; anything else from the library."""
+
+    def __init__(self, lib, main):
+        self.lib, self.main = lib, main
+
+    def twk_phased_tile(self, *a):
+        return self.lib.twk_phased_tile(*a[:19], *a[21:])
+
+    def twk_parts_tile(self, *a):
+        return self.lib.twk_parts_tile(*a[:28], *a[30:])
+
+    def __getattr__(self, name):
+        return getattr(self.main, name)
+
+
+def time_old_tiles(work, old_dir):
+    """phased_tile and parts_tile of `old_dir` against the library's: ms a
+    call, in turns, on the -p tile and on each of PARTS_GROUPS. Returns
+    {group: {"old": [ms, ms], "new": [ms, ms]}}."""
+    import torch
+    from .. import workloads
+    from ..compute import sweeps
+    from . import _build, tiles
+    so = os.path.join(work, "old_tiles.so")
+    objs = [os.path.join(work, f"old_{s}.o") for s in ("phased", "parts")]
+    _build._run([[_build._nvcc(), *_build.NVCC_FLAGS, "-c",
+                  os.path.join(old_dir, f"{s}_tile.cu"), "-o", o]
+                 for s, o in zip(("phased", "parts"), objs)])
+    _build._run([[_build._nvcc(), *_build.LINK_FLAGS, "-o", so, *objs]])
+    main = _build.library()
+    lib = ctypes.CDLL(so)
+    P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.twk_phased_tile.argtypes = [P_] * 12 + [I_] * 5 + [F_] * 2 \
+        + [I_] * 2 + [P_] * 4
+    lib.twk_parts_tile.argtypes = [I_] + [P_] * 20 + [I_] * 5 + [F_] * 2 \
+        + [I_] * 2 + [P_] * 4
+    old = _OldTiles(lib, main)
+    res = {}
+    for group in (("phased", False, "all"),) + PARTS_GROUPS:
+        planes = (workloads.build_planes(2, B, N_SAMPLES, seed=0)
+                  if group[:2] == ("phased", False)
+                  else workloads.genotype_planes(2, B, N_SAMPLES))
+        dev = sweeps.planes_to_device(planes, "cuda")
+        cfg = sweeps.make_cfg(*group, B, N_SAMPLES, 0, MIN_R2, 100.0)
+        out = tiles.tile_buffers(cfg, "cuda")
+        counts = tiles.counts_buffer(cfg, "cuda")
+        tag = "/".join(map(str, group))
+        res[tag] = {"old": [], "new": []}
+        masks = []
+        for side in ("old", "new", "new", "old"):
+            _build._lib = old if side == "old" else main
+            try:
+                masks.append(tiles.tile_prefilter(dev, 0, 1, False, cfg, out,
+                                                  counts)[0].clone())
+                res[tag][side].append(device_ms(lambda: tiles.tile_prefilter(
+                    dev, 0, 1, False, cfg, out, counts), 20, main))
+            finally:
+                _build._lib = main
+        if any(not torch.equal(m, masks[0]) for m in masks):
+            raise SystemExit(f"{tag}: the old and new masks differ")
+        print(f"{tag}: old {res[tag]['old']}, new {res[tag]['new']} ms",
+              flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-compact", metavar="FILE")
+    ap.add_argument("--old-tiles", metavar="DIR")
     args = ap.parse_args()
     from . import _build
     print(subprocess.run(
@@ -278,6 +354,8 @@ def main():
                "parts_tile_cuts_ms": time_parts(work)}
         if args.old_compact:
             out["compact_ms"] = time_compact(work, args.old_compact)
+        if args.old_tiles:
+            out["old_tiles_ms"] = time_old_tiles(work, args.old_tiles)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps(out))
