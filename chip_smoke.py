@@ -65,13 +65,19 @@ Phases, in order; any failure exits non-zero:
    tile_epilogue, bit for bit in the mask, the parts, the counts and the
    compacted survivors, and the time per call of phased_tile and
    parts_tile with the bounds and without, in turns. Then the in-sweep
-   Fisher bracket (csrc/fisher_bracket.cu) against its plain version on
-   the survivor rows of a fused sweep of 10 LD-grouped tiles, in the
-   bf16-packed layout and the f32 column: the kernel flags no lane its
-   plain version does not, the other brackets agree within 1e-6
-   relative, every unflagged P is within 1e-5 of the native fisher_exact;
-   its time per call, and its bound, the larger of 12 bytes a row over
-   the HBM rate and the plain walk's steps x 4 f64 operations over the
+   Fisher bracket (csrc/fisher_bracket.cu, a search of the log-factorial
+   table) on the survivor rows of a fused sweep of 10 LD-grouped tiles,
+   in the bf16-packed layout and the f32 column, and on 16,988 synthetic
+   tables at 2N = 32,768: against the plain walk (fisher_dev's
+   fisher_bracket) the kernel flags no lane the walk does not, the other
+   brackets agree within 1e-6 relative, a packed payload's low 16 bits
+   are unchanged, every unflagged P is within 1e-5 of the native
+   fisher_exact, two launches are equal; against its plain version (the
+   search, fisher_bracket_search) the flags and packed bits are equal
+   and the f32 brackets within 1e-12 relative; the walk's step count the
+   kernel reports equals the walk's own. Its time per call, and its
+   bound, the larger of 12 bytes a row over the HBM rate and the
+   search's probes and tail steps x 4 f64 operations over the
    card's FP64 rate (34e12/s, NVIDIA's data sheet);
    Bounds: each contraction's is the card's, the larger of 64
    operations a pair-word over the rate the card runs the 1-bit AND+POPC
@@ -148,7 +154,9 @@ Phases, in order; any failure exits non-zero:
    the pipeline depth each row took and its segments a rep; beside the
    dense and mixed rows one timed and one traced rep with the segment
    pipeline off (one segment at a time), beside the 250 kb window two
-   such reps; beside the sparse and 250 kb rows two reps with the tile
+   such reps, then two pipelined reps without the Fisher launch, two
+   with it again and two with the interpreter's GIL switch interval at
+   0.1 ms; beside the sparse and 250 kb rows two reps with the tile
    loop in Python (the per-tile launches); the sparse planes banded by `-M
    1.0` (58 of 64 super-blocks: 4 bands, 10 loads) through the engine's
    load loop (`run_loads`) with the staging worker, timed and traced,
@@ -233,9 +241,10 @@ DCN_BLOCKS = 16
 #: LD groups' 2% noise puts most of their pairs' D' between 0.5 and 0.9,
 #: so these bounds cut most survivors of a phased tile
 DPRIME = (0.9, 0.95)
-#: f64 operations of one step of the Fisher walk that its bound counts:
-#: the ratio's division, its product with the chain, the difference to 1
-#: and that difference's comparison with the band
+#: f64 operations the Fisher kernel's bound counts for each of its probes
+#: and tail steps (its work counter), a floor: a probe's d(k) is seven
+#: additions and a comparison, a tail step the ratio's division, the sum,
+#: the product and the comparison
 F64_OPS_PER_STEP = 4
 #: FP64 rate of one H100 SXM outside the tensor cores, operations per
 #: second (NVIDIA's H100 data sheet: 34 TFLOP/s)
@@ -935,32 +944,158 @@ def _bracket_bits(buf, cfg):
     return br, br < 0
 
 
-def compare_fisher():
-    """The in-sweep Fisher bracket (X2, csrc/fisher_bracket.cu) against its
-    plain version on the survivor rows of a fused sweep of the dense
-    workload's tiles (10 tiles of 4 LD-grouped super-blocks; ~70,000
-    survivors, so the volume gate opens as it does in the engine), in both
-    layouts: bf16 packed (phased, no missing data) and the f32 column
-    (phased with missing data, on the genotype planes). The kernel flags
-    the lanes the plain version flags or fewer; the brackets of the lanes
-    neither flags agree within 1e-6 relative (both walk in f64, step for
-    step; the step counts must agree too); every unflagged P is within
-    P_GUARD of the port's native fisher_exact. Then the time per call of
-    each layout, the plain version's, and the bound from this run's rows
-    and the plain walk's steps. Returns {layout: (max_abs_err, ms,
-    plain_ms, bound_ms, bound_by, steps, rows)}."""
+def _walk_col(dev, n_pass, buf, pi, pj, cfg, cap):
+    """The bracket of the plain walk (fisher_dev.fisher_bracket, the JAX
+    package's algorithm in f64) written into `buf` as append_fisher_col
+    writes the kernel's; returns the walk's steps over the rows."""
     import torch
-    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import fisher_dev as F
+    rows, t = sweeps.fisher_rows(n_pass, cap, buf.shape[0])
+    br, log2_pb, steps = F.fisher_bracket(
+        *sweeps.fisher_cells(dev, buf, rows, t, pi, pj, cfg))
+    if sweeps.fisher_packed(cfg):
+        bits = F.packed_bits(br, log2_pb)
+        buf[rows, 1] = (buf[rows, 1] & 0xFFFF) | (bits << 16)
+    else:
+        buf[rows, sweeps.buf_cols(cfg)] = br.view(torch.int32)
+    return int(steps.sum())
+
+
+def _hold_fisher(label, dev, n_pass, buf, pi, pj, cfg, cap, n_hap):
+    """The Fisher kernel on the survivor rows of `buf` (a fused sweep's
+    buffer, its bracket column cleared) against the plain walk and
+    against its plain version, the search (fisher_dev.fisher_bracket_search).
+    Against the walk, as since the kernel was ported: it flags no lane
+    the walk does not, the brackets of the lanes neither flags agree
+    within 1e-6 relative, a packed payload's low 16 bits are unchanged,
+    every unflagged P is within P_GUARD of the native fisher_exact, two
+    launches are equal. Against the search: the same flags, the same
+    packed bits, f32 brackets within 1e-12 relative; and the walk's step
+    count (the kernel's first counter) equal to the walk's own and the
+    search's, its work (the second) equal to the search's. Returns a
+    dict of the comparison's numbers."""
+    import torch
     from tomahawk_tpu_torch.compute import sweeps
     from tomahawk_tpu_torch.native import fisher_exact
     from tomahawk_tpu_torch.ops import fisher_dev as F
+    rows, t = sweeps.fisher_rows(n_pass, cap, buf.shape[0])
+    walk = buf.clone()
+    steps_walk = _walk_col(dev, n_pass, walk, pi, pj, cfg, cap)
+    ref = buf.clone()
+    steps_plain, work_plain = sweeps.append_fisher_col_plain(
+        dev, n_pass, ref, pi, pj, cfg, cap)
+    ker = buf.clone()
+    counters = torch.zeros(2, dtype=torch.uint64, device=buf.device)
+    sweeps.append_fisher_col(dev, n_pass, ker, pi, pj, cfg, cap, counters)
+    again = buf.clone()
+    sweeps.append_fisher_col(dev, n_pass, again, pi, pj, cfg, cap)
+    torch.cuda.synchronize()
+    if not torch.equal(ker, again):
+        raise SystemExit(f"Fisher ({label}): two launches on the same rows "
+                         f"differ")
+    kb, kf = (x[rows] for x in _bracket_bits(ker, cfg))
+    wb, wf = (x[rows] for x in _bracket_bits(walk, cfg))
+    mb, mf = (x[rows] for x in _bracket_bits(ref, cfg))
+    if bool((kf & ~wf).any()):
+        raise SystemExit(f"Fisher ({label}): the kernel flags "
+                         f"{int((kf & ~wf).sum())} lanes the walk does not")
+    both = ~kf & ~wf
+
+    def rel(x, y, sel):
+        if not bool(sel.any()):
+            return 0.0, 0.0
+        diff = (x[sel] - y[sel]).abs()
+        return (float(diff.max()),
+                float((diff / y[sel].abs().clamp(min=1e-30)).max()))
+
+    err_walk, rel_walk = rel(kb, wb, both)
+    if rel_walk > 1e-6:
+        raise SystemExit(f"Fisher ({label}): brackets differ from the "
+                         f"walk's by {rel_walk} relative")
+    # payload bits outside the bracket are the compaction's
+    if sweeps.fisher_packed(cfg) and not torch.equal(ker[:, 1] & 0xFFFF,
+                                                     buf[:, 1]):
+        raise SystemExit(f"Fisher ({label}): the payload's low 16 bits "
+                         f"changed")
+    cells = torch.stack(sweeps.fisher_cells(dev, ker, rows, t, pi, pj, cfg),
+                        1).cpu().numpy()
+    br = torch.where(kf, float("nan"), kb).cpu().numpy()
+    P = F.host_p_from_bracket(cells, br, F.log_factorial_table(n_hap + 1))
+    Pn = fisher_exact(*(cells[:, q] for q in range(4)))
+    sure = ~np.isnan(P)
+    p_err = float(np.abs(P[sure] - Pn[sure]).max()) if sure.any() else 0.0
+    if p_err > P_GUARD:
+        raise SystemExit(f"Fisher ({label}): P differs from fisher_exact "
+                         f"by {p_err}")
+    # the kernel against its plain version
+    if not torch.equal(kf, mf):
+        raise SystemExit(f"Fisher ({label}): the kernel flags "
+                         f"{int((kf != mf).sum())} lanes otherwise than the "
+                         f"search's plain version")
+    err, rel_plain = rel(kb, mb, ~kf)
+    if sweeps.fisher_packed(cfg) and not torch.equal(ker, ref):
+        raise SystemExit(f"Fisher ({label}): packed bits differ from the "
+                         f"search's plain version in "
+                         f"{int((ker != ref).any(1).sum())} rows")
+    if rel_plain > 1e-12:
+        raise SystemExit(f"Fisher ({label}): brackets differ from the "
+                         f"search's plain version by {rel_plain} relative")
+    steps, work = (int(x) for x in counters.cpu())
+    if not steps == steps_walk == steps_plain or work != work_plain:
+        raise SystemExit(f"Fisher ({label}): walk steps kernel {steps}, "
+                         f"walk {steps_walk}, plain {steps_plain}; work "
+                         f"kernel {work}, plain {work_plain}")
+    _say(f"  fisher_bracket {label}: {len(rows)} rows of "
+         f"{int(n_pass.sum())} survivors, flagged {int(kf.sum())} (walk "
+         f"{int(wf.sum())}, plain search {int(mf.sum())}); against the "
+         f"walk max |diff| {err_walk:.3g} ({rel_walk:.3g} relative), "
+         f"against the search {err:.3g} ({rel_plain:.3g}); host-sure "
+         f"{int(sure.sum())}, P max |diff| {p_err:.3g} from fisher_exact;"
+         f" walk steps {steps} (walk's own {steps_walk}, "
+         f"{steps_walk / max(len(rows), 1):.0f} a row), work {work} "
+         f"({work / max(len(rows), 1):.1f} a row)")
+    return dict(rows=len(rows), max_abs_err=err, err_walk=err_walk,
+                flagged=int(kf.sum()), walk_flagged=int(wf.sum()),
+                walk_steps=steps_walk, work=work, p_err=p_err, ker=ker,
+                ref=ref)
+
+
+def _fisher_bound(rows, work):
+    """(bound_ms, bound_by, bytes_ms, operations_ms) of a Fisher call: 12
+    bytes a row over the HBM rate, against the search's probes and tail
+    steps (`work`) at F64_OPS_PER_STEP f64 operations each over the
+    card's FP64 rate."""
+    bound_b = 12 * rows / HBM_BYTES_PER_S * 1e3
+    bound_o = work * F64_OPS_PER_STEP / F64_OPS_PER_S * 1e3
+    by = "bytes" if bound_b >= bound_o else "operations"
+    return max(bound_b, bound_o), by, bound_b, bound_o
+
+
+def compare_fisher():
+    """The in-sweep Fisher bracket (X2, csrc/fisher_bracket.cu) on the
+    survivor rows of a fused sweep of the dense workload's tiles (10
+    tiles of 4 LD-grouped super-blocks; ~120,000 survivors, so the volume
+    gate opens as it does in the engine), in both layouts: bf16 packed
+    (phased, no missing data) and the f32 column (phased with missing
+    data, on the genotype planes), held against the walk and against its
+    plain version (`_hold_fisher`); then a synthetic set of 2x2 tables at
+    2N = 32,768, the widest cohort the engine sends to the card (16,384
+    LD tables and edge cases in the 4-part layout), straight through the
+    kernel. Then the time per call of each, the plain version's, and
+    the bound. Returns {layout:
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by, walk_steps, rows,
+    extra)}."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
     res = {}
     nb = 4
     pairs = [(i, j, i == j) for i in range(nb) for j in range(i, nb)]
     pi = np.array([p[0] for p in pairs], np.int32)
     pj = np.array([p[1] for p in pairs], np.int32)
     dg = np.array([p[2] for p in pairs])
-    lf = F.log_factorial_table(2 * N_SAMPLES + 1)
+    n_hap = 2 * N_SAMPLES
     for layout, build, group in (
             ("packed", lambda: workloads.build_planes_grouped(
                 nb, B, N_SAMPLES), ("phased", False, "all")),
@@ -973,79 +1108,76 @@ def compare_fisher():
         n_pass, _, buf = sweeps.fused_sweep(dev, pi, pj, dg,
                                             np.ones(len(pairs), bool),
                                             cfg=cfg, cap=cap, outcap=outcap)
-        sel = sweeps.fisher_rows(n_pass, cap, outcap)
-        if sel is None:
+        if sweeps.fisher_rows(n_pass, cap, outcap) is None:
             raise SystemExit(f"Fisher check ({layout}): "
                              f"{int(n_pass.sum())} survivors do not open "
                              f"the gate at {sweeps.FISHER_MIN_ROWS}")
-        rows, t = sel
         cleared = buf.clone()
         if sweeps.fisher_packed(cfg):
             cleared[:, 1] &= 0xFFFF
         else:
             cleared[:, sweeps.buf_cols(cfg)] = 0
-        ref = cleared.clone()
-        steps_plain = sweeps.append_fisher_col_plain(dev, n_pass, ref, pi,
-                                                     pj, cfg, cap)
+        got = _hold_fisher(layout, dev, n_pass, cleared, pi, pj, cfg, cap,
+                           n_hap)
+        # the fused sweep's own launch wrote the same column
+        if not torch.equal(got.pop("ker"), buf):
+            raise SystemExit(f"Fisher ({layout}): the fused sweep's launch "
+                             f"and a launch on the cleared rows differ")
+        ref = got.pop("ref")
         ker = cleared.clone()
-        steps = torch.zeros(1, dtype=torch.uint64, device="cuda")
-        sweeps.append_fisher_col(dev, n_pass, ker, pi, pj, cfg, cap, steps)
-        torch.cuda.synchronize()
-        if not torch.equal(ker, buf):
-            raise SystemExit(f"Fisher ({layout}): two launches on the same "
-                             f"rows differ")
-        kb, kf = (x[rows] for x in _bracket_bits(ker, cfg))
-        pb, pf = (x[rows] for x in _bracket_bits(ref, cfg))
-        if bool((kf & ~pf).any()):
-            raise SystemExit(f"Fisher ({layout}): the kernel flags "
-                             f"{int((kf & ~pf).sum())} lanes its plain "
-                             f"version does not")
-        both = ~kf & ~pf
-        err = float((kb[both] - pb[both]).abs().max()) if both.any() else 0.0
-        rel = float(((kb[both] - pb[both]).abs()
-                     / pb[both].abs().clamp(min=1e-30)).max()) \
-            if both.any() else 0.0
-        if rel > 1e-6:
-            raise SystemExit(f"Fisher ({layout}): brackets differ by {rel} "
-                             f"relative")
-        # payload bits outside the bracket are the compaction's
-        if sweeps.fisher_packed(cfg) and not torch.equal(
-                ker[:, 1] & 0xFFFF, cleared[:, 1]):
-            raise SystemExit(f"Fisher ({layout}): the payload's low 16 bits "
-                             f"changed")
-        cells = torch.stack(sweeps.fisher_cells(dev, ker, rows, t, pi, pj,
-                                                cfg), 1).cpu().numpy()
-        br = torch.where(kf, float("nan"), kb).cpu().numpy()
-        P = F.host_p_from_bracket(cells, br, lf)
-        Pn = fisher_exact(*(cells[:, q] for q in range(4)))
-        sure = ~np.isnan(P)
-        p_err = float(np.abs(P[sure] - Pn[sure]).max())
-        if p_err > P_GUARD:
-            raise SystemExit(f"Fisher ({layout}): P differs from "
-                             f"fisher_exact by {p_err}")
-        ms = _cuda_ms(lambda: sweeps.append_fisher_col(dev, n_pass, ker, pi,
-                                                       pj, cfg, cap))
+        call = lambda: sweeps.append_fisher_col(dev, n_pass, ker, pi, pj,
+                                                cfg, cap)
+        ms = _cuda_ms(call)
         plain = _cuda_ms(lambda: sweeps.append_fisher_col_plain(
             dev, n_pass, ref, pi, pj, cfg, cap), reps=1, rounds=1)
-        n_rows = len(rows)
-        bound_b = 12 * n_rows / HBM_BYTES_PER_S * 1e3
-        bound_o = steps_plain * F64_OPS_PER_STEP / F64_OPS_PER_S * 1e3
-        bound = (bound_b, "bytes") if bound_b >= bound_o \
-            else (bound_o, "operations")
-        _say(f"  fisher_bracket {layout}: {n_rows} rows of {int(n_pass.sum())}"
-             f" survivors, flagged {int(kf.sum())} (plain {int(pf.sum())}), "
-             f"bracket max |diff| {err:.3g} ({rel:.3g} relative), host-sure "
-             f"{int(sure.sum())} with P max |diff| {p_err:.3g} from "
-             f"fisher_exact; steps {int(steps)} (plain {steps_plain}, "
-             f"{steps_plain / max(n_rows, 1):.0f} a row); {ms:.4f} ms a call"
-             f" (plain {plain:.1f}), bound {bound[0]:.4f} ms ({bound[1]}: "
-             f"{bound_b:.4f} bytes, {bound_o:.4f} operations)")
-        if int(steps) != steps_plain:
-            _say(f"  NOTE: the kernel's steps ({int(steps)}) are not the "
-                 f"plain walk's ({steps_plain})")
-        res[layout] = (err, ms, plain, *bound, steps_plain, n_rows)
+        bound = _fisher_bound(got["rows"], got["work"])
+        _say(f"  fisher_bracket {layout}: {ms:.4f} ms a call (plain "
+             f"{plain:.1f}), bound {bound[0]:.4f} ms ({bound[1]}: "
+             f"{bound[2]:.4f} bytes, {bound[3]:.4f} operations)")
+        res[layout] = (got["max_abs_err"], ms, plain, *bound[:2],
+                       got["walk_steps"], got["rows"],
+                       dict(got, bytes_ms=bound[2], operations_ms=bound[3]))
         del dev, buf, ker, ref, cleared
+    res["wide"] = compare_fisher_wide()
     return res
+
+
+def compare_fisher_wide():
+    """The kernel at 2N = 32,768 haplotypes: workloads.fisher_tables in
+    the 4-part layout of a phased sweep with missing data (pair-packed
+    parts and the f32 column) as one tile's survivor rows
+    (workloads.fisher_buffer), held as `_hold_fisher` holds the dense
+    tiles' (the walk's step count too). Returns the `fisher` entry of
+    this instance."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    n_samples = 16384
+    n_hap = 2 * n_samples
+    C = workloads.fisher_tables(n_hap, sweeps.FISHER_MIN_ROWS, seed=17)
+    K = len(C)
+    cfg = sweeps.make_cfg("phased", True, "all", B, n_samples, 0, MIN_R2,
+                          100.0, fisher=True)
+    buf = torch.from_numpy(workloads.fisher_buffer(
+        C, sweeps.out_cols(cfg))).cuda()
+    n_pass = torch.tensor([K], dtype=torch.int32, device="cuda")
+    dev = {"ac": torch.zeros((1, B), dtype=torch.int32, device="cuda")}
+    pi = pj = np.zeros(1, np.int32)
+    got = _hold_fisher("2N = 32,768", dev, n_pass, buf, pi, pj, cfg, K,
+                       n_hap)
+    got.pop("ker")
+    ref = got.pop("ref")
+    ker = buf.clone()
+    ms = _cuda_ms(lambda: sweeps.append_fisher_col(dev, n_pass, ker, pi, pj,
+                                                   cfg, K))
+    plain = _cuda_ms(lambda: sweeps.append_fisher_col_plain(
+        dev, n_pass, ref, pi, pj, cfg, K), reps=1, rounds=1)
+    bound = _fisher_bound(got["rows"], got["work"])
+    _say(f"  fisher_bracket 2N = 32,768: {ms:.4f} ms a call (plain "
+         f"{plain:.1f}), bound {bound[0]:.4f} ms ({bound[1]})")
+    return (got["max_abs_err"], ms, plain, *bound[:2], got["walk_steps"],
+            got["rows"], dict(got, bytes_ms=bound[2],
+                              operations_ms=bound[3]))
 
 
 
@@ -2179,6 +2311,30 @@ def engine_rates(work):
                 row["serial_wall_s"] = _time_engine(
                     work, f"sparse_w{window}", wsweep, n_cand, stat_key,
                     engine, reps=("serial", "serial2"))
+                # pipelined again, without the Fisher launch and then with
+                # it: whether that launch is what holds the pipeline back
+                engine._pipeline_enabled = True
+                engine._device_fisher = False
+                row["fisher_off_wall_s"] = _time_engine(
+                    work, f"sparse_w{window}", wsweep, n_cand, stat_key,
+                    engine, reps=("pipelined, Fisher off",
+                                  "pipelined, Fisher off 2"))
+                engine._device_fisher = True
+                row["again_wall_s"] = _time_engine(
+                    work, f"sparse_w{window}", wsweep, n_cand, stat_key,
+                    engine, reps=("pipelined again", "pipelined again 2"))
+                # and with the interpreter handing the GIL between the
+                # two threads every 0.1 ms in place of every 5 ms
+                interval = sys.getswitchinterval()
+                sys.setswitchinterval(1e-4)
+                try:
+                    row["switch_0.1ms_wall_s"] = _time_engine(
+                        work, f"sparse_w{window}", wsweep, n_cand,
+                        stat_key, engine,
+                        reps=("pipelined, GIL switch 0.1 ms",
+                              "pipelined, GIL switch 0.1 ms 2"))
+                finally:
+                    sys.setswitchinterval(interval)
             rows.append(row)
             del engine
         del stacked
@@ -2592,8 +2748,8 @@ def main():
     # samples-sharded rows: instance -> ms, plain, bound, the int8 figure,
     # CUDA-core ceiling, torch._int_mm x P
     _say(json.dumps({"fisher_instances": [
-        dict(layout=k, max_abs_err=v[0], ms=v[1], plain_ms=v[2], bound_ms=v[3],
-             bound_by=v[4], walk_steps=v[5], rows=v[6])
+        dict(v[7], layout=k, max_abs_err=v[0], ms=v[1], plain_ms=v[2],
+             bound_ms=v[3], bound_by=v[4])
         for k, v in fisher.items()]}))
     _say(json.dumps({"dprime_instances": [
         dict(kernel=k, ms=v[0], ms_without_bounds=v[1], plain_ms=v[2])

@@ -8,6 +8,10 @@ the port walks in f64 and the JAX package in double-single f32 (~1e-6
 relative), so their unflagged brackets agree within 2e-6 relative; every
 other record field is equal."""
 
+import functools
+import math
+from decimal import Decimal, getcontext
+
 import numpy as np
 import pytest
 import torch
@@ -202,3 +206,205 @@ def test_volume_gate_on_both_sides(monkeypatch, layout):
                              LdFilters())
         assert (p is not None) == opened
     engine.stage_close()
+
+
+# --- the search (fisher_bracket_search, csrc/fisher_bracket.cu's plain
+# version) against the walk, the JAX package and the native Fisher test.
+# Tolerances: the search's bracket differs from the walk's only by its
+# seed exp(d) (d within table_error of exact, <= 5e-10) and the walk's
+# drift; the JAX package's by its double-single f32 walk (~1e-7 on these
+# tables): 1e-6 relative against both, the kernel's contract against the
+# walk.
+
+
+def _ld_tables(rng, n_hap, k):
+    """k tables of n_hap haplotypes in strong LD: allele frequencies
+    0.05-0.5, r2 0.1-1, cells drawn from the multinomial."""
+    out = []
+    while len(out) < k:
+        p, q = rng.uniform(0.05, 0.5, 2)
+        r2 = rng.uniform(0.1, 1.0)
+        D = min(np.sqrt(r2 * p * (1 - p) * q * (1 - q)),
+                p * (1 - q), q * (1 - p))
+        cells = np.array([(1 - p) * (1 - q) + D, (1 - p) * q - D,
+                          p * (1 - q) - D, p * q + D]).clip(0)
+        out.append(rng.multinomial(n_hap, cells / cells.sum()))
+    return np.array(out, np.int64)
+
+
+def _edge_tables(rng, n_hap, k):
+    """Symmetric tables (n1 = m1: the mirrored cell ties exactly), the
+    observed cell at kmin and at kmax, runs that reach the support's end
+    (n1 = m1 = n / 2, a at either end), tiny and trivial tables."""
+    out = [(0, 0, 0, 0), (0, 0, 0, 9), (7, 0, 0, 0), (0, 3, 4, 0),
+           (1, 0, 0, 1), (5, 0, 0, 5), (0, 5, 5, 0), (10, 10, 10, 10),
+           (n_hap // 2, 0, 0, n_hap // 2), (0, n_hap // 2, n_hap // 2, 0)]
+    for _ in range(k):
+        n1 = int(rng.integers(1, n_hap))
+        m1 = n1 if rng.random() < 0.5 else int(rng.integers(1, n_hap))
+        kmin, kmax = max(0, n1 + m1 - n_hap), min(n1, m1)
+        a = (kmin, kmax, int(rng.integers(kmin, kmax + 1)))[_ % 3]
+        out.append((a, n1 - a, m1 - a, n_hap - n1 - m1 + a))
+    return np.array(out, np.int64)
+
+
+def _search(C, n_hap=None, **kw):
+    cols = [torch.from_numpy(C[:, k]) for k in range(4)]
+    return F.fisher_bracket_search(
+        *cols, n_hap or int(C.sum(axis=1).max()), **kw)
+
+
+def _hold_search_to_walk(C, sb, ss, wb, ws):
+    """The search's flags a subset of the walk's; where neither flags the
+    brackets within 1e-6 relative and the steps equal. Returns the lanes
+    neither flags."""
+    sf, wf = sb < 0, wb < 0
+    assert not bool((sf & ~wf).any())
+    both = ~sf & ~wf
+    np.testing.assert_allclose(sb[both].numpy(), wb[both].numpy(),
+                               rtol=1e-6)
+    assert torch.equal(ss[both], ws[both])
+    return both
+
+
+@pytest.mark.parametrize("n_hap,kind,seed", [
+    (5008, "ld", 10), (5008, "edge", 11), (32768, "ld", 12),
+    (32768, "edge", 13)])
+def test_search_matches_walk_jax_and_native(n_hap, kind, seed):
+    rng = np.random.default_rng(seed)
+    k = 400 if n_hap == 5008 else 100
+    C = (_ld_tables if kind == "ld" else _edge_tables)(rng, n_hap, k)
+    sb, sl, ss, sw = _search(C, n_hap)
+    wb, wl, ws = _walk(C)
+    both = _hold_search_to_walk(C, sb, ss, wb, ws)
+    assert both.float().mean() > 0.97
+    # the search's work: a few probes and tail steps where the walk
+    # crossed the bulk cell by cell
+    live = ~torch.from_numpy(_trivial(C))
+    assert int(sw[live].sum()) < int(ws[live].sum())
+    jb, _ = JF.fisher_bracket(*(jnp.asarray(C[:, q], jnp.int32)
+                                for q in range(4)))
+    jb = np.asarray(jb)
+    sure = (sb.numpy() >= 0) & (jb >= 0)
+    assert sure.mean() > 0.97
+    np.testing.assert_allclose(sb.numpy()[sure], jb[sure], rtol=1e-6)
+    lf = F.log_factorial_table(n_hap + 1)
+    P = F.host_p_from_bracket(C, sb.numpy(), lf)
+    Pn = fisher_exact(*(C[:, q] for q in range(4)))
+    unc = np.isnan(P)
+    assert np.abs(P[~unc] - Pn[~unc]).max() <= 1e-5
+    ok = ~unc & (Pn > 0) & ~_trivial(C)
+    assert (sl.numpy()[ok] >= np.log2(Pn[ok]) - 1e-3).all()
+    assert ss[torch.from_numpy(_trivial(C))].sum() == 0
+
+
+@pytest.mark.parametrize("max_steps", [64, 1024])
+def test_search_step_cap_as_the_walk(max_steps):
+    """Tables whose run or tail outruns the step cap: flagged exactly
+    where the walk flags, and the walk's step count on every lane."""
+    rng = np.random.default_rng(14)
+    C = np.concatenate([_ld_tables(rng, 5008, 200),
+                        np.array([(14000, 1000, 1000, 24000)], np.int64)])
+    sb, _, ss, _ = _search(C, 40000, max_steps=max_steps)
+    wb, _, ws = _walk(C, max_steps=max_steps)
+    assert torch.equal(sb < 0, wb < 0)
+    assert int((sb < 0).sum()) > (0 if max_steps == 1024 else 50)
+    assert torch.equal(ss, ws)
+    _hold_search_to_walk(C, sb, ss, wb, ws)
+
+
+@functools.lru_cache(maxsize=None)
+def _exact_log_factorials(n):
+    """log k! for k in [0, n] as 45-digit decimals."""
+    getcontext().prec = 45
+    out, acc = [Decimal(0)], Decimal(0)
+    for k in range(1, n + 1):
+        acc += Decimal(k).ln()
+        out.append(acc)
+    return out
+
+
+@pytest.mark.parametrize("n_hap", [5008, 32768])
+def test_search_table_and_d_error(n_hap):
+    """The search table within TABLE_ULPS ulps of lf[n_hap] of log k!, and
+    d(k) from the table's f64 sums within `table_error` of the exact
+    log(pmf(k) / q) (math.fsum of the logs of the ratios from a to k) on
+    the cells of LD tables, where the search decides; the guard's margin
+    holds at both sizes."""
+    lf = F.search_table(n_hap)
+    exact = _exact_log_factorials(n_hap + 1)
+    top = float(np.spacing(lf[n_hap]))
+    err = max(abs(float(Decimal(float(v)) - e)) for v, e in zip(lf, exact))
+    assert err <= F.TABLE_ULPS * top
+    eps = F.table_error(n_hap)
+    cut_lo, cut_hi, g = F.search_cuts(n_hap)
+    assert g > eps and g + eps + F.EPS_WALK <= F.GUARD
+    assert cut_lo == math.log1p(-F.BAND) and cut_hi == math.log1p(F.BAND)
+    rng = np.random.default_rng(15)
+    worst = 0.0
+    for rr, ra, ar, aa in _ld_tables(rng, n_hap, 40):
+        a, n1, m1 = rr, rr + ra, rr + ar
+        nm = ra + aa - m1 + rr  # n2 - m1
+        kmin, kmax = max(0, m1 - (ar + aa)), min(n1, m1)
+        for k in rng.integers(kmin, kmax + 1, 5):
+            k = int(k)
+            d = ((lf[a] - lf[k]) + (lf[n1 - a] - lf[n1 - k])) \
+                + ((lf[m1 - a] - lf[m1 - k]) + (lf[nm + a] - lf[nm + k]))
+            step = 1 if k > a else -1
+            terms = []
+            for j in range(a, k, step):
+                if step > 0:
+                    num, den = (n1 - j) * (m1 - j), (j + 1) * (nm + j + 1)
+                else:
+                    num, den = j * (nm + j), (n1 - j + 1) * (m1 - j + 1)
+                terms += [math.log(num), -math.log(den)]
+            worst = max(worst, abs(d - math.fsum(terms)))
+    assert worst <= eps
+
+
+def test_search_exp_within_ulps():
+    """The seed's exp within 4 ulps of math.exp down to the subnormals,
+    and 0 below."""
+    x = torch.cat([torch.linspace(-745.0, 1e-8, 20001, dtype=torch.float64),
+                   torch.tensor([-1e-8, 0.0, -5e-324, -1080.0, -1e5],
+                                dtype=torch.float64)])
+    got = F._exp(x)
+    want = torch.tensor([math.exp(v) for v in x.tolist()],
+                        dtype=torch.float64)
+    normal = want > 2.3e-308
+    ulps = ((got - want).abs() / torch.tensor(
+        np.spacing(want.numpy())))[normal]
+    assert float(ulps.max()) <= 4
+    assert float((got - want).abs()[~normal].max()) <= 4 * 5e-324
+    assert F._exp(torch.tensor([-1e5], dtype=torch.float64)).item() == 0.0
+
+
+def test_wide_buffer_through_the_plain_wrapper(monkeypatch):
+    """chip_smoke.py's tables at 2N = 32,768 (workloads.fisher_tables) as
+    one tile's survivor rows (workloads.fisher_buffer): the sweep's
+    decode gives the tables back, and the wrapper's plain version writes
+    the search's brackets into the f32 column and returns its steps and
+    work."""
+    from tomahawk_tpu_torch import workloads
+    n_samples = 16384
+    C = workloads.fisher_tables(2 * n_samples, 300, seed=18)
+    K = len(C)
+    cfg = sweeps.make_cfg("phased", True, "all", 128, n_samples, 0, 0.1,
+                          100.0, fisher=True)
+    buf = torch.from_numpy(workloads.fisher_buffer(C, sweeps.out_cols(cfg)))
+    n_pass = torch.tensor([K], dtype=torch.int32)
+    dev = {"ac": torch.zeros((1, 128), dtype=torch.int32)}
+    zero = np.zeros(1, np.int32)
+    monkeypatch.setattr(sweeps, "FISHER_MIN_ROWS", K)
+    rows, t = sweeps.fisher_rows(n_pass, K, buf.shape[0])
+    cells = torch.stack(sweeps.fisher_cells(dev, buf, rows, t, zero, zero,
+                                            cfg), 1)
+    assert torch.equal(cells, torch.from_numpy(C))
+    br, _, steps, work = _search(C, 2 * n_samples)
+    _build.reset_counts()
+    got = sweeps.append_fisher_col(dev, n_pass, buf, zero, zero, cfg, K)
+    assert _build.PLAIN_CALLS["fisher_bracket"] == 1
+    assert got == (int(steps.sum()), int(work.sum()))
+    col = buf[:K, sweeps.buf_cols(cfg)].view(torch.float32)
+    assert torch.equal(col, br)
+    assert (buf[K:] == 0).all()

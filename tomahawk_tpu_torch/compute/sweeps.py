@@ -455,21 +455,22 @@ def fisher_cells(dev, buf, rows, t, pi, pj, cfg):
 
 
 def append_fisher_col_plain(dev, n_pass, buf, pi, pj, cfg, cap):
-    """The plain PyTorch version of `append_fisher_col`; returns the
-    walk's steps over the rows (fisher_dev.fisher_bracket), 0 below the
+    """The plain PyTorch version of `append_fisher_col`; returns (steps,
+    work) over the rows (fisher_dev.fisher_bracket_search: the walk's
+    steps, the probes and tail steps of the search), (0, 0) below the
     gate."""
     sel = fisher_rows(n_pass, cap, buf.shape[0])
     if sel is None:
-        return 0
+        return 0, 0
     rows, t = sel
-    br, log2_pb, steps = F.fisher_bracket(
-        *fisher_cells(dev, buf, rows, t, pi, pj, cfg))
+    br, log2_pb, steps, work = F.fisher_bracket_search(
+        *fisher_cells(dev, buf, rows, t, pi, pj, cfg), 2 * cfg["n_samples"])
     if fisher_packed(cfg):
         bits = F.packed_bits(br, log2_pb)
         buf[rows, 1] = (buf[rows, 1] & 0xFFFF) | (bits << 16)
     else:
         buf[rows, buf_cols(cfg)] = br.view(torch.int32)
-    return int(steps.sum())
+    return int(steps.sum()), int(work.sum())
 
 
 def append_fisher_col(dev, n_pass, buf, pi, pj, cfg, cap, steps=None):
@@ -481,8 +482,9 @@ def append_fisher_col(dev, n_pass, buf, pi, pj, cfg, cap, steps=None):
     counterpart of the JAX package's append_fisher_col behind the gate of
     its fused_sweep. Launches csrc/fisher_bracket.cu on the sweep's
     stream for CUDA tensors (the gate read on the device, no host sync;
-    `steps`, a uint64 [1] tensor, adds up the walk's steps), the plain
-    version for CPU tensors. Repair rows carry no bracket."""
+    `steps`, a uint64 [2] tensor, adds up the walk's steps and the
+    search's probes and tail steps), the plain version for CPU tensors.
+    Repair rows carry no bracket."""
     if buf.is_cuda:
         return _launch_fisher(dev, n_pass, buf, pi, pj, cfg, cap, steps)
     if buf.device.type != "cpu":
@@ -497,10 +499,13 @@ def _launch_fisher(dev, n_pass, buf, pi, pj, cfg, cap, steps=None):
     miss = cfg["has_missing"]
     device = buf.device
     ac = dev["ac"]
+    n_hap = 2 * cfg["n_samples"]
+    lf = F.device_table(n_hap, device)
     for name, x, dtype, shape in (
             ("buf", buf, torch.int32, (outcap, ld)),
             ("n_pass", n_pass, torch.int32, (T,)),
-            ("ac", ac, torch.int32, (ac.shape[0], B))):
+            ("ac", ac, torch.int32, (ac.shape[0], B)),
+            ("lf", lf, torch.float64, (n_hap + 2,))):
         if x.dtype != dtype or tuple(x.shape) != shape \
                 or not x.is_contiguous() or x.device != device:
             raise ValueError(f"Fisher input {name} {tuple(x.shape)} "
@@ -510,9 +515,9 @@ def _launch_fisher(dev, n_pass, buf, pi, pj, cfg, cap, steps=None):
         raise ValueError(f"no Fisher column for a [{outcap}, {ld}] buffer "
                          f"of this sweep group (cap {cap})")
     if steps is not None and (steps.dtype != torch.uint64
-                              or steps.numel() != 1
+                              or steps.numel() != 2
                               or steps.device != device):
-        raise ValueError("steps must be one uint64 on the buffer's device")
+        raise ValueError("steps must be two uint64 on the buffer's device")
     tl = None
     if not miss:
         pij = np.stack([np.asarray(pi, np.int32), np.asarray(pj, np.int32)])
@@ -525,11 +530,12 @@ def _launch_fisher(dev, n_pass, buf, pi, pj, cfg, cap, steps=None):
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _build.library().twk_fisher_bracket(
         buf.data_ptr(), ld, int(miss), int(pack16_ok(cfg)),
-        int(fisher_packed(cfg)), buf_cols(cfg), B, 2 * cfg["n_samples"], cap,
-        outcap, n_pass.data_ptr(), T, ends.data_ptr(),
+        int(fisher_packed(cfg)), buf_cols(cfg), B, n_hap, cap, outcap,
+        n_pass.data_ptr(), T, ends.data_ptr(),
         None if miss else ac.data_ptr(),
         None if miss else tl[0].data_ptr(),
         None if miss else tl[1].data_ptr(), FISHER_MIN_ROWS, F.MAX_STEPS,
+        lf.data_ptr(), lf.numel(), *F.search_cuts(n_hap),
         None if steps is None else steps.data_ptr(), stream)
     _build.check(rc, "fisher_bracket launch")
     _build.count(_build.LAUNCHES, "fisher_bracket")

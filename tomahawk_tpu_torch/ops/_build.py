@@ -63,7 +63,7 @@ LAUNCHES = {name: 0 for name in KERNELS}
 PLAIN_CALLS = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_L = ctypes.c_longlong
+_L, _D = ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
     # alt_i, alt_j, ac_i, ac_j, valid_i, valid_j, an_i, an_j, pos_i, pos_j,
     # rid_i, rid_j, window, cls, B, W, n_hap, lo, hi, dp_lo, dp_hi,
@@ -90,9 +90,10 @@ _SIGNATURES = {
     # kind, blocks, iters, out, stream
     "twk_mma_probe": [_I] * 3 + [_P] * 2,
     # buf, ld, has_missing, pack16, packed, fcol, B, n_hap, cap, outcap,
-    # n_pass, T, ends, ac, pi, pj, min_rows, max_steps, steps, stream
+    # n_pass, T, ends, ac, pi, pj, min_rows, max_steps, lf, n_lf, cut_lo,
+    # cut_hi, g, steps, stream
     "twk_fisher_bracket": [_P] + [_I] * 9 + [_P, _I] + [_P] * 4
-    + [_L, _I] + [_P] * 2,
+    + [_L, _I, _P, _I] + [_D] * 3 + [_P] * 2,
     # kind, x, y, z, W, ac, valid, an, n_het, n_hom, pos, rid, window, cls,
     # B, n_samples, lo, hi, dp_lo, dp_hi, need_nonzero, T, pi, pj, dg, live,
     # mask, parts, counts, P, ncol, ld, off, per_tile_off, cap, outcap,

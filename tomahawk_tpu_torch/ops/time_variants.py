@@ -24,11 +24,25 @@ and `ticket` arguments, scratch of 3 * B + 2 words allocated per call),
 against the library's on one mask (the LD-grouped diagonal tile, 30,720
 survivors, one part), with the counts given and without.
 
+It builds csrc/fisher_bracket.cu whole and once per entry of
+FISHER_CUTS and times each on the survivor rows of the dense workload's
+10 tiles (4 LD-grouped super-blocks) in both layouts and on
+chip_smoke.py's 16,988 tables at 2N = 32,768 (the 4-part layout), and
+the whole kernel with the volume gate closed (the `ends` launch and an
+empty second launch): where the Fisher search spends its time. With
+--fisher-designs it also builds and times FISHER_DESIGNS, the two designs
+the kernel did not take (the table in shared memory, not at 2N = 32,768
+where the array does not hold it; one launch).
+
 With --old-tiles DIR it also builds phased_tile.cu and parts_tile.cu of
-DIR, the csrc/ of an earlier tree whose launchers take no D' bounds (the
-interface before the D' term), and times them against the library's on
-the -p tile and the three parts_tile groups, in turns (old, new, new,
-old), each after checking that both give the same mask.
+DIR, the csrc/ of an earlier tree, and times them against the library's
+on the -p tile and the three parts_tile groups, in turns (old, new, new,
+old), each after checking that both give the same mask; DIR's launchers
+may take the D' bounds or predate them. Where DIR holds a
+fisher_bracket.cu with the walk's interface (no search table), it times
+that kernel against the library's on the same rows as the cuts, in
+turns, after checking that the library's flags are a subset of its and
+the other brackets agree within 1e-6 relative.
 
 Every timed call is queued behind ~4 ms of other device work, so the host
 stays ahead and the time is the device's, launch gaps included. Prints the
@@ -37,12 +51,15 @@ card's name and power limit, one line a variant, and one JSON object.
 
 import argparse
 import ctypes
+import itertools
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+
+import numpy as np
 
 B, N_SAMPLES, MIN_R2 = 4096, 2504, 0.1
 
@@ -86,6 +103,42 @@ PARTS_SHAPES = {
          "__launch_bounds__(kThreads, 1) parts_tile_kernel"),),
     "P=9, 32-word stages": ((_P9, "kParts = 9, kMi = 1, kNi = 2, "
                                   "kWords = 32;"),)}
+# fisher_bracket.cu: the bisection of each side's run cut to none (the
+# run taken to end at the support's end, so no tail either), or the
+# tail's loop cut
+_F_SEARCH = (r"long long lo = 0, hi = span \+ 1;",
+             "long long lo = span, hi = span + 1;")
+_F_TAIL = (r"        while \(used < rem\) \{\n", "        while (false) {\n")
+# the table staged in shared memory by every block (right up to 6,142
+# haplotypes), in place of the read-only path
+_F_SMEM = ((r"  return __ldg\(lf \+ i\);\n", "  return lf[i];\n"),
+           (r"  const double\* lf = a\.lf;\n",
+            "  __shared__ double staged[6144];\n"
+            "  for (int i = threadIdx.x; i < a.n_lf; i += kThreads)\n"
+            "    staged[i] = a.lf[i];\n"
+            "  __syncthreads();\n"
+            "  const double* lf = staged;\n"))
+# one launch: every block sums n_pass itself (right up to 1,024 tiles) in
+# place of the one-block ends_kernel launch before it
+_F_FOLD = ((r"ends_kernel<<<1, kEndsThreads, 0, s>>>\(.*?\);\n",
+            "(void)0;\n"),
+           (r"  const long long total = a\.ends\[a\.T\];\n",
+            "  __shared__ long long s_ends[1025];\n"
+            "  if (threadIdx.x == 0) {\n"
+            "    long long c = 0;\n"
+            "    for (int t = 0; t < a.T; ++t) s_ends[t] = c += a.n_pass[t];\n"
+            "    s_ends[a.T] = c;\n"
+            "  }\n"
+            "  __syncthreads();\n"
+            "  const long long total = s_ends[a.T];\n"),
+           (r"a\.ends\[mid\]", "s_ends[mid]"),
+           (r"a\.ends\[t\] >", "s_ends[t] >"))
+#: variant -> edits of fisher_bracket.cu, as CUTS
+FISHER_CUTS = {"whole": (), "no tail": (_F_TAIL,),
+               "no search, no tail": (_F_SEARCH,)}
+#: the same for the designs the kernel did not take, whose outputs are
+#: right
+FISHER_DESIGNS = {"table in shared memory": _F_SMEM, "one launch": _F_FOLD}
 #: the parts_tile instances timed: (table, has_missing, cls)
 PARTS_GROUPS = (("phased", True, "all"), ("unphased", False, "all"),
                 ("unphased", True, "missing"))
@@ -272,15 +325,20 @@ def time_compact(work, old_source):
 
 class _OldTiles:
     """An earlier library's two tile launchers, handed the library's
-    arguments less the D' bounds; anything else from the library."""
+    arguments, less the D' bounds where they predate them; anything else
+    from the library."""
 
-    def __init__(self, lib, main):
-        self.lib, self.main = lib, main
+    def __init__(self, lib, main, dprime):
+        self.lib, self.main, self.dprime = lib, main, dprime
 
     def twk_phased_tile(self, *a):
+        if self.dprime:
+            return self.lib.twk_phased_tile(*a)
         return self.lib.twk_phased_tile(*a[:19], *a[21:])
 
     def twk_parts_tile(self, *a):
+        if self.dprime:
+            return self.lib.twk_parts_tile(*a)
         return self.lib.twk_parts_tile(*a[:28], *a[30:])
 
     def __getattr__(self, name):
@@ -303,12 +361,18 @@ def time_old_tiles(work, old_dir):
     _build._run([[_build._nvcc(), *_build.LINK_FLAGS, "-o", so, *objs]])
     main = _build.library()
     lib = ctypes.CDLL(so)
-    P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.twk_phased_tile.argtypes = [P_] * 12 + [I_] * 5 + [F_] * 2 \
-        + [I_] * 2 + [P_] * 4
-    lib.twk_parts_tile.argtypes = [I_] + [P_] * 20 + [I_] * 5 + [F_] * 2 \
-        + [I_] * 2 + [P_] * 4
-    old = _OldTiles(lib, main)
+    with open(os.path.join(old_dir, "phased_tile.cu")) as fh:
+        dprime = "dp_lo" in fh.read()
+    if dprime:
+        for name in ("twk_phased_tile", "twk_parts_tile"):
+            getattr(lib, name).argtypes = _build._SIGNATURES[name]
+    else:
+        P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.twk_phased_tile.argtypes = [P_] * 12 + [I_] * 5 + [F_] * 2 \
+            + [I_] * 2 + [P_] * 4
+        lib.twk_parts_tile.argtypes = [I_] + [P_] * 20 + [I_] * 5 \
+            + [F_] * 2 + [I_] * 2 + [P_] * 4
+    old = _OldTiles(lib, main, dprime)
     res = {}
     for group in (("phased", False, "all"),) + PARTS_GROUPS:
         planes = (workloads.build_planes(2, B, N_SAMPLES, seed=0)
@@ -337,10 +401,176 @@ def time_old_tiles(work, old_dir):
     return res
 
 
+def _fisher_rows():
+    """(layout, dev, n_pass, buf with its bracket cleared, pi, pj, cfg,
+    cap) of the dense workload's 10 tiles in both layouts, as
+    chip_smoke.py compare_fisher sweeps them."""
+    from .. import workloads
+    from ..compute import sweeps
+    nb = 4
+    pairs = [(i, j) for i in range(nb) for j in range(i, nb)]
+    pi = np.array([p[0] for p in pairs], np.int32)
+    pj = np.array([p[1] for p in pairs], np.int32)
+    dg = pi == pj
+    for layout, planes, miss in (
+            ("packed", workloads.build_planes_grouped(nb, B, N_SAMPLES),
+             False),
+            ("column", workloads.genotype_planes(nb, B, N_SAMPLES,
+                                                 0.02, seed=13), True)):
+        dev = sweeps.planes_to_device(planes, "cuda")
+        cfg = sweeps.make_cfg("phased", miss, "all", B, N_SAMPLES, 0,
+                              MIN_R2, 100.0, fisher=True)
+        cap = 32768
+        n_pass, _, buf = sweeps.fused_sweep(dev, pi, pj, dg,
+                                            np.ones(len(pi), bool),
+                                            cfg=cfg, cap=cap, outcap=1 << 20)
+        if sweeps.fisher_packed(cfg):
+            buf[:, 1] &= 0xFFFF
+        else:
+            buf[:, sweeps.buf_cols(cfg)] = 0
+        yield layout, dev, n_pass, buf, pi, pj, cfg, cap
+
+
+def _wide_rows():
+    """The same for 2N = 32,768 haplotypes: workloads.fisher_tables as one
+    tile of a phased sweep with missing data (chip_smoke.py
+    compare_fisher_wide's rows)."""
+    import torch
+    from .. import workloads
+    from ..compute import sweeps
+    n_samples = 16384
+    C = workloads.fisher_tables(2 * n_samples, sweeps.FISHER_MIN_ROWS, 17)
+    cfg = sweeps.make_cfg("phased", True, "all", B, n_samples, 0, MIN_R2,
+                          100.0, fisher=True)
+    buf = torch.from_numpy(workloads.fisher_buffer(
+        C, sweeps.out_cols(cfg))).cuda()
+    dev = {"ac": torch.zeros((1, B), dtype=torch.int32, device="cuda")}
+    n_pass = torch.tensor([len(C)], dtype=torch.int32, device="cuda")
+    zero = np.zeros(1, np.int32)
+    yield "2N = 32,768", dev, n_pass, buf, zero, zero, cfg, len(C)
+
+
+def _brackets(buf, cfg):
+    """(bracket f32, flagged) of every row of a buffer the Fisher kernel
+    wrote (chip_smoke.py's _bracket_bits)."""
+    import torch
+    from ..compute import sweeps
+    from . import fisher_dev as F
+    if sweeps.fisher_packed(cfg):
+        bits = (buf[:, 1] >> 16) & 0xFFFF
+        return (bits << 16).view(torch.float32), bits == F.BF16_NAN
+    br = buf[:, sweeps.buf_cols(cfg)].contiguous().view(torch.float32)
+    return br, br < 0
+
+
+def _old_fisher(so):
+    """A launch of the walk's kernel of library `so` (the interface before
+    the search: no table, one steps counter) with append_fisher_col's
+    arguments."""
+    import torch
+    from ..compute import sweeps
+    from . import _build
+    from . import fisher_dev as F
+    lib = ctypes.CDLL(so)
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    lib.twk_fisher_bracket.argtypes = [P_] + [I_] * 9 + [P_, I_] + [P_] * 4 \
+        + [ctypes.c_longlong, I_] + [P_] * 2
+
+    def launch(dev, n_pass, buf, pi, pj, cfg, cap):
+        miss = cfg["has_missing"]
+        tl = torch.from_numpy(np.stack([pi, pj]).astype(np.int32)).cuda()
+        ends = torch.empty(len(pi) + 1, dtype=torch.int64, device="cuda")
+        rc = lib.twk_fisher_bracket(
+            buf.data_ptr(), buf.shape[1], int(miss),
+            int(sweeps.pack16_ok(cfg)), int(sweeps.fisher_packed(cfg)),
+            sweeps.buf_cols(cfg), cfg["B"], 2 * cfg["n_samples"], cap,
+            buf.shape[0], n_pass.data_ptr(), len(pi), ends.data_ptr(),
+            None if miss else dev["ac"].data_ptr(),
+            None if miss else tl[0].data_ptr(),
+            None if miss else tl[1].data_ptr(), sweeps.FISHER_MIN_ROWS,
+            F.MAX_STEPS, None, torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "old fisher_bracket launch")
+
+    return launch
+
+
+def time_fisher(work, old_dir=None, designs=False):
+    """fisher_bracket.cu's cuts (FISHER_CUTS, with `designs` FISHER_DESIGNS
+    too) and the whole kernel with the volume gate closed, on the survivor
+    rows of `_fisher_rows` in each layout; with `old_dir`, that tree's walk
+    kernel against the library's in turns. Returns {layout: {variant:
+    ms}}."""
+    from ..compute import sweeps
+    from . import _build
+    main_lib = _build.library()
+    variants = dict(FISHER_CUTS, **(FISHER_DESIGNS if designs else {}))
+    libs = dict(zip(variants, _edited_builds(
+        work, "fisher_bracket.cu", variants, "fisher")))
+    old = None
+    if old_dir is not None:
+        with open(os.path.join(old_dir, "fisher_bracket.cu")) as fh:
+            walk_kernel = "search_table" not in fh.read()
+        if walk_kernel:
+            so = os.path.join(work, "old_fisher.so")
+            _nvcc_shared([(os.path.join(old_dir, "fisher_bracket.cu"), so)])
+            old = _old_fisher(so)
+    res = {}
+    for layout, dev, n_pass, buf, pi, pj, cfg, cap in itertools.chain(
+            _fisher_rows(), _wide_rows()):
+        res[layout] = {}
+        ker = buf.clone()
+        call = lambda: sweeps.append_fisher_col(dev, n_pass, ker, pi, pj,
+                                                cfg, cap)
+        for name, so in libs.items():
+            if name == "table in shared memory" and cfg["n_samples"] > 3071:
+                continue
+            lib = ctypes.CDLL(so)
+            lib.twk_fisher_bracket.argtypes = \
+                _build._SIGNATURES["twk_fisher_bracket"]
+            lib.twk_fisher_bracket.restype = ctypes.c_int
+            _build._lib = lib
+            try:
+                res[layout][name] = device_ms(call, 20, main_lib)
+            finally:
+                _build._lib = main_lib
+        gate = sweeps.FISHER_MIN_ROWS
+        try:
+            sweeps.FISHER_MIN_ROWS = 1 << 40
+            res[layout]["gate closed"] = device_ms(call, 20)
+        finally:
+            sweeps.FISHER_MIN_ROWS = gate
+        for name, ms in res[layout].items():
+            print(f"fisher_bracket {layout}, {name}: {ms:.4f} ms",
+                  flush=True)
+        if old is None or layout not in ("packed", "column"):
+            continue
+        outs, turns = {}, {"old": [], "new": []}
+        for side in ("old", "new", "new", "old"):
+            out = buf.clone()
+            fn = (lambda: old(dev, n_pass, out, pi, pj, cfg, cap)) \
+                if side == "old" else (lambda: sweeps.append_fisher_col(
+                    dev, n_pass, out, pi, pj, cfg, cap))
+            turns[side].append(device_ms(fn, 20))
+            outs[side] = _brackets(out, cfg)
+        (ob, of), (nb_, nf) = outs["old"], outs["new"]
+        both = ~of & ~nf
+        rel = float(((nb_[both] - ob[both]).abs()
+                     / ob[both].abs().clamp(min=1e-30)).max())
+        if bool((nf & ~of).any()) or rel > 1e-6:
+            raise SystemExit(f"fisher_bracket {layout}: the library flags "
+                             f"{int((nf & ~of).sum())} lanes the old kernel "
+                             f"does not, brackets {rel} apart")
+        res[layout]["old"], res[layout]["new"] = turns["old"], turns["new"]
+        print(f"fisher_bracket {layout}: old {turns['old']}, new "
+              f"{turns['new']} ms", flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-compact", metavar="FILE")
     ap.add_argument("--old-tiles", metavar="DIR")
+    ap.add_argument("--fisher-designs", action="store_true")
     args = ap.parse_args()
     from . import _build
     print(subprocess.run(
@@ -351,7 +581,9 @@ def main():
     os.makedirs(work, exist_ok=True)
     try:
         out = {"phased_tile_cuts_ms": time_cuts(work),
-               "parts_tile_cuts_ms": time_parts(work)}
+               "parts_tile_cuts_ms": time_parts(work),
+               "fisher_bracket_ms": time_fisher(work, args.old_tiles,
+                                                 args.fisher_designs)}
         if args.old_compact:
             out["compact_ms"] = time_compact(work, args.old_compact)
         if args.old_tiles:

@@ -10,7 +10,9 @@ They differ in one place: the miss plane's padding bits (past 2N) are
 ones here, as `bitpack.block_to_planes` packs them, where bench.py
 leaves them zero; the 4-part phased kernels rely on that padding.
 Positions ascend along the blocks with a mean spacing of 275 bp on one
-contig, so a 4096-variant super-block spans about 1.1 Mb.
+contig, so a 4096-variant super-block spans about 1.1 Mb. `fisher_tables`
+and `fisher_buffer` give the Fisher kernel survivor rows of a cohort
+wider than the planes' (2N = 32,768 haplotypes) without a sweep.
 """
 
 import numpy as np
@@ -130,3 +132,42 @@ def super_ranges(stacked):
         maxpos[s] = int(stacked["pos"][s][v].max())
         rid[s] = int(stacked["rid"][s][v][0])
     return minpos, maxpos, rid
+
+
+def fisher_tables(n_hap, k, seed):
+    """k 2x2 tables (REFREF, REFALT, ALTREF, ALTALT) int64 of n_hap
+    haplotypes in strong LD (allele frequencies 0.05-0.5, r2 0.1-1, cells
+    drawn from the multinomial), then 600 symmetric tables (n1 = m1) and
+    tables with the observed cell at either end of the support, and four
+    trivial or tied ones."""
+    rng = np.random.default_rng(seed)
+    p, q = rng.uniform(0.05, 0.5, (2, k))
+    r2 = rng.uniform(0.1, 1.0, k)
+    D = np.minimum(np.sqrt(r2 * p * (1 - p) * q * (1 - q)),
+                   np.minimum(p * (1 - q), q * (1 - p)))
+    cells = np.stack([(1 - p) * (1 - q) + D, (1 - p) * q - D,
+                      p * (1 - q) - D, p * q + D], 1).clip(0)
+    out = [rng.multinomial(n_hap, c / c.sum()) for c in cells]
+    for e in range(600):
+        n1 = int(rng.integers(1, n_hap))
+        m1 = n1 if e % 2 else int(rng.integers(1, n_hap))
+        kmin, kmax = max(0, n1 + m1 - n_hap), min(n1, m1)
+        a = (kmin, kmax, int(rng.integers(kmin, kmax + 1)))[e % 3]
+        out.append((a, n1 - a, m1 - a, n_hap - n1 - m1 + a))
+    out += [(0, 0, 0, 0), (7, 0, 0, 0), (n_hap // 2, 0, 0, n_hap // 2),
+            (0, n_hap // 2, n_hap // 2, 0)]
+    return np.array(out, np.int64)
+
+
+def fisher_buffer(tables, ncol):
+    """The survivor rows of one tile of a phased sweep with missing data
+    holding `tables` [K, 4] (the 4 parts pair-packed, as
+    compute/sweeps.py's compaction writes them while they fit uint16),
+    in an int32 [2K, ncol] buffer whose other rows and columns are 0."""
+    rr, ra, ar, aa = tables.T
+    K = len(tables)
+    out = np.zeros((2 * K, ncol), np.int64)
+    out[:K, 0] = np.arange(K)
+    out[:K, 1] = aa | (aa + ar) << 16
+    out[:K, 2] = (aa + ra) | (rr + ra + ar + aa) << 16
+    return out.astype(np.uint32).view(np.int32)
