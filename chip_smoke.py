@@ -51,12 +51,17 @@ Phases, in order; any failure exits non-zero:
    3 of the planes (every lane equal to its plain version; the slices'
    sum equal to the plain full-width parts on every lane and to the
    fused kernel's parts where its mask is not 0) and tile_epilogue on
-   that sum, for every pair class, windows 0 and 250,000 bp, a diagonal
-   and the neighbouring tile (equal to its plain version and to the
-   fused kernel's mask on every lane); the time per call of each
-   instance beside its bound. Then the segment's tile loop below Python:
-   sweeps.fused_sweep and extract_sweep through the C entry
-   (csrc/sweep.cu, one call a sweep) against the same sweeps made of
+   that sum with its counts buffer, for every pair class, windows 0,
+   250,000 and 1,000,000 bp, a diagonal and the neighbouring tile (mask
+   and counts equal to its plain version, tile_counts_plain, and the
+   fused kernel's on every lane; also at 100 and 99 rows in the
+   odd-shape check and with D' bounds in the D' check); the time per
+   call of each instance beside its bound: tile_epilogue's the larger of
+   its bytes and the f32 SASS instructions of the prefilter path each
+   candidate takes (`prefilter_ops`) over the CUDA cores' 33.5e12/s.
+   Then the segment's tile loop below Python: sweeps.fused_sweep and
+   extract_sweep through the C entry (csrc/sweep.cu, one call a sweep)
+   against the same sweeps made of
    per-tile launches, bit for bit in n_pass, n_cand and the survivor
    buffer, for every fused group at windows 0 and 250,000 bp, with room
    for every survivor and with the per-tile cap overflowing and the
@@ -166,9 +171,11 @@ Phases, in order; any failure exits non-zero:
    `LdEngine.run_phased_pairs` over the first 16 blocks of the sparse
    planes (136 tiles) as two samples-sharded ranks on the one card,
    with the time per tile of local_parts, the all-reduce, tile_epilogue
-   and compact from CUDA events;
+   and compact (handed the epilogue's counts) from CUDA events;
 6. check that each calc path launched each of its kernels, and never a
-   plain version, that the native host library is loaded, and that
+   plain version, that no compaction counted a mask itself (every tile
+   kernel, the samples-sharded epilogue too, hands it its counts:
+   `segment_counts` 0), that the native host library is loaded, and that
    neither jax nor the JAX package was imported.
 
 The last two lines are a JSON summary of the kernels and the device
@@ -588,7 +595,7 @@ def _time_compact(mask, parts, ncol, counts=None):
 #: samples-sharded run; 192 and 320 rows are 1.5 and 2.5 thread blocks of
 #: phased_tile, 3 and 5 of parts_tile
 ODD_SHAPES = ((192, 63), (320, 63), (192, 64), (192, 27), (192, 52),
-              (192, 54), (100, 63), (100, 32))
+              (192, 54), (100, 63), (100, 32), (99, 63))
 #: the odd-shape check's groups: every (table, has_missing, cls), with the
 #: samples of its planes
 ODD_GROUPS = {(table, miss, cls): 1000 if table == "phased" else 2000
@@ -597,14 +604,16 @@ ODD_GROUPS = {(table, miss, cls): 1000 if table == "phased" else 2000
 
 
 def compare_odd_shapes():
-    """phased_tile and parts_tile with their counts, and local_parts,
-    against the plain versions where the staging cannot use 16-byte
-    copies (W % 4 != 0), where the last K step is partial (W % 8 != 0)
-    and where the tile's edge cuts a thread block: every instance and pair
-    class (ODD_GROUPS), window 0 and 250 kb, a diagonal and an
-    off-diagonal tile; then compact on those masks, with counts and
-    without. Equal on every lane (the parts where the mask is not 0 in
-    window mode)."""
+    """phased_tile and parts_tile with their counts, local_parts, and
+    tile_epilogue with its counts on the plain parts, against the plain
+    versions where the staging cannot use 16-byte copies (W % 4 != 0),
+    where the last K step is partial (W % 8 != 0), where the tile's edge
+    cuts a thread block and where rows are an odd number of bytes (99
+    rows): every instance and pair class (ODD_GROUPS), window 0 and 250
+    kb, a diagonal and an off-diagonal tile; then compact on those masks,
+    with counts and without. Equal on every lane (the parts where the
+    mask is not 0 in window mode); the epilogue's mask and counts also
+    equal the fused kernel's."""
     import torch
     from tomahawk_tpu_torch import workloads
     from tomahawk_tpu_torch.compute import sweeps
@@ -639,6 +648,15 @@ def compare_odd_shapes():
                         raise SystemExit(f"{label} differs from its plain "
                                          f"version")
                     _check_counts_buffer(label, counts, mask)
+                    emask = torch.empty_like(mask)
+                    ecounts = tiles.counts_buffer(cfg, "cuda").fill_(-1)
+                    tiles.tile_epilogue(dev, i, j, diag, cfg,
+                                        (emask, want_p), ecounts)
+                    if not torch.equal(emask, mask) \
+                            or not torch.equal(ecounts, counts):
+                        raise SystemExit(f"tile_epilogue at {label} differs "
+                                         f"from the fused kernel's mask or "
+                                         f"counts")
                     if window == 0 and group[2] == "all":
                         out = tiles.tile_buffers(cfg, "cuda")
                         lp = tiles.tile_local_parts(dev, i, j, cfg, out)
@@ -653,7 +671,8 @@ def compare_odd_shapes():
                        for a, b in zip(g, outs[2])):
                     raise SystemExit(f"compact {group} B={Bt} w={window} "
                                      f"differs from its plain version")
-        _say(f"  phased_tile, parts_tile, local_parts, counts and compact at "
+        _say(f"  phased_tile, parts_tile, local_parts, tile_epilogue, "
+             f"counts and compact at "
              f"B={Bt}, W={W}: {len(ODD_GROUPS)} groups x window 0 / "
              f"{WINDOWS[0]} x two tiles, {n} survivors, equal")
 
@@ -853,7 +872,8 @@ def compare_dprime():
     counts, on a diagonal and an off-diagonal tile, bit for bit in the
     mask, the parts and the counts; compact on those masks with the
     counts and without, bit for bit in the survivor rows; tile_epilogue
-    of every instance on the same parts, bit for bit in the mask. Then
+    of every instance on the same parts, bit for bit in the mask and the
+    counts. Then
     the time per call of phased_tile and of parts_tile's MAIN_GROUP
     instance with the D' bounds and without, in turns. Returns {kernel:
     (ms with the bounds, ms without, plain ms with the bounds)}."""
@@ -887,12 +907,16 @@ def compare_dprime():
                 raise SystemExit(f"{label} ({i},{j}) differs from its "
                                  f"plain version")
             _check_counts_buffer(f"{label} ({i},{j})", counts, mask)
-            # the same parts through tile_epilogue (the dcn sweep's mask)
+            # the same parts through tile_epilogue (the dcn sweep's mask
+            # and counts)
             out = (torch.empty_like(mask), parts)
-            tiles.tile_epilogue(dev, i, j, diag, cfg, out)
-            if not torch.equal(out[0], want_m):
+            ecounts = tiles.counts_buffer(cfg, "cuda").fill_(-1)
+            tiles.tile_epilogue(dev, i, j, diag, cfg, out, ecounts)
+            if not torch.equal(out[0], want_m) \
+                    or not torch.equal(ecounts, counts):
                 raise SystemExit(f"tile_epilogue at {label} ({i},{j}) "
-                                 f"differs from its plain version")
+                                 f"differs from its plain version or from "
+                                 f"the fused kernel's counts")
             m0 = tiles.tile_prefilter_plain(dev, i, j, diag, base)[0]
             cut.append((int((mask == 2).sum()), int((m0 == 2).sum())))
             got.append((mask, parts, counts))
@@ -1391,6 +1415,98 @@ INSTANCES = (("phased", False), ("phased", True), ("unphased", False),
              ("unphased", True))
 #: the instance the kernels line reports for both: the -p dcn path's
 MAIN_INSTANCE = ("phased", False)
+#: pair classes of the mixed dispatch
+CLASSES = ("all", "clean", "missing")
+#: f32 operations a second of the CUDA cores of one H100 SXM without FMA
+#: (the kernels build with -fmad=false): 132 SMs x 128 FP32 lanes x ~1.98
+#: GHz, one instruction a lane a clock. MUFU and conversions issue slower,
+#: so counting each as one operation at this rate keeps a bound a floor
+F32_OPS_PER_S = 33.5e12
+#: kernels that run one pair's f32 prefilter a thread, each path of it
+#: alone, from csrc/prefilter.cuh: their SASS gives the f32 instructions
+#: of a pair on that path (`prefilter_ops`)
+OPS_PROBE = r"""
+#include "prefilter.cuh"
+#define PROBE(name, expr) \
+  extern "C" __global__ void name(const int* in, twk::Bounds b, int* out) { \
+    const int* T = in + 9 * threadIdx.x; \
+    out[threadIdx.x] = (expr); \
+  }
+PROBE(op_phased, twk::phased_prefilter<false>(T[0], T[1], T[2], T[3], b))
+PROBE(op_phased_dp, twk::phased_prefilter<true>(T[0], T[1], T[2], T[3], b))
+PROBE(op_head, twk::table9(T).n >= 5.0f)
+PROBE(op_fold, twk::table9(T).n >= 5.0f &&
+               twk::unphased_fold_ok<false>(twk::table9(T), b))
+PROBE(op_fold_dp, twk::table9(T).n >= 5.0f &&
+                  twk::unphased_fold_ok<true>(twk::table9(T), b))
+PROBE(op_em, twk::table9(T).n >= 5.0f &&
+             twk::unphased_em_ok(twk::table9(T), b))
+"""
+#: SASS opcodes of f32 work: arithmetic, comparisons, selections, the
+#: division's check and reciprocal, int -> f32 conversions
+F32_OPCODES = ("FADD", "FMUL", "FFMA", "FSETP", "FSET", "FMNMX", "FSEL",
+               "FCHK", "MUFU", "I2F", "I2FP", "F2I", "FRND")
+
+
+def prefilter_ops():
+    """{path: f32 SASS instructions of one pair} for each kernel of
+    OPS_PROBE, built with the library's flags: the instructions of the
+    function before the first subroutine it calls (the IEEE division's
+    slow path, laid out after the function's EXIT, which a quotient of
+    normal range does not take)."""
+    import re
+    from tomahawk_tpu_torch.ops import _build
+    work = os.path.join(ROOT, "build", "chip_smoke_ops")
+    os.makedirs(work, exist_ok=True)
+    src, cubin = os.path.join(work, "ops.cu"), os.path.join(work, "ops.cubin")
+    with open(src, "w") as fh:
+        fh.write(OPS_PROBE)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC",
+                                                        "-Xptxas", "-v")]
+    subprocess.run([_build._nvcc(), *flags, "-I", _build.CSRC, "-cubin",
+                    "-o", cubin, src], check=True, capture_output=True)
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    ops = {}
+    for chunk in sass.split("Function : ")[1:]:
+        calls = [int(t, 16) for t in
+                 re.findall(r"CALL\.REL\S*\s+0x([0-9a-f]+)", chunk)]
+        end = min(calls, default=1 << 62)
+        ops[chunk.split()[0]] = sum(
+            int(addr, 16) < end and op.split(".")[0] in F32_OPCODES
+            for addr, op in re.findall(
+                r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                chunk))
+    shutil.rmtree(work, ignore_errors=True)
+    want = {"op_phased", "op_phased_dp", "op_head", "op_fold", "op_fold_dp",
+            "op_em"}
+    if set(ops) != want or not all(ops.values()):
+        raise SystemExit(f"prefilter SASS probe: {ops}")
+    return ops
+
+
+def epilogue_work(cfg, mask, parts, ops):
+    """(bytes, f32 operations) the epilogue of a tile needs at least:
+    each candidate's P parts read once, the mask and the counts written
+    once, ~13 bytes of metadata a variant a side; the f32 instructions of
+    the prefilter path each candidate takes (`prefilter_ops`): the phased
+    prefilter; the unphased table's head alone where it holds fewer than 5
+    samples, else its fold (no double heterozygote) or its EM half."""
+    B, P = cfg["B"], parts.shape[0]
+    cand = mask != 0
+    n_cand = int(cand.sum())
+    nbytes = 4 * P * n_cand + B * B + 4 * B * -(-B // 128) + 2 * B * 13
+    dp = "_dp" if (cfg["min_dprime"], cfg["max_dprime"]) != (0.0, 100.0) \
+        else ""
+    if cfg["table"] == "phased":
+        return nbytes, n_cand * ops["op_phased" + dp]
+    low = cand & ((parts[8] if cfg["has_missing"] else cfg["n_samples"])
+                  < 5)
+    fold = cand & ~low & (parts[0] == 0)
+    n_low, n_fold = int(low.sum()), int(fold.sum())
+    return nbytes, (n_low * ops["op_head"] + n_fold * ops["op_fold" + dp]
+                    + (n_cand - n_low - n_fold) * ops["op_em"])
 
 
 def compare_dcn_kernels():
@@ -1398,17 +1514,21 @@ def compare_dcn_kernels():
     versions and against the fused tile kernels (see the module
     docstring, phase 3). Returns ({instance: (ms, plain_ms, bound_ms,
     bound_by, int8_ms, cuda_core_ms, library_ms)} for local_parts at S =
-    2, the same for tile_epilogue, whose last three are None)."""
+    2, and for tile_epilogue {instance: (ms, plain_ms, bound_ms,
+    bound_by, None, None, None, bytes_ms, ops_ms, f32 operations a
+    candidate)}, its time with the counts buffer given, as the sweep
+    calls it)."""
     import torch
     from tomahawk_tpu_torch.compute import sweeps
     from tomahawk_tpu_torch.ops import tiles
     st = genotype_planes(2)
     full = sweeps.planes_to_device(st, "cuda")
+    ops = prefilter_ops()
     _say(f"samples-sharded kernel check: B={B}, {N_SAMPLES} samples, word "
-         f"slices S=2 and S=3")
+         f"slices S=2 and S=3; f32 SASS instructions of one pair's "
+         f"prefilter, by path: {ops}")
     local, epi = {}, {}
     for instance in INSTANCES:
-        groups = [g for g in ALL_GROUPS if g[:2] == instance]
         cfg0 = sweeps.make_cfg(*instance, "all", B, N_SAMPLES, 0, MIN_R2,
                                100.0)
         keys = tiles.plane_keys(*instance)
@@ -1419,6 +1539,8 @@ def compare_dcn_kernels():
                       for s in range(S)] for S in (2, 3)}
         name = "/".join(map(str, instance))
         out = tiles.tile_buffers(cfg0, "cuda")
+        counts = tiles.counts_buffer(cfg0, "cuda")
+        fused_c = tiles.counts_buffer(cfg0, "cuda")
         for i, j, diag in ((1, 1, True), (0, 1, False)):
             want = torch.stack(tiles.tile_local_parts_plain(full, i, j,
                                                             cfg0))
@@ -1450,30 +1572,35 @@ def compare_dcn_kernels():
             del fused_p
             # the epilogue on the global parts (the sum of the 3 slices)
             out[1].copy_(total)
-            for group in groups:
-                for window in (0, WINDOWS[0]):
-                    cfg = sweeps.make_cfg(*group, B, N_SAMPLES, window,
-                                          MIN_R2, 100.0)
+            for cls in CLASSES:
+                for window in (0,) + WINDOWS:
+                    cfg = sweeps.make_cfg(*instance, cls, B, N_SAMPLES,
+                                          window, MIN_R2, 100.0)
+                    counts.fill_(-1)
                     mask, _ = tiles.tile_epilogue(full, i, j, diag, cfg,
-                                                  out)
+                                                  out, counts)
                     want_m = tiles.tile_epilogue_plain(full, i, j, diag, cfg,
                                                        total)
-                    fused_m, _ = tiles.tile_prefilter(full, i, j, diag, cfg)
+                    fused_m, _ = tiles.tile_prefilter(full, i, j, diag, cfg,
+                                                      counts=fused_c)
                     torch.cuda.synchronize()
-                    label = (f"tile_epilogue {'/'.join(map(str, group))} "
-                             f"w={window} ({i},{j})")
+                    label = (f"tile_epilogue {name}/{cls} w={window} "
+                             f"({i},{j})")
                     if not torch.equal(mask, want_m):
                         raise SystemExit(f"{label} differs from its plain "
                                          f"version")
-                    if not torch.equal(mask, fused_m):
+                    _check_counts_buffer(label, counts, mask)
+                    if not torch.equal(mask, fused_m) \
+                            or not torch.equal(counts, fused_c):
                         raise SystemExit(f"{label} differs from the fused "
-                                         f"kernel's mask")
+                                         f"kernel's mask or counts")
                     _say(f"  {label}: {int((mask == 2).sum())} survivors, "
-                         f"{int((mask != 0).sum())} candidates, equal to "
-                         f"the plain version and the fused kernel")
+                         f"{int((mask != 0).sum())} candidates; mask and "
+                         f"counts equal to the plain version and the fused "
+                         f"kernel")
             del want, total, fused_m, want_m
         # ms per call: local_parts on slice 0 of 2, the epilogue on the
-        # off-diagonal tile, cls "all", no window
+        # off-diagonal tile, cls "all", no window, with its counts
         dev = slices[2][0]
         Wl = dev[keys[0]].shape[-1]
         ms = _cuda_ms(lambda: tiles.tile_local_parts(dev, 0, 1, cfg0, out))
@@ -1486,19 +1613,25 @@ def compare_dcn_kernels():
             + (_int8_ms(P * B * B * Wl), _cuda_core_ms(P * B * B * Wl), lib)
         tiles.tile_local_parts(full, 0, 1, cfg0, out)
         ms = _cuda_ms(lambda: tiles.tile_epilogue(full, 0, 1, False, cfg0,
-                                                  out))
+                                                  out, counts))
         plain = _cuda_ms(lambda: tiles.tile_epilogue_plain(
             full, 0, 1, False, cfg0, out[1]), reps=3)
-        epi[instance] = (ms, plain) + (
-            ((4 * P + 1) * B * B + 2 * B * 13) / HBM_BYTES_PER_S * 1e3,
-            "bytes", None, None, None)
+        nbytes, nops = epilogue_work(cfg0, out[0], out[1], ops)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / F32_OPS_PER_S * 1e3
+        n_cand = int((out[0] != 0).sum())
+        epi[instance] = (ms, plain, max(bytes_ms, ops_ms),
+                         "bytes" if bytes_ms >= ops_ms else "operations",
+                         None, None, None, bytes_ms, ops_ms, nops / n_cand)
         for kname, r in (("local_parts", local), ("tile_epilogue", epi)):
             v = r[instance]
             _say(f"  ms per call: {kname} {name} P={P}"
                  f"{f', {Wl} words' if kname == 'local_parts' else ''} "
                  f"{v[0]:.4f} (plain {v[1]:.4f}, bound {v[2]:.4f} by "
                  f"{v[3]}"
-                 + ("" if v[4] is None else
+                 + (f": bytes {v[7]:.4f}, f32 operations {v[8]:.4f} "
+                    f"({v[9]:.1f} a candidate, {n_cand} candidates)"
+                    if v[4] is None else
                     f", as int8 {v[4]:.4f}, CUDA-core ceiling {v[5]:.4f}; "
                     f"torch._int_mm x {P} {v[6]:.4f}")
                  + ")")
@@ -1757,7 +1890,7 @@ def run_calc(label, twk, two, flags, mode, need, window=0, plan=None,
                              ss["n_prefetched"] > 0) != plan:
         raise SystemExit(f"calc {label}: banded plan {ss} is not {plan}")
     _check_counts(label, launches, plain, need,
-                  ("local_parts", "tile_epilogue"))
+                  ("local_parts", "tile_epilogue", "segment_counts"))
     check_records(label, two, twk, mode, window, dprime)
     return launches
 
@@ -1981,10 +2114,11 @@ def main_paths(work):
         total[k] = total.get(k, 0) + v
     two = two.format("ranked")
     dcn = ("local_parts", "tile_epilogue", "compact")
-    fused = ("phased_tile", "parts_tile")
+    # every compaction is handed its tile's counts: none counts a mask
+    fused = ("phased_tile", "parts_tile", "segment_counts")
     ranked = (("g", ld, ["-p"], "phased", dcn, fused, True),
               ("h", miss, [], "mixed", dcn, fused, True),
-              ("i", miss, [], "mixed", every, dcn[:2], False))
+              ("i", miss, [], "mixed", every, dcn[:2] + fused[2:], False))
     for label, twk, flags, mode, need, idle, is_dcn in ranked:
         launches = run_ranked_calc(label, twk, two, flags, mode, need, idle,
                                    is_dcn)
@@ -2485,7 +2619,7 @@ def dcn_engine():
         _check_counts(f"engine dcn rank {rep['rank']}", rep["launches"],
                       rep["plain"],
                       ("local_parts", "tile_epilogue", "compact"),
-                      ("phased_tile", "parts_tile"))
+                      ("phased_tile", "parts_tile", "segment_counts"))
     a, b = reports
     if (a["candidates"], a["records"]) != (b["candidates"], b["records"]):
         raise SystemExit(f"engine dcn: the ranks disagree: {a} {b}")
@@ -2529,10 +2663,11 @@ def rank_engine(job):
         cfg = engine._cfg("phased", False, "all")
         dev = engine._dev_for(cfg)
         out = tiles.tile_buffers(cfg, device)
+        counts = tiles.counts_buffer(cfg, device)
         # warm-up: one tile through every step
         tiles.tile_local_parts(dev, 0, 1, cfg, out)
         dist.all_reduce_parts(out[1], group)
-        tiles.tile_epilogue(dev, 0, 1, False, cfg, out)
+        tiles.tile_epilogue(dev, 0, 1, False, cfg, out, counts)
         torch.cuda.synchronize()
         dist.sync_shards()
         t0 = time.perf_counter()
@@ -2554,10 +2689,11 @@ def rank_engine(job):
             ev[1].record()
             dist.all_reduce_parts(out[1], group)
             ev[2].record()
-            mask, parts = tiles.tile_epilogue(dev, i, j, diag, cfg, out)
+            mask, parts = tiles.tile_epilogue(dev, i, j, diag, cfg, out,
+                                              counts)
             ev[3].record()
             sweeps.compact_survivors(mask, parts, off, buf, n_pass, n_cnd, t,
-                                     cap)
+                                     cap, counts)
             ev[4].record()
             marks.append(ev)
         torch.cuda.synchronize()
@@ -2757,7 +2893,9 @@ def main():
     _say(json.dumps({"dcn_instances": [
         dict(kernel=name, instance="/".join(map(str, inst)), ms=v[0],
              plain_ms=v[1], bound_ms=v[2], bound_by=v[3], int8_ms=v[4],
-             cuda_core_ms=v[5], library_ms=v[6])
+             cuda_core_ms=v[5], library_ms=v[6],
+             **(dict(bytes_ms=v[7], ops_ms=v[8], f32_ops_a_candidate=v[9])
+                if len(v) > 7 else {}))
         for name, res in (("local_parts", local), ("tile_epilogue", epi))
         for inst, v in res.items()]}))
     # library_ms: torch._int_mm once a part on the pre-unpacked operands,

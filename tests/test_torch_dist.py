@@ -245,7 +245,8 @@ def two_rank_sweeps(tmp_path_factory):
 @pytest.mark.parametrize("n", range(len(SWEEPS)), ids=SWEEP_IDS)
 def test_two_rank_sweeps_match_jax(two_rank_sweeps, n):
     """Both ranks' counts and survivor rows equal the JAX single-device
-    sweeps' on the full-width planes, and each other's."""
+    sweeps' on the full-width planes, and each other's; the epilogue's
+    counts reach every compaction, which then counts no mask itself."""
     grp, window = SWEEPS[n]
     _, jcfg = cfg_pair(grp, window)
     jdev = jax_dev(planes(n_blocks=N_BLOCKS))
@@ -270,9 +271,12 @@ def test_two_rank_sweeps_match_jax(two_rank_sweeps, n):
             np.testing.assert_array_equal(get("buf")[lo:hi], jbuf[lo:hi])
         total = int(jn.sum())
         np.testing.assert_array_equal(get("rbuf")[:total], jr[:total])
-        # the step ran through the wrappers' plain versions, per tile
+        # the step ran through the wrappers' plain versions, per tile,
+        # and every compaction was handed the epilogue's counts
         assert res["plain_local_parts"] == res["plain_tile_epilogue"] > 0
         assert res["plain_phased_tile"] == res["plain_parts_tile"] == 0
+        assert res["plain_compact"] > 0
+        assert res["plain_segment_counts"] == 0
     a, b = two_rank_sweeps
     np.testing.assert_array_equal(a[f"{n}_buf"], b[f"{n}_buf"])
     np.testing.assert_array_equal(a[f"{n}_rbuf"], b[f"{n}_rbuf"])
@@ -459,12 +463,16 @@ def test_epilogue_kernel_matches_plain_on_card(group, window):
     dev = sweeps.planes_to_device(planes(), card, sweeps.dev_keys_for(cfg))
     for i, j, diag in ((0, 0, True), (0, 1, False)):
         out = tiles.tile_buffers(cfg, card)
+        counts = tiles.counts_buffer(cfg, card).fill_(-1)
         tiles.tile_local_parts(dev, i, j, cfg, out)
-        mask, parts = tiles.tile_epilogue(dev, i, j, diag, cfg, out)
+        mask, parts = tiles.tile_epilogue(dev, i, j, diag, cfg, out, counts)
         assert torch.equal(mask, tiles.tile_epilogue_plain(
             dev, i, j, diag, cfg, parts))
-        want_m, want_p = tiles.tile_prefilter(dev, i, j, diag, cfg)
-        assert torch.equal(mask, want_m)
+        assert torch.equal(counts, tiles.tile_counts_plain(mask))
+        fused = tiles.counts_buffer(cfg, card)
+        want_m, want_p = tiles.tile_prefilter(dev, i, j, diag, cfg,
+                                              counts=fused)
+        assert torch.equal(mask, want_m) and torch.equal(counts, fused)
         on = (want_m != 0).unsqueeze(0)
         assert torch.equal(parts * on, want_p * on)
 

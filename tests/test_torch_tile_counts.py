@@ -107,8 +107,8 @@ GROUP_IDS = ["-".join(map(str, g)) for g in ALL_GROUPS]
 def test_counts_only_from_the_phased_tile_kernel():
     """The counts once came from phased_tile alone; now every fused tile
     kernel (phased_tile and parts_tile) writes them, so every group gets
-    a buffer and tile_prefilter takes it. Only the samples-sharded sweep,
-    whose epilogue writes none, goes without. A buffer of the wrong shape
+    a buffer and tile_prefilter takes it, and so does the samples-sharded
+    sweep, whose epilogue writes them too. A buffer of the wrong shape
     is refused."""
     st = group_planes(3, 1, 128, 64)
     for group in ALL_GROUPS:
@@ -121,7 +121,7 @@ def test_counts_only_from_the_phased_tile_kernel():
         assert torch.equal(counts, tiles.tile_counts_plain(mask))
         assert sweeps._sweep_buffers(cfg, "cpu")[1] is not None
         sharded = dict(cfg, psum_group=object())
-        assert sweeps._sweep_buffers(sharded, "cpu")[1] is None
+        assert sweeps._sweep_buffers(sharded, "cpu")[1] is not None
         with pytest.raises(ValueError, match="counts"):
             tiles.tile_prefilter(dev, 0, 0, True, cfg, counts=torch.zeros(
                 (128, 2), dtype=torch.int32))

@@ -13,11 +13,10 @@ the running offset on the device, so a segment of tiles runs without a
 host sync and the host reads the counts once, after the whole segment
 (`host_counts`, which also raises where a compaction reported a fault).
 A sweep allocates the tile's output buffers, the compaction's scratch
-and the per-segment counts buffer the fused tile kernels write once and
-reuses them for every tile; with the counts the compaction reads the
-mask only where a segment has a survivor. The samples-sharded sweep's
-epilogue writes none, and there the compaction counts the mask itself
-first.
+and the per-segment counts buffer the tile kernels write (the fused
+kernels, or the samples-sharded sweep's epilogue) once and reuses them
+for every tile; with the counts the compaction reads the mask only where
+a segment has a survivor.
 
 Survivor rows are [flat index k*B + l, payload...] int32 in the layout
 of the JAX package's `_pack_cols`: while the parts fit uint16
@@ -36,8 +35,9 @@ group holds a word slice of the planes (`planes_to_device(...,
 word_slice=(s, S))`) and walks the same tile list; per tile it runs
 `tile_local_parts`, sums the parts over the group in place
 (`parallel.all_reduce_parts`, the JAX `psum`) and runs `tile_epilogue`
-on the global counts, then the same compaction. Counts and survivor rows
-are then identical on every rank.
+on the global counts, which writes the mask and its per-segment counts,
+then the same compaction. Counts and survivor rows are then identical on
+every rank.
 """
 
 import ctypes
@@ -272,7 +272,8 @@ def compact_survivors(mask, parts, off, buf, n_pass, n_cand, t: int,
     past it (the Fisher column) are left alone. `off` is an int32 [1] tensor
     updated in place. `counts` are the mask's per-segment counts where
     its producer wrote them (tiles.counts_buffer): the kernel then skips
-    its own count of the mask. `scratch` (compact_scratch) is allocated
+    its own count of the mask (a call without them is counted as
+    _build.SEGMENT_COUNTS). `scratch` (compact_scratch) is allocated
     here when not given. Launches csrc/compact.cu for CUDA tensors, the
     plain version for CPU tensors. The kernel reports a stale scan
     ticket as n_pass[t] = TICKET_FAULT, which `host_counts` raises for
@@ -283,6 +284,8 @@ def compact_survivors(mask, parts, off, buf, n_pass, n_cand, t: int,
     if mask.device.type != "cpu":
         raise ValueError(f"no compaction kernel for device {mask.device}")
     _build.count(_build.PLAIN_CALLS, "compact")
+    if counts is None:
+        _build.count(_build.PLAIN_CALLS, _build.SEGMENT_COUNTS)
     return compact_survivors_plain(mask, parts, off, buf, n_pass, n_cand,
                                    t, cap, ncol)
 
@@ -343,6 +346,8 @@ def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
         buf.data_ptr(), stream)
     _build.check(rc, "compact launch")
     _build.count(_build.LAUNCHES, "compact")
+    if counts is None:
+        _build.count(_build.LAUNCHES, _build.SEGMENT_COUNTS)
 
 
 def host_counts(n_pass, n_cand):
@@ -365,24 +370,22 @@ def _zeros(dev, *shape):
 
 
 def _tile(dev, i, j, diag, cfg, out, counts=None):
-    """(mask, parts) of one tile into `out`: the fused tile kernel
-    (which also fills `counts` when given), or in a samples-sharded sweep
-    the local parts, their sum over the group and the epilogue."""
+    """(mask, parts) of one tile into `out`, and the mask's counts into
+    `counts` when given: the fused tile kernel, or in a samples-sharded
+    sweep the local parts, their sum over the group and the epilogue."""
     group = cfg["psum_group"]
     if group is None:
         return tile_prefilter(dev, i, j, diag, cfg, out, counts)
     tile_local_parts(dev, i, j, cfg, out)
     all_reduce_parts(out[1], group)
-    return tile_epilogue(dev, i, j, diag, cfg, out)
+    return tile_epilogue(dev, i, j, diag, cfg, out, counts)
 
 
 def _sweep_buffers(cfg, device):
     """What a sweep allocates once and hands to every tile: the tile's
-    output buffers, the counts buffer the fused tile kernels fill (None
-    in a samples-sharded sweep, whose epilogue writes none) and the
+    output buffers, the counts buffer its tile kernels fill and the
     compaction's scratch."""
-    cnt = counts_buffer(cfg, device) if cfg["psum_group"] is None else None
-    return (tile_buffers(cfg, device), cnt,
+    return (tile_buffers(cfg, device), counts_buffer(cfg, device),
             compact_scratch(cfg["B"], device))
 
 
@@ -394,8 +397,8 @@ def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
     (detectable from n_pass), and tiles with more than `cap` survivors
     keep only their first `cap` rows -- the caller repairs both with
     `extract_sweep`. Dead tiles (live False) count zero. The fused tile
-    kernel hands its per-segment counts to the compaction, which counts
-    the mask itself in a samples-sharded sweep. With `fisher_on(cfg)`
+    kernel, or the samples-sharded sweep's epilogue, hands its
+    per-segment counts to the compaction. With `fisher_on(cfg)`
     the rows of the tiles the caller keeps carry the Fisher bracket
     (`append_fisher_col`) when the segment has FISHER_MIN_ROWS survivors.
     Read the counts with `host_counts`."""

@@ -26,10 +26,10 @@
 // sparse), so each dependent launch (2-3 us) and each pass over the mask
 // counts. Design: everything runs from per-(row, 128-column segment)
 // counts, n_survivors | n_candidates << 16 in an int32 [B, ceil(B / 128)].
-// The fused tile kernels (csrc/phased_tile.cu, csrc/parts_tile.cu) write
-// them from the registers that hold the mask bytes, and then the mask is
-// read here only where a segment has a survivor; for a mask from a
-// producer without counts (csrc/epilogue.cu), (0) a first launch
+// The tile kernels (csrc/phased_tile.cu, csrc/parts_tile.cu,
+// csrc/epilogue.cu) write them from the registers that hold the mask
+// bytes, and then the mask is read here only where a segment has a
+// survivor; for a mask that comes without counts, (0) a first launch
 // counts the segments with 16-byte loads into the scratch. Then (1) one
 // launch sums each row's segments across its blocks, and the block that
 // finishes last scans the row totals into row offsets and advances the

@@ -253,4 +253,91 @@ __device__ __forceinline__ bool unphased_prefilter(const int* T,
   return m && ((no_dh && fold_ok) || (!no_dh && em_ok));
 }
 
+// unphased_prefilter in its two halves, for a kernel that runs only the
+// half a pair takes (csrc/epilogue.cu; parts_tile keeps the branch-free
+// statement above). Each half restates unphased_prefilter's expressions,
+// so under -fmad=false its decision is bit for bit the same.
+
+// The f32 cells T00..T22 of one 3x3 genotype table (T as
+// unphased_prefilter's) and their sum n.
+struct Table9 {
+  float t00, t01, t02, t10, t11, t12, t20, t21, t22, n;
+};
+
+__device__ __forceinline__ Table9 table9(const int* T) {
+  Table9 c;
+  c.t00 = (float)T[0], c.t01 = (float)T[1], c.t02 = (float)T[2];
+  c.t10 = (float)T[3], c.t11 = (float)T[4], c.t12 = (float)T[5];
+  c.t20 = (float)T[6], c.t21 = (float)T[7], c.t22 = (float)T[8];
+  c.n = c.t00 + c.t01 + c.t02 + c.t10 + c.t11 + c.t12 + c.t20 + c.t21 +
+        c.t22;
+  return c;
+}
+
+// The fold half (the JAX package's tomahawk_tpu/ops/ld_kernels.py:409-422):
+// a pair with no double heterozygote has an exact phased table, whose r2
+// (and D', with DP) must lie in the bounds.
+template <bool DP>
+__device__ __forceinline__ bool unphased_fold_ok(const Table9& c,
+                                                 const Bounds& bnd) {
+  const float refref = 2.0f * c.t00 + c.t01 + c.t10;
+  const float refalt = 2.0f * c.t02 + c.t01 + c.t12;
+  const float altref = 2.0f * c.t20 + c.t10 + c.t21;
+  const float altalt = 2.0f * c.t22 + c.t21 + c.t12;
+  const float r2_fold = phased_r2(refref, refalt, altref, altalt);
+  const float t = refref + refalt + altref + altalt;
+  bool fold_ok = t >= 5.0f && r2_fold >= bnd.lo && r2_fold <= bnd.hi;
+  if constexpr (DP) {
+    if (fold_ok)
+      fold_ok = dprime_ok(refref, refalt, altref, altalt, bnd.dp_lo,
+                          bnd.dp_hi);
+  }
+  return fold_ok;
+}
+
+// The EM half (ld_kernels.py:424-446 there, with ns, p, q, n11 and ndh of
+// :400-404): r2(f11) = (f11 - pq)^2 / denom over the plausible interval
+// [minhap, maxhap] must meet the r2 bounds.
+__device__ __forceinline__ bool unphased_em_ok(const Table9& c,
+                                               const Bounds& bnd) {
+  const float ns = c.n > 1.0f ? c.n : 1.0f;
+  const float p = (2.0f * (c.t00 + c.t01 + c.t02) + (c.t10 + c.t11 + c.t12)) /
+                  (2.0f * ns);
+  const float q = (2.0f * (c.t00 + c.t10 + c.t20) + (c.t01 + c.t11 + c.t21)) /
+                  (2.0f * ns);
+  const float n11 = 2.0f * c.t00 + c.t01 + c.t10;
+  const float ndh = c.t11;
+  const float minhap = n11 / (2.0f * ns);
+  const float maxhap = (n11 + ndh) / (2.0f * ns);
+  const float tol = (float)1e-4;  // the JAX package's weak-typed 1e-4
+  const float pq = p * q;
+  const float lo_h = minhap - tol;
+  const float hi_h = maxhap + tol;
+  const float a = lo_h - pq;
+  const float b = pq - hi_h;
+  const float ab = a > b ? a : b;
+  const float dmin = ab > 0.0f ? ab : 0.0f;
+  const float cc = hi_h - pq;
+  const float d = pq - lo_h;
+  const float dmax = cc > d ? cc : d;
+  const float denom = p * (1.0f - p) * q * (1.0f - q);
+  const bool pos = denom > 0.0f;
+  const float inf = __int_as_float(0x7f800000);
+  const float r2_min = pos ? dmin * dmin / denom : inf;
+  const float r2_max = pos ? dmax * dmax / denom : inf;
+  return r2_min <= bnd.hi && r2_max >= bnd.lo;
+}
+
+// unphased_prefilter's decision from the half the pair takes alone: each
+// half is a pure function of the cells, so leaving the other out changes
+// no bit of the result. Lanes of a warp that take different halves run
+// both.
+template <bool DP>
+__device__ __forceinline__ bool unphased_prefilter_taken(const int* T,
+                                                         const Bounds& bnd) {
+  const Table9 c = table9(T);
+  if (!(c.n >= 5.0f)) return false;
+  return c.t11 == 0.0f ? unphased_fold_ok<DP>(c, bnd) : unphased_em_ok(c, bnd);
+}
+
 }  // namespace twk

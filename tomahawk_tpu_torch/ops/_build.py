@@ -57,10 +57,14 @@ KERNELS = {
         replaces="tomahawk_tpu/ops/fisher_dev.py:110"),
 }
 
+#: compactions handed no counts with their mask, which count it first
+#: (csrc/compact.cu's segment_counts_kernel): kept beside the kernels'
+#: counts, a part of compact's launch
+SEGMENT_COUNTS = "segment_counts"
 #: launches of each kernel, counted by its wrapper where it launches
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = {name: 0 for name in (*KERNELS, SEGMENT_COUNTS)}
 #: wrapper calls that took the plain PyTorch version (CPU tensors)
-PLAIN_CALLS = {name: 0 for name in KERNELS}
+PLAIN_CALLS = {name: 0 for name in (*KERNELS, SEGMENT_COUNTS)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _D = ctypes.c_longlong, ctypes.c_double
@@ -84,9 +88,10 @@ _SIGNATURES = {
     "twk_local_parts": [_I] + [_P] * 6 + [_I] * 2 + [_P] * 2,
     # kind, parts, ac_i, ac_j, valid_i, valid_j, an_i, an_j, n_het_i,
     # n_hom_i, n_het_j, n_hom_j, pos_i, pos_j, rid_i, rid_j, window, cls, B,
-    # n_samples, lo, hi, dp_lo, dp_hi, need_nonzero, diag, mask, stream
+    # n_samples, lo, hi, dp_lo, dp_hi, need_nonzero, diag, mask, counts,
+    # stream
     "twk_tile_epilogue": [_I] + [_P] * 15 + [_I] * 4 + [_F] * 4 + [_I] * 2
-    + [_P] * 2,
+    + [_P] * 3,
     # kind, blocks, iters, out, stream
     "twk_mma_probe": [_I] * 3 + [_P] * 2,
     # buf, ld, has_missing, pack16, packed, fcol, B, n_hap, cap, outcap,

@@ -27,9 +27,9 @@ kernels a term of csrc/prefilter.cuh whose bounds are runtime arguments).
 [B, ceil(B / 128)], the survivors and candidates of each 128-column
 segment of each mask row as n_survivors | n_candidates << 16
 (`tile_counts_plain` states it). Both fused kernels write it from the
-registers that hold the mask, and the compaction (compute/sweeps.py)
-then reads the mask only where a segment has a survivor; the
-samples-sharded sweep's epilogue gives no counts.
+registers that hold the mask, and so does `tile_epilogue`, and the
+compaction (compute/sweeps.py) then reads the mask only where a segment
+has a survivor.
 
 Both versions return mask u8 [B, B] (0 = not a candidate, 1 =
 candidate, 2 = survivor of the f32 prefilter, the diagonal triangle
@@ -42,7 +42,8 @@ only a word slice of every plane on each rank, so it takes the tile in
 two steps with an all-reduce of the parts between them:
 `tile_local_parts` (csrc/local_parts.cu, the counterpart of
 `tile_parts_pallas`: the P parts of the local words, every lane written)
-and `tile_epilogue` (csrc/epilogue.cu: the mask from the global parts).
+and `tile_epilogue` (csrc/epilogue.cu: the mask, and the counts when
+given, from the global parts).
 Both follow the same rule: the kernel for CUDA tensors, the plain
 version for CPU tensors.
 """
@@ -157,14 +158,7 @@ def tile_prefilter(dev, i: int, j: int, diag: bool, cfg, out=None,
     valid = dev["valid"]
     if out is None:
         out = tile_buffers(cfg, valid.device)
-    if counts is not None:
-        shape = (cfg["B"], -(-cfg["B"] // SEG))
-        if counts.dtype != torch.int32 or tuple(counts.shape) != shape \
-                or not counts.is_contiguous() \
-                or counts.device != out[0].device:
-            raise ValueError(f"counts {tuple(counts.shape)} {counts.dtype} "
-                             f"on {counts.device}: expected {shape} "
-                             f"torch.int32, contiguous, on {out[0].device}")
+    _check_counts(cfg, counts, out[0].device)
     if valid.is_cuda:
         return _launch(dev, i, j, diag, cfg, out, counts)
     if valid.device.type != "cpu":
@@ -176,6 +170,19 @@ def tile_prefilter(dev, i: int, j: int, diag: bool, cfg, out=None,
     if counts is not None:
         counts.copy_(tile_counts_plain(mask))
     return out
+
+
+def _check_counts(cfg, counts, device):
+    """Refuse a counts buffer (counts_buffer; None: none) that is not
+    int32 [B, ceil(B / SEG)], contiguous, on `device`."""
+    if counts is None:
+        return
+    shape = (cfg["B"], -(-cfg["B"] // SEG))
+    if counts.dtype != torch.int32 or tuple(counts.shape) != shape \
+            or not counts.is_contiguous() or counts.device != device:
+        raise ValueError(f"counts {tuple(counts.shape)} {counts.dtype} on "
+                         f"{counts.device}: expected {shape} torch.int32, "
+                         f"contiguous, on {device}")
 
 
 def _meta_keys(cfg):
@@ -323,17 +330,21 @@ def tile_local_parts(dev, i: int, j: int, cfg, out):
     return parts
 
 
-def tile_epilogue(dev, i: int, j: int, diag: bool, cfg, out):
+def tile_epilogue(dev, i: int, j: int, diag: bool, cfg, out, counts=None):
     """The mask of tile (i, j) from its global parts in out[1], written
     into out[0]; returns `out`, the (mask, parts) a fused tile kernel
-    gives."""
+    gives. `counts` (counts_buffer) is filled with the mask's
+    per-segment counts, as `tile_prefilter` fills it."""
     mask, parts = out
+    _check_counts(cfg, counts, mask.device)
     if parts.is_cuda:
-        return _launch_epilogue(dev, i, j, diag, cfg, out)
+        return _launch_epilogue(dev, i, j, diag, cfg, out, counts)
     if parts.device.type != "cpu":
         raise ValueError(f"no tile kernel for device {parts.device}")
     _build.count(_build.PLAIN_CALLS, "tile_epilogue")
     mask.copy_(tile_epilogue_plain(dev, i, j, diag, cfg, parts))
+    if counts is not None:
+        counts.copy_(tile_counts_plain(mask))
     return out
 
 
@@ -358,7 +369,7 @@ def _launch_local_parts(dev, i, j, cfg, out):
     return parts
 
 
-def _launch_epilogue(dev, i, j, diag, cfg, out):
+def _launch_epilogue(dev, i, j, diag, cfg, out, counts=None):
     NB, B, _ = _check_inputs(dev, cfg, out, planes=False)
     _in_range(i, j, NB)
     table, miss, cls = cfg["table"], cfg["has_missing"], cfg["cls"]
@@ -377,6 +388,7 @@ def _launch_epilogue(dev, i, j, diag, cfg, out):
         ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *nh, *win,
         window, _CLS[cls], B, cfg["n_samples"], *bounds,
         int(need_nonzero), int(bool(diag)), mask.data_ptr(),
+        None if counts is None else counts.data_ptr(),
         torch.cuda.current_stream(mask.device).cuda_stream)
     _build.check(rc, "tile_epilogue launch")
     _build.count(_build.LAUNCHES, "tile_epilogue")

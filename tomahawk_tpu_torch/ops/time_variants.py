@@ -34,11 +34,18 @@ empty second launch): where the Fisher search spends its time. With
 the kernel did not take (the table in shared memory, not at 2N = 32,768
 where the array does not hold it; one launch).
 
-With --old-tiles DIR it also builds phased_tile.cu and parts_tile.cu of
-DIR, the csrc/ of an earlier tree, and times them against the library's
-on the -p tile and the three parts_tile groups, in turns (old, new, new,
-old), each after checking that both give the same mask; DIR's launchers
-may take the D' bounds or predate them. Where DIR holds a
+It builds csrc/epilogue.cu whole and once per entry of EPILOGUE_CUTS and
+times each on the summed parts of the off-diagonal genotype tile in its
+four (table, has_missing) instances, with a counts buffer, and the whole
+kernel without one: what the prefilter, the one half of the unphased
+prefilter a pair, the pairs a lane and the rows a block cost.
+
+With --old-tiles DIR it also builds phased_tile.cu, parts_tile.cu and
+epilogue.cu of DIR, the csrc/ of an earlier tree, and times them against
+the library's on the -p tile, the three parts_tile groups and the four
+epilogue instances, in turns (old, new, new, old), each after checking
+that both give the same mask; DIR's launchers may take the D' bounds or
+predate them, and DIR's epilogue may predate its counts. Where DIR holds a
 fisher_bracket.cu with the walk's interface (no search table), it times
 that kernel against the library's on the same rows as the cuts, in
 turns, after checking that the library's flags are a subset of its and
@@ -139,6 +146,35 @@ FISHER_CUTS = {"whole": (), "no tail": (_F_TAIL,),
 #: the same for the designs the kernel did not take, whose outputs are
 #: right
 FISHER_DESIGNS = {"table in shared memory": _F_SMEM, "one launch": _F_FOLD}
+# epilogue.cu: the prefilter cut to a bit of the parts, so that the
+# stores still depend on every load
+_E_PREFILTER = (r"pair_pf<KIND, DP, P, C>\(a, sm, row, acj\[e\], "
+                r"base \+ e, v, e\)",
+                "[&] { int x = 0; for (int p = 0; p < P; ++p) x ^= v[p][e]; "
+                "return (x & 1) != 0; }()")
+_E_COLS = r"kCols = KIND == 0 \? 16 : KIND == 1 \? 8 : 4;"
+#: variant -> edits of epilogue.cu, as CUTS: the prefilter cut, and copies
+#: whose outputs stay right: both halves of the unphased prefilter a pair
+#: (the branch-free statement), one count of pairs a lane for every
+#: instance, other rows a block, other blocks an SM, 4 warps a block, the
+#: next row's loads ahead of the prefilter in every instance or in none
+EPILOGUE_CUTS = {
+    "whole": (), "no prefilter": (_E_PREFILTER,),
+    "both unphased halves": ((r"twk::unphased_prefilter_taken<DP>",
+                              "twk::unphased_prefilter<DP>"),),
+    "16 pairs a lane": ((_E_COLS, "kCols = 16;"),),
+    "8 pairs a lane": ((_E_COLS, "kCols = 8;"),),
+    "4 pairs a lane": ((_E_COLS, "kCols = 4;"),),
+    "16 rows a block": ((r"kRows = 32;", "kRows = 16;"),),
+    "64 rows a block": ((r"kRows = 32;", "kRows = 64;"),),
+    "two blocks an SM": ((r"__launch_bounds__\(kThreads\) epilogue_kernel",
+                          "__launch_bounds__(kThreads, 2) epilogue_kernel"),),
+    "one block an SM": ((r"__launch_bounds__\(kThreads\) epilogue_kernel",
+                         "__launch_bounds__(kThreads, 1) epilogue_kernel"),),
+    "4 warps a block": ((r"kWarps = 8;", "kWarps = 4;"),),
+    "a row ahead in every instance": ((r"kAhead = KIND < 2;",
+                                       "kAhead = true;"),),
+    "no row ahead": ((r"kAhead = KIND < 2;", "kAhead = false;"),)}
 #: the parts_tile instances timed: (table, has_missing, cls)
 PARTS_GROUPS = (("phased", True, "all"), ("unphased", False, "all"),
                 ("unphased", True, "missing"))
@@ -167,16 +203,38 @@ def device_ms(fn, reps, probe_lib=None):
 
 
 def _nvcc_shared(jobs):
-    """Build each (source, library) of `jobs`, all at once."""
+    """Build each (source, library) of `jobs`, all at once; nvcc's output
+    (ptxas's report) of each."""
     from . import _build
-    _build._run([[_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
-                  "-shared", "-o", so, src] for src, so in jobs])
+    return _build._run([[_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                         _build.CSRC, "-shared", "-o", so, src]
+                        for src, so in jobs])
 
 
-def _edited_builds(work, source_name, variants, tag):
+def _ptxas_lines(out, kernel):
+    """'<instance>: <registers> registers, <bytes> bytes spilled' for each
+    instance of `kernel` in ptxas's report `out`."""
+    lines, name, spill = [], None, 0
+    for line in out.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            inst = re.search(r"I(L.*?)EE", name)
+            lines.append(f"{inst.group(1) if inst else name}: {m.group(1)} "
+                         f"registers, {spill} bytes spilled")
+    return lines
+
+
+def _edited_builds(work, source_name, variants, tag, kernel=None):
     """Build one library per entry of `variants` (name -> edits, each a
     regular expression that must match once in the source and its
-    replacement), all at once; their paths in order."""
+    replacement), all at once; their paths in order. With `kernel`, print
+    ptxas's registers and spills of its instances in each."""
     from . import _build
     with open(os.path.join(_build.CSRC, source_name)) as fh:
         source = fh.read()
@@ -191,7 +249,11 @@ def _edited_builds(work, source_name, variants, tag):
                      os.path.join(work, f"{tag}{n}.so")))
         with open(jobs[-1][0], "w") as fh:
             fh.write(text)
-    _nvcc_shared(jobs)
+    outs = _nvcc_shared(jobs)
+    if kernel:
+        for name, out in zip(variants, outs):
+            print(f"{kernel} {name}, ptxas: "
+                  + "; ".join(_ptxas_lines(out, kernel)), flush=True)
     return [so for _, so in jobs]
 
 
@@ -401,6 +463,104 @@ def time_old_tiles(work, old_dir):
     return res
 
 
+class _OldEpilogue:
+    """An earlier library's epilogue launcher, from before it wrote counts,
+    handed the library's arguments less the counts; anything else from the
+    library."""
+
+    def __init__(self, lib, main):
+        self.lib, self.main = lib, main
+
+    def twk_tile_epilogue(self, *a):
+        return self.lib.twk_tile_epilogue(*a[:-2], a[-1])
+
+    def __getattr__(self, name):
+        return getattr(self.main, name)
+
+
+def time_epilogue(work, old_dir=None):
+    """epilogue.cu's variants (EPILOGUE_CUTS) in each (table, has_missing)
+    instance on the summed parts of the off-diagonal tile of genotype
+    planes (cls "all", no window), each library swapped in for the kernel
+    library around tiles.tile_epilogue with a counts buffer, the outputs of
+    the right variants checked against the library's; the library's kernel
+    without a counts buffer; with `old_dir`, that tree's epilogue.cu (the
+    launcher without counts) against the library's in turns (old, new,
+    new, old), masks checked equal. Returns {instance: {variant: ms}}."""
+    import torch
+    from .. import workloads
+    from ..compute import sweeps
+    from . import _build, tiles
+    main_lib = _build.library()
+    libs = dict(zip(EPILOGUE_CUTS, _edited_builds(
+        work, "epilogue.cu", EPILOGUE_CUTS, "epi", "epilogue_kernel")))
+    old = None
+    if old_dir is not None:
+        with open(os.path.join(old_dir, "epilogue.cu")) as fh:
+            takes_counts = "void* mask, void* counts" in fh.read()
+        so = os.path.join(work, "old_epilogue.so")
+        _nvcc_shared([(os.path.join(old_dir, "epilogue.cu"), so)])
+        lib = ctypes.CDLL(so)
+        sig = _build._SIGNATURES["twk_tile_epilogue"]
+        lib.twk_tile_epilogue.argtypes = sig if takes_counts \
+            else sig[:-2] + sig[-1:]
+        old = lib if takes_counts else _OldEpilogue(lib, main_lib)
+    dev = sweeps.planes_to_device(
+        workloads.genotype_planes(2, B, N_SAMPLES), "cuda")
+    res = {}
+    for table, miss in (("phased", False), ("phased", True),
+                        ("unphased", False), ("unphased", True)):
+        cfg = sweeps.make_cfg(table, miss, "all", B, N_SAMPLES, 0, MIN_R2,
+                              100.0)
+        out = tiles.tile_buffers(cfg, "cuda")
+        counts = tiles.counts_buffer(cfg, "cuda")
+        tiles.tile_local_parts(dev, 0, 1, cfg, out)
+        call = lambda c=counts: tiles.tile_epilogue(dev, 0, 1, False, cfg,
+                                                    out, c)
+        want = call()[0].clone()
+        want_c = counts.clone()
+        tag = f"{table}/{miss}"
+        res[tag] = {}
+        for name, so in libs.items():
+            lib = ctypes.CDLL(so)
+            lib.twk_tile_epilogue.argtypes = \
+                _build._SIGNATURES["twk_tile_epilogue"]
+            lib.twk_tile_epilogue.restype = ctypes.c_int
+            _build._lib = lib
+            try:
+                call()
+                if name != "no prefilter" and not (
+                        torch.equal(out[0], want)
+                        and torch.equal(counts, want_c)):
+                    raise SystemExit(f"tile_epilogue {tag}, {name}: the "
+                                     f"mask or counts differ")
+                res[tag][name] = device_ms(call, 20, main_lib)
+            finally:
+                _build._lib = main_lib
+            print(f"tile_epilogue {tag}, {name}: {res[tag][name]:.4f} ms",
+                  flush=True)
+        res[tag]["whole, no counts"] = device_ms(lambda: call(None), 20)
+        print(f"tile_epilogue {tag}, whole, no counts: "
+              f"{res[tag]['whole, no counts']:.4f} ms", flush=True)
+        if old is not None:
+            turns = {"old": [], "new": []}
+            for side in ("old", "new", "new", "old"):
+                _build._lib = old if side == "old" else main_lib
+                try:
+                    out[0].fill_(7)
+                    call()
+                    if not torch.equal(out[0], want):
+                        raise SystemExit(f"tile_epilogue {tag}: the old and "
+                                         f"new masks differ")
+                    turns[side].append(device_ms(call, 20, main_lib))
+                finally:
+                    _build._lib = main_lib
+            res[tag].update(turns)
+            print(f"tile_epilogue {tag}: old {turns['old']}, new "
+                  f"{turns['new']} ms", flush=True)
+    return res
+
+
 def _fisher_rows():
     """(layout, dev, n_pass, buf with its bracket cleared, pi, pj, cfg,
     cap) of the dense workload's 10 tiles in both layouts, as
@@ -583,7 +743,8 @@ def main():
         out = {"phased_tile_cuts_ms": time_cuts(work),
                "parts_tile_cuts_ms": time_parts(work),
                "fisher_bracket_ms": time_fisher(work, args.old_tiles,
-                                                 args.fisher_designs)}
+                                                 args.fisher_designs),
+               "tile_epilogue_ms": time_epilogue(work, args.old_tiles)}
         if args.old_compact:
             out["compact_ms"] = time_compact(work, args.old_compact)
         if args.old_tiles:
