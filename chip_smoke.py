@@ -83,7 +83,13 @@ Phases, in order; any failure exits non-zero:
    kernel reports equals the walk's own. Its time per call, and its
    bound, the larger of 12 bytes a row over the HBM rate and the
    search's probes and tail steps x 4 f64 operations over the
-   card's FP64 rate (34e12/s, NVIDIA's data sheet);
+   card's FP64 rate (34e12/s, NVIDIA's data sheet); then relationship's
+   kinship GEMM (X4, ops/kinship.py: torch._int_mm, a library call) on
+   a 512 x 2,504 block in {-1, 0, +1} against its plain version on the
+   card, exact, its ms per block beside torch._int_mm alone and its
+   bound, the larger of its bytes (the block read once, the int32
+   accumulator read and written once) over the HBM rate and 2 x 512 x
+   2,504^2 operations over the int8 tensor-core peak;
    Bounds: each contraction's is the card's, the larger of 64
    operations a pair-word over the rate the card runs the 1-bit AND+POPC
    MMA at (10.2e15/s, the MMA probe's lowest reading) and its bytes over
@@ -144,8 +150,29 @@ Phases, in order; any failure exits non-zero:
    n. `scalc -I <300 sites>` on the archive of b: targets and their
       neighbours within 500 kb in blocks of 100 rows, the mixed dispatch
       over target x target and target x neighbour tiles; its reference is
-      the native engine over the same tiles, kept by the same rule (the A
+         the native engine over the same tiles, kept by the same rule (the A
       side a target);
+   o. `calc -p -r 0.1 -M 0.03 --checkpoint <work>/o.two.ckpt
+      --checkpoint-interval 0` on the archive of a (path j's plan, one
+      tile a load), crashed on entering its fifth segment by a stand-in
+      for LdEngine._run_segment set up here (the phase fails if the run
+      ends first), then started again, which resumes: 4 loads skipped
+      whole; the resumed run's launch counts set to 0 just before it and
+      read just after; its records equal path j's record for record and
+      in order (P within the guard), the sidecar gone, j's tiles swept
+      but the skipped ones, with at least as many fewer phased_tile
+      launches; the crashed and resumed walls against j's, and a
+      segment's end (the writer's flush and fsync and the sidecar) at
+      interval 0;
+   then the post-processing subcommands through the CLI entry point:
+   `relationship` on the archive of a on the card (its launch counts
+   set to 0 just before it and read just after: one torch._int_mm a
+   512-row block, no plain version), again, and with `--device cpu`, the
+   kinship text of both routes equal; `view`, `sort`, `concat`,
+   `aggregate`, `stats`, `decay` and `haplotype` on the .two of a and b
+   (and a's archive) through the zstd binding the host has, each
+   exiting 0, sorted records the input's multiset, concat's of a and a
+   twice a's;
    each calc path prints its bands, loads, stage_stats and band uploads;
 5. time `LdEngine.run_phased_pairs` on the sparse and records-dense
    workloads (64 x 4096 random variants; 16 x 4096 LD-grouped
@@ -178,8 +205,10 @@ Phases, in order; any failure exits non-zero:
    `segment_counts` 0), that the native host library is loaded, and that
    neither jax nor the JAX package was imported.
 
-The last two lines are a JSON summary of the kernels and the device
-line. Everything here comes from tomahawk_tpu_torch, torch and numpy.
+Before them, JSON lines of X4 (`library_calls`, in the kernels line's
+keys), path o and the post phase. The last two lines are a JSON summary
+of the kernels and the device line. Everything here comes from
+tomahawk_tpu_torch, torch and numpy.
 """
 
 import json
@@ -263,6 +292,17 @@ P_GUARD = 1e-5
 #: scalc's target interval (path n), as positions of the archive of b: 300
 #: sites in the middle of its second super-block
 SCALC_TARGETS = (6000, 6300)
+#: path o (checkpointed j) is crashed on entering its segment after this
+#: many: j's plan sweeps one tile a load, so 4 of its 10 loads are done
+CKPT_CRASH_AFTER = 4
+#: tiles of paths j and o: 4 super-blocks of 4,096 variants, all pairs
+PATH_J_TILES = 10
+#: rows of a block of relationship's kinship GEMM (X4): its default
+KIN_BLOCK_ROWS = 512
+#: wall of each calc path in this process, s (run_calc)
+CALC_WALLS = {}
+#: the launch count of relationship's kinship GEMM (ops/_build.KINSHIP)
+KINSHIP_COUNT = "kinship_int_mm"
 
 
 def _say(msg):
@@ -1877,7 +1917,7 @@ def run_calc(label, twk, two, flags, mode, need, window=0, plan=None,
     _build.reset_counts()
     t0 = time.perf_counter()
     res = _run_cli(argv)
-    dt = time.perf_counter() - t0
+    dt = CALC_WALLS[label] = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     plain = dict(_build.PLAIN_CALLS)
     _say(f"main path {label}: `calc {' '.join(flags + ['-r', str(MIN_R2)])}`"
@@ -2106,10 +2146,20 @@ def main_paths(work):
                             window, plan, dprime or (0.0, 100.0))
         if dprime:
             dprime_launches[label] = launches
+        if label == "j":
+            total_j = launches
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     same_records("j", two.format("j"), "a", two.format("a"))
     launches = run_scalc("n", miss, two.format("n"))
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    launches, POST["checkpoint"] = run_checkpointed(
+        "o", ld, two.format("o"), two.format("j"), total_j)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    launches, POST["subcommands"] = post_phase(
+        work, ld, two.format("a"), two.format("b"))
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
     two = two.format("ranked")
@@ -2125,6 +2175,285 @@ def main_paths(work):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     return total, dprime_launches
+
+
+class _Crash(RuntimeError):
+    """Path o's deliberate crash."""
+
+
+def _records_of(two):
+    from tomahawk_tpu_torch.io.two import TwoReader
+    r = TwoReader(two)
+    recs = r.records()
+    r.close()
+    return recs
+
+
+def run_checkpointed(label, twk, two, ref_two, ref_launches):
+    """Path o: path j's `calc -p -M` with `--checkpoint <two>.ckpt
+    --checkpoint-interval 0` through the CLI entry point, crashed on
+    entering its segment after CKPT_CRASH_AFTER (a stand-in for
+    LdEngine._run_segment set up here; the phase fails if the run ends
+    first), then run again, which resumes. The resumed run's launch
+    counts are set to 0 just before it and read just after. Its records
+    must equal path j's record for record and in order (P within
+    P_GUARD), the sidecar must be gone, and the resumed run must sweep
+    j's tiles but those of the skipped segments, with as many fewer
+    phased_tile launches at least. Times the crashed and the resumed
+    legs against j's wall, and a segment's end (`_finish_segment`: the
+    writer's flush and fsync, then the sidecar) at interval 0."""
+    from tomahawk_tpu_torch.compute import engine
+    from tomahawk_tpu_torch.ops import _build
+    ckpt = two + ".ckpt"
+    for path in (two, ckpt):
+        if os.path.exists(path):
+            os.remove(path)
+    flags = ["-p", "-M", str(BANDED_GB), "--checkpoint", ckpt,
+             "--checkpoint-interval", "0"]
+    argv = ["tomahawk_tpu_torch", "calc", "-i", twk, "-o", two, "-r",
+            str(MIN_R2), *flags]
+    E = engine.LdEngine
+    real = dict(seg=E._run_segment, fin=E._finish_segment,
+                disp=E._dispatch_fused)
+    done, ends, swept = [], [], []
+
+    def crashing(self, tiles, *a, **kw):
+        if len(done) >= CKPT_CRASH_AFTER:
+            raise _Crash(f"path {label}: crash after {len(done)} segments")
+        done.append(len(tiles))
+        return real["seg"](self, tiles, *a, **kw)
+
+    def timed_end(self):
+        t0 = time.perf_counter()
+        real["fin"](self)
+        ends.append(time.perf_counter() - t0)
+
+    def counting(self, tiles, cfg):
+        swept.append(len(tiles))
+        return real["disp"](self, tiles, cfg)
+    E._finish_segment = timed_end
+    try:
+        E._run_segment = crashing
+        t0 = time.perf_counter()
+        try:
+            _run_cli(argv)
+        except _Crash:
+            pass
+        else:
+            raise SystemExit(f"calc {label} ended before its crash point")
+        finally:
+            E._run_segment = real["seg"]
+        crash_s = time.perf_counter() - t0
+        if not os.path.exists(ckpt):
+            raise SystemExit(f"calc {label}: no sidecar after the crash")
+        with open(ckpt) as fh:
+            ck = json.load(fh)
+        if ck["units"] != CKPT_CRASH_AFTER:
+            raise SystemExit(f"calc {label}: the sidecar holds {ck['units']}"
+                             f" segments, not {CKPT_CRASH_AFTER}")
+        n_crash_ends = len(ends)
+        E._dispatch_fused = counting
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        _run_cli(argv)
+        resume_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        plain = dict(_build.PLAIN_CALLS)
+    finally:
+        E._finish_segment = real["fin"]
+        E._dispatch_fused = real["disp"]
+    _check_counts(label, launches, plain, ("phased_tile", "compact"),
+                  ("parts_tile", "local_parts", "tile_epilogue",
+                   "segment_counts"))
+    if os.path.exists(ckpt):
+        raise SystemExit(f"calc {label}: the sidecar outlived the run")
+    skipped = sum(done[:ck["units"]])
+    fewer = ref_launches["phased_tile"] - launches["phased_tile"]
+    if sum(swept) != PATH_J_TILES - skipped or fewer < skipped:
+        raise SystemExit(
+            f"calc {label}: the resumed run swept {sum(swept)} tiles and "
+            f"launched phased_tile {launches['phased_tile']} times; path j "
+            f"{PATH_J_TILES} / {ref_launches['phased_tile']}, {skipped} "
+            f"skipped")
+    got, want = _records_of(two), _records_of(ref_two)
+    bad, p_err = (_same_fields(got, want) if len(got) == len(want)
+                  else (["len"], 0.0))
+    if bad:
+        raise SystemExit(f"calc {label}'s records differ from path j's, in "
+                         f"order, in {bad}")
+    wall_j = CALC_WALLS["j"]
+    end_ms = 1e3 * float(np.mean(ends))
+    _say(f"main path {label}: `calc {' '.join(flags)}` crashed after "
+         f"{ck['units']} segments ({ck['load_cum']} segments at the end of "
+         f"each whole load) in {crash_s:.2f}s, resumed in {resume_s:.2f}s "
+         f"(path j {wall_j:.2f}s); resumed launches {launches}, path j's "
+         f"phased_tile {ref_launches['phased_tile']}: {fewer} fewer, "
+         f"{skipped} tiles skipped; {sum(swept)} of {PATH_J_TILES} tiles "
+         f"swept; {len(got)} records equal path j's in order, P within "
+         f"{p_err:.3g}; the sidecar is gone; a segment's end with the "
+         f"checkpoint {end_ms:.2f} ms on average over {len(ends)} "
+         f"({n_crash_ends} in the crashed leg)")
+    return launches, dict(
+        crash_s=crash_s, resume_s=resume_s, uninterrupted_s=wall_j,
+        segments_before_crash=ck["units"], load_cum=ck["load_cum"],
+        tiles_skipped=skipped, tiles_swept=sum(swept),
+        phased_tile_launches=launches["phased_tile"],
+        phased_tile_launches_j=ref_launches["phased_tile"],
+        records=len(got), p_max_diff=p_err, segment_end_ms=end_ms,
+        segment_end_ms_max=1e3 * float(np.max(ends)),
+        segment_ends=len(ends))
+
+
+def _run_post(argv):
+    """One subcommand through the port's CLI entry point in this process
+    (`python -m tomahawk_tpu_torch ...`); its wall, s. Exit 0 or
+    raise."""
+    saved, sys.argv = sys.argv, ["tomahawk_tpu_torch", *argv]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("tomahawk_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise SystemExit(f"`{' '.join(argv)}` exited {e.code}")
+    finally:
+        sys.argv = saved
+    return time.perf_counter() - t0
+
+
+def kinship_bound(n):
+    """(bound ms, what bounds it) of one X4 block at n samples: the
+    larger of its bytes -- the int8 block read once, the int32
+    accumulator read and written once -- over the HBM rate, and its
+    2 x rows x n^2 operations over the int8 tensor-core peak."""
+    nbytes = KIN_BLOCK_ROWS * n + 2 * 4 * n * n
+    ops = 2 * KIN_BLOCK_ROWS * n * n
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT8_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops \
+        else "operations"
+
+
+def compare_kinship():
+    """X4, relationship's kinship GEMM: the wrapper (torch._int_mm) on one
+    512 x 2,504 block in {-1, 0, +1} against its plain version on the same
+    card, exact; ms per block of each, of torch._int_mm alone (the GEMM
+    without the accumulation), and the bound."""
+    import torch
+    from tomahawk_tpu_torch.ops import kinship
+    rng = np.random.default_rng(23)
+    block = rng.integers(-1, 2, (KIN_BLOCK_ROWS, N_SAMPLES)).astype(np.int8)
+    g = kinship.block_to_device(block, "cuda")
+    kin = kinship.new_accumulator(N_SAMPLES, "cuda")
+    kin += torch.randint(-1000, 1000, kin.shape, dtype=torch.int32,
+                         device="cuda")
+    got = kinship.gram_accumulate(kin.clone(), g)
+    want = kinship.gram_plain(kin.clone(), g)
+    err = int((got - want).abs().max())
+    if err:
+        raise SystemExit(f"kinship GEMM: torch._int_mm differs from the "
+                         f"plain version by {err}")
+    gt = g.t().contiguous()
+    ms = _cuda_ms(lambda: kinship.gram_accumulate(kin, g))
+    plain_ms = _cuda_ms(lambda: kinship.gram_plain(kin, g))
+    library_ms = _cuda_ms(lambda: torch._int_mm(gt, gt.t()))
+    bound, by = kinship_bound(kinship.padded_samples(N_SAMPLES))
+    _say(f"kinship GEMM (X4, torch._int_mm) on a {KIN_BLOCK_ROWS} x "
+         f"{N_SAMPLES} block: equal to its plain version; {ms:.4f} ms a "
+         f"block (torch._int_mm alone {library_ms:.4f}), plain "
+         f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=library_ms)
+
+
+def post_phase(work, twk, two_a, two_b):
+    """The post-processing subcommands through the CLI entry point, in
+    this process: `relationship` on the archive of path a on the card
+    (the launch counts set to 0 just before it and read just after: one
+    torch._int_mm a 512-row block, no plain version), twice, and on the
+    CPU route, the kinship text of both routes equal; then view, sort,
+    concat, aggregate, stats, decay and haplotype on paths a's and b's
+    .two (and a's .twk), each exiting 0: sorted records equal to the
+    input's multiset, concat's records those of both inputs. Returns the
+    relationship run's launch counts and the walls."""
+    import zstandard
+    from tomahawk_tpu_torch.io.twk import TwkReader
+    from tomahawk_tpu_torch.ops import _build
+    with TwkReader(twk) as r:
+        n_variants = sum(e.n for e in r.index.ent)
+    n_blocks = -(-n_variants // KIN_BLOCK_ROWS)
+    kin = {k: os.path.join(work, f"kin_{k}.txt") for k in ("cuda", "cpu")}
+    _build.reset_counts()
+    walls = dict(relationship_cuda=_run_post(
+        ["relationship", "-i", twk, "-o", kin["cuda"]]))
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    if launches[_build.KINSHIP] != n_blocks or any(plain.values()):
+        raise SystemExit(f"relationship: {launches} launches, {plain} plain "
+                         f"calls; want {n_blocks} torch._int_mm")
+    walls["relationship_cuda_again"] = _run_post(
+        ["relationship", "-i", twk, "-o", kin["cuda"]])
+    walls["relationship_cpu"] = _run_post(
+        ["relationship", "-i", twk, "-o", kin["cpu"], "--device", "cpu"])
+    text = {}
+    for k, path in kin.items():
+        with open(path) as fh:
+            text[k] = fh.read()
+    if text["cuda"] != text["cpu"] or text["cuda"].count("\n") != N_SAMPLES:
+        raise SystemExit("relationship: the card's kinship differs from "
+                         "the CPU route's")
+    _say(f"post: relationship on {N_SAMPLES} x {n_variants} ({n_blocks} "
+         f"blocks of {KIN_BLOCK_ROWS}): {walls['relationship_cuda']:.2f}s / "
+         f"{walls['relationship_cuda_again']:.2f}s on the card, "
+         f"{walls['relationship_cpu']:.2f}s on the CPU route, kinship text "
+         f"equal; launches {launches[_build.KINSHIP]}")
+    out = {k: os.path.join(work, f"post_{k}") for k in (
+        "view.txt", "view_b.two", "sort_a.two", "sort_b.two", "concat.two",
+        "agg.twa", "hap.txt")}
+    a, b = _records_of(two_a), _records_of(two_b)
+    with TwkReader(twk) as r:
+        region = f"{r.header.contigs[int(a['ridA'][0])].name}:1-400000"
+    runs = (
+        ("view", ["view", "-i", two_a, "-o", out["view.txt"], "-r", "0.5"]),
+        ("view -O b", ["view", "-i", two_b, "-O", "b", "-o",
+                       out["view_b.two"], "-r", "0.5"]),
+        ("sort a", ["sort", "-i", two_a, "-o", out["sort_a.two"]]),
+        ("sort b", ["sort", "-i", two_b, "-o", out["sort_b.two"]]),
+        ("concat", ["concat", "-i", two_a, "-i", two_a, "-o",
+                    out["concat.two"]]),
+        ("aggregate", ["aggregate", "-i", two_a, "-o", out["agg.twa"]]),
+        ("stats", ["stats", "-i", two_b]),
+        ("decay", ["decay", "-i", two_a, "-b", "100"]),
+        ("haplotype", ["haplotype", "-i", twk, "-I", region, "-o",
+                       out["hap.txt"]]))
+    for name, argv in runs:
+        with open(os.devnull, "w") as sink:
+            saved, sys.stdout = sys.stdout, sink
+            try:
+                walls[name] = _run_post(argv)
+            finally:
+                sys.stdout = saved
+    for name, src, sorted_two in (("a", a, out["sort_a.two"]),
+                                  ("b", b, out["sort_b.two"])):
+        got = _records_of(sorted_two)
+        if not np.array_equal(_sort(got), _sort(src)):
+            raise SystemExit(f"sort: the sorted records of {name} are not "
+                             f"its records")
+    n_concat = len(_records_of(out["concat.two"]))
+    if n_concat != 2 * len(a):
+        raise SystemExit(f"concat: {n_concat} records, not 2 x {len(a)}")
+    for k in ("view.txt", "agg.twa", "hap.txt"):
+        if os.path.getsize(out[k]) == 0:
+            raise SystemExit(f"post: {k} is empty")
+    _say(f"post: view, sort (a: {len(a)}, b: {len(b)} records, multisets "
+         f"kept), concat ({n_concat}), aggregate, stats, decay, haplotype "
+         f"({region}) exit 0; walls "
+         f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}; "
+         f"zstandard from {zstandard.__file__}")
+    return launches, dict(walls, n_variants=n_variants, kin_blocks=n_blocks,
+                          kin_launches=launches[_build.KINSHIP])
+
+
+#: what path o and the post phase report (main_paths fills it)
+POST = {}
 
 
 def run_scalc(label, twk, two):
@@ -2814,6 +3143,7 @@ def main():
     torch.cuda.empty_cache()
     fisher = compare_fisher()
     torch.cuda.empty_cache()
+    kin = compare_kinship()
     # the kernels line: phased_tile and compact at the -p path's shape
     # (one part, the counts given); parts_tile at the default (mixed)
     # dispatch's 9-part sweep
@@ -2945,6 +3275,17 @@ def main():
             ms=dprime[name][0], plain_ms=dprime[name][2],
             ms_without_bounds=dprime[name][1], launches_on=f"path {path}",
             instance="/".join(map(str, group)) + f", D' {DPRIME}"))
+    # X4 is a library call (torch._int_mm), not a hand kernel: its own
+    # line, in the kernels line's keys
+    _say(json.dumps({"library_calls": [dict(
+        name="kinship_int_mm", route="torch._int_mm",
+        source="tomahawk_tpu_torch/ops/kinship.py",
+        replaces="tomahawk_tpu/post/relationship.py:54",
+        launches=launches[KINSHIP_COUNT], **kin,
+        library_note="library_ms: torch._int_mm alone, without the "
+        "accumulation")]}))
+    _say(json.dumps({"checkpoint_path_o": POST["checkpoint"]}))
+    _say(json.dumps({"post_subcommands": POST["subcommands"]}))
     _say(f"native host library loaded; no jax, no tomahawk_tpu in "
          f"sys.modules; {time.perf_counter() - t_start:.0f}s in all")
     report_card()

@@ -9,6 +9,7 @@ mode is inside it: tests/test_torch_window.py; banded streaming:
 tests/test_torch_banded.py)."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from tomahawk_tpu.io.two import TwoReader
 from tomahawk_tpu.ops.ld_math import LdFilters
 
 from tomahawk_tpu_torch import cli
+from tomahawk_tpu_torch.compute import engine as port_engine
 from tomahawk_tpu_torch.compute.engine import LdEngine, compute_ld
 from tomahawk_tpu_torch.ops import _build
 
@@ -306,13 +308,41 @@ def test_dprime_settings_match_jax(archive, tmp_path, monkeypatch, kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(checkpoint="ck.json"),
-    dict(distributed=True, mesh="dcn", checkpoint="ck.json"),
-    dict(distributed=True, mesh="2x2"), dict(mesh="2x1"),
-    dict(backend="cpu"),
+    pytest.param(dict(distributed=True, mesh="2x2"), id="kw2"),
+    pytest.param(dict(mesh="2x1"), id="kw3"),
+    pytest.param(dict(backend="cpu"), id="kw4"),
 ])
 def test_out_of_slice_settings_rejected(archive, tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         compute_ld(CalcSettings(input=archive, tile_rows=128,
                                 output=str(tmp_path / "x.two"), **kw),
                    device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["phased", "mixed"])
+def test_checkpointed_calc_matches_jax(archive, tmp_path, monkeypatch,
+                                       mode):
+    """`--checkpoint` runs (tests/test_torch_checkpoint.py crashes and
+    resumes it): a checkpointed run writes a sidecar after every segment
+    and the JAX engine's records, and removes the sidecar at the end."""
+    monkeypatch.setenv("TWK_DEVICE_FISHER", "0")
+    kw = dict(min_r2=0.05, tile_rows=128, checkpoint_interval=0.0,
+              force_phased=mode == "phased")
+    writes = []
+    real = port_engine._ckpt_write
+    monkeypatch.setattr(port_engine, "_ckpt_write",
+                        lambda *a, **k: writes.append(a[2]) or real(*a, **k))
+    got = []
+    for run, tag in ((compute_ld, "port"), (jax_compute_ld, "jax")):
+        path = str(tmp_path / f"{tag}.two")
+        ckpt = str(tmp_path / f"{tag}.ckpt")
+        settings = CalcSettings(input=archive, output=path,
+                                checkpoint=ckpt, **kw)
+        if tag == "port":
+            run(settings, device="cpu")
+        else:
+            run(dataclasses.replace(settings, mesh="off", backend="device"))
+        assert not os.path.exists(ckpt)
+        got.append(_sorted(path))
+    assert writes == list(range(1, len(writes) + 1)) and writes
+    _assert_same(*got)

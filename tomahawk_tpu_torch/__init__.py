@@ -1,15 +1,19 @@
 """tomahawk_tpu_torch: the PyTorch + CUDA port of tomahawk_tpu.
 
-This package runs `import` on the host and `calc` -- all-vs-all or
+This package runs `import` on the host; `calc` -- all-vs-all or
 windowed (`-w`); phased (`-p`), unphased (`-u`) and the default mixed
-dispatch, with or without missing genotypes -- on one NVIDIA H100,
-through three hand-written CUDA kernels (`csrc/phased_tile.cu`,
-`csrc/parts_tile.cu`, `csrc/compact.cu`). The JAX package `tomahawk_tpu`
-is the reference the port is held against and is never imported here:
-the host layer (`utils/`, `io/`, `native/`, `ops/bitpack|fisher|hwe|
-ld_math`, `compute/balancer|cpu_engine`, `post/intervals`) is this
-package's own copy, under the same module names. This package imports
-torch and never jax.
+dispatch, with or without missing genotypes; banded above `-M`;
+checkpointed (`--checkpoint`); in several processes (`--distributed`,
+with or without `--mesh dcn`) -- and `scalc` on NVIDIA H100s, through
+the hand-written CUDA kernels under `csrc/` (`ops/_build.KERNELS`); and
+the post-processing subcommands `view`, `sort`, `concat`, `aggregate`,
+`stats`, `decay`, `haplotype` on the host and `relationship`, whose
+kinship GEMM is `torch._int_mm` on a card (`ops/kinship.py`). The JAX
+package `tomahawk_tpu` is the reference the port is held against and is
+never imported here: the host layer (`utils/`, `io/`, `native/`,
+`ops/bitpack|fisher|hwe|ld_math`, `compute/balancer|cpu_engine|scalc`,
+`post/`) is this package's own copy, under the same module names. This
+package imports torch and never jax.
 
 The host code compresses `.twk`/`.two` sections through the
 `zstandard` module. Where that package is not installed, a ctypes

@@ -45,10 +45,23 @@ the same loads and tiles in the same order with the same caps and
 repair decisions, because those follow from the global counts, so the
 collectives stay aligned; such a run neither stages nor pipelines.
 
+Checkpoints (`--checkpoint PATH`): after a segment's records are
+emitted, at most every `checkpoint_interval` seconds, the consumer
+writes a sidecar (`_ckpt_write`: segments done, totals, the load
+boundaries, the adaptive caps and the writer's durable state). A run
+that finds a sidecar with its own settings resumes: the output is
+truncated to the checkpointed offset, whole loads and then segments
+done before it are skipped without being dispatched, and the caps are
+restored, so the resumed run cuts and extracts the same segments as an
+uninterrupted one. Tile-partition runs keep a sidecar a process
+(`PATH.pKofN`); a dcn run keeps rank 0's, whose state every rank
+receives (`parallel.broadcast_resume`). The sidecar is removed once the
+output is complete.
+
 The host layer (file formats, balancer, exact statistics, the native
 library) is this package's own. What the JAX engine also does and this
-port does not yet -- checkpoints, P x S device meshes, the CPU route --
-raises NotImplementedError naming the ROADMAP.md item that adds it. A
+port does not yet -- P x S device meshes, the CPU route -- raises
+NotImplementedError naming the ROADMAP.md item that adds it. A
 kernel that fails to build or launch is an error, and so is a compaction
 fault: there is no fallback path. Only
 the card running out of memory with two segments in flight is retried,
@@ -138,7 +151,9 @@ class CalcSettings:
     process_id: int = -1
     tile_backend: str = "auto"    # anything but "auto" is rejected
     backend: str = "auto"         # "cpu" is rejected
-    checkpoint: str = ""          # rejected
+    # in-run checkpoint/resume: the sidecar's path ("" = off) and the
+    # seconds between its writes
+    checkpoint: str = ""
     checkpoint_interval: float = 60.0
     stage_prefetch: bool = True
     # position-sort the output (this process's shard) in place after
@@ -390,8 +405,18 @@ class LdEngine:
         self._prefix_rows = {}
         # the depth gate's answers in the current group, by caps
         self._headroom = {}
-        # segments completed, and a callback after each
+        # checkpoint/resume: segments are the resume unit, and their
+        # order is deterministic in the settings, so a resumed run counts
+        # them as the interrupted one did. `ckpt_skip` segments are
+        # skipped (their records are in the checkpointed output);
+        # `units_done` counts segments completed or skipped,
+        # `_units_planned` those skipped or dispatched, `cand_total` the
+        # candidate pairs of the run; `on_segment` is called after each
+        # segment's records are emitted
+        self.ckpt_skip = 0
         self.units_done = 0
+        self._units_planned = 0
+        self.cand_total = 0
         self.on_segment = None
         # band residency: host planes, device planes per (key, band), the
         # bands of the current load and their per-load concatenation
@@ -704,10 +729,18 @@ class LdEngine:
         later segment is emitted) and raises, but for the card running out
         of memory: the run then goes serial on the same kernels from the
         failed segment on, with a warning. Returns only when nothing of
-        the group is in flight."""
+        the group is in flight. A resumed run skips the segments before
+        `ckpt_skip` here: they dispatch nothing, on any route."""
         cfg = self._cfg(table, has_missing, cls)
         seg = self._segment_size(len(tiles))
-        todo = [tiles[s:s + seg] for s in range(0, len(tiles), seg)]
+        todo = []
+        for s in range(0, len(tiles), seg):
+            self._units_planned += 1
+            if self._units_planned <= self.ckpt_skip:
+                # its records are in the checkpointed output
+                self.units_done += 1
+                continue
+            todo.append(tiles[s:s + seg])
         n = 0
         inflight = deque()       # (todo index, future)
         k = 0
@@ -868,6 +901,7 @@ class LdEngine:
         stat["count_s"] += time.perf_counter() - t0
         total_cand = int(n_cand.sum())
         stat["n_cand"] += total_cand
+        self.cand_total += total_cand
         if int(n_pass.sum()) == 0:
             if self.ticker:
                 self.ticker.add(pairs=total_cand)
@@ -1072,24 +1106,39 @@ def dispatch_pairs(engine: LdEngine, pairs, mode: str, filt: LdFilters,
 
 
 def run_loads(engine: LdEngine, bands, loads, provider, mode: str,
-              filt: LdFilters, emit, prefetch: bool = False) -> int:
+              filt: LdFilters, emit, prefetch: bool = False,
+              load_cum=None) -> int:
     """Sweep a `_plan_loads` plan: for each load, the band pair (p, q) is
     made resident (`provider(b)` gives band b's stacked host planes, for
     a band not resident yet) and its tiles are dispatched. With
     `prefetch` the staging worker inflates and uploads the next load's
     new band while the current load computes (a third resident band).
-    Returns the candidate pairs evaluated."""
+    `load_cum` (a list, updated in place) holds the engine's `units_done`
+    after each completed load: a resumed run skips a load whose value is
+    at most `engine.ckpt_skip` whole, neither inflating nor staging its
+    bands. Returns the candidate pairs evaluated."""
     if prefetch:
         engine.MAX_RESIDENT_BANDS = 3
+    load_cum = [] if load_cum is None else load_cum
+
+    def done_before(li):
+        return li < len(load_cum) and load_cum[li] <= engine.ckpt_skip
+
     n = 0
     for li, ((p, q), load_tiles) in enumerate(loads):
+        if done_before(li):
+            # the planned count follows, or later loads would skip
+            # against the wrong base
+            engine.units_done = max(engine.units_done, load_cum[li])
+            engine._units_planned = max(engine._units_planned, load_cum[li])
+            continue
         engine.stage_wait()
         load = [(p, None if p in engine._band_host else provider(p))]
         if q != p:
             load.append((q, None if q in engine._band_host
                          else provider(q)))
         engine.set_load(load)
-        if prefetch and li + 1 < len(loads):
+        if prefetch and li + 1 < len(loads) and not done_before(li + 1):
             for b in set(loads[li + 1][0]):
                 if b not in engine._band_host:
                     engine.stage_band_async(b, lambda b=b: provider(b))
@@ -1097,6 +1146,10 @@ def run_loads(engine: LdEngine, bands, loads, provider, mode: str,
         slot = {g: s for s, g in enumerate(load_ids)}
         tiles = [(slot[i], slot[j], d) for i, j, d in load_tiles]
         n += dispatch_pairs(engine, tiles, mode, filt, emit, engine.stacked)
+        if li < len(load_cum):
+            load_cum[li] = engine.units_done
+        else:
+            load_cum.append(engine.units_done)
     return n
 
 
@@ -1105,7 +1158,6 @@ def _check_settings(settings: CalcSettings):
     ROADMAP.md queue 1 item that adds each."""
     mesh = settings.mesh or "off"
     unported = (
-        (settings.checkpoint, "--checkpoint", 11),
         (mesh not in ("auto", "off", "dcn"),
          f"--mesh {settings.mesh} (device meshes beyond one device per "
          f"process, P x S rank grids)", 15),
@@ -1122,6 +1174,128 @@ def _check_settings(settings: CalcSettings):
     if settings.tile_backend != "auto":
         raise ValueError("--tile-backend selects a JAX tile path; the "
                          "port has one: its CUDA kernels")
+
+
+def _ckpt_config_key(settings: CalcSettings, seg_effective: int,
+                     proc_id: int = 0, n_procs: int = 1) -> str:
+    """Fingerprint of everything that determines the dispatch plan and
+    the output stream; a resume under a different key would silently
+    mix incompatible runs, so it is rejected. `seg_effective` is the
+    resolved segment size (it depends on the visible device count, not
+    just the settings: resuming on a different machine shape would
+    misalign segment counting)."""
+    import hashlib
+    import json as _json
+    import os as _os
+    st = _os.stat(settings.input)
+    fields = dict(
+        # bump when the segment-size derivation changes (run_group
+        # splits groups into ~PIPELINE_SEGMENTS pieces since round 4):
+        # resumed runs must count segments identically
+        plan=2,
+        proc=f"{proc_id}/{n_procs}",
+        input=_os.path.abspath(settings.input), size=st.st_size,
+        mtime=st.st_mtime,
+        output=_os.path.abspath(settings.output),
+        seg_effective=seg_effective,
+        force_phased=settings.force_phased,
+        forced_unphased=settings.forced_unphased, window=settings.window,
+        l_window=settings.l_window, min_p=settings.min_p,
+        min_r2=settings.min_r2, max_r2=settings.max_r2,
+        min_dprime=settings.min_dprime, max_dprime=settings.max_dprime,
+        n_chunks=settings.n_chunks, c_chunk=settings.c_chunk,
+        intervals=list(settings.intervals), b_size=settings.b_size,
+        c_level=settings.c_level, sweep_segment=settings.sweep_segment,
+        tile_rows=settings.tile_rows, mesh=settings.mesh,
+        memory_gb=settings.memory_gb,
+        # the load plan's band size depends on it, and segment counting
+        # follows the plan
+        stage_prefetch=settings.stage_prefetch,
+        engine="tomahawk_tpu_torch")
+    blob = _json.dumps(fields, sort_keys=True).encode()
+    return hashlib.sha256(blob).hexdigest()
+
+
+def _ckpt_read(path: str, config_key: str):
+    import base64
+    import json as _json
+    with open(path) as fh:
+        ck = _json.load(fh)
+    if ck.get("version") != 1:
+        raise ValueError(f"unsupported checkpoint version in {path}")
+    if ck["config"] != config_key:
+        raise ValueError(
+            f"checkpoint {path} was written by a run with different "
+            "settings or input; delete it to start over")
+    ck["writer"]["index"] = base64.b64decode(ck["writer"]["index"])
+    return ck
+
+
+def _ckpt_write(path: str, config_key: str, units: int, n_pairs: int,
+                n_records: int, load_cum, writer_state: dict,
+                caps: dict = None):
+    """Atomic sidecar write (tmp + fsync + rename): the checkpoint is
+    only ever observed complete, and the writer state it carries was
+    fsync'd by checkpoint_state() before this is called. `caps`
+    carries the engine's adaptive buffer state (fused cap, outcap) so
+    a resumed run replays the SAME fused-vs-repair extraction paths --
+    with the in-sweep Fisher bracket, path choice decides which f32
+    program computes P, and resuming with reset caps would leave
+    f32-noise differences vs the uninterrupted run."""
+    import base64
+    import json as _json
+    import os as _os
+    state = dict(version=1, config=config_key, units=units,
+                 n_pairs=n_pairs, n_records=n_records,
+                 load_cum=list(load_cum),
+                 caps=caps or {},
+                 writer=dict(offset=writer_state["offset"],
+                             n_records=writer_state["n_records"],
+                             index=base64.b64encode(
+                                 writer_state["index"]).decode()))
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fh:
+        _json.dump(state, fh)
+        fh.flush()
+        _os.fsync(fh.fileno())
+    _os.replace(tmp, path)
+
+
+def _resume_state(settings, proc_id, n_procs, dcn):
+    """(sidecar path, config key, the state to resume from or None). A
+    tile-partition rank keeps a sidecar of its own (`PATH.pKofN`); in a
+    dcn run rank 0 owns the one output and the one sidecar, and every
+    rank takes its state (`parallel.broadcast_resume`), so all skip the
+    same segments and the collectives stay aligned. Every rank of a
+    multi-process run passes the resume barrier once each has read and
+    validated its sidecar: a rank whose check failed fails every rank
+    there, before any writes."""
+    path = settings.checkpoint
+    if n_procs > 1 and not dcn:
+        path = f"{path}.p{proc_id}of{n_procs}"
+    key = _ckpt_config_key(settings, max(settings.sweep_segment, 16),
+                           0 if dcn else proc_id, n_procs)
+
+    def read():
+        if (proc_id == 0 or not dcn) and os.path.exists(path):
+            return _ckpt_read(path, key)
+        return None
+    if n_procs == 1:
+        ck = read()
+    else:
+        ck, err = None, None
+        try:
+            ck = read()
+        except Exception as e:   # noqa: BLE001 - raised at the barrier
+            err = e
+        dist.resume_barrier(err)
+        if dcn:
+            ck = dist.broadcast_resume(ck)
+    if ck is not None:
+        log("LOG", f"Resuming from {settings.checkpoint if dcn else path}"
+            f": {ck['units']} segments, {pretty_int(ck['n_records'])} "
+            f"records already on disk", sub="CKPT")
+    return path, key, ck
 
 
 def compute_ld(settings: CalcSettings, device="cuda") -> CalcResult:
@@ -1203,6 +1377,8 @@ def _compute(settings, device, reader, timer, proc_id,
     if dcn and n_procs < 2:
         raise ValueError("mesh 'dcn' needs a multi-process run "
                          "(--num-processes >= 2)")
+    if settings.checkpoint and settings.output == "-":
+        raise ValueError("checkpointing needs a file output")
     if n_procs > 1 and not dcn:
         pairs, touched = dist.partition_tiles(pairs, proc_id, n_procs)
         # only this process's supers need loading
@@ -1252,7 +1428,22 @@ def _compute(settings, device, reader, timer, proc_id,
     hdr.literals += (f"\n##tomahawk_tpu_torch_calcVersion={__version__}\n"
                      f"##tomahawk_tpu_torch_calcCommand=calc; "
                      f"Date={datetime.datetime.now().isoformat()}\n")
+    ck_path, ck_key, ck = (_resume_state(settings, proc_id, n_procs, dcn)
+                           if settings.checkpoint else ("", "", None))
     result = CalcResult()
+    # units_done after each completed load (run_loads)
+    load_cum = []
+    if ck is not None:
+        result.n_pairs, result.n_records = ck["n_pairs"], ck["n_records"]
+        load_cum = list(ck["load_cum"])
+        if engine is not None:
+            engine.ckpt_skip = ck["units"]
+            engine.cand_total = ck["n_pairs"]
+            caps = ck.get("caps") or {}
+            if caps.get("fused_cap"):
+                engine._fused_cap = int(caps["fused_cap"])
+            if caps.get("outcap"):
+                engine._outcap = int(caps["outcap"])
     # upper bound of the pairs the (windowed) tile list holds
     est = sum(B * (B - 1) // 2 if d else B * B for _, _, d in pairs)
     ticker = ProgressTicker(total_pairs=est, n_samples=n_samples).start()
@@ -1264,8 +1455,33 @@ def _compute(settings, device, reader, timer, proc_id,
     # in flight.
     writer = None
     if not (dcn and proc_id != 0):
-        writer = TwoWriter(out, hdr, c_level=settings.c_level,
-                           block_limit=settings.b_size, async_blocks=True)
+        if ck is not None:
+            writer = TwoWriter.resume(out, hdr, ck["writer"],
+                                      c_level=settings.c_level,
+                                      block_limit=settings.b_size,
+                                      async_blocks=True)
+        else:
+            writer = TwoWriter(out, hdr, c_level=settings.c_level,
+                               block_limit=settings.b_size,
+                               async_blocks=True)
+    if settings.checkpoint and writer is not None and engine is not None:
+        # dcn ranks other than 0 own no writer and no sidecar: their
+        # resume state came from rank 0's
+        last_ck = [time.monotonic()]
+
+        def _maybe_checkpoint():
+            """On the thread that emitted the segment, after its records:
+            a sidecar always describes a whole-segment boundary."""
+            now = time.monotonic()
+            if now - last_ck[0] < settings.checkpoint_interval:
+                return
+            last_ck[0] = now
+            _ckpt_write(ck_path, ck_key, engine.units_done,
+                        engine.cand_total, result.n_records, load_cum,
+                        writer.checkpoint_state(),
+                        caps=dict(fused_cap=engine._fused_cap,
+                                  outcap=engine._outcap))
+        engine.on_segment = _maybe_checkpoint
 
     def emit(recs, rev=None):
         if len(recs) == 0:
@@ -1297,7 +1513,8 @@ def _compute(settings, device, reader, timer, proc_id,
     try:
         if engine is not None:
             result.n_pairs += run_loads(engine, bands, loads, inflate_band,
-                                        mode, filt, emit, prefetch_on)
+                                        mode, filt, emit, prefetch_on,
+                                        load_cum)
     finally:
         if engine is not None:
             engine.stage_close()
@@ -1317,6 +1534,11 @@ def _compute(settings, device, reader, timer, proc_id,
                 f"{ss['hidden_s']:.1f}s overlapped with compute, "
                 f"{ss['exposed_s'] + ss['wait_s']:.1f}s exposed)",
                 sub="MEMORY")
+    if settings.checkpoint and os.path.exists(ck_path):
+        # the output is complete; the sidecar is obsolete. Removed before
+        # the in-place sort: a crash in the sort must start over, not
+        # resume a writer offset into the rewritten file
+        os.remove(ck_path)
     if writer is not None and settings.sort_shards and out != "-":
         from ..post.sort import sort_two
         tmp_sorted = out[:-4] + ".sorting.two"

@@ -61,10 +61,13 @@ KERNELS = {
 #: (csrc/compact.cu's segment_counts_kernel): kept beside the kernels'
 #: counts, a part of compact's launch
 SEGMENT_COUNTS = "segment_counts"
+#: relationship's kinship GEMM (X4): a library call, torch._int_mm, not
+#: a hand kernel; counted like one by its wrapper (ops/kinship.py)
+KINSHIP = "kinship_int_mm"
 #: launches of each kernel, counted by its wrapper where it launches
-LAUNCHES = {name: 0 for name in (*KERNELS, SEGMENT_COUNTS)}
+LAUNCHES = {name: 0 for name in (*KERNELS, SEGMENT_COUNTS, KINSHIP)}
 #: wrapper calls that took the plain PyTorch version (CPU tensors)
-PLAIN_CALLS = {name: 0 for name in (*KERNELS, SEGMENT_COUNTS)}
+PLAIN_CALLS = {name: 0 for name in (*KERNELS, SEGMENT_COUNTS, KINSHIP)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _D = ctypes.c_longlong, ctypes.c_double

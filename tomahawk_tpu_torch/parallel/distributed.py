@@ -20,6 +20,14 @@ one `torch.distributed` group:
                                        `all_reduce_parts` (SUM), then the
                                        epilogue and the compaction on
                                        global counts; rank 0 alone writes
+    --checkpoint                       the same: a tile-partition rank
+                                       keeps PATH.pKofN; in a dcn run
+                                       rank 0's sidecar is broadcast
+                                       (`broadcast_resume`: a fixed head,
+                                       then the load boundaries), and
+                                       every rank passes
+                                       `resume_barrier` once its sidecar
+                                       is checked
     --mesh PxS or dcn:P, and           not ported: the engine raises
       P x S rank grids                 NotImplementedError
 
@@ -169,6 +177,61 @@ def all_reduce_parts(parts: torch.Tensor, grp: ProcessGroup):
         parts.copy_(host, non_blocking=True)
         return
     dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=grp.device_group)
+
+
+def resume_barrier(error: Optional[BaseException] = None):
+    """The resume barrier of a checkpointed run: every rank calls it
+    once it has read and validated its sidecar, passing the exception of
+    that check if it failed. No rank proceeds until all have checked, and
+    if any failed, every rank raises here -- the failed one its own
+    error -- so no rank is left waiting in a later collective."""
+    import torch.distributed as dist
+    grp = group()
+    failed = torch.zeros(grp.size, dtype=torch.int64)
+    failed[grp.rank] = error is not None
+    dist.all_reduce(failed, group=grp.host_group)
+    if error is not None:
+        raise error
+    bad = failed.nonzero().flatten().tolist()
+    if bad:
+        raise RuntimeError(f"rank(s) {bad} failed the checkpoint check; "
+                           f"see their output")
+
+
+#: the fixed head of the resume state a dcn run broadcasts
+RESUME_HEAD = ("has", "units", "n_pairs", "n_records", "fused_cap",
+               "outcap", "n_loads")
+
+
+def broadcast_resume(ck: Optional[dict]) -> Optional[dict]:
+    """Rank 0's resume state (`ck`, its sidecar read, or None) on every
+    rank of a dcn run: the fixed head RESUME_HEAD, then `n_loads` values
+    of `load_cum`, each an int64 broadcast over the host group. Rank 0
+    gets its own dict back; the others a dict of the same keys with no
+    writer state (they own no output)."""
+    import torch.distributed as dist
+    grp = group()
+    head = torch.zeros(len(RESUME_HEAD), dtype=torch.int64)
+    if grp.rank == 0 and ck is not None:
+        caps = ck.get("caps") or {}
+        head[:] = torch.tensor([1, ck["units"], ck["n_pairs"],
+                                ck["n_records"], caps.get("fused_cap", 0),
+                                caps.get("outcap", 0), len(ck["load_cum"])])
+    dist.broadcast(head, src=0, group=grp.host_group)
+    st = dict(zip(RESUME_HEAD, head.tolist()))
+    if not st["has"]:
+        return None
+    cum = torch.zeros(st["n_loads"], dtype=torch.int64)
+    if grp.rank == 0:
+        cum[:] = torch.tensor(ck["load_cum"], dtype=torch.int64)
+    if st["n_loads"]:
+        dist.broadcast(cum, src=0, group=grp.host_group)
+    if grp.rank == 0:
+        return ck
+    return dict(units=st["units"], n_pairs=st["n_pairs"],
+                n_records=st["n_records"], load_cum=cum.tolist(),
+                caps=dict(fused_cap=st["fused_cap"], outcap=st["outcap"]),
+                writer=None)
 
 
 def partition_tiles(pairs, proc_id: int, n_procs: int):
