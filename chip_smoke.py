@@ -99,11 +99,14 @@ Phases, in order; any failure exits non-zero:
    (4.2e12/s), the ceiling of the AND + __popc route the tile kernels
    took before the tensor cores. compact's times are the device's, the
    calls queued ahead of it; its time at the host's pace is printed
-   beside them;
+   beside them, and its library yardstick: torch.nonzero of the
+   survivors, then index_select of the parts;
 4. run `calc` through the user's entry points (`python -m
    tomahawk_tpu_torch import`, then `python -m tomahawk_tpu_torch calc`
-   in this process, so its kernel launch counts are visible), each path
-   with the counts set to 0 just before it and read just after, and
+   in this process, so its kernel launch counts are visible; every path
+   but q with `--backend device`, so none depends on the CPU route's
+   limit), each path with the counts set to 0 just before it and read
+   just after, and
    hold its .two record multiset against the port's native C++ CPU tile
    engine's on the same archive, field by field, P within the
    reference's 1e-5 guard (a phased path's P comes from the in-sweep
@@ -164,6 +167,15 @@ Phases, in order; any failure exits non-zero:
       launches; the crashed and resumed walls against j's, and a
       segment's end (the writer's flush and fsync and the sidecar) at
       interval 0;
+   p. compute_ld on meshes built from an explicit device list, 2x1, 1x2
+      and 2x2 over the one card repeated, on the archives of a (`-p`) and
+      b (mixed): S = 1 through the fused kernels, S = 2 through
+      local_parts, the sum on the card, tile_epilogue and compact; then
+      `calc -p --mesh 1x1` and `--mesh auto` through the CLI (one card);
+   q. the CPU route: `calc -p --backend cpu` on a's archive (records
+      equal a's), `calc -p --backend auto` on a 2,504 x 1,024 archive
+      below the route's limit, both launching nothing, and the same with
+      TWK_CPU_ROUTE_WORK=0, which launches the fused kernels;
    then the post-processing subcommands through the CLI entry point:
    `relationship` on the archive of a on the card (its launch counts
    set to 0 just before it and read just after: one torch._int_mm a
@@ -198,7 +210,14 @@ Phases, in order; any failure exits non-zero:
    `LdEngine.run_phased_pairs` over the first 16 blocks of the sparse
    planes (136 tiles) as two samples-sharded ranks on the one card,
    with the time per tile of local_parts, the all-reduce, tile_epilogue
-   and compact (handed the epilogue's counts) from CUDA events;
+   and compact (handed the epilogue's counts) from CUDA events and each
+   rank's host math_s on its half of the survivor rows; then, in the same
+   two ranks, the first 8 blocks of the records-dense planes (36 tiles)
+   with the host math split over the ranks and whole on each (a
+   stand-in for what the split replaced), in turns: each run's wall,
+   math_s and its gathers' share; beside them the sparse tiles on a 1 x
+   2 mesh over the one card in this process (the parts summed on the
+   card), its walls and its time per tile of each step;
 6. check that each calc path launched each of its kernels, and never a
    plain version, that no compaction counted a mask itself (every tile
    kernel, the samples-sharded epilogue too, hands it its counts:
@@ -209,6 +228,25 @@ Before them, JSON lines of X4 (`library_calls`, in the kernels line's
 keys), path o and the post phase. The last two lines are a JSON summary
 of the kernels and the device line. Everything here comes from
 tomahawk_tpu_torch, torch and numpy.
+
+`python3 chip_smoke.py crossover [phased|mixed]` is a measurement of its
+own (~10 minutes for phased, ~8 for mixed, both when neither is named;
+the default run would not fit its limit with it): the card, the builds,
+then the CPU route's crossover: phased archives of 2,504 samples x 1,024
+to 32,768 sites, each a fresh `python -m tomahawk_tpu_torch calc -p`
+process with `--backend cpu` and with `--backend device`, three times in
+turns, the build cache warm; `mixed`, archives of 1,024 to 16,384 sites
+with path b's missing data through `calc` (the mixed dispatch); the
+process walls, each process's compute_ld wall, the work (candidate pairs
+x haplotypes) and where the medians of the compute_ld walls cross
+(compute/engine.py CPU_ROUTE_WORK holds the phased one); its last line
+is the device line.
+
+`python3 chip_smoke.py dcn2`, with exactly two cards visible
+(`CUDA_VISIBLE_DEVICES=0,1` on a larger host), runs paths g and h with
+`--mesh dcn:2`: two ranks that share both cards, each rank's pairs
+shard p on card p, collectives over gloo; records and launches checked
+as in the default run; its last line is the device line.
 """
 
 import json
@@ -273,6 +311,9 @@ BANDED_GB = 0.03
 BANDED_ROW_GB = 1.0
 #: super-blocks of the sparse planes the two-rank engine timing sweeps
 DCN_BLOCKS = 16
+#: super-blocks of the records-dense planes the two ranks sweep with the
+#: host math split and whole (36 tiles, ~0.5M records)
+DCN_DENSE_BLOCKS = 8
 #: D' bounds (-d, -D) of the D' kernel checks and of calc path l: the
 #: LD groups' 2% noise puts most of their pairs' D' between 0.5 and 0.9,
 #: so these bounds cut most survivors of a phased tile
@@ -303,6 +344,20 @@ KIN_BLOCK_ROWS = 512
 CALC_WALLS = {}
 #: the launch count of relationship's kinship GEMM (ops/_build.KINSHIP)
 KINSHIP_COUNT = "kinship_int_mm"
+#: every calc path but q's pins the card: `--backend auto` would send a
+#: workload below the CPU route's limit to the CPU
+ON_CARD = ["--backend", "device"]
+#: path p's meshes over the one card repeated: (pairs, samples)
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+#: the crossover timing's archives (2,504 samples x sites) of each
+#: dispatch, the fresh `calc` processes a backend and size, and path q's
+#: archive
+CROSS_SITES = {"phased": (1024, 2048, 4096, 8192, 16384, 32768),
+               "mixed": (1024, 2048, 4096, 8192, 16384)}
+CROSS_REPS = 3
+ROUTE_SITES = 1024
+#: timed runs of the 1 x 2 mesh row
+MESH_REPS = 3
 
 
 def _say(msg):
@@ -586,10 +641,12 @@ def compare_kernels():
          f"{int((mask == 2).sum())} survivors: counts given "
          f"{times['ms']:.4f}, not given {times['no_counts_ms']:.4f}, "
          f"at the host's pace {times['host_paced_ms']:.4f} (plain "
-         f"{times['plain_ms']:.4f})")
+         f"{times['plain_ms']:.4f}; torch.nonzero of the survivors and "
+         f"index_select of the parts {times['library_ms']:.4f})")
     return ({"phased_tile": (tile_err, tile_ms, tile_plain),
              "compact": (comp_err, times["ms"], times["plain_ms"])},
             dict(times, library_ms=library_ms,
+                 compact_library_ms=times["library_ms"],
                  kept=min(int((mask == 2).sum()), 32768)))
 
 
@@ -620,12 +677,21 @@ def _time_compact(mask, parts, ncol, counts=None):
         sweeps.compact_survivors_plain(mask, parts, bufs[3], bufs[0],
                                        bufs[1], bufs[2], 0, 32768)
 
+    flat = parts.view(parts.shape[0], -1)
+
+    def library():
+        # the same function in two PyTorch calls (nonzero waits for the
+        # host to learn the count): the survivors' flat indices in
+        # ascending order, and each one's parts
+        idx = torch.nonzero(mask.flatten() == 2).flatten()
+        return torch.index_select(flat, 1, idx)
+
     return dict(
         ms=_cuda_ms(lambda: kernel(counts), reps=50),
         no_counts_ms=_cuda_ms(lambda: kernel(None), reps=50),
         host_paced_ms=_cuda_ms(lambda: kernel(counts, reset=True),
                                queued=False),
-        plain_ms=_cuda_ms(plain))
+        plain_ms=_cuda_ms(plain), library_ms=_cuda_ms(library))
 
 
 #: odd shapes of the tile kernel checks: (tile rows, words kept of the 64
@@ -1913,7 +1979,7 @@ def run_calc(label, twk, two, flags, mode, need, window=0, plan=None,
     the staging worker prefetched bands). Returns the launch counts."""
     from tomahawk_tpu_torch.ops import _build
     argv = ["tomahawk_tpu_torch", "calc", "-i", twk, "-o", two,
-            "-r", str(MIN_R2), *flags]
+            "-r", str(MIN_R2), *flags, *ON_CARD]
     _build.reset_counts()
     t0 = time.perf_counter()
     res = _run_cli(argv)
@@ -2067,18 +2133,20 @@ def spawn_ranks(label, jobs):
 
 
 def run_ranked_calc(label, twk, out, flags, mode, need, idle, dcn):
-    """One `calc --distributed` path as two ranks that share the card.
-    Every rank must launch each kernel in `need`, none in `idle`, and no
-    plain version. dcn: only rank 0's file exists; otherwise both shards
+    """One `calc --distributed` path as two ranks that share the card
+    (or the cards). Every rank must launch each kernel in `need`, none in
+    `idle`, and no plain version. dcn, a `--mesh` spec ('dcn' or
+    'dcn:P'): only rank 0's file exists; otherwise (None) both shards
     exist and are merged. The records must equal the native CPU
     engine's. Returns the launches summed over the ranks."""
     from tomahawk_tpu_torch.parallel import merge_shards, shard_paths
     coordinator = f"127.0.0.1:{_free_port()}"
-    flags = flags + (["--mesh", "dcn"] if dcn else [])
+    flags = flags + (["--mesh", dcn] if dcn else [])
     jobs = [dict(kind="calc", rank=r, argv=[
         "tomahawk_tpu_torch", "calc", "-i", twk, "-o", out, "-r",
-        str(MIN_R2), *flags, "--distributed", "--coordinator", coordinator,
-        "--num-processes", "2", "--process-id", str(r)]) for r in (0, 1)]
+        str(MIN_R2), *flags, *ON_CARD, "--distributed", "--coordinator",
+        coordinator, "--num-processes", "2", "--process-id", str(r)])
+        for r in (0, 1)]
     shards = shard_paths(out, 2)
     for path in [out] + shards:
         if os.path.exists(path):
@@ -2093,7 +2161,7 @@ def run_ranked_calc(label, twk, out, flags, mode, need, idle, dcn):
         for k, v in rep["launches"].items():
             total[k] = total.get(k, 0) + v
     cmd = " ".join(["calc", *flags, "--distributed"])
-    _say(f"main path {label}: `{cmd}` as two ranks sharing one card, "
+    _say(f"main path {label}: `{cmd}` as two ranks sharing the card(s), "
          f"collectives over gloo: {dt:.2f}s wall "
          f"(processes' start included), launches per rank "
          f"{[rep['launches'] for rep in reports]}, no plain version")
@@ -2112,9 +2180,202 @@ def run_ranked_calc(label, twk, out, flags, mode, need, idle, dcn):
     return total
 
 
+def run_mesh_paths(ld, miss, two):
+    """Path p: compute_ld on meshes built from an explicit device list,
+    2x1, 1x2 and 2x2 over the one card repeated, on a's archive (`-p`)
+    and b's (mixed), each with the counts set to 0 just before it and
+    read just after: S = 1 launches the fused kernels, S = 2 local_parts,
+    tile_epilogue and compact (handed the epilogue's counts), never a
+    plain version; then the CLI with `--mesh 1x1` and `--mesh auto`,
+    which resolve to the one card. Every run's records equal the native
+    CPU engine's. Returns the launches summed over them."""
+    from tomahawk_tpu_torch.compute.engine import CalcSettings, compute_ld
+    from tomahawk_tpu_torch.ops import _build
+    from tomahawk_tpu_torch.parallel import make_mesh
+    total = {}
+    fused = {"phased": ("phased_tile", "compact"),
+             "mixed": ("phased_tile", "parts_tile", "compact")}
+    split = ("local_parts", "tile_epilogue", "compact")
+    for P, S in MESH_SHAPES:
+        for tag, twk, mode in (("a", ld, "phased"), ("b", miss, "mixed")):
+            label = f"p {P}x{S} on {tag}'s archive"
+            out = two.format(f"p{P}x{S}{tag}")
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            compute_ld(CalcSettings(input=twk, output=out, min_r2=MIN_R2,
+                                    force_phased=mode == "phased",
+                                    backend="device"), device="cuda",
+                       mesh=make_mesh(P, S, ["cuda:0"] * (P * S)))
+            dt = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            _say(f"main path {label}: compute_ld(mesh=make_mesh({P}, {S}, "
+                 f"[cuda:0] x {P * S})) {dt:.2f}s wall, launches {launches}")
+            if S == 1:
+                need, idle = fused[mode], split[:2] + ("segment_counts",)
+            else:
+                need, idle = split, ("phased_tile", "parts_tile",
+                                     "segment_counts")
+            _check_counts(label, launches, dict(_build.PLAIN_CALLS), need,
+                          idle)
+            check_records(label, out, twk, mode)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+    for spec in ("1x1", "auto"):
+        launches = run_calc(f"p --mesh {spec}", ld, two.format(f"p{spec}"),
+                            ["-p", "--mesh", spec], "phased",
+                            fused["phased"])
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _est_pairs(twk):
+    """The candidate-pair estimate `calc` routes by, for an archive: the
+    engine's super-blocks of B variants and its all-vs-all tile list."""
+    from tomahawk_tpu_torch.compute.balancer import Balancer
+    from tomahawk_tpu_torch.compute.engine import _round_up, _super_ranges
+    from tomahawk_tpu_torch.io.twk import TwkReader
+    reader = TwkReader(twk)
+    supers = _super_ranges(reader.index.ent, list(range(reader.index.n)), B)
+    reader.close()
+    Bp = _round_up(max(s["n"] for s in supers), 128)
+    return sum(Bp * (Bp - 1) // 2 if d else Bp * Bp
+               for _, _, d in Balancer.build(len(supers)).tile_pairs())
+
+
+def run_route_paths(ld, small, two):
+    """Path q, the CPU route, through the CLI entry point, each run with
+    the counts set to 0 just before it and read just after: `-p --backend
+    cpu` on a's archive (its records equal path a's), `-p --backend auto`
+    on an archive of ROUTE_SITES sites, whose work is below the default
+    limit (records equal the native CPU engine's), both launching no
+    kernel and taking no plain version; then the same `auto` run with
+    TWK_CPU_ROUTE_WORK=0, which goes to the card and launches the fused
+    kernels. Returns the launches summed over them."""
+    from tomahawk_tpu_torch.compute.engine import CPU_ROUTE_WORK
+    from tomahawk_tpu_torch.ops import _build
+    work = _est_pairs(small) * 2 * N_SAMPLES
+    if work >= CPU_ROUTE_WORK:
+        raise SystemExit(f"path q's archive has work {work:.3g}, not below "
+                         f"the route's limit {CPU_ROUTE_WORK:.3g}")
+    total = {}
+    for label, twk, backend, env in (
+            ("q cpu", ld, "cpu", None), ("q auto", small, "auto", None),
+            ("q auto, limit 0", small, "auto", "0")):
+        out = two.format(label.replace(" ", "").replace(",", ""))
+        argv = ["tomahawk_tpu_torch", "calc", "-i", twk, "-o", out, "-r",
+                str(MIN_R2), "-p", "--backend", backend]
+        if env is not None:
+            os.environ["TWK_CPU_ROUTE_WORK"] = env
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            _run_cli(argv)
+        finally:
+            os.environ.pop("TWK_CPU_ROUTE_WORK", None)
+        dt = time.perf_counter() - t0
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        _say(f"main path {label}: `calc -p --backend {backend}`"
+             f"{' with TWK_CPU_ROUTE_WORK=' + env if env else ''} "
+             f"{dt:.2f}s wall, launches {launches}, plain {plain}")
+        if env is None and (any(launches.values()) or any(plain.values())):
+            raise SystemExit(f"calc {label}: a routed run launched a kernel "
+                             f"or a plain version")
+        if env is not None:
+            _check_counts(label, launches, plain, ("phased_tile", "compact"),
+                          ("local_parts", "tile_epilogue", "segment_counts"))
+        if twk == ld:
+            same_records(label, out, "a", two.format("a"))
+        else:
+            check_records(label, out, twk, "phased")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    _say(f"  path q's archive: {ROUTE_SITES} sites, work {work:.4g} "
+         f"pair-haplotypes, the limit {CPU_ROUTE_WORK:.4g}")
+    return total
+
+
+def _calc_wall(log_text):
+    """Seconds of compute_ld from a `calc` process's log: its
+    "Computed ... in <elapsed>" line (s, m:s or h:m:s)."""
+    line = next(ln for ln in log_text.splitlines()
+                if "[PROGRESS] Computed" in ln)
+    text = line.rsplit(" in ", 1)[1].split()[0].rstrip("s")
+    secs = 0.0
+    for unit, scale in (("h", 3600), ("m", 60)):
+        if unit in text:
+            head, text = text.split(unit)
+            secs += scale * float(head)
+    return secs + float(text)
+
+
+def crossover(work, mode="phased"):
+    """The CPU route's crossover on the card for one dispatch: `phased`,
+    LD-grouped phased archives of 2,504 samples x CROSS_SITES sites run
+    by `calc -p`; `mixed`, the same with path b's missing data (2.5% of
+    the genotypes of every second site of the first three quarters) run
+    by `calc` (the default mixed dispatch). Each as a fresh `python -m
+    tomahawk_tpu_torch calc` process with `--backend cpu` and with
+    `--backend device`, CROSS_REPS times in turns, after the kernels and
+    the native library are built (the build cache is warm). Prints the
+    process walls beside each archive's work (candidate pairs x
+    haplotypes), each run's compute_ld wall (its "Computed ... in" line:
+    the process but for the interpreter's start and the imports, which
+    both routes pay alike) and the work where the medians of the
+    compute_ld walls cross, interpolated in log-log between the sizes on
+    either side. Returns the JSON row."""
+    rows = []
+    flags = ["-p"] if mode == "phased" else []
+    for n in CROSS_SITES[mode]:
+        miss = {} if mode == "phased" else dict(
+            miss_sites=3 * n // 4, miss_step=2, miss_frac=0.025)
+        twk = make_archive(work, f"{mode}{n}", n, **miss)
+        est = _est_pairs(twk)
+        walls = {"cpu": [], "device": [], "cpu_calc": [], "device_calc": []}
+        for rep in range(CROSS_REPS):
+            for backend in ("cpu", "device"):
+                t0 = time.perf_counter()
+                r = subprocess.run(
+                    [sys.executable, "-m", "tomahawk_tpu_torch", "calc",
+                     "-i", twk, "-o", os.path.join(work, "x.two"), *flags,
+                     "-r", str(MIN_R2), "--backend", backend], cwd=ROOT,
+                    check=True, capture_output=True, text=True)
+                walls[backend].append(time.perf_counter() - t0)
+                walls[f"{backend}_calc"].append(_calc_wall(r.stderr))
+        row = dict(sites=n, pairs=est, work=est * 2 * N_SAMPLES,
+                   cpu_s=walls["cpu"], device_s=walls["device"],
+                   cpu_calc_s=walls["cpu_calc"],
+                   device_calc_s=walls["device_calc"])
+        rows.append(row)
+        _say(f"  crossover {mode} {n} sites: work {row['work']:.4g}; "
+             f"process walls --backend cpu {walls['cpu']} s, --backend device "
+             f"{walls['device']} s; compute_ld walls {walls['cpu_calc']} / "
+             f"{walls['device_calc']} s")
+    med = [(r["work"], float(np.median(r["cpu_calc_s"])),
+            float(np.median(r["device_calc_s"]))) for r in rows]
+    at = None
+    for (w0, c0, d0), (w1, c1, d1) in zip(med, med[1:]):
+        if c0 <= d0 and c1 > d1:
+            # log(cpu / device) crosses 0 between w0 and w1
+            g0, g1 = math.log(c0 / d0), math.log(c1 / d1)
+            at = math.exp(math.log(w0) + (math.log(w1) - math.log(w0))
+                          * g0 / (g0 - g1))
+    res = dict(mode=mode, rows=rows, crossover_work=at,
+               cpu_count=os.cpu_count(),
+               build_cache="warm: kernels and native library built before",
+               note=f"process walls of `calc {' '.join(flags)}`, fresh "
+                    f"processes")
+    _say(f"CPU route crossover, {mode}: "
+         f"{at if at is None else f'{at:.4g}'} pair-haplotypes "
+         f"(os.cpu_count() {os.cpu_count()})")
+    _say(json.dumps({"crossover": res}))
+    return res
+
+
 def main_paths(work):
-    """The calc paths of phase 4: six in this process, three as two
-    ranks. Returns the launch counts summed over them."""
+    """The calc paths of phase 4: those in this process (p and q among
+    them), and three as two ranks. Returns the launch counts summed over
+    them, and path l's and m's."""
     ld = make_archive(work, "ld", 16384)
     miss = make_archive(work, "miss", 16384, miss_sites=12288, miss_step=2,
                         miss_frac=0.025)
@@ -2151,6 +2412,11 @@ def main_paths(work):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     same_records("j", two.format("j"), "a", two.format("a"))
+    small = make_archive(work, f"x{ROUTE_SITES}", ROUTE_SITES)
+    for launches in (run_mesh_paths(ld, miss, two),
+                     run_route_paths(ld, small, two)):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
     launches = run_scalc("n", miss, two.format("n"))
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
@@ -2166,9 +2432,9 @@ def main_paths(work):
     dcn = ("local_parts", "tile_epilogue", "compact")
     # every compaction is handed its tile's counts: none counts a mask
     fused = ("phased_tile", "parts_tile", "segment_counts")
-    ranked = (("g", ld, ["-p"], "phased", dcn, fused, True),
-              ("h", miss, [], "mixed", dcn, fused, True),
-              ("i", miss, [], "mixed", every, dcn[:2] + fused[2:], False))
+    ranked = (("g", ld, ["-p"], "phased", dcn, fused, "dcn"),
+              ("h", miss, [], "mixed", dcn, fused, "dcn"),
+              ("i", miss, [], "mixed", every, dcn[:2] + fused[2:], None))
     for label, twk, flags, mode, need, idle, is_dcn in ranked:
         launches = run_ranked_calc(label, twk, two, flags, mode, need, idle,
                                    is_dcn)
@@ -2211,7 +2477,7 @@ def run_checkpointed(label, twk, two, ref_two, ref_launches):
     flags = ["-p", "-M", str(BANDED_GB), "--checkpoint", ckpt,
              "--checkpoint-interval", "0"]
     argv = ["tomahawk_tpu_torch", "calc", "-i", twk, "-o", two, "-r",
-            str(MIN_R2), *flags]
+            str(MIN_R2), *flags, *ON_CARD]
     E = engine.LdEngine
     real = dict(seg=E._run_segment, fin=E._finish_segment,
                 disp=E._dispatch_fused)
@@ -2952,15 +3218,143 @@ def dcn_engine():
     a, b = reports
     if (a["candidates"], a["records"]) != (b["candidates"], b["records"]):
         raise SystemExit(f"engine dcn: the ranks disagree: {a} {b}")
+    if [r["records"] for r in a["dense"]["runs"]] \
+            != [r["records"] for r in b["dense"]["runs"]]:
+        raise SystemExit("engine dcn dense: the ranks disagree")
     _say(f"engine dcn, two ranks sharing one card, collectives over gloo: "
          f"{DCN_BLOCKS} x {B} sparse variants, {a['tiles']} tiles, "
          f"{a['pairs']} pairs")
     for rep in reports:
         _say(f"  rank {rep['rank']}: {rep['wall_s']:.3f}s, "
              f"{rep['pairs'] / rep['wall_s']:.0f} pairs/s, {rep['records']} "
-             f"records; ms per tile {rep['ms_per_tile']}")
+             f"records; host math_s {rep['math_s']:.4f} (gathers "
+             f"{rep['gather_s']:.4f}) on {rep['math_rows']} of "
+             f"{rep['survivor_rows']} survivor rows; ms per tile "
+             f"{rep['ms_per_tile']}")
+    _say(f"engine dcn dense: {DCN_DENSE_BLOCKS} x {B} LD-grouped variants, "
+         f"{a['dense']['tiles']} tiles, host math split over the ranks "
+         f"and whole on each, in turns")
+    for rep in reports:
+        for r in rep["dense"]["runs"]:
+            _say(f"  rank {rep['rank']} {r['way']}: {r['wall_s']:.3f}s, "
+                 f"{r['records']} records; math_s {r['math_s']:.4f} "
+                 f"(gathers {r['gather_s']:.4f}) on {r['math_rows']} of "
+                 f"{r['survivor_rows']} rows")
     _say(json.dumps({"dcn_engine": reports}))
     return a
+
+
+def mesh_engine(dcn):
+    """`LdEngine.run_phased_pairs` over the dcn row's tiles (the first
+    DCN_BLOCKS blocks of the sparse planes) on a 1 x 2 mesh over the one
+    card repeated: each tile's two word slices through local_parts, their
+    sum on the device (parallel.SamplesGroup, in place of the dcn row's
+    gloo all-reduce), tile_epilogue and compact. A warm-up run, then
+    MESH_REPS timed runs, the launches counted over them (local_parts,
+    tile_epilogue and compact, no fused kernel, no plain version); their
+    candidates and records equal the dcn row's; then the same tiles once
+    more step by step between CUDA events. Returns the report."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
+    from tomahawk_tpu_torch.ops import _build, tiles
+    from tomahawk_tpu_torch.ops.ld_math import LdFilters
+    from tomahawk_tpu_torch.parallel import all_reduce_parts, make_mesh
+    stacked = workloads.build_planes(DCN_BLOCKS, B, N_SAMPLES)
+    engine = LdEngine(stacked, N_SAMPLES, CalcSettings(min_r2=MIN_R2),
+                      mesh=make_mesh(1, 2, ["cuda:0", "cuda:0"]))
+    pairs = [(i, j, i == j) for i in range(DCN_BLOCKS)
+             for j in range(i, DCN_BLOCKS)]
+    filt = LdFilters(min_r2=MIN_R2)
+    n_rec = [0]
+
+    def emit(recs, rev=None):
+        n_rec[0] += 2 * len(recs)
+
+    try:
+        engine.run_phased_pairs(pairs, False, filt, emit)
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        walls = []
+        for _ in range(MESH_REPS):
+            n_rec[0] = 0
+            t0 = time.perf_counter()
+            n_cand = engine.run_phased_pairs(pairs, False, filt, emit)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        _check_counts("engine 1x2 mesh", dict(_build.LAUNCHES),
+                      dict(_build.PLAIN_CALLS),
+                      ("local_parts", "tile_epilogue", "compact"),
+                      ("phased_tile", "parts_tile", "segment_counts"))
+        if (int(n_cand), n_rec[0]) != (dcn["candidates"], dcn["records"]):
+            raise SystemExit(f"engine 1x2 mesh: {int(n_cand)} candidates, "
+                             f"{n_rec[0]} records; the dcn row "
+                             f"{dcn['candidates']}, {dcn['records']}")
+        cfg = engine._cfg("phased", False, "all")
+        row = engine._dev_for(cfg)[0]
+        group = engine._row_cfg(cfg, row)["psum_group"]
+        peer_out = group.peers[0][1]
+        ms = _step_times(cfg, row[0], pairs, (
+            ("local_parts slice 0", lambda i, j, out:
+             tiles.tile_local_parts(row[0], i, j, cfg, out)),
+            ("local_parts slice 1", lambda i, j, out:
+             tiles.tile_local_parts(row[1], i, j, cfg, peer_out)),
+            ("sum on the card", lambda i, j, out:
+             all_reduce_parts(out[1], group))))
+    finally:
+        engine.stage_close()
+    tile_ms = sum(ms.values())
+    nv = DCN_BLOCKS * B
+    rep = dict(tiles=len(pairs), pairs=nv * (nv - 1) // 2,
+               candidates=int(n_cand), records=n_rec[0], wall_s=walls,
+               ms_per_tile=ms, ms_per_tile_sum=tile_ms,
+               math_s=sum(s["math_s"] for s in engine.stats.values())
+               / (MESH_REPS + 1))
+    _say(f"engine 1x2 mesh on the one card: {DCN_BLOCKS} x {B} sparse "
+         f"variants, {len(pairs)} tiles: walls {walls} s, "
+         f"{rep['pairs'] / min(walls):.0f} pairs/s at best, {n_rec[0]} "
+         f"records (the dcn row's); ms per tile {ms}, {tile_ms:.4f} in all "
+         f"(the dcn row's all-reduce alone: "
+         f"{dcn['ms_per_tile']['all_reduce']:.4f})")
+    _say(json.dumps({"mesh_engine": rep}))
+    return rep
+
+
+def _step_times(cfg, dev, pairs, steps):
+    """ms per tile of each step of a samples-sharded tile over `pairs`,
+    CUDA events around each, the calls queued back to back: `steps`, the
+    (name, fn(i, j, out)) that leave a tile's global parts in out[1],
+    then the epilogue and the compaction on `dev`'s card, handed the
+    epilogue's counts."""
+    import torch
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import tiles
+    device = dev["valid"].device
+    out = tiles.tile_buffers(cfg, device)
+    counts = tiles.counts_buffer(cfg, device)
+    buf = torch.zeros((1 << 18, sweeps.buf_cols(cfg)), dtype=torch.int32,
+                      device=device)
+    n_pass, n_cnd = (torch.zeros(len(pairs), dtype=torch.int32, device=device)
+                     for _ in range(2))
+    off = torch.zeros(1, dtype=torch.int32, device=device)
+    names = [name for name, _ in steps] + ["tile_epilogue", "compact"]
+    marks = []
+    for t, (i, j, diag) in enumerate(pairs):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(names) + 1)]
+        ev[0].record()
+        for k, (_, fn) in enumerate(steps):
+            fn(i, j, out)
+            ev[k + 1].record()
+        tiles.tile_epilogue(dev, i, j, diag, cfg, out, counts)
+        ev[-2].record()
+        sweeps.compact_survivors(*out, off, buf, n_pass, n_cnd, t, 256,
+                                 counts)
+        ev[-1].record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    return {name: sum(ev[k].elapsed_time(ev[k + 1]) for ev in marks)
+            / len(marks) for k, name in enumerate(names)}
 
 
 def rank_engine(job):
@@ -2974,14 +3368,13 @@ def rank_engine(job):
     from tomahawk_tpu_torch.ops.ld_math import LdFilters
     from tomahawk_tpu_torch.parallel import distributed as dist
     rank = job["rank"]
-    device = dist.rank_device("cuda", rank)
+    device = dist.process_devices("cuda", rank)[0]
     dist.init_distributed(job["coordinator"], 2, rank, device)
     try:
         group = dist.group()
         stacked = workloads.build_planes(DCN_BLOCKS, B, N_SAMPLES)
         engine = LdEngine(stacked, N_SAMPLES, CalcSettings(min_r2=MIN_R2),
-                          device, group=group, samples_rank=rank,
-                          samples_size=2)
+                          mesh=dist.make_dcn_mesh("dcn", "cuda"))
         pairs = [(i, j, i == j) for i in range(DCN_BLOCKS)
                  for j in range(i, DCN_BLOCKS)]
         n_rec = [0]
@@ -2990,7 +3383,7 @@ def rank_engine(job):
             n_rec[0] += 2 * len(recs)
 
         cfg = engine._cfg("phased", False, "all")
-        dev = engine._dev_for(cfg)
+        dev = engine._dev_for(cfg)[0][0]
         out = tiles.tile_buffers(cfg, device)
         counts = tiles.counts_buffer(cfg, device)
         # warm-up: one tile through every step
@@ -3004,38 +3397,82 @@ def rank_engine(job):
                                          LdFilters(min_r2=MIN_R2), emit)
         wall = time.perf_counter() - t0
 
-        cap = 256
-        buf = torch.zeros((1 << 18, sweeps.buf_cols(cfg)), dtype=torch.int32,
-                          device=device)
-        n_pass = torch.zeros(len(pairs), dtype=torch.int32, device=device)
-        n_cnd = torch.zeros(len(pairs), dtype=torch.int32, device=device)
-        off = torch.zeros(1, dtype=torch.int32, device=device)
-        marks = []
-        for t, (i, j, diag) in enumerate(pairs):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-            ev[0].record()
-            tiles.tile_local_parts(dev, i, j, cfg, out)
-            ev[1].record()
-            dist.all_reduce_parts(out[1], group)
-            ev[2].record()
-            mask, parts = tiles.tile_epilogue(dev, i, j, diag, cfg, out,
-                                              counts)
-            ev[3].record()
-            sweeps.compact_survivors(mask, parts, off, buf, n_pass, n_cnd, t,
-                                     cap, counts)
-            ev[4].record()
-            marks.append(ev)
-        torch.cuda.synchronize()
-        steps = ("local_parts", "all_reduce", "tile_epilogue", "compact")
-        ms = {name: sum(ev[k].elapsed_time(ev[k + 1]) for ev in marks)
-              / len(marks) for k, name in enumerate(steps)}
+        ms = _step_times(cfg, dev, pairs, (
+            ("local_parts", lambda i, j, out:
+             tiles.tile_local_parts(dev, i, j, cfg, out)),
+            ("all_reduce", lambda i, j, out:
+             dist.all_reduce_parts(out[1], group))))
         dist.sync_shards()
+        dense = rank_dense(device)
     finally:
         dist.shutdown()
     nv = DCN_BLOCKS * B
     return dict(tiles=len(pairs), pairs=nv * (nv - 1) // 2,
                 candidates=int(n_cand), records=n_rec[0], wall_s=wall,
-                ms_per_tile=ms)
+                ms_per_tile=ms,
+                math_s=sum(s["math_s"] for s in engine.stats.values()),
+                gather_s=engine.gather_s, math_rows=engine.math_rows,
+                survivor_rows=engine.survivor_rows, dense=dense)
+
+
+def rank_dense(device):
+    """The second job of a `dcn_engine` rank: the first DCN_DENSE_BLOCKS
+    blocks of the records-dense planes, run with the host math split
+    over the ranks (`LdEngine._dcn_records`: each rank's slice of the
+    survivor rows, the records gathered) and with a stand-in set up here
+    for what the split replaced (every rank runs the math of every row
+    and gathers nothing), in turns: split, whole, whole, split, after a
+    warm-up. Each run's wall, math_s, the gathers' share of it and the
+    rows this rank ran; the records of every run equal."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import engine as eng
+    from tomahawk_tpu_torch.ops.ld_math import LdFilters
+    from tomahawk_tpu_torch.parallel import distributed as dist
+    stacked = workloads.build_planes_grouped(DCN_DENSE_BLOCKS, B, N_SAMPLES)
+    engine = eng.LdEngine(stacked, N_SAMPLES,
+                          eng.CalcSettings(min_r2=MIN_R2),
+                          mesh=dist.make_dcn_mesh("dcn", device))
+    pairs = [(i, j, i == j) for i in range(DCN_DENSE_BLOCKS)
+             for j in range(i, DCN_DENSE_BLOCKS)]
+    split = engine._dcn_records
+
+    def whole(table, data, meta, filt, p_pre=None):
+        engine.math_rows += len(data)
+        engine.survivor_rows += len(data)
+        out = eng.ld_records(table, data, meta, filt, p_pre=p_pre)
+        if out is None:
+            raise SystemExit("engine dcn dense: no native library")
+        return out[0], out[1]
+
+    def state():
+        return (sum(s["math_s"] for s in engine.stats.values()),
+                engine.gather_s, engine.math_rows, engine.survivor_rows)
+
+    runs = []
+    for way in ("warm-up", "split", "whole", "whole", "split"):
+        engine._dcn_records = whole if way == "whole" else split
+        n_rec = [0]
+
+        def emit(recs, rev=None):
+            n_rec[0] += 2 * len(recs)
+
+        before = state()
+        dist.sync_shards()
+        t0 = time.perf_counter()
+        engine.run_phased_pairs(pairs, False, LdFilters(min_r2=MIN_R2),
+                                emit)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = [b - a for a, b in zip(before, state())]
+        runs.append(dict(way=way, wall_s=wall, math_s=d[0], gather_s=d[1],
+                         math_rows=d[2], survivor_rows=d[3],
+                         records=n_rec[0]))
+    engine.stage_close()
+    if len({r["records"] for r in runs}) != 1:
+        raise SystemExit(f"engine dcn dense: the runs' records differ: "
+                         f"{runs}")
+    return dict(tiles=len(pairs), runs=runs[1:])
 
 
 def rank_main(job):
@@ -3106,6 +3543,67 @@ def contraction_pair_words(table, has_missing, slices=1):
     return payload_cols(table, has_missing) * B * B * -(-W // slices)
 
 
+def dcn2_main():
+    """`python3 chip_smoke.py dcn2`, on a host with two cards visible
+    (e.g. CUDA_VISIBLE_DEVICES=0,1): paths g and h with `--mesh dcn:2`,
+    two ranks that share both cards (each rank's pairs shard p on card
+    p, collectives over gloo, each card's reductions through its own
+    pinned host buffer), their records against the native CPU engine's
+    and their launches checked as in the default run. The only layout
+    where `dcn:P` with P > 1 runs across cards."""
+    import torch
+    if torch.cuda.device_count() != 2:
+        print("chip_smoke dcn2: needs exactly two visible cards",
+              file=sys.stderr)
+        return 1
+    report_card()
+    build_kernels()
+    work = os.path.join(ROOT, "build", "chip_smoke_dcn2")
+    os.makedirs(work, exist_ok=True)
+    try:
+        ld = make_archive(work, "ld", 16384)
+        miss = make_archive(work, "miss", 16384, miss_sites=12288,
+                            miss_step=2, miss_frac=0.025)
+        need = ("local_parts", "tile_epilogue", "compact")
+        idle = ("phased_tile", "parts_tile", "segment_counts")
+        two = os.path.join(work, "ranked.two")
+        for label, twk, flags, mode in (("g", ld, ["-p"], "phased"),
+                                        ("h", miss, [], "mixed")):
+            run_ranked_calc(f"{label} dcn:2", twk, two, flags, mode, need,
+                            idle, "dcn:2")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    report_card()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def crossover_main(modes):
+    """`python3 chip_smoke.py crossover [phased|mixed]`: the card, the
+    builds, then the CPU route's crossover timing (`crossover`) of each
+    of `modes` (both when none is named: ~10 minutes of fresh processes
+    for phased, ~8 for mixed) on its own."""
+    import torch
+    report_card()
+    build_kernels()
+    work = os.path.join(ROOT, "build", "chip_smoke_crossover")
+    os.makedirs(work, exist_ok=True)
+    try:
+        for mode in modes or ("phased", "mixed"):
+            if mode not in CROSS_SITES:
+                raise SystemExit(f"crossover: no dispatch {mode!r}")
+            crossover(work, mode)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    report_card()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3121,6 +3619,10 @@ def main():
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["rank"]:
         return rank_main(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["crossover"]:
+        return crossover_main(sys.argv[2:])
+    if sys.argv[1:2] == ["dcn2"]:
+        return dcn2_main()
     from tomahawk_tpu_torch import native
     from tomahawk_tpu_torch.device import kernel_report
 
@@ -3166,7 +3668,8 @@ def main():
     try:
         launches, dprime_launches = main_paths(work)
         engine_rates(work)
-        dcn_engine()
+        dcn = dcn_engine()
+        mesh_engine(dcn)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if native.get_lib() is None:
@@ -3233,7 +3736,8 @@ def main():
     # compaction)
     library = {"phased_tile": times["library_ms"],
                "parts_tile": groups[MAIN_GROUP][3],
-               "local_parts": local[MAIN_INSTANCE][6]}
+               "local_parts": local[MAIN_INSTANCE][6],
+               "compact": times["compact_library_ms"]}
     kernels = [dict(name=k["name"], route="cuda", source=k["source"],
                     replaces=k["replaces"], launches=launches[k["name"]],
                     max_abs_err=checks[k["name"]][0],
@@ -3253,7 +3757,11 @@ def main():
             # the operations at the rate the probe read in this run
             k["probe_b1_ms"] = 64 * main_words["phased_tile"] \
                 / probe_rates[PROBE_KINDS[0][1]] * 1e3
-        if k["name"] in library:
+        if k["name"] == "compact":
+            k["library_note"] = ("torch.nonzero(mask.flatten() == 2) then "
+                                 "index_select of the parts: the same rows "
+                                 "without the buffer's running offset")
+        elif k["name"] in library:
             k["library_note"] = ("torch._int_mm once a part: contraction "
                                  "only, operands pre-unpacked, no mask, no "
                                  "prefilter")

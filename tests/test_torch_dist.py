@@ -325,22 +325,43 @@ def _calc_argv(rank, port, twk, out, mode, extra):
             str(rank), *CLI_FLAGS[mode], *extra]
 
 
-@pytest.mark.parametrize("name,mode", [
-    ("s70", "mixed"), ("s70", "phased"), ("s70", "unphased"),
-    ("s32", "window"), ("s32-one-tile", "mixed")])
-def test_two_process_dcn_calc_matches_jax(tmp_path, monkeypatch, name, mode):
+@pytest.mark.parametrize("name,mode,mesh", [
+    pytest.param("s70", "mixed", "dcn", id="s70-mixed"),
+    pytest.param("s70", "phased", "dcn", id="s70-phased"),
+    pytest.param("s70", "unphased", "dcn", id="s70-unphased"),
+    pytest.param("s32", "window", "dcn", id="s32-window"),
+    pytest.param("s32-one-tile", "mixed", "dcn", id="s32-one-tile-mixed"),
+    pytest.param("s70", "mixed", "dcn:2", id="s70-mixed-dcn2")])
+def test_two_process_dcn_calc_matches_jax(tmp_path, monkeypatch, name, mode,
+                                          mesh):
     """`calc --distributed --mesh dcn`: each process holds half of every
     word plane, process 0 writes the one output, which equals the JAX
-    package's single-process output in every field."""
+    package's single-process output in every field. Each process runs
+    the host math of its half of every segment's survivor rows
+    (`_dcn_records`): the two halves add up to the rows, rank 0's the
+    larger by at most one a segment. `dcn:2`: a local pairs axis of two
+    shards in each process."""
     twk = _archive(tmp_path, name)
     want = _jax_single(twk, str(tmp_path / "single.two"), mode, monkeypatch)
     out = str(tmp_path / "dcn.two")
     port = _free_port()
     results = run_ranks([_calc_argv(r, port, twk, out, mode,
-                                    ["--mesh", "dcn"]) for r in (0, 1)])
+                                    ["--mesh", mesh]) for r in (0, 1)])
     assert_ranks_ok(results)
+    split = []
     for _, text in results:
         assert "device collectives over gloo" in text
+        line = next(ln for ln in text.splitlines() if "host math of" in ln)
+        mine, rows = (int(x.replace(",", "")) for x in
+                      line.split("host math of ")[1].split(" survivor")[0]
+                      .split(" of "))
+        split.append((mine, rows))
+    (a, rows), (b, rows_b) = split
+    assert rows == rows_b > 0 and a + b == rows and 0 <= a - b
+    assert (a > 0 and b > 0) or rows == 1
+    if mesh == "dcn:2":
+        assert all("Device mesh: {'pairs': 2, 'samples': 2}" in text
+                   for _, text in results)
     assert not os.path.exists(str(tmp_path / "dcn.p0of2.two"))
     _assert_same(_sorted(out), want)
     r = TwoReader(out)
@@ -415,7 +436,7 @@ def test_shard_helpers_match_originals(n_procs):
 
 
 def test_rendezvous_and_mesh_arguments_checked():
-    from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
+    from tomahawk_tpu_torch.compute.engine import CalcSettings
     from tomahawk_tpu_torch.compute.engine import compute_ld
     with pytest.raises(ValueError, match="--coordinator"):
         dist.init_distributed("", 2, 0, "cpu")
@@ -425,10 +446,10 @@ def test_rendezvous_and_mesh_arguments_checked():
         dist.group()
     with pytest.raises(ValueError, match="multi-process"):
         compute_ld(CalcSettings(input="x.twk", mesh="dcn"), device="cpu")
-    with pytest.raises(ValueError, match="process group"):
-        LdEngine(planes(), N_SAMPLES, CalcSettings(), "cpu", samples_size=2)
-    assert dist.rank_device("cpu", 3) == torch.device("cpu")
-    assert dist.rank_device("cuda:1", 3) == torch.device("cuda", 1)
+    with pytest.raises(ValueError, match="multi-process"):
+        dist.make_dcn_mesh("dcn", "cpu")
+    assert dist.process_devices("cpu", 3) == [torch.device("cpu")]
+    assert dist.process_devices("cuda:1", 3) == [torch.device("cuda", 1)]
 
 
 # -- (6) the kernels on the card ----------

@@ -2,14 +2,16 @@
 imported archive through both engines (host Fisher on both sides) gives
 the same sorted .two records in every field, with -p, with -u and in
 the default mixed dispatch, on archives with and without missing
-genotypes, and with D' bounds. Also: repair of cap overflow and buffer
-spill, the CLI's device rule, and the rejection of everything outside
-the slice (window
-mode is inside it: tests/test_torch_window.py; banded streaming:
+genotypes, and with D' bounds; on meshes, one-process distributed runs
+and the CPU route (tests/test_torch_mesh.py, tests/test_torch_route.py
+hold them in full); the --performance histogram. Also: repair of cap
+overflow and buffer spill and the CLI's device rule (window mode:
+tests/test_torch_window.py; banded streaming:
 tests/test_torch_banded.py)."""
 
 import dataclasses
 import os
+import socket
 
 import numpy as np
 import pytest
@@ -313,10 +315,61 @@ def test_dprime_settings_match_jax(archive, tmp_path, monkeypatch, kw):
     pytest.param(dict(backend="cpu"), id="kw4"),
 ])
 def test_out_of_slice_settings_rejected(archive, tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        compute_ld(CalcSettings(input=archive, tile_rows=128,
-                                output=str(tmp_path / "x.two"), **kw),
-                   device="cpu")
+    """What the port once rejected, now parity cases: a one-process
+    `--distributed` run on a 2x2 mesh, a 2x1 mesh (both of `cpu`
+    entries) and `--backend cpu` give the JAX engine's records under the
+    same mesh shape over its virtual CPU devices, or its `--backend
+    cpu`."""
+    port = dict(kw)
+    if kw.get("distributed"):
+        port.update(coordinator=f"127.0.0.1:{_free_port()}",
+                    num_processes=1, process_id=0)
+    jax_kw = {k: v for k, v in kw.items() if k != "distributed"}
+    if "mesh" in kw:
+        jax_kw.update(mesh="cpu:" + kw["mesh"], backend="device")
+    got = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TWK_DEVICE_FISHER", "0")
+        for tag in ("port", "jax"):
+            out = str(tmp_path / f"{tag}.two")
+            settings = CalcSettings(input=archive, tile_rows=128, output=out,
+                                    min_r2=0.05)
+            if tag == "port":
+                compute_ld(dataclasses.replace(settings, **port),
+                           device="cpu")
+            else:
+                jax_compute_ld(dataclasses.replace(settings, **jax_kw))
+            got.append(_sorted(out))
+    _assert_same(*got)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_performance_histogram_matches_jax(tmp_path, capsys):
+    """`calc --performance` prints the allele-count histogram (survivors
+    and kept records by log2 bucket of min(ac_a, ac_b)) with the JAX
+    CLI's lines, on the same archive, after the group table."""
+    from tomahawk_tpu.cli import main as jax_main
+    vcf = str(tmp_path / "p.vcf")
+    make_vcf(vcf, n_samples=24, n_sites=30, miss_frac=0.02, seed=4)
+    twk = str(tmp_path / "p.twk")
+    assert jax_main(["import", "-i", vcf, "-o", twk]) == 0
+    capsys.readouterr()
+    lines = []
+    for run, extra in ((jax_main, ["--mesh", "off"]),
+                       (cli.main, ["--device", "cpu"])):
+        assert run(["calc", "-i", twk, "-o", str(tmp_path / "p.two"), "-r",
+                    "0.0", "--performance", *extra]) == 0
+        err = capsys.readouterr().err.splitlines()
+        head = next(i for i, ln in enumerate(err) if "min(ac) bucket" in ln)
+        lines.append([ln.split("[PERF] ", 1)[1] for ln in err[head:]
+                      if "[PERF]" in ln])
+        assert any("count-sweep rate" in ln for ln in err[:head])
+    assert len(lines[0]) > 2 and lines[0] == lines[1]
 
 
 @pytest.mark.parametrize("mode", ["phased", "mixed"])

@@ -57,7 +57,7 @@ COPIED = [
     "post/decay.py", "post/haplotype.py", "post/aggregate.py",
     "post/relationship.py",
     "compute/engine.py::_ckpt_config_key", "compute/engine.py::_ckpt_read",
-    "compute/engine.py::_ckpt_write",
+    "compute/engine.py::_ckpt_write", "compute/engine.py::report_performance",
 ]
 
 #: the lines that differ, (lines the original has more of, lines the

@@ -47,7 +47,7 @@ def test_every_module_imports_without_jax(tmp_path):
     # every .py below the package but its own __init__ and __main__
     modules = [f for f in PKG.rglob("*.py") if "_compat" not in f.parts
                and f not in (PKG / "__init__.py", PKG / "__main__.py")]
-    assert int(out.split()[-1]) == len(modules) == 49
+    assert int(out.split()[-1]) == len(modules) == 50
 
 
 def test_entry_points_import_without_the_jax_package(tmp_path):

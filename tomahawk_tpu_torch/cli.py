@@ -82,10 +82,16 @@ def _add_calc(sub):
                    help="print the per-sweep-group dispatch and timing "
                    "report (reference ComputePerformance analogue)")
     p.add_argument("--mesh", default="auto",
-                   help="'auto' or 'off': one device per process; 'dcn' "
-                   "(with --distributed): the packed-word axis spans the "
-                   "processes, process 0 writes the one output; P x S "
-                   "device meshes are not ported yet")
+                   help="'auto': every visible card as the pairs axis when "
+                   "there is more than one (one card a process under "
+                   "--distributed); 'off': one device; 'PxS': the first "
+                   "P*S cards as P pairs shards of S samples slices, a "
+                   "'cuda:' or 'cpu:' prefix picking the platform (under "
+                   "--distributed process k takes cards k*P*S up to "
+                   "(k+1)*P*S, modulo the count); 'dcn' or 'dcn:P' (with "
+                   "--distributed): the packed-word axis spans the "
+                   "processes, P cards each, process 0 writes the one "
+                   "output")
     p.add_argument("--tile-rows", type=int, default=0,
                    help="variants per super-block tile (0 = 4096)")
     p.add_argument("--tile-backend", default="auto",
@@ -94,8 +100,11 @@ def _add_calc(sub):
                    "CUDA kernels")
     p.add_argument("--backend", default="auto",
                    choices=("auto", "device", "cpu"),
-                   help="'cpu' (the native CPU tile engine) is not "
-                   "ported yet")
+                   help="'cpu': the native CPU tile engine, no card; "
+                   "'device': the card; 'auto': the CPU below the card's "
+                   "crossover of candidate pairs x haplotypes "
+                   "(compute/engine.py CPU_ROUTE_WORK, measured on an "
+                   "H100; TWK_CPU_ROUTE_WORK overrides it)")
     p.add_argument("-t", "--threads", type=int, default=0,
                    help="host threads for block unpacking (0 = all)")
     p.add_argument("-M", "--memory-gb", type=float, default=12.0,
@@ -107,7 +116,7 @@ def _add_calc(sub):
                    "keeps more of an input resident")
     p.add_argument("--distributed", action="store_true",
                    help="run as one process of a torch.distributed group, "
-                   "one device per process: the tile grid is partitioned "
+                   "on its share of the cards: the tile grid is partitioned "
                    "round-robin and each process writes out.pKofN.two "
                    "(with --mesh dcn the samples axis is sharded instead); "
                    "needs --coordinator, --num-processes, --process-id")

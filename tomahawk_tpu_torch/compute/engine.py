@@ -1,10 +1,12 @@
-"""LD on one GPU per process, all-vs-all or windowed (-w): phased (-p),
-unphased (-u) and mixed, in one process or several (--distributed).
+"""LD on the GPUs, all-vs-all or windowed (-w): phased (-p), unphased
+(-u) and mixed, on one device or a mesh of them, in one process or
+several (--distributed), or for small workloads on the CPU.
 
-The PyTorch port of tomahawk_tpu/compute/engine.py: its single-device
-path with its memory and pipeline layer, and its multi-process run modes
-over `torch.distributed` (parallel/distributed.py has the mapping from
-the JAX mesh). Variant blocks regroup into super-blocks of up to
+The PyTorch port of tomahawk_tpu/compute/engine.py: its device path with
+its memory and pipeline layer, its device meshes (parallel/mesh.py), its
+multi-process run modes over `torch.distributed` (parallel/
+distributed.py has the mapping from the JAX mesh) and its small-workload
+CPU route. Variant blocks regroup into super-blocks of up to
 `tile_rows` variants whose packed bit planes live on the device, and the
 block-pair tile grid -- every pair, or in window mode the pairs
 `Balancer.window_pairs` keeps -- is swept in segments, one (table,
@@ -33,14 +35,35 @@ the row has one) and emits .two records in segment order,
 while the main thread has the next segment's sweep in flight: two
 segments at a time where the card has room for a second sweep's buffers.
 
+Meshes (`--mesh auto` over several cards, `PxS`, `cpu:PxS`; `mesh=` a
+parallel.Mesh): the pairs axis splits each segment's tile list, padded
+to a multiple of 16 * P, into P contiguous slices that each shard sweeps
+on its own device into its own survivor buffer, and the host reads the
+shards' survivors in shard order, so the record stream is a single
+device's; the samples axis gives each device of a shard's row a slice of
+every word plane, and the row sums its local parts on its first device
+(parallel.SamplesGroup) before the epilogue and the compaction there.
+With S = 1 each shard's tiles run through the C tile loop on its own
+card; with S > 1 the tile loop is Python's.
+
+The CPU route (`_route_backend`): `--backend cpu`, or `auto` where the
+run's work (candidate pairs x haplotypes) is below the card's measured
+crossover (CPU_ROUTE_WORK, TWK_CPU_ROUTE_WORK overrides it), is decided
+once, before any device work, and runs the whole tile plan through the
+native CPU tile engine (compute/cpu_engine.py); a checkpointed routed
+run keeps the segment engine, on the CPU. It is not a fallback: a
+kernel that fails still raises.
+
 `--distributed` runs one process per device. By default the tile list is
 partitioned round-robin: rank k of N sweeps `pairs[k::N]`, loads only
 the super-blocks those touch (banded over them when they exceed the
 budget) and writes `out.pKofN.two` (`parallel.merge_shards` folds the
 shards). With `--mesh dcn` the packed-word axis spans the ranks instead:
 every rank holds 1/N of every word plane, all sweep every tile jointly
-(local parts, all-reduce, epilogue: sweeps.py), every rank derives the
-same records and rank 0 alone writes the one output. Every rank walks
+(local parts, all-reduce, epilogue: sweeps.py); each rank runs the host
+math of its slice of every segment's survivors, the records are gathered
+over gloo (`_dcn_records`), and rank 0 alone writes the one output.
+`--mesh dcn:P` gives each rank P cards, a local pairs axis. Every rank walks
 the same loads and tiles in the same order with the same caps and
 repair decisions, because those follow from the global counts, so the
 collectives stay aligned; such a run neither stages nor pipelines.
@@ -59,16 +82,15 @@ receives (`parallel.broadcast_resume`). The sidecar is removed once the
 output is complete.
 
 The host layer (file formats, balancer, exact statistics, the native
-library) is this package's own. What the JAX engine also does and this
-port does not yet -- P x S device meshes, the CPU route -- raises
-NotImplementedError naming the ROADMAP.md item that adds it. A
-kernel that fails to build or launch is an error, and so is a compaction
-fault: there is no fallback path. Only
+library) is this package's own. The JAX engine's XLA degradation ladder
+is not ported: a kernel that fails to build or launch is an error, and
+so is a compaction fault: there is no fallback path. Only
 the card running out of memory with two segments in flight is retried,
 one segment at a time on the same kernels.
 """
 
 import contextlib
+import dataclasses
 import datetime
 import os
 import threading
@@ -82,18 +104,21 @@ import numpy as np
 import torch
 
 from .. import __version__
-from ..device import resolve_device
+from ..device import on_device, resolve_device
 from ..io.twk import TwkReader
-from ..io.two import TwoWriter
+from ..io.two import TWO_DTYPE, TwoWriter
 from ..ops.bitpack import block_to_planes, stack_planes
 from ..ops.fisher_dev import host_p_from_bracket, log_factorial_table
 from ..ops.ld_math import (LdFilters, PairMeta, ld_records, phased_math,
                            unphased_math)
+from ..ops.tiles import tile_buffers
 from ..parallel import distributed as dist
+from ..parallel.mesh import SamplesGroup
 from ..utils import Timer, log, pretty_int
 from ..utils.progress import ProgressTicker
 from . import sweeps
 from .balancer import Balancer
+from .cpu_engine import run_native_cpu
 
 __all__ = ["CalcResult", "CalcSettings", "LdEngine", "compute_ld"]
 
@@ -131,9 +156,11 @@ class CalcSettings:
     # consecutive .twk blocks regroup into super-blocks of up to this
     # many variants (never spanning a contig change); 0 = 4096
     tile_rows: int = 0
-    # "auto", "off" or "": one device per process; "dcn" (with
-    # distributed): the packed-word axis spans the processes; anything
-    # else is rejected
+    # "auto": every visible card as the pairs axis when there is more
+    # than one (one card a process under --distributed); "off" or "":
+    # one device; "PxS", "cuda:PxS", "cpu:PxS": an explicit ('pairs',
+    # 'samples') mesh; "dcn" / "dcn:P" (with distributed): the
+    # packed-word axis spans the processes, P cards each
     mesh: str = "auto"
     # the user's budget for the packed planes on the device, GB (the
     # reference's calc -M); inputs whose planes exceed half of it stream
@@ -150,7 +177,9 @@ class CalcSettings:
     num_processes: int = -1
     process_id: int = -1
     tile_backend: str = "auto"    # anything but "auto" is rejected
-    backend: str = "auto"         # "cpu" is rejected
+    # "auto": workloads below the card's crossover run on the CPU
+    # (`_route_backend`); "device" / "cpu" force one side
+    backend: str = "auto"
     # in-run checkpoint/resume: the sidecar's path ("" = off) and the
     # seconds between its writes
     checkpoint: str = ""
@@ -297,10 +326,18 @@ def _plan_loads(super_ids, pairs, budget_supers: int, parts: int = 2):
 
 
 def report_performance(stats):
-    """Per-sweep-group dispatch and timing report, the analogue of the
+    """Per-kernel-config dispatch and timing report, the analogue of the
     reference's ComputePerformance / n_method counters
-    (reference: lib/ld/ld.cpp:878-1057, ld_engine.h:171-174,313), from
-    an engine's `stats` dict."""
+    (reference: lib/ld/ld.cpp:878-1057, ld_engine.h:171-174,313).
+    Accepts an LdEngine or a stats dict; with an engine, also prints
+    the per-allele-count histogram (the reference prints per-AC mean
+    cycles at ld.cpp:1047-1052; here: prefilter survivors and kept
+    records per log2 bucket of min(ac_a, ac_b), the same AC-resolved
+    view its kernel-crossover fits came from)."""
+    ac_hist = None
+    if isinstance(stats, LdEngine):
+        ac_hist = stats.ac_hist or None
+        stats = stats.stats
     log("LOG", f"{'config':<24}{'tiles':>8}{'cand pairs':>14}"
         f"{'prefilter pass':>15}{'count s':>9}{'extract s':>10}"
         f"{'math s':>8}{'records':>9}{'repair':>7}{'supp':>5}",
@@ -315,19 +352,30 @@ def report_performance(stats):
         if cs > 0 and s["n_cand"]:
             log("LOG", f"{'':<24}count-sweep rate "
                 f"{pretty_int(int(s['n_cand'] / cs))} pairs/s", sub="PERF")
+    if ac_hist:
+        log("LOG", f"{'min(ac) bucket':<18}{'survivors':>12}"
+            f"{'records':>10}{'kept %':>8}", sub="PERF")
+        for b in sorted(ac_hist):
+            s, k = ac_hist[b]
+            log("LOG", f"[{1 << b:>6}, {2 << b:>6}) "
+                f"{s:>15,}{k:>10,}{100.0 * k / max(s, 1):>7.1f}%",
+                sub="PERF")
 
 
 class LdEngine:
     """Device planes and the segment pipeline for one run configuration
-    on one device. `LdEngine(stacked, n_samples, settings, device)` makes
-    `stacked` (bitpack.stack_planes output) the single resident band;
-    `LdEngine(None, ..., B=B)` starts empty for banded streaming, where
-    `set_load` names the bands of each load. With `group` (a
-    parallel.ProcessGroup) the engine is one rank of a samples-sharded
-    run: it uploads slice `samples_rank` of `samples_size` of every word
-    plane and its sweeps sum each tile's parts over the group; every rank
-    of the group must then make the same calls in the same order, so such
-    an engine neither stages bands nor pipelines segments.
+    on one device or a mesh of them. `LdEngine(stacked, n_samples,
+    settings, device)` makes `stacked` (bitpack.stack_planes output) the
+    single resident band; `LdEngine(None, ..., B=B)` starts empty for
+    banded streaming, where `set_load` names the bands of each load.
+    With `mesh` (a parallel.Mesh) the engine drives the mesh's devices
+    (the module docstring says how); `device` is then not needed. With a
+    mesh that carries a process group (`parallel.make_dcn_mesh`) the
+    engine is one rank of a samples-sharded run: it uploads its rank's
+    slice of every word plane and its sweeps sum each tile's parts over
+    the group; every rank of the group must then make the same calls in
+    the same order, so such an engine neither stages bands nor pipelines
+    segments.
 
     Device planes are held per band (uploaded once while the band stays
     resident) and concatenated on the device once per load; the sweep's
@@ -358,21 +406,28 @@ class LdEngine:
                  "has_missing", "valid", "n_rec")
 
     def __init__(self, stacked: dict, n_samples: int,
-                 settings: CalcSettings, device, group=None,
-                 samples_rank: int = 0, samples_size: int = 1,
-                 B: int = None):
-        if (group is None) != (samples_size == 1) \
-                or not 0 <= samples_rank < samples_size:
-            raise ValueError(
-                f"samples slice {samples_rank} of {samples_size} "
-                f"{'with' if group is not None else 'without'} a process "
-                f"group: a sharded engine needs both")
-        self.group = group
-        self.word_slice = ((samples_rank, samples_size)
-                           if samples_size > 1 else None)
+                 settings: CalcSettings, device=None, B: int = None,
+                 mesh=None):
+        self.group = mesh.group if dist.mesh_is_multiprocess(mesh) else None
+        if self.group is not None:
+            # a dcn mesh: this process is its samples column `rank`
+            rank, S = self.group.rank, self.group.size
+            grid = [[(d, (rank, S))] for d in mesh.devices[:, rank]]
+        else:
+            devices = mesh.devices if mesh is not None else [[device]]
+            S = len(devices[0])
+            grid = [[(d, (s, S) if S > 1 else None)
+                     for s, d in enumerate(row)] for row in devices]
+        # (device, word slice) of every position of the mesh, by pairs
+        # shard: slice (s, S) of the samples axis, or None for whole planes
+        self._grid = [[(resolve_device(d), ws) for d, ws in row]
+                      for row in grid]
+        self._positions = [pos for row in self._grid for pos in row]
+        self.n_pair_shards = len(self._grid)
+        self.n_samples_shards = S
         self.settings = settings
         self.n_samples = n_samples
-        self.device = resolve_device(device)
+        self.device = self._grid[0][0][0]
         self.window = settings.l_window if settings.window else 0
         self.ticker = None           # optional ProgressTicker
         self._outcap = self.OUTCAP0
@@ -390,6 +445,18 @@ class LdEngine:
         self._lf_host = None
         # per-config dispatch statistics (report_performance reads them)
         self.stats = {}
+        # per-allele-count histogram (log2 buckets of min(ac_a, ac_b)):
+        # survivors and kept records per bucket, the analogue of the
+        # reference's AC-keyed twk_ld_perf cycle arrays
+        # (ld_engine.h:171-174, printed at ld.cpp:1047-1052). Filled only
+        # under settings.performance
+        self.ac_hist = {}
+        # samples-sharded runs: the survivor rows whose host math this
+        # rank ran, of all the survivor rows, and the seconds of math_s
+        # spent in the records' gathers (`_dcn_records`)
+        self.math_rows = 0
+        self.survivor_rows = 0
+        self.gather_s = 0.0
         # segment pipeline (run_group): one consumer thread handles the
         # dispatched segments in order while the main thread keeps the
         # device queue fed. After a consumer ran out of device memory
@@ -400,7 +467,7 @@ class LdEngine:
         self._serial_ok_streak = 0
         self._seg_error = None       # first consumer failure, if any
         self._seg_pool_ = None       # the consumer, a 1-thread pool
-        self._seg_stream = None      # its stream on a card
+        self._seg_streams = {}       # its stream on each card
         # survivor-buffer prefix rows per sweep group (_submit_segment)
         self._prefix_rows = {}
         # the depth gate's answers in the current group, by caps
@@ -433,7 +500,7 @@ class LdEngine:
         # time blocked on uploads; `wait_s`: main-thread time blocked on
         # an unfinished prefetch; `hidden_s`: the worker's upload time
         self._stage_pool = None
-        self._stage_stream = None
+        self._stage_streams = {}
         self._stage_futures = []
         self._seen_keys = set()
         self.stage_stats = dict(hidden_s=0.0, exposed_s=0.0, wait_s=0.0,
@@ -473,14 +540,25 @@ class LdEngine:
                                  - self.MAX_RESIDENT_BANDS)]:
                 self._evict_locked(b)
 
+    def _pad_samples_axis(self, host: dict) -> dict:
+        """The word planes of `host` padded to a multiple of the samples
+        shards, as the JAX engine pads them for a 'samples' axis (the
+        miss plane with ones: padding is "missing"), so every slice has
+        the same words."""
+        if self.n_samples_shards <= 1:
+            return host
+        return {k: sweeps.pad_words(v, k, self.n_samples_shards)
+                for k, v in host.items()}
+
     def _register_band(self, band_id, stacked):
+        host = self._pad_samples_axis({k: stacked[k]
+                                       for k in sweeps.DEV_KEYS})
         if self.B is None:
             self.B = stacked["alt_bits"].shape[1]
         elif stacked["alt_bits"].shape[1] != self.B:
             raise ValueError("band tile_rows mismatch")
         with self._stage_lock:
-            self._band_host[band_id] = {k: stacked[k]
-                                        for k in sweeps.DEV_KEYS}
+            self._band_host[band_id] = host
             self._band_meta[band_id] = {k: stacked[k]
                                         for k in self.META_KEYS}
             self._band_nb[band_id] = stacked["alt_bits"].shape[0]
@@ -495,12 +573,29 @@ class LdEngine:
         for key in [k for k in self._band_dev if k[1] == band_id]:
             self._band_dev.pop(key)
 
-    def _upload(self, k, host):
-        """Plane `k` of a band on the device, from the calling thread, on
-        its current stream: this rank's word slice in a samples-sharded
-        run (sweeps.planes_to_device)."""
-        return sweeps.planes_to_device({k: host}, self.device, (k,),
-                                       self.word_slice)[k]
+    def _mesh_upload(self, k, host, put=None):
+        """Plane `k` of a band on every position of the mesh, a list in
+        `_positions` order: a word plane cut to the position's slice of
+        the samples axis, metadata copied whole to each card. Positions
+        that share a device and a slice share one tensor. `put(device,
+        array)` makes a device tensor of the host array (`host_plane` of
+        the position's slice); by default an upload from the calling
+        thread on the device's current stream."""
+        out, made = [], {}
+        for dev, ws in self._positions:
+            key = (dev, ws if k in sweeps.WORD_KEYS else None)
+            if key not in made:
+                arr = sweeps.host_plane(host, k, ws)
+                with on_device(dev):
+                    made[key] = (put(dev, arr) if put is not None
+                                 else torch.from_numpy(arr).to(dev))
+            out.append(made[key])
+        return out
+
+    @staticmethod
+    def _nbytes(tensors) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in {id(t): t for t in tensors}.values())
 
     def _band_dev_get(self, k, band_id):
         key = (k, band_id)
@@ -511,34 +606,38 @@ class LdEngine:
                 return arr
             host = self._band_host[band_id][k]
         t0 = time.perf_counter()
-        arr = self._upload(k, host)
+        arr = self._mesh_upload(k, host)
         with self._stage_lock:
             self._band_dev[key] = arr
             self.n_band_uploads += 1
             self.stage_stats["exposed_s"] += time.perf_counter() - t0
-            self.stage_stats["bytes"] += arr.numel() * arr.element_size()
+            self.stage_stats["bytes"] += self._nbytes(arr)
             self.stage_stats["n_blocking"] += 1
         return arr
 
     # -- band staging (upload / compute overlap) -------------------------
-    def _stage_upload(self, k, host, compute_stream):
-        """Plane `k` uploaded on the staging worker's stream: from pinned
-        host memory, so that the copy overlaps the sweeps, and complete
-        when this returns (the worker publishes the tensor only then).
-        The tensor is marked as used on `compute_stream`, where the
-        sweeps read it, so that once evicted its memory goes back to the
-        staging stream's pool only after the kernels queued there."""
+    def _stage_upload(self, k, host, compute_streams):
+        """Plane `k` uploaded on the staging worker's stream of each card:
+        from pinned host memory, so that the copy overlaps the sweeps,
+        and complete when this returns (the worker publishes the tensors
+        only then). Each tensor is marked as used on its card's stream in
+        `compute_streams`, where the sweeps read it, so that once evicted
+        its memory goes back to the staging stream's pool only after the
+        kernels queued there."""
         if self.device.type != "cuda":
-            return self._upload(k, host)
-        src = torch.from_numpy(
-            sweeps.host_plane(host, k, self.word_slice)).pin_memory()
-        with torch.cuda.stream(self._stage_stream):
-            arr = src.to(self.device, non_blocking=True)
-        self._stage_stream.synchronize()
-        arr.record_stream(compute_stream)
-        return arr
+            return self._mesh_upload(k, host)
 
-    def stage_band(self, band_id, stacked, compute_stream=None):
+        def put(dev, arr):
+            stream = self._stage_streams[dev]
+            with torch.cuda.stream(stream):
+                out = torch.from_numpy(arr).pin_memory().to(
+                    dev, non_blocking=True)
+            stream.synchronize()
+            out.record_stream(compute_streams[dev])
+            return out
+        return self._mesh_upload(k, host, put)
+
+    def stage_band(self, band_id, stacked, compute_streams=None):
         """Register `stacked` as band `band_id` and push its device planes
         ahead of use, so the following `set_load` finds the band resident
         with its transfers done. Runs on the staging worker; evicts
@@ -563,12 +662,12 @@ class LdEngine:
                     continue
                 host = self._band_host[band_id][k]
             t0 = time.perf_counter()
-            arr = self._stage_upload(k, host, compute_stream)
+            arr = self._stage_upload(k, host, compute_streams)
             with self._stage_lock:
                 self._band_dev[(k, band_id)] = arr
                 self.n_band_uploads += 1
                 self.stage_stats["hidden_s"] += time.perf_counter() - t0
-                self.stage_stats["bytes"] += arr.numel() * arr.element_size()
+                self.stage_stats["bytes"] += self._nbytes(arr)
         self.stage_stats["n_prefetched"] += 1
 
     def stage_band_async(self, band_id, provider):
@@ -580,19 +679,21 @@ class LdEngine:
         stage: every rank uploads in program order on its main thread."""
         if band_id in self._band_meta or self.group is not None:
             return
-        compute_stream = None
+        compute_streams = None
         if self._stage_pool is None:
             self._stage_pool = ThreadPoolExecutor(
                 1, thread_name_prefix="twk-stage")
         if self.device.type == "cuda":
-            compute_stream = torch.cuda.current_stream(self.device)
-            if self._stage_stream is None:
-                self._stage_stream = torch.cuda.Stream(self.device)
+            compute_streams = {d: torch.cuda.current_stream(d)
+                               for d in self._cards()}
+            for d in self._cards():
+                if d not in self._stage_streams:
+                    self._stage_streams[d] = torch.cuda.Stream(d)
 
         def work():
-            with self._device_ctx():
+            with on_device(self.device):
                 if band_id not in self._band_meta:
-                    self.stage_band(band_id, provider(), compute_stream)
+                    self.stage_band(band_id, provider(), compute_streams)
         self._stage_futures.append((band_id, self._stage_pool.submit(work)))
 
     def stage_wait(self):
@@ -621,26 +722,40 @@ class LdEngine:
                 pool.shutdown(wait=True)
                 setattr(self, attr, None)
 
-    def _device_ctx(self):
-        """The engine's card as the calling thread's current device (a new
-        thread starts on card 0); nothing on the CPU."""
-        if self.device.type != "cuda":
-            return contextlib.nullcontext()
-        return torch.cuda.device(self.device)
+    def _cards(self) -> list:
+        """The distinct devices of the mesh, in position order."""
+        return list(dict.fromkeys(d for d, _ in self._positions))
 
-    def _dev_for(self, cfg) -> dict:
-        """The current load's device tensors for one sweep config: each
+    def _dev_for(self, cfg) -> list:
+        """The current load's device tensors for one sweep config, a dict
+        for each position of the mesh: [pairs shard][samples slice]. Each
         band's plane uploads on first use (a phased run never pays for
         the het/hom/valid planes), then the bands of the load are
-        concatenated on the device, once a load."""
-        out = {}
-        for k in sweeps.dev_keys_for(cfg):
+        concatenated on each device, once a load."""
+        keys = sweeps.dev_keys_for(cfg)
+        for k in keys:
             if k not in self._load_dev:
                 parts = [self._band_dev_get(k, b) for b in self._load_bands]
-                self._load_dev[k] = (parts[0] if len(parts) == 1
-                                     else torch.cat(parts))
-            out[k] = self._load_dev[k]
-        return out
+                made = {}
+                for q in range(len(self._positions)):
+                    src = [p[q] for p in parts]
+                    key = tuple(map(id, src))
+                    if key not in made:
+                        made[key] = src[0] if len(src) == 1 else torch.cat(src)
+                    self._load_dev.setdefault(k, []).append(made[key])
+        S = len(self._grid[0])
+        return [[{k: self._load_dev[k][p * S + s] for k in keys}
+                 for s in range(S)] for p in range(self.n_pair_shards)]
+
+    def _row_cfg(self, cfg, row: list) -> dict:
+        """The sweep config of one pairs shard whose samples slices hold
+        `row` (a `_dev_for` row): with S > 1 on a local mesh, the row's
+        SamplesGroup, with tile buffers of its own on each peer's
+        device."""
+        if len(row) == 1:
+            return cfg
+        return dict(cfg, psum_group=SamplesGroup(
+            (d, tile_buffers(cfg, d["valid"].device)) for d in row[1:]))
 
     def _cfg(self, table, has_missing, cls):
         s = self.settings
@@ -665,12 +780,14 @@ class LdEngine:
             extract_s=0.0, math_s=0.0, n_supp=0, n_repair=0))
 
     def _segment_size(self, n_tiles: int) -> int:
-        """Tiles per segment: at most settings.sweep_segment, at least
-        16, and small enough to split the group into about
-        PIPELINE_SEGMENTS pieces (the JAX engine's rule)."""
-        seg = max(self.settings.sweep_segment, 16)
-        want = _round_up(-(-n_tiles // self.PIPELINE_SEGMENTS), 16)
-        return max(16, min(seg, want))
+        """Tiles per segment: at most settings.sweep_segment, at least one
+        quantum of 16 a pairs shard, and small enough to split the group
+        into about PIPELINE_SEGMENTS pieces (the JAX engine's rule; the
+        checkpoint key holds the same quantum)."""
+        quant = 16 * self.n_pair_shards
+        seg = max(self.settings.sweep_segment, quant)
+        want = _round_up(-(-n_tiles // self.PIPELINE_SEGMENTS), quant)
+        return max(quant, min(seg, want))
 
     # -- the segment pipeline --------------------------------------------
     def _seg_pool(self):
@@ -678,7 +795,8 @@ class LdEngine:
             self._seg_pool_ = ThreadPoolExecutor(
                 1, thread_name_prefix="twk-seg")
             if self.device.type == "cuda":
-                self._seg_stream = torch.cuda.Stream(self.device)
+                self._seg_streams = {d: torch.cuda.Stream(d)
+                                     for d in self._cards()}
         return self._seg_pool_
 
     def _pipeline_depth(self, cfg) -> int:
@@ -686,9 +804,9 @@ class LdEngine:
         ...); 2 keeps the device sweeping segment k+1 while the consumer
         thread reads back, repairs, does the host math of and emits
         segment k. Gated on device memory for a second sweep's buffers
-        and on the survivor buffer's size. A samples-sharded engine stays
-        serial: its collectives are issued from one thread in program
-        order on every rank."""
+        and on the survivor buffer's size. An engine whose samples axis
+        spans processes stays serial: its collectives are issued from one
+        thread in program order on every rank. A local mesh pipelines."""
         if self.group is not None or not self._pipeline_enabled:
             return 1
         if self._outcap > (1 << 21):
@@ -702,19 +820,24 @@ class LdEngine:
         return 2 if self._headroom[key] else 1
 
     def _prefetch_headroom_ok(self, cfg) -> bool:
-        """Whether the card can hold a second sweep in flight: its tile
+        """Whether every card can hold a second sweep in flight: its tile
         buffers, counts buffer, compaction scratch and survivor buffer
-        (sweeps.sweep_bytes), with a 2.5x margin, against the free device
-        memory and what PyTorch's allocator holds unused. The CPU has no
-        such limit here."""
+        (sweeps.sweep_bytes) for each position of the mesh on the card,
+        with a 2.5x margin, against the free device memory and what
+        PyTorch's allocator holds unused. The CPU has no such limit
+        here."""
         if self.device.type != "cuda":
             return True
-        free, _ = torch.cuda.mem_get_info(self.device)
-        free += torch.cuda.memory_reserved(self.device) \
-            - torch.cuda.memory_allocated(self.device)
         cap = min(self._fused_cap, self.B * self.B)
         need = sweeps.sweep_bytes(cfg, max(self._outcap, 2 * cap))
-        return free > 2.5 * need
+        for dev in self._cards():
+            free, _ = torch.cuda.mem_get_info(dev)
+            free += torch.cuda.memory_reserved(dev) \
+                - torch.cuda.memory_allocated(dev)
+            n = sum(d == dev for d, _ in self._positions)
+            if free <= 2.5 * need * n:
+                return False
+        return True
 
     def run_group(self, tiles, table, has_missing, cls, filt, emit) -> int:
         """Sweep one (table, missing, cls) tile group in segments; returns
@@ -823,15 +946,15 @@ class LdEngine:
         """The consumer thread's wrapper of `_run_segment`: skip (without
         emitting) when an earlier segment failed, so emission stays in
         segment order. Its device work (the supplementary rows, repairs)
-        goes on the consumer's own stream, so it never waits behind the
-        next segment's sweep."""
+        goes on the consumer's own stream of each card, so it never
+        waits behind the next segment's sweep."""
         if self._seg_error is not None:
             return 0
         try:
-            with self._device_ctx(), (
-                    torch.cuda.stream(self._seg_stream)
-                    if self._seg_stream is not None
-                    else contextlib.nullcontext()):
+            with contextlib.ExitStack() as ctx:
+                ctx.enter_context(on_device(self.device))
+                for stream in self._seg_streams.values():
+                    ctx.enter_context(torch.cuda.stream(stream))
                 return self._run_segment(tiles, cfg, filt, emit, state=state)
         except BaseException as e:
             self._seg_error = e
@@ -839,44 +962,60 @@ class LdEngine:
 
     # -- one segment -----------------------------------------------------
     def _dispatch_fused(self, tiles, cfg) -> dict:
-        """Enqueue one segment's fused sweep; nothing waits for it."""
-        pi = np.array([t[0] for t in tiles], np.int32)
-        pj = np.array([t[1] for t in tiles], np.int32)
-        dg = np.array([t[2] for t in tiles], bool)
-        dev = self._dev_for(cfg)
+        """Enqueue one segment's fused sweep on every pairs shard; nothing
+        waits for it. With P > 1 shards the tile list is padded to a
+        multiple of 16 * P with dead tiles (the JAX engine's padding) and
+        shard p sweeps the p-th of P contiguous slices on its row's
+        devices, into its own survivor buffer."""
+        P = self.n_pair_shards
+        T = len(tiles)
+        Tpad = T if P == 1 else _round_up(T, 16 * P)
+        pad = Tpad - T
+        pi = np.array([t[0] for t in tiles] + [0] * pad, np.int32)
+        pj = np.array([t[1] for t in tiles] + [0] * pad, np.int32)
+        dg = np.array([t[2] for t in tiles] + [True] * pad, bool)
+        live = np.arange(Tpad) < T
+        devs = self._dev_for(cfg)
         cap = min(self._fused_cap, self.B * self.B)
         outcap = max(self._outcap, 2 * cap)
-        n_pass, n_cand, buf = sweeps.fused_sweep(
-            dev, pi, pj, dg, np.ones(len(tiles), bool), cfg=cfg, cap=cap,
-            outcap=outcap)
-        return dict(n_pass=n_pass, n_cand=n_cand, buf=buf, dev=dev, pi=pi,
-                    pj=pj, dg=dg, cap=cap, outcap=outcap,
-                    stacked=self.stacked)
+        per = Tpad // P
+        shards = []
+        for p, row in enumerate(devs):
+            sl = slice(p * per, (p + 1) * per)
+            with on_device(self._grid[p][0][0]):
+                n_pass, n_cand, buf = sweeps.fused_sweep(
+                    row[0], pi[sl], pj[sl], dg[sl], live[sl],
+                    cfg=self._row_cfg(cfg, row), cap=cap, outcap=outcap)
+            shards.append(dict(n_pass=n_pass, n_cand=n_cand, buf=buf))
+        return dict(shards=shards, devs=devs, pi=pi, pj=pj, dg=dg, per=per,
+                    cap=cap, outcap=outcap, stacked=self.stacked)
 
     def _submit_segment(self, tiles, cfg) -> dict:
-        """Dispatch one segment's fused sweep and, on the same stream right
-        behind it, copy its counts and the first X rows of its survivor
-        buffer into pinned host memory (X from this group's recent
-        survivor volume, so the copies depend on nothing the host has
-        yet to read), then record one event. The consumer waits on that
-        event, not on the stream: a host read issued after the next
-        segment is enqueued would wait for that whole sweep. Rows past
-        the prefix are pulled with one exact supplementary copy once the
-        counts are known."""
+        """Dispatch one segment's fused sweep and, on each shard's stream
+        right behind it, copy its counts and the first X rows of its
+        survivor buffer into pinned host memory (X from this group's
+        recent survivor volume, so the copies depend on nothing the host
+        has yet to read), then record one event a shard. The consumer
+        waits on those events, not on the streams: a host read issued
+        after the next segment is enqueued would wait for that whole
+        sweep. Rows past the prefix are pulled with one exact
+        supplementary copy once the counts are known."""
         st = self._dispatch_fused(tiles, cfg)
         key = (cfg["table"], cfg["has_missing"], cfg["cls"])
-        X = min(self._prefix_rows.get(key, self.PREFIX_ROWS0), st["outcap"])
-        src = (st["n_pass"], st["n_cand"], st["buf"][:X])
-        st["X"], st["event"] = X, None
-        if st["buf"].is_cuda:
-            host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                    for x in src]
-            for h, x in zip(host, src):
-                h.copy_(x, non_blocking=True)
-            st["event"] = torch.cuda.Event()
-            st["event"].record(torch.cuda.current_stream(self.device))
-            src = host
-        st["host"] = src
+        X = st["X"] = min(self._prefix_rows.get(key, self.PREFIX_ROWS0),
+                          st["outcap"])
+        for sh, row in zip(st["shards"], self._grid):
+            src = (sh["n_pass"], sh["n_cand"], sh["buf"][:X])
+            sh["event"] = None
+            if sh["buf"].is_cuda:
+                host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                        for x in src]
+                for h, x in zip(host, src):
+                    h.copy_(x, non_blocking=True)
+                sh["event"] = torch.cuda.Event()
+                sh["event"].record(torch.cuda.current_stream(row[0][0]))
+                src = host
+            sh["host"] = src
         return st
 
     def _run_segment(self, tiles, cfg, filt, emit, state=None) -> int:
@@ -884,7 +1023,9 @@ class LdEngine:
         (prefix, supplementary rows, and the exact-offset repair of what
         the fused pass could not hold), run the exact host math and emit
         records. Runs on the consumer thread in pipelined mode, inline
-        otherwise; `state=None` dispatches the sweep here (serial)."""
+        otherwise; `state=None` dispatches the sweep here (serial). The
+        pairs shards' rows are taken in shard order, each at the offsets
+        of its own running sum."""
         if not tiles:
             return 0
         stat = self._stat(cfg)
@@ -892,12 +1033,15 @@ class LdEngine:
         B = self.B
         t0 = time.perf_counter()
         st = state if state is not None else self._submit_segment(tiles, cfg)
-        pi, pj, dg, buf = st["pi"], st["pj"], st["dg"], st["buf"]
+        pi, pj, dg, per = st["pi"], st["pj"], st["dg"], st["per"]
         cap, outcap, X = st["cap"], st["outcap"], st["X"]
-        if st["event"] is not None:
-            st["event"].synchronize()
+        for sh in st["shards"]:
+            if sh["event"] is not None:
+                sh["event"].synchronize()
         # the segment's one wait: its counts, read from the pinned copies
-        n_pass, n_cand = sweeps.host_counts(*st["host"][:2])
+        counts = [sweeps.host_counts(*sh["host"][:2]) for sh in st["shards"]]
+        n_pass = np.concatenate([c[0] for c in counts])
+        n_cand = np.concatenate([c[1] for c in counts])
         stat["count_s"] += time.perf_counter() - t0
         total_cand = int(n_cand.sum())
         stat["n_cand"] += total_cand
@@ -909,33 +1053,42 @@ class LdEngine:
             return total_cand
         stat["n_pass"] += int(n_pass.sum())
 
-        # the fused rows of intact tiles: below the spill boundary and
-        # within the per-tile cap; the rest are repaired
+        # the fused rows of intact tiles: below the spill boundary of
+        # their shard's buffer and within the per-tile cap; the rest are
+        # repaired
         t0 = time.perf_counter()
+        shard_of = np.arange(len(n_pass)) // per
         offs = np.cumsum(n_pass) - n_pass
+        offs -= np.concatenate([[0], np.cumsum(n_pass)])[shard_of * per]
         ok = (n_pass <= cap) & (offs + n_pass <= outcap - cap)
         rows_by_tile = {}
-        sel = np.flatnonzero(ok & (n_pass > 0))
-        end = 0
-        if len(sel):
+        max_end = 0
+        for p, sh in enumerate(st["shards"]):
+            sel = np.flatnonzero(ok[p * per:(p + 1) * per]
+                                 & (n_pass[p * per:(p + 1) * per] > 0))
+            if not len(sel):
+                continue
+            sel += p * per
             end = int(offs[sel[-1]] + n_pass[sel[-1]])
-            host = st["host"][2].numpy()[:end]
+            max_end = max(max_end, end)
+            host = sh["host"][2].numpy()[:end]
             if end > X:
                 stat["n_supp"] += 1
-                host = np.concatenate([host, buf[X:end].cpu().numpy()])
+                host = np.concatenate([host, sh["buf"][X:end].cpu().numpy()])
             for t in sel:
                 rows_by_tile[int(t)] = host[offs[t]:offs[t] + n_pass[t]]
         # adapt the prefix so the next segments of this group fit it:
         # grow at once, shrink by halves
         key = (cfg["table"], cfg["has_missing"], cfg["cls"])
         cur = self._prefix_rows.get(key, self.PREFIX_ROWS0)
-        want = min(_round_up(max(2048, end + (end >> 4)), 8192), 1 << 20)
+        want = min(_round_up(max(2048, max_end + (max_end >> 4)), 8192),
+                   1 << 20)
         self._prefix_rows[key] = max(want, cur // 2)
         bad = np.flatnonzero((n_pass > 0) & ~ok)
         ncol = sweeps.buf_cols(cfg)
         if len(bad):
-            rep = self._repair(st["dev"], cfg, stat, pi, pj, dg, bad,
-                               n_pass[bad], cap)
+            rep = self._repair(st["devs"], cfg, stat, pi, pj, dg, bad,
+                               n_pass[bad], cap, per)
             if sweeps.fisher_cols(cfg):
                 # repair rows carry no bracket: pad them to the fused width
                 rep = {t: np.concatenate([r, np.zeros((len(r), 1), np.int32)],
@@ -963,17 +1116,25 @@ class LdEngine:
             data = self._unphased_table_from_parts(stacked, parts, bi, bj,
                                                    k, l)
         p_pre = self._fisher_p(cfg, rows, data, n_pass, hit[tile_of], bad,
-                               filt)
-        out = ld_records(table, data, meta, filt, p_pre=p_pre)
-        if out is not None:
-            recs, rev = out[0], out[1]
-        elif table == "phased":
-            recs, _ = phased_math(data, meta, filt)
-            rev = None
+                               filt, per)
+        kept_idx = None
+        if self.group is not None:
+            # every rank holds the same survivor rows: each runs the math
+            # of its slice and the records are gathered
+            recs, rev = self._dcn_records(table, data, meta, filt, p_pre)
         else:
-            recs = unphased_math(data, meta, filt)
-            rev = None
+            out = ld_records(table, data, meta, filt, p_pre=p_pre)
+            if out is not None:
+                recs, rev, kept_idx = out
+            elif table == "phased":
+                recs, kept_idx = phased_math(data, meta, filt)
+                rev = None
+            else:
+                recs = unphased_math(data, meta, filt)
+                rev = None
         stat["math_s"] += time.perf_counter() - t0
+        if self.settings.performance:
+            self._tally_ac(meta, kept_idx)
         stat["n_records"] += len(recs)
         emit(recs, rev)
         if self.ticker:
@@ -981,15 +1142,19 @@ class LdEngine:
         self._finish_segment()
         return total_cand
 
-    def _fisher_p(self, cfg, rows, data, n_pass, row_tile, bad, filt):
+    def _fisher_p(self, cfg, rows, data, n_pass, row_tile, bad, filt,
+                  per=None):
         """P of each row from its in-sweep Fisher bracket (NaN: the native
         kernel computes it), or None where the segment carries none. The
-        device's volume gate mirrored from the same integer n_pass; rows
-        of repaired tiles carry no bracket."""
-        if not sweeps.fisher_on(cfg) \
-                or int(n_pass.sum()) < sweeps.FISHER_MIN_ROWS:
+        device's volume gate of each pairs shard (its `per` tiles; one
+        shard by default) mirrored from the same integer n_pass; rows of
+        repaired tiles carry no bracket."""
+        if not sweeps.fisher_on(cfg):
             return None
-        valid = ~np.isin(row_tile, bad)
+        per = per or len(n_pass)
+        shard_ok = n_pass.reshape(-1, per).sum(axis=1) \
+            >= sweeps.FISHER_MIN_ROWS
+        valid = shard_ok[row_tile // per] & ~np.isin(row_tile, bad)
         if not valid.any():
             return None
         if sweeps.fisher_packed(cfg):
@@ -1009,6 +1174,62 @@ class LdEngine:
         self.units_done += 1
         if self.on_segment is not None:
             self.on_segment()
+
+    def _tally_ac(self, meta: PairMeta, kept_idx):
+        """Accumulate the per-allele-count histogram: log2 bucket of
+        min(ac_a, ac_b) -> [survivors, records]. See ac_hist."""
+        mn = np.asarray(np.minimum(meta.ac_a, meta.ac_b), np.int64)
+        if len(mn) == 0:
+            return
+        buck = np.frexp(np.maximum(mn, 1).astype(np.float64))[1] - 1
+        surv = np.bincount(buck)
+        kept = (np.bincount(buck[np.asarray(kept_idx, np.int64)],
+                            minlength=len(surv))
+                if kept_idx is not None and len(kept_idx)
+                else np.zeros(len(surv), np.int64))
+        for i in range(len(surv)):
+            if surv[i]:
+                h = self.ac_hist.setdefault(int(i), [0, 0])
+                h[0] += int(surv[i])
+                h[1] += int(kept[i])
+
+    def _dcn_records(self, table, data, meta: PairMeta, filt, p_pre=None):
+        """The host math of a samples-sharded segment split over the
+        ranks: each runs the survivor -> record pipeline on its
+        contiguous slice of the K rows (and of the in-sweep P), and the
+        variable-length record chunks and their reverses are gathered in
+        rank order over the host group (`parallel.allgather_records`), so
+        every rank ends with the record stream one process would have
+        made. A rank whose slice is empty still joins the gathers."""
+        grp = self.group
+        K = len(data)
+        step = -(-K // grp.size)
+        lo = min(K, grp.rank * step)
+        hi = min(K, lo + step)
+        self.math_rows += hi - lo
+        self.survivor_rows += K
+        if hi <= lo:
+            recs = rev = np.empty(0, TWO_DTYPE)
+        else:
+            sl = slice(lo, hi)
+            meta_sl = PairMeta(**{f.name: getattr(meta, f.name)[sl]
+                                  for f in dataclasses.fields(PairMeta)})
+            out = ld_records(table, data[sl], meta_sl, filt,
+                             p_pre=None if p_pre is None else p_pre[sl])
+            if out is not None:
+                recs, rev = out[0], out[1]
+            elif table == "phased":
+                recs, _ = phased_math(data[sl], meta_sl, filt)
+                rev = None
+            else:
+                recs = unphased_math(data[sl], meta_sl, filt)
+                rev = None
+            if rev is None:
+                rev = _reverse_records(recs)
+        t0 = time.perf_counter()
+        out = dist.allgather_records((recs, rev), grp)
+        self.gather_s += time.perf_counter() - t0
+        return out
 
     def _phased_counts_from_parts(self, parts, meta) -> np.ndarray:
         """[K, 4] (REFREF, REFALT, ALTREF, ALTALT) int64 from the raw
@@ -1052,28 +1273,36 @@ class LdEngine:
             rows[:, c] = col
         return rows.reshape(-1, 3, 3)
 
-    def _repair(self, dev, cfg, stat, pi, pj, dg, bad, ns_bad, cap):
+    def _repair(self, devs, cfg, stat, pi, pj, dg, bad, ns_bad, cap, per):
         """Re-sweep the tiles that overflowed the cap or spilled the
-        buffer, at exact offsets; adapt the caps so later segments of
-        this regime compact in the fused pass."""
+        buffer, at exact offsets, each on the devices of the pairs shard
+        that owns it (`per` tiles a shard); adapt the caps so later
+        segments of this regime compact in the fused pass."""
         B = self.B
         stat["n_repair"] += len(bad)
         if (ns_bad <= cap).any():
-            # a tile spilled the shared buffer: grow it
+            # a tile spilled its shard's buffer: grow it
             self._outcap = min(self._outcap * 4, 1 << 23)
         over = int(ns_bad.max())
         if over > cap:
             self._fused_cap = min(_bucket(over, self.FUSED_CAP),
                                   self.FUSED_CAP_MAX, B * B)
         rcap = min(_bucket(over, 1024), B * B)
-        total = int(ns_bad.sum())
-        hoff = np.cumsum(ns_bad) - ns_bad
-        rbuf = sweeps.extract_sweep(dev, pi[bad], pj[bad], dg[bad], hoff,
-                                    cfg=cfg, cap=rcap,
-                                    outcap=_bucket(total + rcap, 16384))
-        host = rbuf[:total].cpu().numpy()
-        return {int(t): host[o:o + n]
-                for t, o, n in zip(bad, hoff, ns_bad)}
+        out = {}
+        for p in np.unique(bad // per):
+            sel = bad // per == p
+            tiles, ns = bad[sel], ns_bad[sel]
+            total = int(ns.sum())
+            hoff = np.cumsum(ns) - ns
+            with on_device(self._grid[p][0][0]):
+                rbuf = sweeps.extract_sweep(
+                    devs[p][0], pi[tiles], pj[tiles], dg[tiles], hoff,
+                    cfg=self._row_cfg(cfg, devs[p]), cap=rcap,
+                    outcap=_bucket(total + rcap, 16384))
+            host = rbuf[:total].cpu().numpy()
+            out.update({int(t): host[o:o + n]
+                        for t, o, n in zip(tiles, hoff, ns)})
+        return out
 
     # -- public API ------------------------------------------------------
     def run_phased_pairs(self, pairs, has_missing, filt, emit):
@@ -1154,26 +1383,68 @@ def run_loads(engine: LdEngine, bands, loads, provider, mode: str,
 
 
 def _check_settings(settings: CalcSettings):
-    """Raise for run options outside this slice of the port, naming the
-    ROADMAP.md queue 1 item that adds each."""
-    mesh = settings.mesh or "off"
-    unported = (
-        (mesh not in ("auto", "off", "dcn"),
-         f"--mesh {settings.mesh} (device meshes beyond one device per "
-         f"process, P x S rank grids)", 15),
-        (settings.backend == "cpu", "--backend cpu", 14),
-    )
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to the GPU engine yet "
-                f"(ROADMAP.md queue 1 item {item})")
-    if mesh == "dcn" and not settings.distributed:
+    """Raise for run options this engine does not take."""
+    if _is_dcn(settings) and not settings.distributed:
         raise ValueError("mesh 'dcn' needs a multi-process run "
                          "(use --distributed)")
     if settings.tile_backend != "auto":
         raise ValueError("--tile-backend selects a JAX tile path; the "
                          "port has one: its CUDA kernels")
+
+
+def _is_dcn(settings: CalcSettings) -> bool:
+    return (settings.mesh or "off").split(":")[0] == "dcn"
+
+
+#: the work (candidate pairs x haplotypes) below which `--backend auto`
+#: runs `calc` on the CPU: the lower of the two crossovers measured,
+#: where the native CPU tile engine's compute_ld wall in a fresh `calc
+#: --backend cpu` process meets the card's (`--backend device`), medians
+#: of three at 2,504 samples, NVIDIA H100 80GB HBM3 at 700.00 W beside 8
+#: host cores (`python3 chip_smoke.py crossover`): the mixed dispatch on
+#: archives with missing data, 7.75e9 (1,024 and 2,048 sites either
+#: side), and `calc -p` on phased archives without, 5.72e10 (4,096 and
+#: 8,192 sites). Below the lower one the CPU finished first in both; a
+#: phased run between the two takes the card at up to ~0.6 s more
+CPU_ROUTE_WORK = 7.7e9
+
+
+def _route_backend(settings: CalcSettings, est_pairs: int, n_samples: int,
+                   n_procs: int, dcn: bool = False, device="cuda",
+                   mesh=None) -> bool:
+    """True when this run should execute on the CPU: the JAX engine's
+    rule with the device in place of its platform check. The card pays a
+    fixed price (the process's CUDA start, the kernel library's load,
+    the planes' upload) that small workloads never amortize, and the
+    native CPU tile engine computes about est_pairs * 2N pair-haplotype
+    operations, so below the crossover CPU_ROUTE_WORK (the
+    TWK_CPU_ROUTE_WORK environment variable overrides it) the CPU
+    finishes first. `--backend device` / `cpu` force one side; an
+    explicit mesh (a spec other than auto and off, or `mesh`, a
+    parallel.Mesh) stays on its devices; a run on the CPU is there
+    already; a dcn mesh never routes, and raises for `--backend cpu`.
+    `device` is the run's device, so a route can be decided for a card
+    that is not there."""
+    b = getattr(settings, "backend", "auto")
+    if dcn:
+        # the dcn mesh's purpose is device planes sharded over
+        # processes; routing to host CPU would defeat it
+        if b == "cpu":
+            raise ValueError("--backend cpu is incompatible with a dcn "
+                             "mesh (its device planes span processes); "
+                             "use the default distributed mode")
+        return False
+    if b == "cpu":
+        return True
+    if b != "auto":
+        return False
+    if mesh is not None or settings.mesh not in ("auto", "off", ""):
+        return False          # an explicit device mesh wins
+    if torch.device(device).type != "cuda":
+        return False          # already on the host
+    work = est_pairs * 2 * n_samples
+    limit = float(os.environ.get("TWK_CPU_ROUTE_WORK", CPU_ROUTE_WORK))
+    return work < limit
 
 
 def _ckpt_config_key(settings: CalcSettings, seg_effective: int,
@@ -1261,7 +1532,7 @@ def _ckpt_write(path: str, config_key: str, units: int, n_pairs: int,
     _os.replace(tmp, path)
 
 
-def _resume_state(settings, proc_id, n_procs, dcn):
+def _resume_state(settings, proc_id, n_procs, dcn, n_pair_shards=1):
     """(sidecar path, config key, the state to resume from or None). A
     tile-partition rank keeps a sidecar of its own (`PATH.pKofN`); in a
     dcn run rank 0 owns the one output and the one sidecar, and every
@@ -1269,11 +1540,13 @@ def _resume_state(settings, proc_id, n_procs, dcn):
     same segments and the collectives stay aligned. Every rank of a
     multi-process run passes the resume barrier once each has read and
     validated its sidecar: a rank whose check failed fails every rank
-    there, before any writes."""
+    there, before any writes. The key holds the segment size's quantum,
+    16 a pairs shard of the mesh (`LdEngine._segment_size`)."""
     path = settings.checkpoint
     if n_procs > 1 and not dcn:
         path = f"{path}.p{proc_id}of{n_procs}"
-    key = _ckpt_config_key(settings, max(settings.sweep_segment, 16),
+    key = _ckpt_config_key(settings,
+                           max(settings.sweep_segment, 16 * n_pair_shards),
                            0 if dcn else proc_id, n_procs)
 
     def read():
@@ -1298,19 +1571,30 @@ def _resume_state(settings, proc_id, n_procs, dcn):
     return path, key, ck
 
 
-def compute_ld(settings: CalcSettings, device="cuda") -> CalcResult:
-    """`calc` on one device per process (`cuda`, or `cpu` for the plain
-    versions). With `settings.distributed` this process is one rank of
-    the run: `cuda` is then the rank's share of the visible cards
-    (`parallel.rank_device`)."""
+def compute_ld(settings: CalcSettings, device="cuda",
+               mesh=None) -> CalcResult:
+    """`calc` on `device` (`cuda`, or `cpu` for the plain versions), or
+    on the mesh `settings.mesh` names (`parallel.resolve_mesh`), or on
+    `mesh`, a parallel.Mesh (over an explicit device list: a device may
+    repeat), which takes the place of settings.mesh in a single-process
+    run. Small workloads may run on the CPU (`_route_backend`). With
+    `settings.distributed` this process is one rank of the run: `cuda`
+    is then the rank's share of the visible cards
+    (`parallel.process_devices`)."""
     _check_settings(settings)
     if settings.window and settings.n_chunks != 1:
         raise ValueError("cannot use chunking in window mode")
+    if mesh is not None and settings.distributed:
+        raise ValueError("an explicit mesh is a single-process run's; "
+                         "under --distributed give settings.mesh")
     timer = Timer()
     proc_id, n_procs = 0, 1
+    if settings.backend == "cpu":
+        device = "cpu"        # needs no card
     if settings.distributed:
-        device = resolve_device(dist.rank_device(device,
-                                                 settings.process_id))
+        # the rank's own card: the first of its share under the mesh spec
+        device = resolve_device(dist.process_devices(
+            device, settings.process_id, settings.mesh)[0])
         proc_id, n_procs = dist.init_distributed(
             settings.coordinator, settings.num_processes,
             settings.process_id, device)
@@ -1320,10 +1604,9 @@ def compute_ld(settings: CalcSettings, device="cuda") -> CalcResult:
         log("LOG", f"Opening {settings.input}...", sub="READER")
         reader = TwkReader(settings.input)
         try:
-            with (torch.cuda.device(device) if device.type == "cuda"
-                  else contextlib.nullcontext()):
+            with contextlib.ExitStack() as on_card:
                 return _compute(settings, device, reader, timer, proc_id,
-                                n_procs)
+                                n_procs, mesh, on_card)
         finally:
             reader.close()
     finally:
@@ -1343,8 +1626,11 @@ def _plane_budget(settings, n_samples, B, n_samp_shards):
             per_super)
 
 
-def _compute(settings, device, reader, timer, proc_id,
-             n_procs) -> CalcResult:
+def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
+             on_card) -> CalcResult:
+    """The run of `compute_ld`; `on_card` (an ExitStack) takes the card
+    as the current device once the route is decided, so a run routed to
+    the CPU never starts CUDA."""
     n_samples = reader.header.n_samples
     log("LOG", f"Samples: {pretty_int(n_samples)}...")
     block_ids = list(range(reader.index.n))
@@ -1373,7 +1659,7 @@ def _compute(settings, device, reader, timer, proc_id,
     # sweeps every tile jointly, one output file written by process 0.
     # Otherwise a distributed run partitions the tile grid, one shard
     # per process.
-    dcn = settings.mesh == "dcn"
+    dcn = _is_dcn(settings)
     if dcn and n_procs < 2:
         raise ValueError("mesh 'dcn' needs a multi-process run "
                          "(--num-processes >= 2)")
@@ -1389,12 +1675,33 @@ def _compute(settings, device, reader, timer, proc_id,
         f"(<= {tile_rows} variants each) in "
         f"{'window' if settings.window else 'square'} mode...",
         sub="BALANCING")
+    # upper bound of the pairs the (windowed) tile list holds
+    est = sum(B * (B - 1) // 2 if d else B * B for _, _, d in pairs)
+    # the route is decided once, here, before any device work
+    cpu_route = _route_backend(settings, est, n_samples, n_procs, dcn,
+                               device, mesh)
+    if cpu_route:
+        log("LOG", f"Workload below the device crossover "
+            f"(~{pretty_int(est)} pairs x {pretty_int(2 * n_samples)} "
+            f"haplotypes): running on the CPU (--backend device overrides)",
+            sub="ENGINE")
+        device, mesh = torch.device("cpu"), None
+    elif mesh is None:
+        mesh = dist.resolve_mesh(settings.mesh, local_only=n_procs > 1,
+                                 device=device, rank=proc_id)
+    if mesh is not None:
+        log("LOG", f"Device mesh: {mesh.shape}", sub="MESH")
+    on_card.enter_context(on_device(device))
+    # the native CPU tile engine takes the whole tile plan at once; a
+    # checkpointed routed run keeps the segment engine (its resume unit),
+    # on the CPU
+    native = cpu_route and not settings.checkpoint and bool(pairs)
 
     # band the super-blocks when their planes exceed the budget
     # (low-memory streaming, the reference's calc -M); the staging worker
     # needs a third resident band, so bands shrink to a third of it
-    budget, per_super = _plane_budget(settings, n_samples, B,
-                                      n_procs if dcn else 1)
+    budget, per_super = _plane_budget(
+        settings, n_samples, B, mesh.shape["samples"] if mesh else 1)
     prefetch_on = settings.stage_prefetch and not dcn \
         and len(super_ids) > budget
     bands, loads = _plan_loads(super_ids, pairs, budget,
@@ -1406,14 +1713,13 @@ def _compute(settings, device, reader, timer, proc_id,
             sub="MEMORY")
     mode = ("phased" if settings.force_phased else
             "unphased" if settings.forced_unphased else "mixed")
-    engine = None
-    if pairs:
-        engine = LdEngine(None, n_samples, settings, device, B=B,
-                          group=dist.group() if dcn else None,
-                          samples_rank=proc_id if dcn else 0,
-                          samples_size=n_procs if dcn else 1)
+
+    def make_engine():
+        eng = LdEngine(None, n_samples, settings, device, B=B, mesh=mesh)
         for table, has_missing, cls, _ in group_tiles([], mode, []):
-            engine._cfg(table, has_missing, cls)   # reject before output
+            eng._cfg(table, has_missing, cls)   # reject before output
+        return eng
+    engine = make_engine() if pairs and not native else None
     filt = LdFilters(min_p=settings.min_p, min_r2=settings.min_r2,
                      max_r2=settings.max_r2, min_dprime=settings.min_dprime,
                      max_dprime=settings.max_dprime)
@@ -1428,7 +1734,8 @@ def _compute(settings, device, reader, timer, proc_id,
     hdr.literals += (f"\n##tomahawk_tpu_torch_calcVersion={__version__}\n"
                      f"##tomahawk_tpu_torch_calcCommand=calc; "
                      f"Date={datetime.datetime.now().isoformat()}\n")
-    ck_path, ck_key, ck = (_resume_state(settings, proc_id, n_procs, dcn)
+    ck_path, ck_key, ck = (_resume_state(settings, proc_id, n_procs, dcn,
+                                         mesh.shape["pairs"] if mesh else 1)
                            if settings.checkpoint else ("", "", None))
     result = CalcResult()
     # units_done after each completed load (run_loads)
@@ -1444,8 +1751,6 @@ def _compute(settings, device, reader, timer, proc_id,
                 engine._fused_cap = int(caps["fused_cap"])
             if caps.get("outcap"):
                 engine._outcap = int(caps["outcap"])
-    # upper bound of the pairs the (windowed) tile list holds
-    est = sum(B * (B - 1) // 2 if d else B * B for _, _, d in pairs)
     ticker = ProgressTicker(total_pairs=est, n_samples=n_samples).start()
     if engine is not None:
         engine.ticker = ticker
@@ -1495,12 +1800,12 @@ def _compute(settings, device, reader, timer, proc_id,
         else (os.cpu_count() or 1)
     pool = ThreadPoolExecutor(n_threads)
 
-    def inflate_band(b):
-        """Band b's stacked host planes: its super-blocks' records
+    def inflate(ids):
+        """The stacked host planes of super-blocks `ids`: their records
         inflated on `pool`'s threads (the staging worker calls this for
         the next load's band)."""
         blocks = []
-        for s in bands[b]:
+        for s in ids:
             sup = supers[s]
             blk = reader.read_block(sup["ids"][0])
             for i in sup["ids"][1:]:
@@ -1510,11 +1815,28 @@ def _compute(settings, device, reader, timer, proc_id,
         return stack_planes(list(pool.map(
             lambda blk: block_to_planes(blk, n_samples, pad_to=B), blocks)))
 
+    native_stats = None
     try:
+        if native:
+            slot = {g: s for s, g in enumerate(super_ids)}
+            stacked = inflate(super_ids)
+            groups = group_tiles([(slot[i], slot[j], d) for i, j, d in pairs],
+                                 mode, stacked["has_missing"].any(axis=1))
+            native_stats = {}
+            n = run_native_cpu(stacked, groups, filt, emit, ticker, n_samples,
+                               settings, native_stats)
+            if n is not None:
+                result.n_pairs += n
+            else:
+                log("LOG", "No native CPU tile engine: running the plain "
+                    "engine on the CPU", sub="ENGINE")
+                native_stats = None
+                engine = make_engine()
+                engine.ticker = ticker
         if engine is not None:
-            result.n_pairs += run_loads(engine, bands, loads, inflate_band,
-                                        mode, filt, emit, prefetch_on,
-                                        load_cum)
+            result.n_pairs += run_loads(engine, bands, loads,
+                                        lambda b: inflate(bands[b]), mode,
+                                        filt, emit, prefetch_on, load_cum)
     finally:
         if engine is not None:
             engine.stage_close()
@@ -1546,6 +1868,11 @@ def _compute(settings, device, reader, timer, proc_id,
         os.replace(tmp_sorted, out)
         log("LOG", f"Shard {out} sorted in place (presorted merge ready)",
             sub="SORT")
+    if dcn and engine is not None:
+        log("LOG", f"Process {proc_id}: host math of "
+            f"{pretty_int(engine.math_rows)} of "
+            f"{pretty_int(engine.survivor_rows)} survivor rows (gathers "
+            f"{engine.gather_s:.3f}s)", sub="DIST")
     if n_procs > 1:
         # every shard exists before any process returns, so a driving
         # script can merge right after rank 0 finishes
@@ -1560,5 +1887,6 @@ def _compute(settings, device, reader, timer, proc_id,
         f"({pretty_int(int(result.pairs_per_sec))} pairs/s)",
         sub="PROGRESS")
     if settings.performance:
-        report_performance(engine.stats if engine is not None else {})
+        report_performance(engine if engine is not None
+                           else native_stats or {})
     return result

@@ -37,7 +37,11 @@ word_slice=(s, S))`) and walks the same tile list; per tile it runs
 (`parallel.all_reduce_parts`, the JAX `psum`) and runs `tile_epilogue`
 on the global counts, which writes the mask and its per-segment counts,
 then the same compaction. Counts and survivor rows are then identical on
-every rank.
+every rank. The group is a process group (`--mesh dcn`), or the
+`parallel.SamplesGroup` of one row of a local mesh, whose peers' local
+parts the sweep computes beside its own, each on its device, before the
+sum (an add on the row's first device). A pairs shard of a mesh is one
+sweep on its row's devices: the engine splits the tile list.
 """
 
 import ctypes
@@ -45,6 +49,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..device import on_device
 from ..ops import _build
 from ..ops import fisher_dev as F
 from ..ops import ld_kernels as K
@@ -75,21 +80,28 @@ def dev_keys_for(cfg) -> tuple:
     return tuple(k for k in DEV_KEYS if k in keys)
 
 
+def pad_words(a, k: str, S: int) -> np.ndarray:
+    """Array `a` of key `k` with a word plane's word axis padded to a
+    multiple of S: with zeros, and with ones for `miss_bits` (padding is
+    "missing"), as the JAX engine pads for a 'samples' mesh axis."""
+    W = a.shape[-1]
+    Wp = -(-W // S) * S
+    if k not in WORD_KEYS or Wp == W:
+        return a
+    pad = np.zeros((*a.shape[:-1], Wp - W), a.dtype)
+    return np.concatenate([a, ~pad if k == "miss_bits" else pad], axis=-1)
+
+
 def host_plane(a, k: str, word_slice=None) -> np.ndarray:
     """Array `a` of key `k` as the device holds it: contiguous, uint32
     planes as int32 views of the same bits and, with `word_slice=(s, S)`,
     a word plane cut to the s-th of S equal slices of its word axis, the
-    axis first padded to a multiple of S: with zeros, and with ones for
-    `miss_bits` (padding is "missing"), as the JAX engine pads for a
-    'samples' mesh axis."""
+    axis first padded to a multiple of S (`pad_words`)."""
     if word_slice is not None and k in WORD_KEYS:
         s, S = word_slice
-        wl = -(-a.shape[-1] // S)
+        a = pad_words(a, k, S)
+        wl = a.shape[-1] // S
         a = a[..., s * wl:(s + 1) * wl]
-        if a.shape[-1] < wl:
-            pad = np.zeros((*a.shape[:-1], wl - a.shape[-1]), a.dtype)
-            a = np.concatenate([a, ~pad if k == "miss_bits" else pad],
-                               axis=-1)
     a = np.ascontiguousarray(a)
     return a.view(np.int32) if a.dtype == np.uint32 else a
 
@@ -372,11 +384,16 @@ def _zeros(dev, *shape):
 def _tile(dev, i, j, diag, cfg, out, counts=None):
     """(mask, parts) of one tile into `out`, and the mask's counts into
     `counts` when given: the fused tile kernel, or in a samples-sharded
-    sweep the local parts, their sum over the group and the epilogue."""
+    sweep the local parts (of this device's slice and of the group's
+    peers, the other slices of a local mesh's row, each on its own
+    device), their sum over the group and the epilogue."""
     group = cfg["psum_group"]
     if group is None:
         return tile_prefilter(dev, i, j, diag, cfg, out, counts)
     tile_local_parts(dev, i, j, cfg, out)
+    for peer_dev, peer_out in group.peers:
+        with on_device(peer_out[1].device):
+            tile_local_parts(peer_dev, i, j, cfg, peer_out)
     all_reduce_parts(out[1], group)
     return tile_epilogue(dev, i, j, diag, cfg, out, counts)
 

@@ -5,6 +5,8 @@ where torch sees no card raises instead of carrying on on the CPU. The
 CPU runs only the plain PyTorch versions of the kernels (the tests'
 path)."""
 
+import contextlib
+
 import torch
 
 from .ops import _build
@@ -22,6 +24,16 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+
+
+def on_device(device):
+    """`device` as the calling thread's current card while the context
+    is open (a kernel is launched on the card that is current); nothing
+    on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def kernel_report() -> list:

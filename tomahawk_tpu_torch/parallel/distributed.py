@@ -1,25 +1,44 @@
-"""Multi-process orchestration for distributed `calc` runs.
+"""Multi-process orchestration for distributed `calc` runs, and the
+device meshes of one process.
 
 Counterpart of tomahawk_tpu/parallel/distributed.py over
-`torch.distributed`. The JAX package drives several devices from one
-process (`shard_map` over a ('pairs', 'samples') mesh); here the unit is
-one process with one explicit device, and the processes of a run form
-one `torch.distributed` group:
+`torch.distributed`. The JAX package drives the devices of a process
+through a jax Mesh and `shard_map`; here a mesh is parallel/mesh.py's
+[P, S] grid of torch devices, which the engine drives itself, and the
+processes of a run form one `torch.distributed` group:
 
     JAX run mode                       this package
+    --mesh auto (one process)          the same: a P x 1 mesh over every
+                                       visible card when there is more
+                                       than one (`resolve_mesh`)
+    --mesh PxS, cpu:PxS                the same: the first P*S cards, or
+                                       P*S entries of `cpu` (how the
+                                       tests mesh the CPU); the pairs
+                                       shards' survivors are read in
+                                       shard order, and a samples row sums
+                                       its local parts on its first device
     --distributed, mesh auto/off       the same: rank k of N takes
       (tile partition)                 pairs[k::N] (`partition_tiles`),
                                        loads only the super-blocks it
                                        touches, writes out.pKofN.two,
                                        joins the barrier (`sync_shards`);
                                        `merge_shards` folds the shards
-    --distributed --mesh dcn           the samples group is all N ranks:
+    --distributed --mesh PxS           each process meshes its own cards:
+                                       process k takes cards k*P*S up to
+                                       (k+1)*P*S, modulo the card count
+                                       (`process_devices`)
+    --distributed --mesh dcn[:P]       the samples group is all N ranks:
       (the packed-word axis spans      rank s uploads words [s*W/N,
-      the processes)                   (s+1)*W/N) of every word plane;
-                                       per tile: local parts, then
+      the processes)                   (s+1)*W/N) of every word plane on
+                                       each of its P cards (`make_dcn_mesh`;
+                                       cards s*P up to (s+1)*P, modulo the
+                                       count); per tile: local parts, then
                                        `all_reduce_parts` (SUM), then the
                                        epilogue and the compaction on
-                                       global counts; rank 0 alone writes
+                                       global counts; each rank runs the
+                                       host math of its slice of the
+                                       survivors and the records are
+                                       gathered over gloo; rank 0 writes
     --checkpoint                       the same: a tile-partition rank
                                        keeps PATH.pKofN; in a dcn run
                                        rank 0's sidecar is broadcast
@@ -28,18 +47,26 @@ one `torch.distributed` group:
                                        every rank passes
                                        `resume_barrier` once its sidecar
                                        is checked
-    --mesh PxS or dcn:P, and           not ported: the engine raises
-      P x S rank grids                 NotImplementedError
 
-Device of a rank (`rank_device`): `cuda` means `cuda:{rank %
-torch.cuda.device_count()}`, `cpu` the CPU. The backends are decided
-once, at the rendezvous, from that layout and never by catching a
-failure: when every rank sits on a CUDA device of its own, device
+Placement is the one place where this package differs from the JAX one:
+torch shows every card of the host to every process, with no set of
+local devices a process owns, so a process's cards follow from its rank
+and the mesh spec, by one rule (`process_devices`): `cuda` under
+`--distributed` means card `rank % count`, `--mesh auto` stays one card
+a process, and the first of a process's cards is the one its group is
+bound to. The backends are
+decided once, at the rendezvous, from that layout and never by catching
+a failure: when every rank sits on a CUDA device of its own, device
 tensors reduce over NCCL and host barriers go through gloo; when ranks
 share a device, or run on the CPU, gloo serves both, and a CUDA tensor
 is then reduced through one pinned host buffer (gloo's own CUDA path
-stages through the host as well, and not every build has it). A
-collective that fails raises in every rank; there is no fallback.
+stages through the host as well, and not every build has it), one
+buffer a card, so reductions on two cards never share one. A collective
+that fails raises in every rank; there is no fallback. NCCL reduces
+only the rank's own card, so `dcn:P` with P > 1 runs only where the
+ranks share their cards (gloo: N ranks on P cards, each rank's pairs
+shard p on card p); on cards of their own (NCCL) it raises at its first
+reduction.
 
 Entry: `python -m tomahawk_tpu_torch calc --distributed --coordinator
 host:port --num-processes N --process-id K [--mesh dcn]`.
@@ -48,12 +75,14 @@ host:port --num-processes N --process-id K [--mesh dcn]`.
 import datetime
 import glob
 import socket
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..utils.logging import log
+from .mesh import Mesh, SamplesGroup, make_mesh
 
 #: seconds a rank waits in the rendezvous or in a collective before it
 #: raises (a rank that died leaves the others waiting)
@@ -71,32 +100,133 @@ class ProcessGroup:
     device_backend: str            # "nccl" or "gloo"
     device_group: object
     host_group: object
-    # gloo with CUDA tensors: the pinned host buffer all_reduce_parts
-    # stages through, allocated at the first reduction and grown on demand
-    _staging: Optional[torch.Tensor] = None
+    # gloo with CUDA tensors: the pinned host buffers all_reduce_parts
+    # stages through, one a card (a card's reductions are ordered by its
+    # stream, two cards' are not), allocated at the card's first
+    # reduction and grown on demand
+    _staging: dict = field(default_factory=dict)
+    # the samples slices this process holds beside its own, whose local
+    # parts the sweep computes before the reduction (a SamplesGroup's;
+    # one slice a process here)
+    peers = ()
 
 
 _group: Optional[ProcessGroup] = None
 
 
-def rank_device(device, rank: int) -> torch.device:
-    """The device of one rank: an explicit index stands; plain `cuda`
-    spreads the ranks over the visible cards, rank % count."""
+def _mesh_shape(spec: str) -> tuple:
+    """(P, S) of a 'PxS' spec ('P' alone: S = 1)."""
+    p, _, s = spec.partition("x")
+    try:
+        shape = int(p), int(s) if s else 1
+    except ValueError:
+        shape = (0, 0)
+    if min(shape) < 1:
+        raise ValueError(f"mesh {spec!r}: expected 'auto', 'off', 'PxS', "
+                         f"'cpu:PxS', 'cuda:PxS' or 'dcn[:P]'")
+    return shape
+
+
+def _split_platform(spec: str, device) -> tuple:
+    """(platform, shape part) of a mesh spec: its 'cuda:' or 'cpu:'
+    prefix, else `device`'s type."""
+    platform = torch.device(device).type
+    if ":" in spec:
+        platform, _, spec = spec.partition(":")
+    if platform not in ("cuda", "cpu"):
+        raise ValueError(f"mesh platform {platform!r}: use 'cuda' or 'cpu'")
+    return platform, spec
+
+
+def process_devices(device, rank: int = 0, spec: str = None) -> list:
+    """The devices of the process of rank `rank` under the mesh spec
+    `spec`: the one placement rule of this package. The process takes n
+    cards, P*S under 'PxS', P under 'dcn:P', else one; rank k's are the
+    cards k*n up to (k+1)*n, modulo the count (`cuda`), or n entries of
+    the CPU (`cpu`, or a 'cpu:' spec). An explicit card index stands
+    where the process takes one card. The first device is the rank's
+    own, the one its process group is bound to."""
+    spec = spec or "off"
+    if spec == "dcn" or spec.startswith("dcn:"):
+        platform, (_, _, p) = torch.device(device).type, spec.partition(":")
+        n = _mesh_shape(p)[0] if p else 1
+    else:
+        platform, shape = _split_platform(spec, device)
+        n = 1 if shape in ("auto", "off") else \
+            int(np.prod(_mesh_shape(shape)))
     dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        n = torch.cuda.device_count()
-        if n == 0:
-            raise RuntimeError("device 'cuda' requested but torch sees no "
-                               "CUDA device")
-        dev = torch.device("cuda", rank % n)
-    return dev
+    if platform != "cuda":
+        return [torch.device(platform)] * n
+    if dev.type == "cuda" and dev.index is not None and n == 1:
+        return [dev]
+    count = torch.cuda.device_count()
+    if count == 0:
+        raise RuntimeError("device 'cuda' requested but torch sees no "
+                           "CUDA device")
+    return [torch.device("cuda", (rank * n + i) % count) for i in range(n)]
+
+
+def resolve_mesh(spec: str, local_only: bool = False, device="cuda",
+                 rank: int = 0):
+    """Mesh spec -> parallel.mesh.Mesh or None (one device), as the JAX
+    package's resolve_mesh: 'off' and '' give None; 'auto' a P x 1 mesh
+    over every visible card when there is more than one; 'PxS' the first
+    P*S cards (ValueError when there are fewer); a 'cuda:' or 'cpu:'
+    prefix picks the platform, which is otherwise `device`'s ('cpu:PxS':
+    P*S entries of the CPU). `local_only` (a distributed run): the
+    process of rank `rank` meshes its own cards (`process_devices`), and
+    'auto' is one card a process. 'dcn' and 'dcn:P' give
+    `make_dcn_mesh`'s."""
+    if spec in ("off", "", None):
+        return None
+    if spec == "dcn" or spec.startswith("dcn:"):
+        return make_dcn_mesh(spec, device)
+    platform, shape = _split_platform(spec, device)
+    count = torch.cuda.device_count() if platform == "cuda" else 1
+    if shape == "auto":
+        if local_only or count < 2:
+            return None
+        return make_mesh(count, 1)
+    P, S = _mesh_shape(shape)
+    if platform == "cuda" and P * S > count:
+        raise ValueError(f"mesh {P}x{S} needs {P * S} cards; torch sees "
+                         f"{count}")
+    return make_mesh(P, S, process_devices(device, rank if local_only else 0,
+                                           spec))
+
+
+def make_dcn_mesh(spec: str = "dcn", device="cuda") -> Mesh:
+    """The mesh of a samples-sharded run (`--mesh dcn`): its 'samples'
+    axis spans the processes of the group, one column a process, and
+    'dcn:P' gives each process P cards of its own (cards s*P up to
+    (s+1)*P of process s, modulo the count; 'dcn' is 'dcn:1'), each
+    holding the process's word slice of the planes for a pairs shard.
+    The mesh carries the group."""
+    grp = group() if _group is not None else None
+    if grp is None or grp.size < 2:
+        raise ValueError("mesh 'dcn' needs a multi-process run "
+                         "(use --distributed)")
+    cols = [process_devices(device, s, spec) for s in range(grp.size)]
+    n_p = len(cols[0])
+    if cols[0][0].type == "cuda" and n_p > torch.cuda.device_count():
+        raise ValueError(f"dcn:{n_p} exceeds the {torch.cuda.device_count()} "
+                         f"cards")
+    grid = np.empty((n_p, grp.size), dtype=object)
+    for s, col in enumerate(cols):
+        grid[:, s] = col
+    return Mesh(grid, group=grp)
+
+
+def mesh_is_multiprocess(mesh) -> bool:
+    """True when the mesh's samples axis spans processes (a dcn mesh)."""
+    return mesh is not None and mesh.group is not None
 
 
 def init_distributed(coordinator: str, num_processes: int, process_id: int,
                      device) -> tuple:
     """Rendezvous at tcp://`coordinator`; returns (process_id,
     n_processes). `device` is this rank's resolved device
-    (`rank_device`). The group is kept for `group()` until
+    (`process_devices`' first). The group is kept for `group()` until
     `shutdown()`."""
     global _group
     import torch.distributed as dist
@@ -156,27 +286,62 @@ def shutdown():
         dist.destroy_process_group()
 
 
-def all_reduce_parts(parts: torch.Tensor, grp: ProcessGroup):
+def all_reduce_parts(parts: torch.Tensor, grp):
     """Sum `parts` (the i32 [P, B, B] local contractions of one tile)
     over the ranks of `grp`, in place: the counterpart of the JAX
-    sweep's `psum` over the 'samples' axis. Every rank must call it for
-    the same tiles in the same order."""
+    sweep's `psum` over the 'samples' axis. `grp` is the run's
+    ProcessGroup, whose ranks must all call it for the same tiles in the
+    same order, or the SamplesGroup of a local mesh's row (an add of its
+    peers' parts on the device)."""
     import torch.distributed as dist
-    if parts.device != grp.device:
+    if isinstance(grp, SamplesGroup):
+        return grp.all_reduce_parts(parts)
+    if parts.device != grp.device and grp.device_backend == "nccl":
         raise ValueError(f"parts on {parts.device}, the group's rank on "
-                         f"{grp.device}")
+                         f"{grp.device}: NCCL reduces the rank's own card")
     if parts.is_cuda and grp.device_backend == "gloo":
-        # ranks share the card: through one pinned host buffer
+        # ranks share the card: through the card's pinned host buffer,
+        # which the copy back from its last reduction may still read
+        # (queued on this card's stream, ahead of the copy below)
         n = parts.numel()
-        if grp._staging is None or grp._staging.numel() < n:
-            grp._staging = torch.empty(n, dtype=parts.dtype, pin_memory=True)
-        host = grp._staging[:n].view(parts.shape)
+        buf = grp._staging.get(parts.device)
+        if buf is None or buf.numel() < n:
+            buf = grp._staging[parts.device] = torch.empty(
+                n, dtype=parts.dtype, pin_memory=True)
+        host = buf[:n].view(parts.shape)
         host.copy_(parts, non_blocking=True)
         torch.cuda.current_stream(parts.device).synchronize()
         dist.all_reduce(host, op=dist.ReduceOp.SUM, group=grp.device_group)
         parts.copy_(host, non_blocking=True)
         return
     dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=grp.device_group)
+
+
+def allgather_records(arrays, grp: ProcessGroup) -> list:
+    """Each of `arrays` (this rank's chunk of one record stream, numpy
+    structured arrays) concatenated over the ranks of `grp` in rank
+    order, on every rank: the chunk lengths first, then the chunks'
+    bytes padded to the longest, over the host group (gloo), as the JAX
+    engine's process_allgather of records. Every rank calls it, with an
+    empty chunk too."""
+    import torch.distributed as dist
+    n = torch.tensor([len(arrays[0])], dtype=torch.int64)
+    lens = [torch.zeros(1, dtype=torch.int64) for _ in range(grp.size)]
+    dist.all_gather(lens, n, group=grp.host_group)
+    lens = [int(x) for x in lens]
+    mx = max(lens)
+    if mx == 0:
+        return [a[:0] for a in arrays]
+    out = []
+    for a in arrays:
+        size = a.dtype.itemsize
+        buf = torch.zeros(mx * size, dtype=torch.uint8)
+        buf.numpy()[:len(a) * size] = np.ascontiguousarray(a).view(np.uint8)
+        got = [torch.empty_like(buf) for _ in range(grp.size)]
+        dist.all_gather(got, buf, group=grp.host_group)
+        out.append(np.concatenate([g.numpy()[:k * size].view(a.dtype)
+                                   for g, k in zip(got, lens)]))
+    return out
 
 
 def resume_barrier(error: Optional[BaseException] = None):
