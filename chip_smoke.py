@@ -242,6 +242,47 @@ x haplotypes) and where the medians of the compute_ld walls cross
 (compute/engine.py CPU_ROUTE_WORK holds the phased one); its last line
 is the device line.
 
+`python3 chip_smoke.py multi`, with exactly four cards visible (a
+4-card host; fewer or more exits 1 with a message), runs `calc` on
+several distinct cards: the cards' UUIDs and
+which pairs reach each other (`can_device_access_peer`), the builds;
+on each card in turn, every wrapper the paths below launch (phased_tile,
+parts_tile, local_parts at S = 2 and 4, tile_epilogue, compact,
+fisher_bracket) torch.equal to its plain version at 1,024 and 4,096
+rows a tile, each card launching them all and no other card any; then,
+each with the counts set to 0 just before it and read just after,
+the records held against the native CPU engine's and the launches
+checked card by card (`_build.LAUNCHES_BY_CARD`; a rank's cards by UUID):
+r. `calc --mesh auto` (a 4 x 1 mesh), `--mesh 2x2` and `--mesh 1x4` in
+   this process on a's archive (`-p`) and b's (mixed), at 1,024 rows a
+   tile, so every pairs shard of a segment has live tiles: with S = 1
+   every card its fused kernels and compact, with S > 1 every card
+   local_parts and each row's first card the epilogue and compact;
+s. `calc --distributed` as four ranks, one card each, device
+   collectives over NCCL: the tile partition (b's archive, then
+   `merge_shards`), `--mesh dcn` with `-p` (a's) and mixed (b's), and
+   `--mesh dcn -p` once more with each rank started under
+   `CUDA_VISIBLE_DEVICES=k` (all four call their card cuda:0); every
+   rank's `[DIST]` line must say nccl;
+t. `--mesh dcn:2` as two ranks on four cards of their own (rank 0 on
+   cards 0-1, rank 1 on 2-3), one NCCL group a row, `-p` and mixed at
+   1,024 rows a tile;
+then `multi_idle`, a JSON line: `--mesh auto -p` and `--mesh 2x2 -p -M
+0.03` at the default 4,096 rows (10 tiles), records checked, with the
+tile launches of each pairs shard and the cards of shards that ran no
+tile, measured and not required (a segment is padded to 16 tiles a shard and
+cut in contiguous slices, so small loads leave later shards idle);
+then the timed rows, each a JSON line: `multi_sparse` (the sparse
+planes through `LdEngine.run_phased_pairs` on one card and on the 4 x 1
+mesh, in turns), `multi_dcn` (the engine dcn row, 136 tiles, on four
+NCCL ranks and on two ranks x `dcn:2`: walls, and ms a tile of
+local_parts, the all-reduce, tile_epilogue and compact from CUDA
+events) and `multi_mesh` (the same tiles on a 1 x 4 mesh in this
+process: walls, the copies into card 0 and the sum there as the engine
+ran them, and the other cuts a tile: local_parts on each card,
+tile_epilogue, compact); then `multi_launches_by_card`; its last
+line is the device line, count 4.
+
 `python3 chip_smoke.py dcn2`, with exactly two cards visible
 (`CUDA_VISIBLE_DEVICES=0,1` on a larger host), runs paths g and h with
 `--mesh dcn:2`: two ranks that share both cards, each rank's pairs
@@ -358,6 +399,23 @@ CROSS_REPS = 3
 ROUTE_SITES = 1024
 #: timed runs of the 1 x 2 mesh row
 MESH_REPS = 3
+#: `multi`: the visible cards it needs; path r's meshes over them (spec,
+#: P, S); the rows a tile of paths r and t, so that every pairs shard of
+#: a segment holds live tiles (136 tiles of a 16,384-site archive; at
+#: 4096 rows, 10 tiles would all fall to the first shard); reps of its
+#: timed rows
+MULTI_CARDS = 4
+MULTI_MESHES = (("auto", 4, 1), ("2x2", 2, 2), ("1x4", 1, 4))
+MULTI_TILE_ROWS = 1024
+MULTI_REPS = 3
+#: path r's banded run on 2x2: a plane budget of 15 of the 16 super-blocks
+#: at 1,024 rows and half the words a card, so bands of 5, 5, 5, 1 and 10
+#: loads, staged; its off-diagonal loads of 25 tiles put live tiles on
+#: the second pairs shard (path j's `-M 0.03` gives loads of at most 16)
+MULTI_BANDED_GB = 0.0325
+#: `multi`'s idle row: meshes at the default tile rows (spec, P, S, flags),
+#: where a's archive has 10 tiles; 2x2 banded by path j's plane budget
+MULTI_IDLE = (("auto", 4, 1, ["-p"]), ("2x2", 2, 2, ["-p", "-M", "0.03"]))
 
 
 def _say(msg):
@@ -505,19 +563,19 @@ def _check_counts_buffer(label, counts, mask):
                          f"tile_counts_plain of the mask")
 
 
-def _compact_all_ways(tiles_out, ncol, cap, n_tiles):
+def _compact_all_ways(tiles_out, ncol, cap, n_tiles, device="cuda"):
     """compact over `n_tiles` (mask, parts, counts) triples at a running
-    offset, three ways: the kernel with the counts given (where a triple
-    has them), the kernel without, the plain version. Returns the three
-    [buf, n_pass, n_cand, off] lists."""
+    offset on `device`, three ways: the kernel with the counts given
+    (where a triple has them), the kernel without, the plain version.
+    Returns the three [buf, n_pass, n_cand, off] lists."""
     import torch
     from tomahawk_tpu_torch.compute import sweeps
     outs = []
     for way in ("counts", "no counts", "plain"):
-        buf = torch.zeros((1 << 18, ncol), dtype=torch.int32, device="cuda")
-        n_pass = torch.zeros(n_tiles, dtype=torch.int32, device="cuda")
-        n_cand = torch.zeros(n_tiles, dtype=torch.int32, device="cuda")
-        off = torch.zeros(1, dtype=torch.int32, device="cuda")
+        buf = torch.zeros((1 << 18, ncol), dtype=torch.int32, device=device)
+        n_pass = torch.zeros(n_tiles, dtype=torch.int32, device=device)
+        n_cand = torch.zeros(n_tiles, dtype=torch.int32, device=device)
+        off = torch.zeros(1, dtype=torch.int32, device=device)
         for t in range(n_tiles):
             mask, parts, counts = tiles_out[t % len(tiles_out)]
             if way == "plain":
@@ -527,7 +585,8 @@ def _compact_all_ways(tiles_out, ncol, cap, n_tiles):
                 sweeps.compact_survivors(
                     mask, parts, off, buf, n_pass, n_cand, t, cap,
                     counts if way == "counts" else None)
-        torch.cuda.synchronize()
+        if buf.is_cuda:
+            torch.cuda.synchronize(buf.device)
         outs.append([x.long() for x in (buf, n_pass, n_cand, off)])
     return outs
 
@@ -2091,17 +2150,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_ranks(label, jobs):
+def spawn_ranks(label, jobs, envs=None):
     """Run one `python3 chip_smoke.py rank <job>` process per job, all
-    at once, each with the wall limit; a rank that fails or outlives
-    the limit fails the run with every rank's output. Returns each
-    rank's report (the JSON object on its last line)."""
+    at once, each with the wall limit and with `envs[k]` (if given) added
+    to rank k's environment; a rank that fails or outlives the limit
+    fails the run with every rank's output. Returns each rank's report
+    (the JSON object on its last line), with its `[DIST]` backend line
+    under "dist"."""
     import torch
     torch.cuda.empty_cache()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "rank", json.dumps(job)],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for job in jobs]
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, **(envs[k] if envs else {})))
+        for k, job in enumerate(jobs)]
     outs, late = [], False
     try:
         deadline = time.perf_counter() + RANK_LIMIT
@@ -2129,15 +2191,23 @@ def spawn_ranks(label, jobs):
             raise SystemExit(f"{label}: rank {r} printed no report:\n"
                              f"{out[-2000:]}")
         reports.append(json.loads(lines[-1]))
+        reports[-1]["dist"] = next((ln for ln in out.splitlines()
+                                    if "device collectives over" in ln), "")
     return reports
 
 
-def run_ranked_calc(label, twk, out, flags, mode, need, idle, dcn):
-    """One `calc --distributed` path as two ranks that share the card
-    (or the cards). Every rank must launch each kernel in `need`, none in
-    `idle`, and no plain version. dcn, a `--mesh` spec ('dcn' or
-    'dcn:P'): only rank 0's file exists; otherwise (None) both shards
-    exist and are merged. The records must equal the native CPU
+def run_ranked_calc(label, twk, out, flags, mode, need, idle, dcn, n=2,
+                    envs=None, cards=None, backend="gloo", tally=None):
+    """One `calc --distributed` path as `n` ranks (two by default, which
+    share the card or the cards), rank k with `envs[k]` added to its
+    environment. Every rank must launch each kernel in `need`, none in
+    `idle`, and no plain version, and its `[DIST]` line must name
+    `backend`; with `cards` ({card index: kernels}, cards by this
+    process's numbering, matched by UUID) each card must have launched
+    its kernels and no other card anything, and the launches by card are
+    added to `tally` where given. dcn, a `--mesh` spec ('dcn' or
+    'dcn:P'): only rank 0's file exists; otherwise (None) every shard
+    exists and they are merged. The records must equal the native CPU
     engine's. Returns the launches summed over the ranks."""
     from tomahawk_tpu_torch.parallel import merge_shards, shard_paths
     coordinator = f"127.0.0.1:{_free_port()}"
@@ -2145,26 +2215,36 @@ def run_ranked_calc(label, twk, out, flags, mode, need, idle, dcn):
     jobs = [dict(kind="calc", rank=r, argv=[
         "tomahawk_tpu_torch", "calc", "-i", twk, "-o", out, "-r",
         str(MIN_R2), *flags, *ON_CARD, "--distributed", "--coordinator",
-        coordinator, "--num-processes", "2", "--process-id", str(r)])
-        for r in (0, 1)]
-    shards = shard_paths(out, 2)
+        coordinator, "--num-processes", str(n), "--process-id", str(r)])
+        for r in range(n)]
+    shards = shard_paths(out, n)
     for path in [out] + shards:
         if os.path.exists(path):
             os.remove(path)
     t0 = time.perf_counter()
-    reports = spawn_ranks(label, jobs)
+    reports = spawn_ranks(label, jobs, envs)
     dt = time.perf_counter() - t0
     total = {}
     for rep in reports:
         _check_counts(f"{label} rank {rep['rank']}", rep["launches"],
                       rep["plain"], need, idle)
+        if f"device collectives over {backend}" not in rep["dist"]:
+            raise SystemExit(f"{label} rank {rep['rank']}: expected device "
+                             f"collectives over {backend}: {rep['dist']!r}")
         for k, v in rep["launches"].items():
             total[k] = total.get(k, 0) + v
+    if cards is not None:
+        by_card = _by_index([rep["cards"] for rep in reports])
+        _check_cards(label, by_card, cards, idle)
+        _add_cards(tally, by_card)
     cmd = " ".join(["calc", *flags, "--distributed"])
-    _say(f"main path {label}: `{cmd}` as two ranks sharing the card(s), "
-         f"collectives over gloo: {dt:.2f}s wall "
-         f"(processes' start included), launches per rank "
+    env = f" (each under {sorted(envs[0])})" if envs else ""
+    _say(f"main path {label}: `{cmd}` as {n} ranks{env}, device "
+         f"collectives over {backend}: {dt:.2f}s wall (processes' start "
+         f"included), launches per rank "
          f"{[rep['launches'] for rep in reports]}, no plain version")
+    for rep in reports:
+        _say(f"  rank {rep['rank']}: {rep['dist'].split('] ')[-1]}")
     have = [os.path.exists(path) for path in shards]
     if dcn:
         if any(have) or not os.path.exists(out):
@@ -2174,8 +2254,8 @@ def run_ranked_calc(label, twk, out, flags, mode, need, idle, dcn):
     else:
         if not all(have):
             raise SystemExit(f"calc {label}: a shard is missing: {shards}")
-        n = merge_shards(shards, out)
-        _say(f"  merge_shards folded {n} records of {shards}")
+        n_rec = merge_shards(shards, out)
+        _say(f"  merge_shards folded {n_rec} records of {shards}")
         check_records(label, out, twk, mode)
     return total
 
@@ -3292,7 +3372,7 @@ def mesh_engine(dcn):
                              f"{dcn['candidates']}, {dcn['records']}")
         cfg = engine._cfg("phased", False, "all")
         row = engine._dev_for(cfg)[0]
-        group = engine._row_cfg(cfg, row)["psum_group"]
+        group = engine._row_cfg(cfg, 0, row)["psum_group"]
         peer_out = group.peers[0][1]
         ms = _step_times(cfg, row[0], pairs, (
             ("local_parts slice 0", lambda i, j, out:
@@ -3358,8 +3438,11 @@ def _step_times(cfg, dev, pairs, steps):
 
 
 def rank_engine(job):
-    """One rank of `dcn_engine`: the engine run on the clock, then the
-    same tiles once more step by step between CUDA events."""
+    """One rank of `dcn_engine` (or of `multi`'s dcn rows): the engine
+    run on the clock, then the same tiles once more step by step between
+    CUDA events on the rank's card of row 0, then (`dense`, by default)
+    `rank_dense`. The job's `n` ranks (2 by default) mesh by its `spec`
+    ('dcn' by default)."""
     import torch
     from tomahawk_tpu_torch import workloads
     from tomahawk_tpu_torch.compute import sweeps
@@ -3367,14 +3450,17 @@ def rank_engine(job):
     from tomahawk_tpu_torch.ops import tiles
     from tomahawk_tpu_torch.ops.ld_math import LdFilters
     from tomahawk_tpu_torch.parallel import distributed as dist
-    rank = job["rank"]
-    device = dist.process_devices("cuda", rank)[0]
-    dist.init_distributed(job["coordinator"], 2, rank, device)
+    rank, spec = job["rank"], job.get("spec", "dcn")
+    cards = dist.process_devices("cuda", rank, spec)
+    device = cards[0]
+    dist.init_distributed(job["coordinator"], job.get("n", 2), rank, device,
+                          rows=cards)
     try:
         group = dist.group()
+        row0 = group.rows[0]
         stacked = workloads.build_planes(DCN_BLOCKS, B, N_SAMPLES)
         engine = LdEngine(stacked, N_SAMPLES, CalcSettings(min_r2=MIN_R2),
-                          mesh=dist.make_dcn_mesh("dcn", "cuda"))
+                          mesh=dist.make_dcn_mesh(spec, "cuda"))
         pairs = [(i, j, i == j) for i in range(DCN_BLOCKS)
                  for j in range(i, DCN_BLOCKS)]
         n_rec = [0]
@@ -3386,10 +3472,16 @@ def rank_engine(job):
         dev = engine._dev_for(cfg)[0][0]
         out = tiles.tile_buffers(cfg, device)
         counts = tiles.counts_buffer(cfg, device)
-        # warm-up: one tile through every step
+        # warm-up: one tile through every step, and a reduction on every
+        # row (NCCL makes a row's communicator at its first collective)
         tiles.tile_local_parts(dev, 0, 1, cfg, out)
-        dist.all_reduce_parts(out[1], group)
+        dist.all_reduce_parts(out[1], row0)
         tiles.tile_epilogue(dev, 0, 1, False, cfg, out, counts)
+        for row in group.rows[1:]:
+            with torch.cuda.device(row.device):
+                dist.all_reduce_parts(torch.zeros(
+                    1, dtype=torch.int32, device=row.device), row)
+                torch.cuda.synchronize()
         torch.cuda.synchronize()
         dist.sync_shards()
         t0 = time.perf_counter()
@@ -3401,9 +3493,9 @@ def rank_engine(job):
             ("local_parts", lambda i, j, out:
              tiles.tile_local_parts(dev, i, j, cfg, out)),
             ("all_reduce", lambda i, j, out:
-             dist.all_reduce_parts(out[1], group))))
+             dist.all_reduce_parts(out[1], row0))))
         dist.sync_shards()
-        dense = rank_dense(device)
+        dense = rank_dense(device) if job.get("dense", True) else None
     finally:
         dist.shutdown()
     nv = DCN_BLOCKS * B
@@ -3487,9 +3579,11 @@ def rank_main(job):
         _run_cli(job["argv"])
     else:
         extra = rank_engine(job)
+    from tomahawk_tpu_torch.parallel.distributed import card_id
+    cards = {card_id(d): v for d, v in _build.LAUNCHES_BY_CARD.items()}
     print(json.dumps(dict(rank=job["rank"], launches=dict(_build.LAUNCHES),
-                          plain=dict(_build.PLAIN_CALLS), **extra)),
-          flush=True)
+                          plain=dict(_build.PLAIN_CALLS), cards=cards,
+                          **extra)), flush=True)
     return 0
 
 
@@ -3543,14 +3637,672 @@ def contraction_pair_words(table, has_missing, slices=1):
     return payload_cols(table, has_missing) * B * B * -(-W // slices)
 
 
+def report_cards():
+    """Every visible card: torch's name and UUID, nvidia-smi's name and
+    power limit (one line a card, the same query as `report_card`), and
+    which pairs of cards reach each other's memory
+    (`torch.cuda.can_device_access_peer`: the copies between cards of a
+    local mesh go over NVLink, else through the host)."""
+    import torch
+    from tomahawk_tpu_torch.parallel.distributed import card_id
+    n = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    nccl = torch.cuda.nccl.version()
+    _say(f"devices: {n} x {torch.cuda.get_device_name(0)} (torch "
+         f"{torch.__version__}, CUDA {torch.version.cuda}, NCCL "
+         f"{'.'.join(map(str, nccl)) if isinstance(nccl, tuple) else nccl})")
+    for i in range(n):
+        _say(f"  card {i}: {card_id(i)}")
+    for line in smi:
+        _say(f"nvidia-smi: {line}")
+    peer = [[i == j or torch.cuda.can_device_access_peer(i, j)
+             for j in range(n)] for i in range(n)]
+    _say(f"peer access (can_device_access_peer): {peer}")
+
+
+def _local_by_card():
+    """This process's launches by card since the counts were last set to
+    0, by card index."""
+    from tomahawk_tpu_torch.ops import _build
+    return {int(d.split(":")[1]): dict(v)
+            for d, v in _build.LAUNCHES_BY_CARD.items()}
+
+
+def _by_index(card_reports):
+    """Launches by card of one process or several ({card UUID: {kernel:
+    n}} each), summed by this process's card index."""
+    import torch
+    from tomahawk_tpu_torch.parallel.distributed import card_id
+    index = {card_id(i): i for i in range(torch.cuda.device_count())}
+    out = {}
+    for rep in card_reports:
+        _add_cards(out, {index[ident]: counts
+                         for ident, counts in rep.items()})
+    return out
+
+
+def _add_cards(tally, by_card):
+    """Add launches by card into `tally` (nothing where it is None)."""
+    for card, counts in by_card.items() if tally is not None else ():
+        dst = tally.setdefault(card, {})
+        for k, v in counts.items():
+            dst[k] = dst.get(k, 0) + v
+
+
+def _check_cards(label, by_card, need, idle):
+    """Each card in `need` ({card index: kernels}) launched each of its
+    kernels; no card launched a kernel of `idle`, and no card outside
+    `need` launched anything."""
+    for card, names in need.items():
+        missing = sorted(k for k in names if not by_card.get(card, {}).get(k))
+        if missing:
+            raise SystemExit(f"{label}: card {card} did not launch "
+                             f"{missing}: {by_card}")
+    for card, counts in by_card.items():
+        stray = sorted(k for k, v in counts.items()
+                       if v and (k in idle or card not in need))
+        if stray:
+            raise SystemExit(f"{label}: card {card} launched {stray}, which "
+                             f"its place in the mesh does not hold: "
+                             f"{by_card}")
+    _say(f"  launches by card: {by_card}")
+
+
+def _local_cards(kind, P, S):
+    """{card: kernels} a P x S mesh over cards 0 .. P*S - 1 must launch:
+    with S = 1 every card its pairs shard's fused kernels (`kind`) and
+    compact; with S > 1 every card local_parts, and each row's first
+    card the epilogue and compact too."""
+    if S == 1:
+        return {c: kind + ("compact",) for c in range(P)}
+    split = ("local_parts", "tile_epilogue", "compact")
+    return {c: split if c % S == 0 else split[:1] for c in range(P * S)}
+
+
+#: the sweep groups of `multi`'s paths: -p's, and the mixed dispatch's
+MULTI_GROUPS = (("phased", False, "all"), ("phased", False, "clean"),
+                ("unphased", True, "missing"))
+#: the word slices of `multi`'s samples-sharded paths (2x2 and dcn:2, 1x4
+#: and dcn over four ranks)
+MULTI_SLICES = (2, 4)
+#: every wrapper `multi`'s paths launch
+MULTI_KERNELS = ("phased_tile", "parts_tile", "local_parts", "tile_epilogue",
+                 "compact", "fisher_bracket")
+
+
+def hold_kernels_on(device, rows):
+    """Each wrapper `multi`'s paths launch, on `device`, against its plain
+    version at tiles of `rows` rows and 2,504 samples, every result
+    torch.equal to the plain one: for each group of MULTI_GROUPS, on a
+    diagonal and an off-diagonal tile of the genotype planes, the fused
+    tile kernel (phased_tile or parts_tile) and its counts; local_parts
+    on every word slice of each S in MULTI_SLICES, the slices' sum equal
+    to the full width's plain parts; tile_epilogue and its counts on that
+    sum; compact on the fused tiles' masks (the counts given and not, caps
+    32768 and 256). Then fisher_bracket on the survivor rows of a phased
+    fused sweep (cls "all" and "clean") of 4 LD-grouped super-blocks,
+    whose 10 tiles open the volume gate. Raises SystemExit on a
+    difference."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.device import on_device
+    from tomahawk_tpu_torch.ops import tiles
+    at = f"{device}, {rows} rows"
+    st = workloads.genotype_planes(2, rows, N_SAMPLES)
+    with on_device(device):
+        full = sweeps.planes_to_device(st, device)
+        for group in MULTI_GROUPS:
+            cfg = sweeps.make_cfg(*group, rows, N_SAMPLES, 0, MIN_R2, 100.0)
+            keys = tiles.plane_keys(*group[:2])
+            label = f"{tiles.kernel_name(cfg)} {'/'.join(map(str, group))}"
+            slices = {S: [sweeps.planes_to_device(st, device, keys,
+                                                  word_slice=(s, S))
+                          for s in range(S)] for S in MULTI_SLICES}
+            out = tiles.tile_buffers(cfg, device)
+            fused = []
+            for i, j, diag in ((1, 1, True), (0, 1, False)):
+                where = f"{label} ({i},{j}) on {at}"
+                counts = tiles.counts_buffer(cfg, device).fill_(-1)
+                mask, parts = tiles.tile_prefilter(full, i, j, diag, cfg,
+                                                   counts=counts)
+                want_m, want_p = tiles.tile_prefilter_plain(full, i, j, diag,
+                                                            cfg)
+                if not (torch.equal(mask, want_m)
+                        and torch.equal(parts, want_p)):
+                    raise SystemExit(f"{where} differs from its plain "
+                                     f"version")
+                _check_counts_buffer(where, counts, mask)
+                fused.append((mask, parts, counts))
+                want = torch.stack(tiles.tile_local_parts_plain(full, i, j,
+                                                                cfg))
+                for S, devs in slices.items():
+                    total = torch.zeros_like(want)
+                    for s, dev in enumerate(devs):
+                        got = tiles.tile_local_parts(dev, i, j, cfg, out)
+                        if not torch.equal(got, torch.stack(
+                                tiles.tile_local_parts_plain(dev, i, j,
+                                                             cfg))):
+                            raise SystemExit(
+                                f"local_parts slice {s}/{S} of {where} "
+                                f"differs from its plain version")
+                        total += got
+                    if not torch.equal(total, want):
+                        raise SystemExit(f"local_parts of {where}: the {S} "
+                                         f"slices do not sum to the plain "
+                                         f"full-width parts")
+                out[1].copy_(want)
+                counts.fill_(-1)
+                mask, _ = tiles.tile_epilogue(full, i, j, diag, cfg, out,
+                                              counts)
+                if not torch.equal(mask, tiles.tile_epilogue_plain(
+                        full, i, j, diag, cfg, want)):
+                    raise SystemExit(f"tile_epilogue of {where} differs "
+                                     f"from its plain version")
+                _check_counts_buffer(f"tile_epilogue of {where}", counts,
+                                     mask)
+                del want, total, want_m, want_p
+            for cap in (32768, 256):
+                outs = _compact_all_ways(fused, sweeps.buf_cols(cfg), cap, 2,
+                                         device)
+                if any(not torch.equal(a, b) for g in outs[:2]
+                       for a, b in zip(g, outs[2])):
+                    raise SystemExit(f"compact on the masks of {label} on "
+                                     f"{at} differs from its plain version")
+            del out, fused, outs, slices
+        del full
+        nb = 4
+        dev = sweeps.planes_to_device(
+            workloads.build_planes_grouped(nb, rows, N_SAMPLES), device)
+        pairs = [(i, j, i == j) for i in range(nb) for j in range(i, nb)]
+        pi = np.array([p[0] for p in pairs], np.int32)
+        pj = np.array([p[1] for p in pairs], np.int32)
+        dg = np.array([p[2] for p in pairs])
+        cap, outcap = 32768, 1 << 20
+        for cls in ("all", "clean"):
+            cfg = sweeps.make_cfg("phased", False, cls, rows, N_SAMPLES, 0,
+                                  MIN_R2, 100.0, fisher=True)
+            where = f"fisher_bracket phased/False/{cls} on {at}"
+            n_pass, _, buf = sweeps.fused_sweep(
+                dev, pi, pj, dg, np.ones(len(pairs), bool), cfg=cfg, cap=cap,
+                outcap=outcap)
+            if sweeps.fisher_rows(n_pass, cap, outcap) is None:
+                raise SystemExit(f"{where}: {int(n_pass.sum())} survivors "
+                                 f"do not open the gate")
+            cleared = buf.clone()
+            cleared[:, 1] &= 0xFFFF
+            ker, ref = cleared.clone(), cleared.clone()
+            sweeps.append_fisher_col(dev, n_pass, ker, pi, pj, cfg, cap)
+            sweeps.append_fisher_col_plain(dev, n_pass, ref, pi, pj, cfg, cap)
+            if not (torch.equal(ker, ref) and torch.equal(ker, buf)):
+                raise SystemExit(f"{where}: the kernel's column differs from "
+                                 f"its plain version's or the fused "
+                                 f"sweep's")
+        del dev, buf, cleared, ker, ref
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    _say(f"kernel check on {at}: {', '.join(MULTI_KERNELS)} equal to "
+         f"their plain versions (groups {MULTI_GROUPS}, word slices "
+         f"S = {MULTI_SLICES})")
+
+
+def multi_kernels():
+    """`hold_kernels_on` each of the four cards at tiles of
+    MULTI_TILE_ROWS rows (paths r and t) and of B (path s and the timed
+    rows); every card launched every kernel of MULTI_KERNELS in its own
+    check, and no other card did."""
+    from tomahawk_tpu_torch.ops import _build
+    for c in range(MULTI_CARDS):
+        _build.reset_counts()
+        for rows in (MULTI_TILE_ROWS, B):
+            hold_kernels_on(f"cuda:{c}", rows)
+        _check_cards(f"kernel check on cuda:{c}", _local_by_card(),
+                     {c: MULTI_KERNELS}, ())
+    _build.reset_counts()
+
+
+def multi_archives(work):
+    """a's archive (phased, no missing data) and b's (missing genotypes
+    in half of the first 12,288 sites), 16,384 sites each."""
+    return (make_archive(work, "ld", 16384),
+            make_archive(work, "miss", 16384, miss_sites=12288, miss_step=2,
+                         miss_frac=0.025))
+
+
+def multi_paths(work, ld, miss):
+    """Paths r, s and t of `multi` on a's archive `ld` and b's `miss`,
+    each with the counts set to 0 just before it and read just after;
+    every path's records equal the native CPU engine's, every card of its
+    mesh launched its kernels and no card a plain version or
+    `segment_counts`. Returns the launches by card summed over the
+    paths."""
+    from tomahawk_tpu_torch.ops import _build
+    two = os.path.join(work, "{}.two")
+    fused = {"phased": ("phased_tile",),
+             "mixed": ("phased_tile", "parts_tile")}
+    split = ("local_parts", "tile_epilogue", "compact")
+    total = {}
+    # r: one process, meshes over the four cards; B = 1024 rows a tile
+    # (136 tiles), so that every pairs shard of a segment holds live tiles
+    # (and 2x2 banded by -M, the staging worker a stream on each card)
+    runs = [(spec, P, S, tag, twk, mode, flags)
+            for spec, P, S in MULTI_MESHES
+            for tag, twk, mode, flags in (("a", ld, "phased", ["-p"]),
+                                          ("b", miss, "mixed", []))]
+    runs.append(("2x2", 2, 2, "a", ld, "phased",
+                 ["-p", "-M", str(MULTI_BANDED_GB)]))
+    for spec, P, S, tag, twk, mode, flags in runs:
+        label = f"r --mesh {spec} {' '.join(flags)} on {tag}'s archive"
+        out = two.format(f"r{spec}{tag}{len(flags)}")
+        argv = ["tomahawk_tpu_torch", "calc", "-i", twk, "-o", out, "-r",
+                str(MIN_R2), *flags, "--mesh", spec, "--tile-rows",
+                str(MULTI_TILE_ROWS), *ON_CARD]
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        ss = _run_cli(argv).stage_stats
+        dt = time.perf_counter() - t0
+        if "-M" in flags and not (ss["n_loads"] > 1
+                                  and ss["n_prefetched"] > 0):
+            raise SystemExit(f"calc {label}: not banded and staged: {ss}")
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        by_card = _local_by_card()
+        _say(f"main path {label}: `calc {' '.join(argv[6:])}` "
+             f"{dt:.2f}s wall, launches {launches}; {ss['n_bands']} "
+             f"bands, {ss['n_loads']} loads, {ss['n_prefetched']} "
+             f"staged")
+        need = _local_cards(fused[mode], P, S)
+        idle = ("segment_counts",) + (split[:2] if S == 1 else
+                                      ("phased_tile", "parts_tile"))
+        _check_counts(label, launches, plain, (), idle)
+        _check_cards(label, by_card, need, idle)
+        check_records(label, out, twk, mode)
+        _add_cards(total, by_card)
+    # s: four ranks, one card each, NCCL
+    every = ("phased_tile", "parts_tile", "compact")
+    idle_dcn = ("phased_tile", "parts_tile", "segment_counts")
+    own = [dict(CUDA_VISIBLE_DEVICES=str(k)) for k in range(MULTI_CARDS)]
+    ranked = (
+        ("s tile partition", miss, [], "mixed", every,
+         split[:2] + ("segment_counts",), None, None),
+        ("s dcn -p", ld, ["-p"], "phased", split, idle_dcn, "dcn", None),
+        ("s dcn", miss, [], "mixed", split, idle_dcn, "dcn", None),
+        ("s dcn -p, CUDA_VISIBLE_DEVICES=k a rank", ld, ["-p"], "phased",
+         split, idle_dcn, "dcn", own),
+        # t: two ranks on two cards each (rank 0 on 0-1, rank 1 on 2-3),
+        # one NCCL group a row
+        ("t dcn:2 -p", ld, ["-p", "--tile-rows", str(MULTI_TILE_ROWS)],
+         "phased", split, idle_dcn, "dcn:2", None),
+        ("t dcn:2", miss, ["--tile-rows", str(MULTI_TILE_ROWS)], "mixed",
+         split, idle_dcn, "dcn:2", None))
+    for label, twk, flags, mode, need, idle, dcn, envs in ranked:
+        run_ranked_calc(label, twk, two.format("ranked"), flags, mode, need,
+                        idle, dcn, n=2 if dcn == "dcn:2" else MULTI_CARDS,
+                        envs=envs, cards={c: need for c in range(MULTI_CARDS)},
+                        backend="nccl", tally=total)
+    return total
+
+
+def _shard_work(by_card, P, S):
+    """(tile launches of each pairs shard, the cards of the shards that
+    launched none) of a P x S mesh over cards 0 .. P*S - 1 from its
+    launches by card: a shard's fused tile kernels (S = 1) or its first
+    card's epilogues (S > 1), repairs included. Every shard's card runs
+    the Fisher launch, whose gate is read on the device, so a card's
+    launches alone do not tell an idle shard."""
+    kinds = ("phased_tile", "parts_tile") if S == 1 else ("tile_epilogue",)
+    shard = [sum(by_card.get(p * S, {}).get(k, 0) for k in kinds)
+             for p in range(P)]
+    return shard, [p * S + s for p in range(P) if not shard[p]
+                   for s in range(S)]
+
+
+def multi_idle(work, ld):
+    """The meshes of MULTI_IDLE on a's archive `ld` at the default tile
+    rows (10 tiles), records against the native CPU engine's, no plain
+    version and no `segment_counts`: how the tiles fall to the pairs
+    shards (a segment is padded to 16 tiles a shard and split into
+    contiguous slices, so a small load leaves later shards only dead
+    tiles) and which cards' shards ran no tile (`_shard_work`),
+    measured, not required.
+    Prints the `multi_idle` JSON line; returns its runs."""
+    from tomahawk_tpu_torch.ops import _build
+    runs = []
+    for spec, P, S, flags in MULTI_IDLE:
+        label = f"idle --mesh {spec} {' '.join(flags)} on a's archive"
+        out = os.path.join(work, f"idle{spec}.two")
+        argv = ["tomahawk_tpu_torch", "calc", "-i", ld, "-o", out, "-r",
+                str(MIN_R2), *flags, "--mesh", spec, *ON_CARD]
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        ss = _run_cli(argv).stage_stats
+        dt = time.perf_counter() - t0
+        by_card = _local_by_card()
+        _check_counts(label, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS),
+                      (), ("segment_counts",))
+        check_records(label, out, ld, "phased")
+        shard, idle = _shard_work(by_card, P, S)
+        runs.append(dict(mesh=spec, flags=flags, wall_s=dt,
+                         bands=ss["n_bands"], loads=ss["n_loads"],
+                         tile_launches_by_shard=shard, idle_cards=idle,
+                         launches_by_card=by_card))
+        _say(f"main path {label}: `calc {' '.join(argv[6:])}` {dt:.2f}s "
+             f"wall, {ss['n_bands']} bands, {ss['n_loads']} loads; tile "
+             f"launches by pairs shard {shard}, cards of shards that ran "
+             f"no tile {idle}; launches by card {by_card}")
+    _say(json.dumps({"multi_idle": runs}))
+    return runs
+
+
+def multi_sparse():
+    """The sparse planes (64 x 4096 random phased variants, 2,080 tiles)
+    through `LdEngine.run_phased_pairs` on one card and on a 4 x 1 mesh
+    over the four cards, a warm-up each, then MULTI_REPS reps each in
+    turns; candidates and records equal; every card of the mesh launched
+    phased_tile and compact in the mesh's reps. Returns the row."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
+    from tomahawk_tpu_torch.ops import _build
+    from tomahawk_tpu_torch.ops.ld_math import LdFilters
+    from tomahawk_tpu_torch.parallel import make_mesh
+    stacked = workloads.build_planes(64, B, N_SAMPLES)
+    pairs = [(i, j, i == j) for i in range(64) for j in range(i, 64)]
+    filt = LdFilters(min_r2=MIN_R2)
+    engines = {"one card": LdEngine(stacked, N_SAMPLES,
+                                    CalcSettings(min_r2=MIN_R2), "cuda:0"),
+               "4x1": LdEngine(stacked, N_SAMPLES,
+                               CalcSettings(min_r2=MIN_R2),
+                               mesh=make_mesh(MULTI_CARDS, 1))}
+    walls = {k: [] for k in engines}
+    got = {}
+    by_card = {}
+    try:
+        # a warm-up each, then one card and 4x1 in turns
+        turns = ("one card", "4x1", "4x1", "one card")
+        order = list(turns[:2]) + [turns[k % 4]
+                                   for k in range(2 * MULTI_REPS)]
+        for k, tag in enumerate(order):
+            n_rec = [0]
+
+            def emit(recs, rev=None):
+                n_rec[0] += 2 * len(recs)
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            n_cand = engines[tag].run_phased_pairs(pairs, False, filt, emit)
+            for c in range(MULTI_CARDS):
+                torch.cuda.synchronize(c)
+            dt = time.perf_counter() - t0
+            if k >= 2:
+                walls[tag].append(dt)
+            if tag == "4x1":
+                _add_cards(by_card, _local_by_card())
+            if any(_build.PLAIN_CALLS.values()):
+                raise SystemExit(f"engine sparse {tag}: a plain version ran")
+            got.setdefault(tag, set()).add((int(n_cand), n_rec[0]))
+    finally:
+        for e in engines.values():
+            e.stage_close()
+    if len(got["one card"] | got["4x1"]) != 1:
+        raise SystemExit(f"engine sparse: one card and 4x1 disagree: {got}")
+    _check_cards("engine sparse 4x1", by_card,
+                 _local_cards(("phased_tile",), MULTI_CARDS, 1),
+                 ("local_parts", "tile_epilogue", "segment_counts"))
+    n_cand, n_rec = got["4x1"].pop()
+    row = dict(tiles=len(pairs), pairs=64 * B * (64 * B - 1) // 2,
+               candidates=n_cand, records=n_rec,
+               wall_s_one_card=walls["one card"], wall_s_4x1=walls["4x1"],
+               speedup=min(walls["one card"]) / min(walls["4x1"]))
+    _say(f"engine sparse on one card and on the 4 x 1 mesh, in turns: "
+         f"{len(pairs)} tiles, {n_rec} records; one card "
+         f"{walls['one card']} s, 4x1 {walls['4x1']} s: "
+         f"{row['speedup']:.2f}x at best")
+    _say(json.dumps({"multi_sparse": row}))
+    return row
+
+
+def multi_dcn():
+    """The engine dcn row (the first DCN_BLOCKS blocks of the sparse
+    planes, 136 tiles) on four ranks, one card each, and on two ranks of
+    two cards each (`dcn:2`), both over NCCL: each rank's wall, and the
+    ms a tile of local_parts, the all-reduce (row 0's group), the
+    epilogue and the compaction from CUDA events on its card of row 0.
+    The ranks' candidates and records agree within and across the two
+    layouts. Returns both layouts' reports."""
+    rows = {}
+    for tag, n, spec in (("4 ranks, dcn", MULTI_CARDS, "dcn"),
+                         ("2 ranks, dcn:2", 2, "dcn:2")):
+        coordinator = f"127.0.0.1:{_free_port()}"
+        reports = spawn_ranks(f"engine {tag}", [
+            dict(kind="engine", rank=r, coordinator=coordinator, n=n,
+                 spec=spec, dense=False) for r in range(n)])
+        for rep in reports:
+            _check_counts(f"engine {tag} rank {rep['rank']}",
+                          rep["launches"], rep["plain"],
+                          ("local_parts", "tile_epilogue", "compact"),
+                          ("phased_tile", "parts_tile", "segment_counts"))
+            if "device collectives over nccl" not in rep["dist"]:
+                raise SystemExit(f"engine {tag}: not NCCL: {rep['dist']}")
+        _check_cards(f"engine {tag}",
+                     _by_index([rep["cards"] for rep in reports]),
+                     {c: ("local_parts", "tile_epilogue", "compact")
+                      for c in range(MULTI_CARDS)},
+                     ("phased_tile", "parts_tile", "segment_counts"))
+        if len({(r["candidates"], r["records"]) for r in reports}) != 1:
+            raise SystemExit(f"engine {tag}: the ranks disagree: {reports}")
+        for rep in reports:
+            _say(f"engine {tag} rank {rep['rank']}: {rep['wall_s']:.4f}s, "
+                 f"{rep['records']} records; ms per tile "
+                 f"{rep['ms_per_tile']}")
+        rows[tag] = [{k: v for k, v in rep.items() if k != "dense"}
+                     for rep in reports]
+    a, b = (v[0] for v in rows.values())
+    if (a["candidates"], a["records"]) != (b["candidates"], b["records"]):
+        raise SystemExit("engine dcn: the two layouts disagree")
+    _say(json.dumps({"multi_dcn": rows}))
+    return rows
+
+
+def _mesh_cut_times(engine, cfg, pairs):
+    """ms a tile of each cut of a 1 x S mesh's samples-sharded tile over
+    `pairs` beside the reduction (the engine's run times its copies and
+    its sum: `multi_mesh`), each cut a pass of its own over the tiles,
+    bracketed by CUDA events on the card it runs on, the steps before it
+    in the tile queued ahead of the first event: local_parts on each
+    card (all cards in one pass), then tile_epilogue and compact (handed
+    the epilogue's counts) on card 0, after the row's reduction."""
+    import torch
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import tiles
+    row = engine._dev_for(cfg)[0]
+    group = engine._row_cfg(cfg, 0, row)["psum_group"]
+    devs = [d["valid"].device for d in row]
+    out = tiles.tile_buffers(cfg, devs[0])
+    outs = [out] + [o for _, o in group.peers]
+    counts = tiles.counts_buffer(cfg, devs[0])
+    buf = torch.zeros((1 << 18, sweeps.buf_cols(cfg)), dtype=torch.int32,
+                      device=devs[0])
+    n_pass, n_cnd = (torch.zeros(len(pairs), dtype=torch.int32,
+                                 device=devs[0]) for _ in range(2))
+    off = torch.zeros(1, dtype=torch.int32, device=devs[0])
+
+    def local_on(c):
+        def fn(t, i, j, diag):
+            with torch.cuda.device(devs[c]):
+                tiles.tile_local_parts(row[c], i, j, cfg, outs[c])
+        return fn
+
+    def local(t, i, j, diag):
+        for c in range(len(devs)):
+            local_on(c)(t, i, j, diag)
+
+    def reduce(t, i, j, diag):
+        with torch.cuda.device(devs[0]):
+            group.all_reduce_parts(out[1])
+
+    def epilogue(t, i, j, diag):
+        with torch.cuda.device(devs[0]):
+            tiles.tile_epilogue(row[0], i, j, diag, cfg, out, counts)
+
+    def compact(t, i, j, diag):
+        with torch.cuda.device(devs[0]):
+            sweeps.compact_survivors(*out, off, buf, n_pass, n_cnd, t, 256,
+                                     counts)
+
+    def timed(steps, before=()):
+        """Mean ms a tile of each (card, fn) in `steps`, its events
+        recorded on its card's stream right around its own call."""
+        marks = []
+        for t, (i, j, diag) in enumerate(pairs):
+            for step in before:
+                step(t, i, j, diag)
+            ev = []
+            for c, fn in steps:
+                ev.append([torch.cuda.Event(enable_timing=True)
+                           for _ in "ab"])
+                ev[-1][0].record(torch.cuda.current_stream(devs[c]))
+                fn(t, i, j, diag)
+                ev[-1][1].record(torch.cuda.current_stream(devs[c]))
+            marks.append(ev)
+        for d in devs:
+            torch.cuda.synchronize(d)
+        return [sum(m[k][0].elapsed_time(m[k][1]) for m in marks)
+                / len(marks) for k in range(len(steps))]
+
+    local(0, *pairs[0])          # warm-up
+    ms = {f"local_parts card {c}": v for c, v in enumerate(
+        timed([(c, local_on(c)) for c in range(len(devs))]))}
+    ms["tile_epilogue"], = timed([(0, epilogue)], (local, reduce))
+    ms["compact"], = timed([(0, compact)], (local, reduce, epilogue))
+    return ms
+
+
+def multi_mesh():
+    """The dcn row's tiles (the first DCN_BLOCKS blocks of the sparse
+    planes) on a 1 x 4 mesh over the four cards in this process: a
+    warm-up, then MULTI_REPS timed runs, the first with the SamplesGroup's
+    events on (the copies and the sum as the engine runs them); the
+    launches by card (card 0: local_parts, tile_epilogue, compact; the
+    others local_parts; no fused kernel, no plain version); candidates
+    and records equal on every run; then the per-tile cuts
+    (`_mesh_cut_times`). Returns the row."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute.engine import CalcSettings, LdEngine
+    from tomahawk_tpu_torch.ops import _build
+    from tomahawk_tpu_torch.ops.ld_math import LdFilters
+    from tomahawk_tpu_torch.parallel import SamplesGroup, make_mesh
+    stacked = workloads.build_planes(DCN_BLOCKS, B, N_SAMPLES)
+    engine = LdEngine(stacked, N_SAMPLES, CalcSettings(min_r2=MIN_R2),
+                      mesh=make_mesh(1, MULTI_CARDS))
+    pairs = [(i, j, i == j) for i in range(DCN_BLOCKS)
+             for j in range(i, DCN_BLOCKS)]
+    filt = LdFilters(min_r2=MIN_R2)
+    got, walls = set(), []
+
+    def sync():
+        for c in range(MULTI_CARDS):
+            torch.cuda.synchronize(c)
+    try:
+        for rep in range(MULTI_REPS + 1):
+            n_rec = [0]
+
+            def emit(recs, rev=None):
+                n_rec[0] += 2 * len(recs)
+            if rep == 1:
+                _build.reset_counts()
+                SamplesGroup.timing = []
+            t0 = time.perf_counter()
+            n_cand = engine.run_phased_pairs(pairs, False, filt, emit)
+            sync()
+            if rep:
+                walls.append(time.perf_counter() - t0)
+            if rep == 1:
+                marks, SamplesGroup.timing = SamplesGroup.timing, None
+                in_run = dict(
+                    copies=sum(a.elapsed_time(b) for a, b, _ in marks)
+                    / len(marks),
+                    sum=sum(b.elapsed_time(c) for _, b, c in marks)
+                    / len(marks), reductions=len(marks))
+            got.add((int(n_cand), n_rec[0]))
+        by_card = _local_by_card()
+        _check_counts("engine 1x4 mesh", dict(_build.LAUNCHES),
+                      dict(_build.PLAIN_CALLS), (), ())
+        _check_cards("engine 1x4 mesh", by_card,
+                     _local_cards((), 1, MULTI_CARDS),
+                     ("phased_tile", "parts_tile", "segment_counts"))
+        if len(got) != 1:
+            raise SystemExit(f"engine 1x4 mesh: the runs disagree: {got}")
+        ms = _mesh_cut_times(engine, engine._cfg("phased", False, "all"),
+                             pairs)
+    finally:
+        SamplesGroup.timing = None
+        engine.stage_close()
+    n_cand, n_rec = got.pop()
+    row = dict(tiles=len(pairs), candidates=n_cand, records=n_rec,
+               wall_s=walls, in_run_ms_per_tile=in_run, ms_per_tile=ms,
+               parts_mb=4 * B * B / 1e6)
+    _say(f"engine 1x4 mesh over four cards: {len(pairs)} tiles, {n_rec} "
+         f"records: walls {walls} s; in the run, per tile on card 0: the "
+         f"peers' copies {in_run['copies']:.4f} ms, the sum "
+         f"{in_run['sum']:.4f} ms; cuts a tile {ms}")
+    _say(json.dumps({"multi_mesh": row}))
+    return row
+
+
+def multi_main():
+    """`python3 chip_smoke.py multi`, with exactly four cards visible:
+    the kernels on each card against their plain versions
+    (`multi_kernels`), paths r, s and t (`multi_paths`), the idle row
+    (`multi_idle`), then the sparse planes on a 4 x 1
+    mesh against one card (`multi_sparse`), the engine dcn row over NCCL
+    (`multi_dcn`) and the 1 x 4 mesh's cuts (`multi_mesh`), each a JSON
+    line; its last line is the device line, count 4."""
+    import torch
+    if torch.cuda.device_count() != MULTI_CARDS:
+        print(f"chip_smoke multi: needs exactly {MULTI_CARDS} visible cards, "
+              f"torch sees {torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    report_cards()
+    build_kernels()
+    work = os.path.join(ROOT, "build", "chip_smoke_multi")
+    os.makedirs(work, exist_ok=True)
+    try:
+        multi_kernels()
+        ld, miss = multi_archives(work)
+        by_card = multi_paths(work, ld, miss)
+        multi_idle(work, ld)
+        multi_sparse()
+        multi_dcn()
+        multi_mesh()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    leaked = sorted(m for m, v in sys.modules.items()
+                    if m.split(".")[0] in ("jax", "tomahawk_tpu", "bench")
+                    and v is not None)
+    if leaked:
+        raise SystemExit(f"imported outside the port: {leaked}")
+    _say(json.dumps({"multi_launches_by_card": by_card}))
+    _say(f"multi: {time.perf_counter() - t_start:.0f}s in all")
+    report_cards()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def dcn2_main():
     """`python3 chip_smoke.py dcn2`, on a host with two cards visible
     (e.g. CUDA_VISIBLE_DEVICES=0,1): paths g and h with `--mesh dcn:2`,
     two ranks that share both cards (each rank's pairs shard p on card
     p, collectives over gloo, each card's reductions through its own
     pinned host buffer), their records against the native CPU engine's
-    and their launches checked as in the default run. The only layout
-    where `dcn:P` with P > 1 runs across cards."""
+    and their launches checked as in the default run: `dcn:P` with
+    P > 1 where the ranks share their cards (`multi` runs it on cards of
+    the ranks' own, over NCCL)."""
     import torch
     if torch.cuda.device_count() != 2:
         print("chip_smoke dcn2: needs exactly two visible cards",
@@ -3623,6 +4375,8 @@ def main():
         return crossover_main(sys.argv[2:])
     if sys.argv[1:2] == ["dcn2"]:
         return dcn2_main()
+    if sys.argv[1:2] == ["multi"]:
+        return multi_main()
     from tomahawk_tpu_torch import native
     from tomahawk_tpu_torch.device import kernel_report
 

@@ -205,7 +205,7 @@ def rank_main(rank: int, port: int, out_path: str):
     """One of two ranks: every sweep of SWEEPS over the word slice
     `rank` of 2, in order; the results go to an .npz file."""
     dist.init_distributed(f"127.0.0.1:{port}", 2, rank, "cpu")
-    group = dist.group()
+    group = dist.group().rows[0]
     st = planes(n_blocks=N_BLOCKS)
     tl = tile_list(N_BLOCKS)
     res = {}

@@ -42,7 +42,11 @@ on its own device into its own survivor buffer, and the host reads the
 shards' survivors in shard order, so the record stream is a single
 device's; the samples axis gives each device of a shard's row a slice of
 every word plane, and the row sums its local parts on its first device
-(parallel.SamplesGroup) before the epilogue and the compaction there.
+(parallel.SamplesGroup: the peers' parts copied there, over NVLink where
+the cards reach each other) before the epilogue and the compaction there.
+Every kernel of a shard or slice runs on its own card, on that card's
+current stream (the consumer's and the staging worker's streams are one
+a card).
 With S = 1 each shard's tiles run through the C tile loop on its own
 card; with S > 1 the tile loop is Python's.
 
@@ -63,7 +67,10 @@ every rank holds 1/N of every word plane, all sweep every tile jointly
 (local parts, all-reduce, epilogue: sweeps.py); each rank runs the host
 math of its slice of every segment's survivors, the records are gathered
 over gloo (`_dcn_records`), and rank 0 alone writes the one output.
-`--mesh dcn:P` gives each rank P cards, a local pairs axis. Every rank walks
+`--mesh dcn:P` gives each rank P cards, a local pairs axis: pairs shard p
+reduces over row p's device group, which joins card p of every rank
+(`parallel.ProcessGroup.rows`; NCCL where the cards are the ranks' own).
+Every rank walks
 the same loads and tiles in the same order with the same caps and
 repair decisions, because those follow from the global counts, so the
 collectives stay aligned; such a run neither stages nor pipelines.
@@ -747,11 +754,14 @@ class LdEngine:
         return [[{k: self._load_dev[k][p * S + s] for k in keys}
                  for s in range(S)] for p in range(self.n_pair_shards)]
 
-    def _row_cfg(self, cfg, row: list) -> dict:
-        """The sweep config of one pairs shard whose samples slices hold
-        `row` (a `_dev_for` row): with S > 1 on a local mesh, the row's
-        SamplesGroup, with tile buffers of its own on each peer's
-        device."""
+    def _row_cfg(self, cfg, p: int, row: list) -> dict:
+        """The sweep config of pairs shard `p`, whose samples slices hold
+        `row` (a `_dev_for` row): under a dcn mesh, row p's device group
+        (`ProcessGroup.rows`: card p of every rank); with S > 1 on a local
+        mesh, the row's SamplesGroup, with tile buffers of its own on each
+        peer's device."""
+        if self.group is not None:
+            return dict(cfg, psum_group=self.group.rows[p])
         if len(row) == 1:
             return cfg
         return dict(cfg, psum_group=SamplesGroup(
@@ -985,7 +995,7 @@ class LdEngine:
             with on_device(self._grid[p][0][0]):
                 n_pass, n_cand, buf = sweeps.fused_sweep(
                     row[0], pi[sl], pj[sl], dg[sl], live[sl],
-                    cfg=self._row_cfg(cfg, row), cap=cap, outcap=outcap)
+                    cfg=self._row_cfg(cfg, p, row), cap=cap, outcap=outcap)
             shards.append(dict(n_pass=n_pass, n_cand=n_cand, buf=buf))
         return dict(shards=shards, devs=devs, pi=pi, pj=pj, dg=dg, per=per,
                     cap=cap, outcap=outcap, stacked=self.stacked)
@@ -1297,7 +1307,7 @@ class LdEngine:
             with on_device(self._grid[p][0][0]):
                 rbuf = sweeps.extract_sweep(
                     devs[p][0], pi[tiles], pj[tiles], dg[tiles], hoff,
-                    cfg=self._row_cfg(cfg, devs[p]), cap=rcap,
+                    cfg=self._row_cfg(cfg, p, devs[p]), cap=rcap,
                     outcap=_bucket(total + rcap, 16384))
             host = rbuf[:total].cpu().numpy()
             out.update({int(t): host[o:o + n]
@@ -1592,12 +1602,15 @@ def compute_ld(settings: CalcSettings, device="cuda",
     if settings.backend == "cpu":
         device = "cpu"        # needs no card
     if settings.distributed:
-        # the rank's own card: the first of its share under the mesh spec
-        device = resolve_device(dist.process_devices(
-            device, settings.process_id, settings.mesh)[0])
+        # the rank's own card: the first of its share under the mesh spec;
+        # under dcn:P its share is its card of each of the P rows
+        cards = [resolve_device(d) for d in dist.process_devices(
+            device, settings.process_id, settings.mesh)]
+        device = cards[0]
         proc_id, n_procs = dist.init_distributed(
             settings.coordinator, settings.num_processes,
-            settings.process_id, device)
+            settings.process_id, device,
+            rows=cards if _is_dcn(settings) else None)
     else:
         device = resolve_device(device)
     try:

@@ -357,9 +357,10 @@ def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
         scratch.data_ptr(), _ticket(mask.device, stream).data_ptr(),
         buf.data_ptr(), stream)
     _build.check(rc, "compact launch")
-    _build.count(_build.LAUNCHES, "compact")
+    _build.count(_build.LAUNCHES, "compact", device=mask.device)
     if counts is None:
-        _build.count(_build.LAUNCHES, _build.SEGMENT_COUNTS)
+        _build.count(_build.LAUNCHES, _build.SEGMENT_COUNTS,
+                     device=mask.device)
 
 
 def host_counts(n_pass, n_cand):
@@ -558,7 +559,7 @@ def _launch_fisher(dev, n_pass, buf, pi, pj, cfg, cap, steps=None):
         lf.data_ptr(), lf.numel(), *F.search_cuts(n_hap),
         None if steps is None else steps.data_ptr(), stream)
     _build.check(rc, "fisher_bracket launch")
-    _build.count(_build.LAUNCHES, "fisher_bracket")
+    _build.count(_build.LAUNCHES, "fisher_bracket", device=device)
 
 
 def extract_sweep(dev, pi, pj, dg, off, *, cfg, cap, outcap):
@@ -639,8 +640,8 @@ def _launch_sweep(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
         n_pass.data_ptr(), n_cand.data_ptr(), scratch.data_ptr(),
         _ticket(buf.device, stream).data_ptr(), buf.data_ptr(), stream,
         done)
-    _build.count(_build.LAUNCHES, kernel_name(cfg), done[0])
-    _build.count(_build.LAUNCHES, "compact", done[1])
+    _build.count(_build.LAUNCHES, kernel_name(cfg), done[0], buf.device)
+    _build.count(_build.LAUNCHES, "compact", done[1], buf.device)
     _build.check(rc, "sweep launch")
 
 

@@ -68,6 +68,9 @@ KINSHIP = "kinship_int_mm"
 LAUNCHES = {name: 0 for name in (*KERNELS, SEGMENT_COUNTS, KINSHIP)}
 #: wrapper calls that took the plain PyTorch version (CPU tensors)
 PLAIN_CALLS = {name: 0 for name in (*KERNELS, SEGMENT_COUNTS, KINSHIP)}
+#: the launches of LAUNCHES again by card: str(device) -> {name: count},
+#: for the launches whose wrapper names the card it launched on
+LAUNCHES_BY_CARD = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _D = ctypes.c_longlong, ctypes.c_double
@@ -132,14 +135,19 @@ def reset_counts():
         for d in (LAUNCHES, PLAIN_CALLS):
             for k in d:
                 d[k] = 0
+        LAUNCHES_BY_CARD.clear()
 
 
-def count(counts: dict, name: str, n: int = 1):
-    """Add n to counts[name] (LAUNCHES or PLAIN_CALLS). A segment's
-    consumer thread launches repair sweeps while the main thread enqueues
-    the next segment, so the read-modify-write holds a lock."""
+def count(counts: dict, name: str, n: int = 1, device=None):
+    """Add n to counts[name] (LAUNCHES or PLAIN_CALLS), and a launch on
+    `device` to LAUNCHES_BY_CARD too. A segment's consumer thread
+    launches repair sweeps while the main thread enqueues the next
+    segment, so the read-modify-write holds a lock."""
     with _count_lock:
         counts[name] += n
+        if device is not None and counts is LAUNCHES:
+            card = LAUNCHES_BY_CARD.setdefault(str(device), {})
+            card[name] = card.get(name, 0) + n
 
 
 def _nvcc() -> str:

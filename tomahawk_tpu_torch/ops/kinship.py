@@ -56,7 +56,7 @@ def gram_accumulate(kin: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     card, the plain version on the CPU. Returns kin."""
     if g.is_cuda:
         gt = g.t().contiguous()
-        _build.count(_build.LAUNCHES, _build.KINSHIP)
+        _build.count(_build.LAUNCHES, _build.KINSHIP, device=g.device)
         kin += torch._int_mm(gt, gt.t())
         return kin
     if g.device.type != "cpu":

@@ -306,7 +306,7 @@ def _launch(dev, i, j, diag, cfg, out, counts=None):
             int(need_nonzero), int(bool(diag)), mask.data_ptr(),
             parts.data_ptr(), cnt, stream)
     _build.check(rc, f"{name} launch")
-    _build.count(_build.LAUNCHES, name)
+    _build.count(_build.LAUNCHES, name, device=mask.device)
     return out
 
 
@@ -365,7 +365,7 @@ def _launch_local_parts(dev, i, j, cfg, out):
         B, W, parts.data_ptr(),
         torch.cuda.current_stream(parts.device).cuda_stream)
     _build.check(rc, "local_parts launch")
-    _build.count(_build.LAUNCHES, "local_parts")
+    _build.count(_build.LAUNCHES, "local_parts", device=parts.device)
     return parts
 
 
@@ -391,5 +391,5 @@ def _launch_epilogue(dev, i, j, diag, cfg, out, counts=None):
         None if counts is None else counts.data_ptr(),
         torch.cuda.current_stream(mask.device).cuda_stream)
     _build.check(rc, "tile_epilogue launch")
-    _build.count(_build.LAUNCHES, "tile_epilogue")
+    _build.count(_build.LAUNCHES, "tile_epilogue", device=mask.device)
     return out

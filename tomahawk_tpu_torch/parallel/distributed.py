@@ -33,7 +33,8 @@ processes of a run form one `torch.distributed` group:
                                        each of its P cards (`make_dcn_mesh`;
                                        cards s*P up to (s+1)*P, modulo the
                                        count); per tile: local parts, then
-                                       `all_reduce_parts` (SUM), then the
+                                       `all_reduce_parts` (SUM) over the
+                                       row's device group, then the
                                        epilogue and the compaction on
                                        global counts; each rank runs the
                                        host math of its slice of the
@@ -54,19 +55,21 @@ local devices a process owns, so a process's cards follow from its rank
 and the mesh spec, by one rule (`process_devices`): `cuda` under
 `--distributed` means card `rank % count`, `--mesh auto` stays one card
 a process, and the first of a process's cards is the one its group is
-bound to. The backends are
-decided once, at the rendezvous, from that layout and never by catching
-a failure: when every rank sits on a CUDA device of its own, device
-tensors reduce over NCCL and host barriers go through gloo; when ranks
-share a device, or run on the CPU, gloo serves both, and a CUDA tensor
-is then reduced through one pinned host buffer (gloo's own CUDA path
-stages through the host as well, and not every build has it), one
-buffer a card, so reductions on two cards never share one. A collective
-that fails raises in every rank; there is no fallback. NCCL reduces
-only the rank's own card, so `dcn:P` with P > 1 runs only where the
-ranks share their cards (gloo: N ranks on P cards, each rank's pairs
-shard p on card p); on cards of their own (NCCL) it raises at its first
-reduction.
+bound to. The backends are decided once, at the rendezvous, from the
+layout and never by catching a failure (`device_backend`): each rank
+tells its host and the identity (UUID) of the card of each row, so
+ranks started with `CUDA_VISIBLE_DEVICES=k` each, which all call their
+card `cuda:0`, are told apart. Where every row card of every rank is a
+card of its own, device tensors reduce over NCCL and host barriers go
+through gloo; where two ranks share a card, or run on the CPU, gloo
+serves both, and a CUDA tensor is then reduced through one pinned host
+buffer (gloo's own CUDA path stages through the host as well, and not
+every build has it), one buffer a card, so reductions on two cards
+never share one. A dcn:P mesh has P rows, row p joining card p of every
+rank (the JAX package's `mesh[p, s]` = process s's device p); each row
+has a device group of its own, made by every rank in row order in
+every layout, and a tile of pairs shard p reduces over row p's group.
+A collective that fails raises in every rank; there is no fallback.
 
 Entry: `python -m tomahawk_tpu_torch calc --distributed --coordinator
 host:port --num-processes N --process-id K [--mesh dcn]`.
@@ -91,15 +94,20 @@ TIMEOUT_S = 600
 
 @dataclass
 class ProcessGroup:
-    """The process group of one run. `device_group` carries the device
-    tensors' collectives (NCCL, or gloo where ranks share a device or
-    run on the CPU), `host_group` the barriers (always gloo)."""
+    """The process group of one run (`host_group`: the barriers, always
+    gloo), or one row of it. The run's group holds a row for each row of
+    a dcn mesh in `rows`, in row order, and no device group of its own:
+    row p's `device` is this rank's card p and its `device_group`, which
+    carries the device tensors' collectives (NCCL, or gloo where ranks
+    share a device or run on the CPU), joins card p of every rank. A row
+    has no rows of its own."""
     rank: int
     size: int
     device: torch.device
     device_backend: str            # "nccl" or "gloo"
     device_group: object
     host_group: object
+    rows: list = field(default_factory=list)
     # gloo with CUDA tensors: the pinned host buffers all_reduce_parts
     # stages through, one a card (a card's reductions are ordered by its
     # stream, two cards' are not), allocated at the card's first
@@ -201,7 +209,9 @@ def make_dcn_mesh(spec: str = "dcn", device="cuda") -> Mesh:
     'dcn:P' gives each process P cards of its own (cards s*P up to
     (s+1)*P of process s, modulo the count; 'dcn' is 'dcn:1'), each
     holding the process's word slice of the planes for a pairs shard.
-    The mesh carries the group."""
+    The mesh carries the group, whose row p (`ProcessGroup.rows`) joins
+    card p of every process: this process's column must be the cards of
+    the rows the group was made with."""
     grp = group() if _group is not None else None
     if grp is None or grp.size < 2:
         raise ValueError("mesh 'dcn' needs a multi-process run "
@@ -214,6 +224,11 @@ def make_dcn_mesh(spec: str = "dcn", device="cuda") -> Mesh:
     grid = np.empty((n_p, grp.size), dtype=object)
     for s, col in enumerate(cols):
         grid[:, s] = col
+    if grp.rows and [r.device for r in grp.rows] != cols[grp.rank]:
+        raise ValueError(f"mesh {spec!r} puts this rank on "
+                         f"{[str(d) for d in cols[grp.rank]]}, its row "
+                         f"groups on {[str(r.device) for r in grp.rows]}: "
+                         f"give init_distributed the rows of the same spec")
     return Mesh(grid, group=grp)
 
 
@@ -222,12 +237,37 @@ def mesh_is_multiprocess(mesh) -> bool:
     return mesh is not None and mesh.group is not None
 
 
+def card_id(device) -> str:
+    """The identity of a device for the layout: 'cpu', or the card's
+    UUID, which stays the card's own whatever index the process's
+    CUDA_VISIBLE_DEVICES gives it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    return str(torch.cuda.get_device_properties(device).uuid)
+
+
+def device_backend(layout) -> str:
+    """The device collectives' backend of a run from its layout: one
+    (host, [(device name, card_id), ...]) a rank, its card of each row.
+    'nccl' where there are two ranks or more and every row card of every
+    rank is a CUDA card that no other rank or row holds (by host and
+    UUID, not by index); 'gloo' where any is shared or on the CPU."""
+    cards = [(host, ident) for host, row in layout for _, ident in row]
+    if len(layout) > 1 and all(ident != "cpu" for _, ident in cards) \
+            and len(set(cards)) == len(cards):
+        return "nccl"
+    return "gloo"
+
+
 def init_distributed(coordinator: str, num_processes: int, process_id: int,
-                     device) -> tuple:
+                     device, rows=None) -> tuple:
     """Rendezvous at tcp://`coordinator`; returns (process_id,
     n_processes). `device` is this rank's resolved device
-    (`process_devices`' first). The group is kept for `group()` until
-    `shutdown()`."""
+    (`process_devices`' first); `rows` this rank's card of each row of a
+    dcn mesh (`process_devices` under 'dcn:P'; default `[device]`, one
+    row). Every rank makes a device group for each row, in row order.
+    The group is kept for `group()` until `shutdown()`."""
     global _group
     import torch.distributed as dist
     if _group is not None:
@@ -239,6 +279,7 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
             f"and --process-id K in [0, N): got {coordinator!r}, "
             f"{num_processes}, {process_id}")
     device = torch.device(device)
+    rows = [torch.device(d) for d in (rows or [device])]
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(
@@ -246,25 +287,28 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
         world_size=num_processes, rank=process_id,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))
     host_group = dist.group.WORLD
-    # the layout: which (host, device) every rank sits on
-    mine = (socket.gethostname(), str(device))
+    # the layout: the host and the card of each row of every rank
+    mine = (socket.gethostname(), [(str(d), card_id(d)) for d in rows])
     layout = [None] * num_processes
     dist.all_gather_object(layout, mine, group=host_group)
-    own_card = (all(d.startswith("cuda") for _, d in layout)
-                and len(set(layout)) == num_processes)
-    if own_card and num_processes > 1:
-        backend = "nccl"
-        device_group = dist.new_group(
-            backend="nccl", timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    else:
-        backend = "gloo"
-        device_group = host_group
+    if len({len(row) for _, row in layout}) != 1:
+        raise ValueError(f"the ranks hold different numbers of rows: "
+                         f"{[len(row) for _, row in layout]}")
+    backend = device_backend(layout)
+    row_groups = []
+    for d in rows:
+        g = dist.new_group(backend=backend,
+                           timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        row_groups.append(ProcessGroup(process_id, num_processes, d, backend,
+                                       g, host_group))
     _group = ProcessGroup(process_id, num_processes, device, backend,
-                          device_group, host_group)
-    shared = "" if own_card or device.type == "cpu" else \
+                          None, host_group, row_groups)
+    shared = "" if backend == "nccl" or device.type == "cpu" else \
         "; ranks share a card, CUDA tensors reduce through pinned host memory"
+    cards = ", ".join(f"{name} ({ident})" for name, ident in mine[1])
     log("LOG", f"Distributed: process {process_id}/{num_processes} on "
-        f"{device}; device collectives over {backend}, host barriers over "
+        f"{cards}; device collectives over {backend} in {len(rows)} row "
+        f"group(s) (row p: card p of every rank), host barriers over "
         f"gloo{shared}", sub="DIST")
     return process_id, num_processes
 
@@ -278,27 +322,31 @@ def group() -> ProcessGroup:
 
 def shutdown():
     """Destroy the process group (every rank calls it, after the last
-    collective)."""
+    collective, or after `init_distributed` raised past the
+    rendezvous)."""
     global _group
     import torch.distributed as dist
-    if _group is not None:
-        _group = None
+    _group = None
+    if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
 
 def all_reduce_parts(parts: torch.Tensor, grp):
     """Sum `parts` (the i32 [P, B, B] local contractions of one tile)
     over the ranks of `grp`, in place: the counterpart of the JAX
-    sweep's `psum` over the 'samples' axis. `grp` is the run's
-    ProcessGroup, whose ranks must all call it for the same tiles in the
-    same order, or the SamplesGroup of a local mesh's row (an add of its
-    peers' parts on the device)."""
+    sweep's `psum` over the 'samples' axis. `grp` is a row of the run's
+    ProcessGroup (`rows[p]`, whose ranks must all call it for the same
+    tiles in the same order) or the SamplesGroup of a local mesh's row
+    (the peers' parts copied to its first card and added there)."""
     import torch.distributed as dist
     if isinstance(grp, SamplesGroup):
         return grp.all_reduce_parts(parts)
-    if parts.device != grp.device and grp.device_backend == "nccl":
-        raise ValueError(f"parts on {parts.device}, the group's rank on "
-                         f"{grp.device}: NCCL reduces the rank's own card")
+    if grp.rows:
+        raise ValueError("all_reduce_parts reduces over a row of the "
+                         "process group (`rows[p]`), not the group itself")
+    if grp.device_backend == "nccl" and parts.device != grp.device:
+        raise ValueError(f"parts on {parts.device}, the row's card "
+                         f"{grp.device}: NCCL reduces each row on its card")
     if parts.is_cuda and grp.device_backend == "gloo":
         # ranks share the card: through the card's pinned host buffer,
         # which the copy back from its last reduction may still read

@@ -13,9 +13,10 @@ shards itself:
 - axis "samples": the packed-word axis of every plane splits into S
   slices, one a device of the row (`planes_to_device(...,
   word_slice=(s, S))`); per tile each device computes the local parts of
-  its slice (`tile_local_parts`, K2), `SamplesGroup` sums them onto the
-  row's first device (the JAX sweep's `psum` over 'samples'), and the
-  epilogue (X5) and the compaction (X1) run there.
+  its slice (`tile_local_parts`, K2) on its own card, `SamplesGroup`
+  copies them to the row's first device and sums them there (the JAX
+  sweep's `psum` over 'samples'), and the epilogue (X5) and the
+  compaction (X1) run there.
 
 A device may appear more than once: the tests build meshes of several
 `cpu` entries, and a mesh over one card repeated runs the same code on
@@ -76,22 +77,51 @@ class SamplesGroup:
     see a process group (compute/sweeps.py `_tile`): the row's first
     device is this group's own rank, and `peers` holds every other
     slice's (device tensors, tile buffers). `all_reduce_parts` sums the
-    peers' local parts onto the first device's: an add on the device
-    where a peer shares it, else a copy between the cards (PyTorch orders
-    it against both devices' streams) and an add."""
+    peers' local parts onto the first device's, the JAX psum's place.
+
+    A peer on another card is first copied into a staging tensor of its
+    own on the first card, all the peers' copies in flight together, then
+    the adds run on the first card. PyTorch's copy between cards runs on
+    the peer card's current stream once the first card's stream has
+    reached it, and the first card's stream waits for the copy: so the
+    peer's next `local_parts`, queued behind the copy on the same stream,
+    cannot overwrite the tile buffer the copy still reads, and the copy
+    cannot overwrite a staging tensor an earlier add still reads. ATen
+    enables peer access at a pair of cards' first copy where
+    `torch.cuda.can_device_access_peer` allows it (the copy then goes
+    over NVLink); a copy without it goes through the host.
+
+    `timing`, a list (None by default, for every group of the process):
+    each reduction on a card then appends three CUDA events recorded on
+    the first card's stream: before the copies, after them (the peers'
+    parts there), and after the adds."""
+
+    timing = None
 
     def __init__(self, peers):
         self.peers = list(peers)
         self._staging = {}
 
     def all_reduce_parts(self, parts: torch.Tensor):
-        for _, (_, peer) in self.peers:
+        marks = None
+        if SamplesGroup.timing is not None and parts.is_cuda:
+            stream = torch.cuda.current_stream(parts.device)
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record(stream)
+        summands = []
+        for k, (_, (_, peer)) in enumerate(self.peers):
             if peer.device != parts.device:
-                key = (peer.device, tuple(peer.shape))
-                if key not in self._staging:
-                    self._staging[key] = torch.empty_like(parts)
-                stage = self._staging[key]
+                stage = self._staging.get(k)
+                if stage is None:
+                    stage = self._staging[k] = torch.empty_like(parts)
                 with on_device(parts.device):
                     stage.copy_(peer, non_blocking=True)
                 peer = stage
+            summands.append(peer)
+        if marks:
+            marks[1].record(stream)
+        for peer in summands:
             parts.add_(peer)
+        if marks:
+            marks[2].record(stream)
+            SamplesGroup.timing.append(marks)
