@@ -1,0 +1,10 @@
+"""The benchmark's CPU tests run from the root of the checkout:
+`python3 -m pytest ldbench/tests`."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
