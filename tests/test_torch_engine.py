@@ -352,7 +352,8 @@ def _free_port() -> int:
 def test_performance_histogram_matches_jax(tmp_path, capsys):
     """`calc --performance` prints the allele-count histogram (survivors
     and kept records by log2 bucket of min(ac_a, ac_b)) with the JAX
-    CLI's lines, on the same archive, after the group table."""
+    CLI's lines, on the same archive, after the group table; the port's
+    span table follows it."""
     from tomahawk_tpu.cli import main as jax_main
     vcf = str(tmp_path / "p.vcf")
     make_vcf(vcf, n_samples=24, n_sites=30, miss_frac=0.02, seed=4)
@@ -366,8 +367,12 @@ def test_performance_histogram_matches_jax(tmp_path, capsys):
                     "0.0", "--performance", *extra]) == 0
         err = capsys.readouterr().err.splitlines()
         head = next(i for i, ln in enumerate(err) if "min(ac) bucket" in ln)
-        lines.append([ln.split("[PERF] ", 1)[1] for ln in err[head:]
-                      if "[PERF]" in ln])
+        perf = [ln.split("[PERF] ", 1)[1] for ln in err[head:]
+                if "[PERF]" in ln]
+        # the port's span table (spans.log_table) comes last
+        spans_at = [i for i, ln in enumerate(perf) if ln.startswith("span ")]
+        assert len(spans_at) == (run is cli.main)
+        lines.append(perf[:spans_at[0]] if spans_at else perf)
         assert any("count-sweep rate" in ln for ln in err[:head])
     assert len(lines[0]) > 2 and lines[0] == lines[1]
 

@@ -110,7 +110,7 @@ from typing import List
 import numpy as np
 import torch
 
-from .. import __version__
+from .. import __version__, spans
 from ..device import on_device, resolve_device
 from ..io.twk import TwkReader
 from ..io.two import TWO_DTYPE, TwoWriter
@@ -238,6 +238,34 @@ def _reverse_records(recs: np.ndarray) -> np.ndarray:
     rev["ridA"], rev["ridB"] = recs["ridB"], recs["ridA"]
     rev["packA"], rev["packB"] = recs["packB"], recs["packA"]
     return rev
+
+
+class _SpannedWriter(TwoWriter):
+    """The .two writer of `compute_ld`: each block's compression and
+    write (`_emit_block`, on the writer's thread `twk-two-write` when
+    asynchronous) is a span `write.block` (records, bytes in, bytes out),
+    a child of the span that queued the block (`write.add` or
+    `write.close`). Blocks are emitted in the order they are queued, so
+    the parents wait in a queue of their own."""
+
+    def write_block(self, recs, ent=None):
+        if len(recs) == 0:
+            return
+        parents = self.__dict__.setdefault("_span_parents", deque())
+        parents.append(spans.current())
+        try:
+            super().write_block(recs, ent)
+        except BaseException:
+            parents.pop()
+            raise
+
+    def _emit_block(self, payload, ent):
+        parents = self.__dict__.get("_span_parents")
+        with spans.span("write.block", parent=parents.popleft()
+                        if parents else None, records=ent.n,
+                        bytes_in=len(payload)) as sp:
+            super()._emit_block(payload, ent)
+            sp.set(bytes_out=ent.b_cmp)
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -612,13 +640,14 @@ class LdEngine:
             if arr is not None:
                 return arr
             host = self._band_host[band_id][k]
-        t0 = time.perf_counter()
-        arr = self._mesh_upload(k, host)
+        with spans.timed("engine.upload") as up:
+            arr = self._mesh_upload(k, host)
+            up.set(bytes=self._nbytes(arr))
         with self._stage_lock:
             self._band_dev[key] = arr
             self.n_band_uploads += 1
-            self.stage_stats["exposed_s"] += time.perf_counter() - t0
-            self.stage_stats["bytes"] += self._nbytes(arr)
+            self.stage_stats["exposed_s"] += up.seconds
+            self.stage_stats["bytes"] += up.attrs["bytes"]
             self.stage_stats["n_blocking"] += 1
         return arr
 
@@ -668,13 +697,14 @@ class LdEngine:
                 if (k, band_id) in self._band_dev:
                     continue
                 host = self._band_host[band_id][k]
-            t0 = time.perf_counter()
-            arr = self._stage_upload(k, host, compute_streams)
+            with spans.timed("engine.upload") as up:
+                arr = self._stage_upload(k, host, compute_streams)
+                up.set(bytes=self._nbytes(arr))
             with self._stage_lock:
                 self._band_dev[(k, band_id)] = arr
                 self.n_band_uploads += 1
-                self.stage_stats["hidden_s"] += time.perf_counter() - t0
-                self.stage_stats["bytes"] += self._nbytes(arr)
+                self.stage_stats["hidden_s"] += up.seconds
+                self.stage_stats["bytes"] += up.attrs["bytes"]
         self.stage_stats["n_prefetched"] += 1
 
     def stage_band_async(self, band_id, provider):
@@ -696,9 +726,11 @@ class LdEngine:
             for d in self._cards():
                 if d not in self._stage_streams:
                     self._stage_streams[d] = torch.cuda.Stream(d)
+        ctx = spans.current()
 
         def work():
-            with on_device(self.device):
+            with on_device(self.device), \
+                    spans.span("engine.stage", parent=ctx):
                 if band_id not in self._band_meta:
                     self.stage_band(band_id, provider(), compute_streams)
         self._stage_futures.append((band_id, self._stage_pool.submit(work)))
@@ -708,16 +740,16 @@ class LdEngine:
         touches the residency maps. A failed staging job is reported and
         its band loads on demand at the next `set_load`: the same kernels
         on the same card, where a device fault raises at that upload."""
-        t0 = time.perf_counter()
-        for band_id, fut in self._stage_futures:
-            try:
-                fut.result()
-            except Exception as e:   # noqa: BLE001 - loads on demand
-                log("WARNING", f"staging band {band_id} failed "
-                    f"({type(e).__name__}: {str(e)[:120]}); loading it on "
-                    f"demand", sub="MEMORY")
+        with spans.timed("engine.stage_wait") as wait:
+            for band_id, fut in self._stage_futures:
+                try:
+                    fut.result()
+                except Exception as e:   # noqa: BLE001 - loads on demand
+                    log("WARNING", f"staging band {band_id} failed "
+                        f"({type(e).__name__}: {str(e)[:120]}); loading it "
+                        f"on demand", sub="MEMORY")
         if self._stage_futures:
-            self.stage_stats["wait_s"] += time.perf_counter() - t0
+            self.stage_stats["wait_s"] += wait.seconds
         self._stage_futures = []
 
     def stage_close(self):
@@ -879,6 +911,10 @@ class LdEngine:
         k = 0
         self._seg_error = None
         self._headroom = {}
+        # the job of library use; the main thread's time in the group is
+        # engine.dispatch, engine.wait or a serial engine.consume
+        group = spans.span("engine.group", job=True, tiles=len(tiles),
+                           segments=len(todo)).start()
         try:
             while k < len(todo) or inflight:
                 depth = self._pipeline_depth(cfg)
@@ -901,7 +937,9 @@ class LdEngine:
                     continue
                 j, fut = inflight.popleft()
                 try:
-                    n += fut.result()
+                    with spans.span("engine.wait"):
+                        got = fut.result()
+                    n += got
                 except torch.cuda.OutOfMemoryError as e:
                     # the later segments in flight skipped themselves;
                     # re-run from j serially, on the same kernels
@@ -917,6 +955,7 @@ class LdEngine:
             raise
         finally:
             self._seg_error = None
+            group.stop()
         return n
 
     @staticmethod
@@ -977,26 +1016,29 @@ class LdEngine:
         multiple of 16 * P with dead tiles (the JAX engine's padding) and
         shard p sweeps the p-th of P contiguous slices on its row's
         devices, into its own survivor buffer."""
-        P = self.n_pair_shards
-        T = len(tiles)
-        Tpad = T if P == 1 else _round_up(T, 16 * P)
-        pad = Tpad - T
-        pi = np.array([t[0] for t in tiles] + [0] * pad, np.int32)
-        pj = np.array([t[1] for t in tiles] + [0] * pad, np.int32)
-        dg = np.array([t[2] for t in tiles] + [True] * pad, bool)
-        live = np.arange(Tpad) < T
-        devs = self._dev_for(cfg)
-        cap = min(self._fused_cap, self.B * self.B)
-        outcap = max(self._outcap, 2 * cap)
-        per = Tpad // P
+        with spans.span("engine.dispatch.tiles"):
+            P = self.n_pair_shards
+            T = len(tiles)
+            Tpad = T if P == 1 else _round_up(T, 16 * P)
+            pad = Tpad - T
+            pi = np.array([t[0] for t in tiles] + [0] * pad, np.int32)
+            pj = np.array([t[1] for t in tiles] + [0] * pad, np.int32)
+            dg = np.array([t[2] for t in tiles] + [True] * pad, bool)
+            live = np.arange(Tpad) < T
+            devs = self._dev_for(cfg)
+            cap = min(self._fused_cap, self.B * self.B)
+            outcap = max(self._outcap, 2 * cap)
+            per = Tpad // P
         shards = []
-        for p, row in enumerate(devs):
-            sl = slice(p * per, (p + 1) * per)
-            with on_device(self._grid[p][0][0]):
-                n_pass, n_cand, buf = sweeps.fused_sweep(
-                    row[0], pi[sl], pj[sl], dg[sl], live[sl],
-                    cfg=self._row_cfg(cfg, p, row), cap=cap, outcap=outcap)
-            shards.append(dict(n_pass=n_pass, n_cand=n_cand, buf=buf))
+        with spans.span("engine.dispatch.sweep"):
+            for p, row in enumerate(devs):
+                sl = slice(p * per, (p + 1) * per)
+                with on_device(self._grid[p][0][0]):
+                    n_pass, n_cand, buf = sweeps.fused_sweep(
+                        row[0], pi[sl], pj[sl], dg[sl], live[sl],
+                        cfg=self._row_cfg(cfg, p, row), cap=cap,
+                        outcap=outcap)
+                shards.append(dict(n_pass=n_pass, n_cand=n_cand, buf=buf))
         return dict(shards=shards, devs=devs, pi=pi, pj=pj, dg=dg, per=per,
                     cap=cap, outcap=outcap, stacked=self.stacked)
 
@@ -1009,23 +1051,28 @@ class LdEngine:
         waits on those events, not on the streams: a host read issued
         after the next segment is enqueued would wait for that whole
         sweep. Rows past the prefix are pulled with one exact
-        supplementary copy once the counts are known."""
-        st = self._dispatch_fused(tiles, cfg)
-        key = (cfg["table"], cfg["has_missing"], cfg["cls"])
-        X = st["X"] = min(self._prefix_rows.get(key, self.PREFIX_ROWS0),
-                          st["outcap"])
-        for sh, row in zip(st["shards"], self._grid):
-            src = (sh["n_pass"], sh["n_cand"], sh["buf"][:X])
-            sh["event"] = None
-            if sh["buf"].is_cuda:
-                host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                        for x in src]
-                for h, x in zip(host, src):
-                    h.copy_(x, non_blocking=True)
-                sh["event"] = torch.cuda.Event()
-                sh["event"].record(torch.cuda.current_stream(row[0][0]))
-                src = host
-            sh["host"] = src
+        supplementary copy once the counts are known. The segment's span
+        (`engine.dispatch`) is the parent of its `engine.consume`."""
+        with spans.span("engine.dispatch", tiles=len(tiles)) as sp:
+            st = self._dispatch_fused(tiles, cfg)
+            key = (cfg["table"], cfg["has_missing"], cfg["cls"])
+            X = st["X"] = min(self._prefix_rows.get(key, self.PREFIX_ROWS0),
+                              st["outcap"])
+            with spans.span("engine.dispatch.readback"):
+                for sh, row in zip(st["shards"], self._grid):
+                    src = (sh["n_pass"], sh["n_cand"], sh["buf"][:X])
+                    sh["event"] = None
+                    if sh["buf"].is_cuda:
+                        host = [torch.empty(x.shape, dtype=x.dtype,
+                                            pin_memory=True) for x in src]
+                        for h, x in zip(host, src):
+                            h.copy_(x, non_blocking=True)
+                        sh["event"] = torch.cuda.Event()
+                        sh["event"].record(
+                            torch.cuda.current_stream(row[0][0]))
+                        src = host
+                    sh["host"] = src
+        st["span"] = sp.ctx
         return st
 
     def _run_segment(self, tiles, cfg, filt, emit, state=None) -> int:
@@ -1033,29 +1080,44 @@ class LdEngine:
         (prefix, supplementary rows, and the exact-offset repair of what
         the fused pass could not hold), run the exact host math and emit
         records. Runs on the consumer thread in pipelined mode, inline
-        otherwise; `state=None` dispatches the sweep here (serial). The
-        pairs shards' rows are taken in shard order, each at the offsets
-        of its own running sum."""
+        otherwise; `state=None` dispatches the sweep here (serial: the
+        segment's `engine.dispatch` then lies inside its `engine.count`).
+        The pairs shards' rows are taken in shard order, each at the
+        offsets of its own running sum. Its span, `engine.consume`, is a
+        child of the segment's `engine.dispatch`, with the steps
+        `engine.count`, `engine.extract` (`engine.repair` inside it),
+        `engine.math` and `engine.emit`; the first three feed `stats`."""
         if not tiles:
             return 0
+        with spans.span("engine.consume", tiles=len(tiles),
+                        parent=state and state["span"]) as sp:
+            return self._consume(tiles, cfg, filt, emit, state, sp)
+
+    def _consume(self, tiles, cfg, filt, emit, state, sp) -> int:
+        """`_run_segment`'s work inside its span `sp`."""
         stat = self._stat(cfg)
         stat["n_tiles"] += len(tiles)
         B = self.B
-        t0 = time.perf_counter()
-        st = state if state is not None else self._submit_segment(tiles, cfg)
-        pi, pj, dg, per = st["pi"], st["pj"], st["dg"], st["per"]
-        cap, outcap, X = st["cap"], st["outcap"], st["X"]
-        for sh in st["shards"]:
-            if sh["event"] is not None:
-                sh["event"].synchronize()
-        # the segment's one wait: its counts, read from the pinned copies
-        counts = [sweeps.host_counts(*sh["host"][:2]) for sh in st["shards"]]
-        n_pass = np.concatenate([c[0] for c in counts])
-        n_cand = np.concatenate([c[1] for c in counts])
-        stat["count_s"] += time.perf_counter() - t0
+        with spans.timed("engine.count") as count:
+            st = state if state is not None \
+                else self._submit_segment(tiles, cfg)
+            pi, pj, dg, per = st["pi"], st["pj"], st["dg"], st["per"]
+            cap, outcap, X = st["cap"], st["outcap"], st["X"]
+            for sh in st["shards"]:
+                if sh["event"] is not None:
+                    sh["event"].synchronize()
+            # the segment's one wait: its counts, read from the pinned
+            # copies
+            counts = [sweeps.host_counts(*sh["host"][:2])
+                      for sh in st["shards"]]
+            n_pass = np.concatenate([c[0] for c in counts])
+            n_cand = np.concatenate([c[1] for c in counts])
+        stat["count_s"] += count.seconds
         total_cand = int(n_cand.sum())
         stat["n_cand"] += total_cand
         self.cand_total += total_cand
+        sp.set(candidates=total_cand,
+               survivors=int(n_pass.sum()), supp=0, repaired=0, records=0)
         if int(n_pass.sum()) == 0:
             if self.ticker:
                 self.ticker.add(pairs=total_cand)
@@ -1066,45 +1128,52 @@ class LdEngine:
         # the fused rows of intact tiles: below the spill boundary of
         # their shard's buffer and within the per-tile cap; the rest are
         # repaired
-        t0 = time.perf_counter()
-        shard_of = np.arange(len(n_pass)) // per
-        offs = np.cumsum(n_pass) - n_pass
-        offs -= np.concatenate([[0], np.cumsum(n_pass)])[shard_of * per]
-        ok = (n_pass <= cap) & (offs + n_pass <= outcap - cap)
-        rows_by_tile = {}
-        max_end = 0
-        for p, sh in enumerate(st["shards"]):
-            sel = np.flatnonzero(ok[p * per:(p + 1) * per]
-                                 & (n_pass[p * per:(p + 1) * per] > 0))
-            if not len(sel):
-                continue
-            sel += p * per
-            end = int(offs[sel[-1]] + n_pass[sel[-1]])
-            max_end = max(max_end, end)
-            host = sh["host"][2].numpy()[:end]
-            if end > X:
-                stat["n_supp"] += 1
-                host = np.concatenate([host, sh["buf"][X:end].cpu().numpy()])
-            for t in sel:
-                rows_by_tile[int(t)] = host[offs[t]:offs[t] + n_pass[t]]
-        # adapt the prefix so the next segments of this group fit it:
-        # grow at once, shrink by halves
-        key = (cfg["table"], cfg["has_missing"], cfg["cls"])
-        cur = self._prefix_rows.get(key, self.PREFIX_ROWS0)
-        want = min(_round_up(max(2048, max_end + (max_end >> 4)), 8192),
-                   1 << 20)
-        self._prefix_rows[key] = max(want, cur // 2)
-        bad = np.flatnonzero((n_pass > 0) & ~ok)
-        ncol = sweeps.buf_cols(cfg)
-        if len(bad):
-            rep = self._repair(st["devs"], cfg, stat, pi, pj, dg, bad,
-                               n_pass[bad], cap, per)
-            if sweeps.fisher_cols(cfg):
-                # repair rows carry no bracket: pad them to the fused width
-                rep = {t: np.concatenate([r, np.zeros((len(r), 1), np.int32)],
-                                         axis=1) for t, r in rep.items()}
-            rows_by_tile.update(rep)
-        stat["extract_s"] += time.perf_counter() - t0
+        n_supp = 0
+        with spans.timed("engine.extract") as extract:
+            shard_of = np.arange(len(n_pass)) // per
+            offs = np.cumsum(n_pass) - n_pass
+            offs -= np.concatenate([[0], np.cumsum(n_pass)])[shard_of * per]
+            ok = (n_pass <= cap) & (offs + n_pass <= outcap - cap)
+            rows_by_tile = {}
+            max_end = 0
+            for p, sh in enumerate(st["shards"]):
+                sel = np.flatnonzero(ok[p * per:(p + 1) * per]
+                                     & (n_pass[p * per:(p + 1) * per] > 0))
+                if not len(sel):
+                    continue
+                sel += p * per
+                end = int(offs[sel[-1]] + n_pass[sel[-1]])
+                max_end = max(max_end, end)
+                host = sh["host"][2].numpy()[:end]
+                if end > X:
+                    n_supp += 1
+                    host = np.concatenate([host,
+                                           sh["buf"][X:end].cpu().numpy()])
+                for t in sel:
+                    rows_by_tile[int(t)] = host[offs[t]:offs[t] + n_pass[t]]
+            # adapt the prefix so the next segments of this group fit it:
+            # grow at once, shrink by halves
+            key = (cfg["table"], cfg["has_missing"], cfg["cls"])
+            cur = self._prefix_rows.get(key, self.PREFIX_ROWS0)
+            want = min(_round_up(max(2048, max_end + (max_end >> 4)), 8192),
+                       1 << 20)
+            self._prefix_rows[key] = max(want, cur // 2)
+            bad = np.flatnonzero((n_pass > 0) & ~ok)
+            ncol = sweeps.buf_cols(cfg)
+            if len(bad):
+                with spans.span("engine.repair", tiles=len(bad)):
+                    rep = self._repair(st["devs"], cfg, stat, pi, pj, dg,
+                                       bad, n_pass[bad], cap, per)
+                if sweeps.fisher_cols(cfg):
+                    # repair rows carry no bracket: pad them to the fused
+                    # width
+                    rep = {t: np.concatenate(
+                        [r, np.zeros((len(r), 1), np.int32)], axis=1)
+                        for t, r in rep.items()}
+                rows_by_tile.update(rep)
+        stat["n_supp"] += n_supp
+        stat["extract_s"] += extract.seconds
+        sp.set(supp=n_supp, repaired=len(bad))
 
         # exact host math, batched into one native call per segment
         stacked = st["stacked"]
@@ -1119,34 +1188,36 @@ class LdEngine:
         table = cfg["table"]
         parts = sweeps.unpack_payload(rows[:, 1:ncol], table,
                                       cfg["has_missing"], self.n_samples)
-        t0 = time.perf_counter()
-        if table == "phased":
-            data = self._phased_counts_from_parts(parts, meta)
-        else:
-            data = self._unphased_table_from_parts(stacked, parts, bi, bj,
-                                                   k, l)
-        p_pre = self._fisher_p(cfg, rows, data, n_pass, hit[tile_of], bad,
-                               filt, per)
-        kept_idx = None
-        if self.group is not None:
-            # every rank holds the same survivor rows: each runs the math
-            # of its slice and the records are gathered
-            recs, rev = self._dcn_records(table, data, meta, filt, p_pre)
-        else:
-            out = ld_records(table, data, meta, filt, p_pre=p_pre)
-            if out is not None:
-                recs, rev, kept_idx = out
-            elif table == "phased":
-                recs, kept_idx = phased_math(data, meta, filt)
-                rev = None
+        with spans.timed("engine.math") as math:
+            if table == "phased":
+                data = self._phased_counts_from_parts(parts, meta)
             else:
-                recs = unphased_math(data, meta, filt)
-                rev = None
-        stat["math_s"] += time.perf_counter() - t0
+                data = self._unphased_table_from_parts(stacked, parts, bi,
+                                                       bj, k, l)
+            p_pre = self._fisher_p(cfg, rows, data, n_pass, hit[tile_of],
+                                   bad, filt, per)
+            kept_idx = None
+            if self.group is not None:
+                # every rank holds the same survivor rows: each runs the
+                # math of its slice and the records are gathered
+                recs, rev = self._dcn_records(table, data, meta, filt, p_pre)
+            else:
+                out = ld_records(table, data, meta, filt, p_pre=p_pre)
+                if out is not None:
+                    recs, rev, kept_idx = out
+                elif table == "phased":
+                    recs, kept_idx = phased_math(data, meta, filt)
+                    rev = None
+                else:
+                    recs = unphased_math(data, meta, filt)
+                    rev = None
+        stat["math_s"] += math.seconds
         if self.settings.performance:
             self._tally_ac(meta, kept_idx)
         stat["n_records"] += len(recs)
-        emit(recs, rev)
+        sp.set(records=len(recs))
+        with spans.span("engine.emit"):
+            emit(recs, rev)
         if self.ticker:
             self.ticker.add(pairs=total_cand, records=len(recs))
         self._finish_segment()
@@ -1236,9 +1307,9 @@ class LdEngine:
                 rev = None
             if rev is None:
                 rev = _reverse_records(recs)
-        t0 = time.perf_counter()
-        out = dist.allgather_records((recs, rev), grp)
-        self.gather_s += time.perf_counter() - t0
+        with spans.timed("engine.gather") as gather:
+            out = dist.allgather_records((recs, rev), grp)
+        self.gather_s += gather.seconds
         return out
 
     def _phased_counts_from_parts(self, parts, meta) -> np.ndarray:
@@ -1590,7 +1661,22 @@ def compute_ld(settings: CalcSettings, device="cuda",
     run. Small workloads may run on the CPU (`_route_backend`). With
     `settings.distributed` this process is one rank of the run: `cuda`
     is then the rank's share of the visible cards
-    (`parallel.process_devices`)."""
+    (`parallel.process_devices`). The job is the span `calc.job`
+    (`spans`); `settings.performance` records its spans and logs their
+    table after the run's report."""
+    dropped = spans.dropped()
+    with (spans.recording() if settings.performance
+          else contextlib.nullcontext()):
+        with spans.span("calc.job", job=True) as job:
+            result = _compute_ld(settings, device, mesh)
+    if settings.performance:
+        spans.log_table(spans.collect(job=job.job),
+                        dropped=spans.dropped() - dropped)
+    return result
+
+
+def _compute_ld(settings, device, mesh) -> CalcResult:
+    """`compute_ld` inside its span."""
     _check_settings(settings)
     if settings.window and settings.n_chunks != 1:
         raise ValueError("cannot use chunking in window mode")
@@ -1615,7 +1701,8 @@ def compute_ld(settings: CalcSettings, device="cuda",
         device = resolve_device(device)
     try:
         log("LOG", f"Opening {settings.input}...", sub="READER")
-        reader = TwkReader(settings.input)
+        with spans.span("calc.open"):
+            reader = TwkReader(settings.input)
         try:
             with contextlib.ExitStack() as on_card:
                 return _compute(settings, device, reader, timer, proc_id,
@@ -1643,7 +1730,9 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
              on_card) -> CalcResult:
     """The run of `compute_ld`; `on_card` (an ExitStack) takes the card
     as the current device once the route is decided, so a run routed to
-    the CPU never starts CUDA."""
+    the CPU never starts CUDA. Its set-up, from the archive's header to
+    the writer's open, is the span `calc.plan`."""
+    plan = spans.span("calc.plan").start()
     n_samples = reader.header.n_samples
     log("LOG", f"Samples: {pretty_int(n_samples)}...")
     block_ids = list(range(reader.index.n))
@@ -1774,14 +1863,14 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
     writer = None
     if not (dcn and proc_id != 0):
         if ck is not None:
-            writer = TwoWriter.resume(out, hdr, ck["writer"],
-                                      c_level=settings.c_level,
-                                      block_limit=settings.b_size,
-                                      async_blocks=True)
+            writer = _SpannedWriter.resume(out, hdr, ck["writer"],
+                                           c_level=settings.c_level,
+                                           block_limit=settings.b_size,
+                                           async_blocks=True)
         else:
-            writer = TwoWriter(out, hdr, c_level=settings.c_level,
-                               block_limit=settings.b_size,
-                               async_blocks=True)
+            writer = _SpannedWriter(out, hdr, c_level=settings.c_level,
+                                    block_limit=settings.b_size,
+                                    async_blocks=True)
     if settings.checkpoint and writer is not None and engine is not None:
         # dcn ranks other than 0 own no writer and no sidecar: their
         # resume state came from rank 0's
@@ -1800,33 +1889,43 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
                         caps=dict(fused_cap=engine._fused_cap,
                                   outcap=engine._outcap))
         engine.on_segment = _maybe_checkpoint
+    plan.stop()
 
     def emit(recs, rev=None):
         if len(recs) == 0:
             return
         if writer is not None:
-            writer.add(recs)
-            writer.add(rev if rev is not None else _reverse_records(recs))
+            with spans.span("write.add", records=len(recs)):
+                writer.add(recs)
+            with spans.span("write.add", records=len(recs)):
+                writer.add(rev if rev is not None
+                           else _reverse_records(recs))
         result.n_records += 2 * len(recs)
 
     n_threads = settings.threads if settings.threads > 0 \
         else (os.cpu_count() or 1)
-    pool = ThreadPoolExecutor(n_threads)
+    pool = ThreadPoolExecutor(n_threads, thread_name_prefix="twk-inflate")
 
     def inflate(ids):
         """The stacked host planes of super-blocks `ids`: their records
         inflated on `pool`'s threads (the staging worker calls this for
-        the next load's band)."""
+        the next load's band). Spans: `calc.read` a super-block (its
+        blocks read and merged), `calc.inflate_wait` (the caller on the
+        pool and `stack_planes`), `calc.inflate` a block on the pool."""
         blocks = []
         for s in ids:
             sup = supers[s]
-            blk = reader.read_block(sup["ids"][0])
-            for i in sup["ids"][1:]:
-                for rec in reader.read_block(i).rcds:
-                    blk.add(rec)
+            with spans.span("calc.read", blocks=len(sup["ids"])):
+                blk = reader.read_block(sup["ids"][0])
+                for i in sup["ids"][1:]:
+                    for rec in reader.read_block(i).rcds:
+                        blk.add(rec)
             blocks.append(blk)
-        return stack_planes(list(pool.map(
-            lambda blk: block_to_planes(blk, n_samples, pad_to=B), blocks)))
+        with spans.span("calc.inflate_wait", blocks=len(blocks)) as wait:
+            def planes(blk):
+                with spans.span("calc.inflate", parent=wait.ctx):
+                    return block_to_planes(blk, n_samples, pad_to=B)
+            return stack_planes(list(pool.map(planes, blocks)))
 
     native_stats = None
     try:
@@ -1836,8 +1935,9 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
             groups = group_tiles([(slot[i], slot[j], d) for i, j, d in pairs],
                                  mode, stacked["has_missing"].any(axis=1))
             native_stats = {}
-            n = run_native_cpu(stacked, groups, filt, emit, ticker, n_samples,
-                               settings, native_stats)
+            with spans.span("calc.native"):
+                n = run_native_cpu(stacked, groups, filt, emit, ticker,
+                                   n_samples, settings, native_stats)
             if n is not None:
                 result.n_pairs += n
             else:
@@ -1855,7 +1955,8 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
             engine.stage_close()
         pool.shutdown()
         if writer is not None:
-            writer.close()
+            with spans.span("write.close"):
+                writer.close()
         ticker.finalize()
     if engine is not None:
         result.stage_stats = dict(engine.stage_stats, n_bands=len(bands),
