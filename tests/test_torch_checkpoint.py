@@ -200,17 +200,17 @@ def test_resume_skips_completed_loads(archive, tmp_path, monkeypatch):
     """A banded resume sets up only the loads the checkpoint does not
     hold whole: a skipped load is neither inflated nor staged."""
     loads, planes = [], []
-    orig_set, orig_stack = LdEngine.set_load, E.stack_planes
+    orig_set, orig_inflate = LdEngine.set_load, E.block_to_planes
 
     def counting_set(self, bands):
         loads.append([b for b, _ in bands])
         return orig_set(self, bands)
 
-    def counting_stack(*a, **kw):
+    def counting_inflate(*a, **kw):
         planes.append(1)
-        return orig_stack(*a, **kw)
+        return orig_inflate(*a, **kw)
     monkeypatch.setattr(LdEngine, "set_load", counting_set)
-    monkeypatch.setattr(E, "stack_planes", counting_stack)
+    monkeypatch.setattr(E, "block_to_planes", counting_inflate)
     full = compute_ld(_settings(archive, str(tmp_path / "full.two"),
                                 mode="banded"), device="cpu")
     n_loads, n_inflated = len(loads), len(planes)

@@ -114,8 +114,10 @@ from .. import __version__, spans
 from ..device import on_device, resolve_device
 from ..io.twk import TwkReader
 from ..io.two import TWO_DTYPE, TwoWriter
-from ..ops.bitpack import block_to_planes, stack_planes
 from ..ops.fisher_dev import host_p_from_bracket, log_factorial_table
+# one call a super-block: the name ldbench's `calc.inflate` wrap times
+from ..ops.inflate import decode_super as block_to_planes
+from ..ops.inflate import new_planes, read_super
 from ..ops.ld_math import (LdFilters, PairMeta, ld_records, phased_math,
                            unphased_math)
 from ..ops.tiles import tile_buffers
@@ -1907,25 +1909,26 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
     pool = ThreadPoolExecutor(n_threads, thread_name_prefix="twk-inflate")
 
     def inflate(ids):
-        """The stacked host planes of super-blocks `ids`: their records
-        inflated on `pool`'s threads (the staging worker calls this for
-        the next load's band). Spans: `calc.read` a super-block (its
-        blocks read and merged), `calc.inflate_wait` (the caller on the
-        pool and `stack_planes`), `calc.inflate` a block on the pool."""
-        blocks = []
+        """The stacked host planes of super-blocks `ids`, each decoded
+        into its slot by one `block_to_planes` call on `pool`'s threads
+        (the staging worker calls this for the next load's band). Spans:
+        `calc.read` a super-block (its blocks' frames read),
+        `calc.inflate_wait` (the caller on the pool), `calc.inflate` a
+        super-block decompressed and decoded on the pool (attributes
+        `records`, `runs` and `fallback`, the records the per-record
+        path decoded)."""
+        frames = []
         for s in ids:
             sup = supers[s]
             with spans.span("calc.read", blocks=len(sup["ids"])):
-                blk = reader.read_block(sup["ids"][0])
-                for i in sup["ids"][1:]:
-                    for rec in reader.read_block(i).rcds:
-                        blk.add(rec)
-            blocks.append(blk)
-        with spans.span("calc.inflate_wait", blocks=len(blocks)) as wait:
-            def planes(blk):
-                with spans.span("calc.inflate", parent=wait.ctx):
-                    return block_to_planes(blk, n_samples, pad_to=B)
-            return stack_planes(list(pool.map(planes, blocks)))
+                frames.append(read_super(reader, sup["ids"]))
+        out = new_planes(len(ids), B, n_samples)
+        with spans.span("calc.inflate_wait", blocks=len(ids)) as wait:
+            def planes(k):
+                with spans.span("calc.inflate", parent=wait.ctx) as sp:
+                    sp.set(**block_to_planes(frames[k], n_samples, out, k))
+            list(pool.map(planes, range(len(ids))))
+        return out
 
     native_stats = None
     try:
