@@ -914,9 +914,12 @@ class LdEngine:
         self._seg_error = None
         self._headroom = {}
         # the job of library use; the main thread's time in the group is
-        # engine.dispatch, engine.wait or a serial engine.consume
+        # engine.dispatch, engine.wait or a serial engine.consume. `fisher`:
+        # 1 where the sweep carries the in-sweep bracket, 0 where every P
+        # is the host's exact scan
         group = spans.span("engine.group", job=True, tiles=len(tiles),
-                           segments=len(todo)).start()
+                           segments=len(todo),
+                           fisher=int(sweeps.fisher_on(cfg))).start()
         try:
             while k < len(todo) or inflight:
                 depth = self._pipeline_depth(cfg)
