@@ -9,13 +9,17 @@
   job's root a parent, and every child starts within its parent and,
   on its parent's thread or its caller's pool, ends within it; a
   segment's consume is the child of its dispatch, a pool's inflate of
-  the caller's wait, a written block of the add or close that queued it.
+  the caller's wait, a block's compression and its write of the add or
+  close that queued it. One `write.compress` a block of the file, on the
+  `twk-two-zstd` pool, with `inflight` between 1 and `threads`; one
+  `write.block` a block, on `twk-two-write`.
 - The job thread's child spans cover at least 90% of `calc.job`.
 - The engine's `count_s`, `extract_s` and `math_s` are the summed
   seconds of their spans; the segments' `records` sum to half the job's
   records (each is written with its mirror).
 - In library use each `run_group` is a job of its own.
-- `calc --performance` logs the span table, with the attributes' sums;
+- `calc --performance` logs the span table, with the attributes' sums
+  (`inflight` over the count of `write.compress`: the mean concurrency);
   the bounded buffer counts what it drops and the table says so.
 """
 
@@ -30,6 +34,7 @@ from tomahawk_tpu_torch.compute import engine as E
 from tomahawk_tpu_torch.compute.engine import (CalcSettings, LdEngine,
                                                compute_ld, dispatch_pairs)
 from tomahawk_tpu_torch.io.importer import ImportSettings, import_vcf
+from tomahawk_tpu_torch.io.two import TwoReader
 from tomahawk_tpu_torch.ops.ld_math import LdFilters
 
 from test_importer import make_vcf
@@ -43,7 +48,8 @@ PIPELINE = ("calc.job", "calc.open", "calc.plan", "calc.read",
             "engine.dispatch.tiles", "engine.dispatch.sweep",
             "engine.dispatch.readback", "engine.wait", "engine.consume",
             "engine.count", "engine.extract", "engine.repair", "engine.math",
-            "engine.emit", "write.add", "write.block", "write.close")
+            "engine.emit", "write.add", "write.compress", "write.block",
+            "write.close")
 #: the names each path takes; serial runs wait on nothing
 PATHS = {
     "pipelined": (dict(), PIPELINE),
@@ -52,7 +58,8 @@ PATHS = {
     "native": (dict(backend="cpu"),
                ("calc.job", "calc.open", "calc.plan", "calc.read",
                 "calc.inflate_wait", "calc.inflate", "calc.native",
-                "write.add", "write.block", "write.close")),
+                "write.add", "write.compress", "write.block",
+                "write.close")),
 }
 
 
@@ -184,6 +191,16 @@ def test_job_records_every_span_of_its_path(archive, tmp_path, monkeypatch,
         <= {"write.add", "write.close"}
     assert {s.thread for s in got if s.name == "write.block"} \
         == {"twk-two-write"}
+    compressed = [s for s in got if s.name == "write.compress"]
+    assert {p for n, p in kinds if n == "write.compress"} \
+        <= {"write.add", "write.close"}
+    assert all(s.thread.startswith("twk-two-zstd") for s in compressed)
+    assert all(1 <= s.attrs["inflight"] <= BASE["threads"]
+               for s in compressed)
+    with TwoReader(str(tmp_path / "o.two")) as r:
+        n_blocks = r.index.n
+    assert len(compressed) == n_blocks \
+        == sum(s.name == "write.block" for s in got)
     if path == "banded":
         staged = [s for s in got if s.thread.startswith("twk-stage")]
         assert {"engine.stage", "calc.read", "calc.inflate_wait",
@@ -259,6 +276,11 @@ def test_performance_logs_the_span_table(archive, tmp_path, capsys):
     # the attributes' sums: every record is written once
     line = next(ln for ln in table.splitlines() if "write.block" in ln)
     assert "records=" in line and "bytes_out=" in line
+    line = next(ln for ln in table.splitlines() if "write.compress" in ln)
+    assert "twk-two-zstd" in line and "inflight=" in line
+    count = int(line[line.index("write.compress"):].split()[2])
+    inflight = int(line.split("inflight=")[1].split()[0])
+    assert count <= inflight <= BASE["threads"] * count
     # the job's spans were taken out with the table
     assert spans.collect() == []
 

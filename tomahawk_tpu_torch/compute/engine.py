@@ -113,7 +113,7 @@ import torch
 from .. import __version__, spans
 from ..device import on_device, resolve_device
 from ..io.twk import TwkReader
-from ..io.two import TWO_DTYPE, TwoWriter
+from ..io.two import TWO_DTYPE
 from ..ops.fisher_dev import host_p_from_bracket, log_factorial_table
 # one call a super-block: the name ldbench's `calc.inflate` wrap times
 from ..ops.inflate import decode_super as block_to_planes
@@ -128,6 +128,7 @@ from ..utils.progress import ProgressTicker
 from . import sweeps
 from .balancer import Balancer
 from .cpu_engine import run_native_cpu
+from .two_pool import PooledTwoWriter
 
 __all__ = ["CalcResult", "CalcSettings", "LdEngine", "compute_ld"]
 
@@ -176,7 +177,8 @@ class CalcSettings:
     # in band-pair loads. The JAX package's default: an 80 GB card can
     # take a larger value
     memory_gb: float = 12.0
-    # host threads for block decompression and plane inflation; 0 = all
+    # host threads for block decompression and plane inflation, and the
+    # .two writer's block compressors; 0 = all
     threads: int = 0
     # one process per device over torch.distributed: tile partition
     # with per-process shards, or with mesh "dcn" the samples-sharded
@@ -240,34 +242,6 @@ def _reverse_records(recs: np.ndarray) -> np.ndarray:
     rev["ridA"], rev["ridB"] = recs["ridB"], recs["ridA"]
     rev["packA"], rev["packB"] = recs["packB"], recs["packA"]
     return rev
-
-
-class _SpannedWriter(TwoWriter):
-    """The .two writer of `compute_ld`: each block's compression and
-    write (`_emit_block`, on the writer's thread `twk-two-write` when
-    asynchronous) is a span `write.block` (records, bytes in, bytes out),
-    a child of the span that queued the block (`write.add` or
-    `write.close`). Blocks are emitted in the order they are queued, so
-    the parents wait in a queue of their own."""
-
-    def write_block(self, recs, ent=None):
-        if len(recs) == 0:
-            return
-        parents = self.__dict__.setdefault("_span_parents", deque())
-        parents.append(spans.current())
-        try:
-            super().write_block(recs, ent)
-        except BaseException:
-            parents.pop()
-            raise
-
-    def _emit_block(self, payload, ent):
-        parents = self.__dict__.get("_span_parents")
-        with spans.span("write.block", parent=parents.popleft()
-                        if parents else None, records=ent.n,
-                        bytes_in=len(payload)) as sp:
-            super()._emit_block(payload, ent)
-            sp.set(bytes_out=ent.b_cmp)
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -1861,6 +1835,10 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
     ticker = ProgressTicker(total_pairs=est, n_samples=n_samples).start()
     if engine is not None:
         engine.ticker = ticker
+    # the reference's one -t count: the inflate pool's threads and the
+    # writer's compressors
+    n_threads = settings.threads if settings.threads > 0 \
+        else (os.cpu_count() or 1)
     # dcn: every process derives identical records (the counts are the
     # same on every rank); only process 0 writes the single output.
     # The segment consumer is the writer's one caller while segments are
@@ -1868,14 +1846,13 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
     writer = None
     if not (dcn and proc_id != 0):
         if ck is not None:
-            writer = _SpannedWriter.resume(out, hdr, ck["writer"],
-                                           c_level=settings.c_level,
-                                           block_limit=settings.b_size,
-                                           async_blocks=True)
+            writer = PooledTwoWriter.resume(out, hdr, ck["writer"], n_threads,
+                                            c_level=settings.c_level,
+                                            block_limit=settings.b_size)
         else:
-            writer = _SpannedWriter(out, hdr, c_level=settings.c_level,
-                                    block_limit=settings.b_size,
-                                    async_blocks=True)
+            writer = PooledTwoWriter(out, hdr, n_threads,
+                                     c_level=settings.c_level,
+                                     block_limit=settings.b_size)
     if settings.checkpoint and writer is not None and engine is not None:
         # dcn ranks other than 0 own no writer and no sidecar: their
         # resume state came from rank 0's
@@ -1907,8 +1884,6 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
                            else _reverse_records(recs))
         result.n_records += 2 * len(recs)
 
-    n_threads = settings.threads if settings.threads > 0 \
-        else (os.cpu_count() or 1)
     pool = ThreadPoolExecutor(n_threads, thread_name_prefix="twk-inflate")
 
     def inflate(ids):

@@ -45,7 +45,7 @@ __all__ = ["LIMIT", "NULL", "Span", "collect", "current", "dropped",
 Span = namedtuple("Span", "name start end thread id parent job attrs")
 
 #: the most spans held between two `collect` calls (~20 MB; a traced
-#: benchmark run records ~2,000, a calc job ~350 plus ~3 a written block)
+#: benchmark run records ~2,000, a calc job ~350 plus ~4 a written block)
 LIMIT = 1 << 16
 
 _local = threading.local()
