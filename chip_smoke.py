@@ -19,17 +19,17 @@ Phases, in order; any failure exits non-zero:
 3. compare each kernel with its plain PyTorch version at the main
    paths' shapes (B = 4096 variants per tile, 2,504 samples):
    phased_tile (P = 1, W = 160 words) with its counts buffer (against
-   tile_counts_plain of the mask) and compact, with the counts given
-   and without; every fused group (phased_tile, parts_tile), its counts,
+   tile_counts_plain of the mask) and compact, with the counts given;
+   every fused group (phased_tile, parts_tile), its counts,
    local_parts and compact at odd shapes (63 words a row, so rows are
    not 16-byte aligned; 100, 192 and 320 rows, so the tile's edge cuts a
    thread block and, at scalc's 100 rows, MMA fragments; window 0 and
    250,000 bp, a diagonal and an off-diagonal tile); every parts_tile
    instance and phased_tile's clean class on planes with ~2% missing genotypes, packed as bitpack.block_to_planes
    packs them, on a diagonal and an off-diagonal tile, with their counts
-   and compact on their masks with the counts and without; compact
-   with 4- and 9-part payloads, pair-packed (2,504 samples) and one part
-   per column (70,000 unphased samples), the counts given and not; a
+   and compact on their masks with the counts; compact with 4- and
+   9-part payloads, pair-packed (2,504 samples) and one part per column
+   (70,000 unphased samples), the counts given; a
    compaction on a stale scan ticket (it must raise at sweeps.host_counts
    and leave the ticket 0, and the next compaction must be right); the
    time per call of each, and of the unphased P = 4 instance at
@@ -219,9 +219,7 @@ Phases, in order; any failure exits non-zero:
    2 mesh over the one card in this process (the parts summed on the
    card), its walls and its time per tile of each step;
 6. check that each calc path launched each of its kernels, and never a
-   plain version, that no compaction counted a mask itself (every tile
-   kernel, the samples-sharded epilogue too, hands it its counts:
-   `segment_counts` 0), that the native host library is loaded, and that
+   plain version, that the native host library is loaded, and that
    neither jax nor the JAX package was imported.
 
 Before them, JSON lines of X4 (`library_calls`, in the kernels line's
@@ -565,13 +563,12 @@ def _check_counts_buffer(label, counts, mask):
 
 def _compact_all_ways(tiles_out, ncol, cap, n_tiles, device="cuda"):
     """compact over `n_tiles` (mask, parts, counts) triples at a running
-    offset on `device`, three ways: the kernel with the counts given
-    (where a triple has them), the kernel without, the plain version.
-    Returns the three [buf, n_pass, n_cand, off] lists."""
+    offset on `device`, two ways: the kernel with the counts given, the
+    plain version. Returns the two [buf, n_pass, n_cand, off] lists."""
     import torch
     from tomahawk_tpu_torch.compute import sweeps
     outs = []
-    for way in ("counts", "no counts", "plain"):
+    for way in ("counts", "plain"):
         buf = torch.zeros((1 << 18, ncol), dtype=torch.int32, device=device)
         n_pass = torch.zeros(n_tiles, dtype=torch.int32, device=device)
         n_cand = torch.zeros(n_tiles, dtype=torch.int32, device=device)
@@ -583,8 +580,7 @@ def _compact_all_ways(tiles_out, ncol, cap, n_tiles, device="cuda"):
                                                n_cand, t, cap)
             else:
                 sweeps.compact_survivors(
-                    mask, parts, off, buf, n_pass, n_cand, t, cap,
-                    counts if way == "counts" else None)
+                    mask, parts, off, buf, n_pass, n_cand, t, cap, counts)
         if buf.is_cuda:
             torch.cuda.synchronize(buf.device)
         outs.append([x.long() for x in (buf, n_pass, n_cand, off)])
@@ -632,7 +628,7 @@ def library_parts(dev, i, j, keys, parts):
 
 def compare_kernels():
     """phased_tile (P = 1, cls "all") with its counts buffer, and compact
-    (one payload part; with the counts given and without) against their
+    (one payload part; with the counts given) against their
     plain versions at the -p main path's shape; the time per call of
     each, and of torch._int_mm on the pre-unpacked operands (cuBLAS's
     int8 GEMM: the contraction alone, the yardstick the port never
@@ -675,9 +671,8 @@ def compare_kernels():
     comp_err = 0
     for cap in (32768, 256):
         outs = _compact_all_ways(masks, 2, cap, 3)
-        err = max(int((a - b).abs().max())
-                  for got in outs[:2] for a, b in zip(got, outs[2]))
-        _say(f"  compact cap={cap}, counts given / not given: n_pass "
+        err = max(int((a - b).abs().max()) for a, b in zip(*outs))
+        _say(f"  compact cap={cap}, counts given: n_pass "
              f"{outs[0][1].tolist()}, n_cand {outs[0][2].tolist()}, max "
              f"|diff| {err}")
         if err:
@@ -698,8 +693,8 @@ def compare_kernels():
          f"{tile_plain:.4f}; torch._int_mm of the pre-unpacked int8 "
          f"operands, contraction only, {library_ms:.4f}); compact, 1 part, "
          f"{int((mask == 2).sum())} survivors: counts given "
-         f"{times['ms']:.4f}, not given {times['no_counts_ms']:.4f}, "
-         f"at the host's pace {times['host_paced_ms']:.4f} (plain "
+         f"{times['ms']:.4f}, at the host's pace "
+         f"{times['host_paced_ms']:.4f} (plain "
          f"{times['plain_ms']:.4f}; torch.nonzero of the survivors and "
          f"index_select of the parts {times['library_ms']:.4f})")
     return ({"phased_tile": (tile_err, tile_ms, tile_plain),
@@ -709,12 +704,11 @@ def compare_kernels():
                  kept=min(int((mask == 2).sum()), 32768)))
 
 
-def _time_compact(mask, parts, ncol, counts=None):
+def _time_compact(mask, parts, ncol, counts):
     """Times per call of one tile's compaction at cap 32768 into an
-    [2**18, ncol] buffer, the scratch allocated once: `ms` (with the
-    counts given, where there are any) and `no_counts_ms` on the device's
-    clock with the calls queued ahead of it; `host_paced_ms`, the same
-    call as `ms` enqueued as fast as the host can, with the offset reset
+    [2**18, ncol] buffer, the scratch allocated once: `ms` on the
+    device's clock with the calls queued ahead of it; `host_paced_ms`,
+    the same call enqueued as fast as the host can, with the offset reset
     before each (how it was timed before the calls were queued); and
     `plain_ms`."""
     import torch
@@ -747,7 +741,6 @@ def _time_compact(mask, parts, ncol, counts=None):
 
     return dict(
         ms=_cuda_ms(lambda: kernel(counts), reps=50),
-        no_counts_ms=_cuda_ms(lambda: kernel(None), reps=50),
         host_paced_ms=_cuda_ms(lambda: kernel(counts, reset=True),
                                queued=False),
         plain_ms=_cuda_ms(plain), library_ms=_cuda_ms(library))
@@ -776,7 +769,7 @@ def compare_odd_shapes():
     cuts a thread block and where rows are an odd number of bytes (99
     rows): every instance and pair class (ODD_GROUPS), window 0 and 250
     kb, a diagonal and an off-diagonal tile; then compact on those masks,
-    with counts and without. Equal on every lane (the parts where the
+    with their counts. Equal on every lane (the parts where the
     mask is not 0 in window mode); the epilogue's mask and counts also
     equal the fused kernel's."""
     import torch
@@ -832,8 +825,7 @@ def compare_odd_shapes():
                     got.append((mask, parts, counts))
                     n += int((mask == 2).sum())
                 outs = _compact_all_ways(got, sweeps.buf_cols(cfg), 256, 2)
-                if any(not torch.equal(a, b) for g in outs[:2]
-                       for a, b in zip(g, outs[2])):
+                if any(not torch.equal(a, b) for a, b in zip(*outs)):
                     raise SystemExit(f"compact {group} B={Bt} w={window} "
                                      f"differs from its plain version")
         _say(f"  phased_tile, parts_tile, local_parts, tile_epilogue, "
@@ -862,8 +854,8 @@ def compare_groups():
     """Every parts_tile instance and phased_tile's clean class against
     their plain versions on planes with ~2% missing genotypes, on an
     off-diagonal and a diagonal tile, with the counts buffer (against
-    tile_counts_plain) and compact on their masks (with the counts and
-    without, against the plain version); then the time per call of each,
+    tile_counts_plain) and compact on their masks (with the counts,
+    against the plain version); then the time per call of each,
     and of torch._int_mm once a part on the pre-unpacked operands.
     Returns {group: (max_abs_err, ms, plain_ms, library_ms)}."""
     import torch
@@ -901,8 +893,7 @@ def compare_groups():
         ncol = sweeps.buf_cols(cfg)
         for cap in (32768, 256):
             outs = _compact_all_ways(got, ncol, cap, 2)
-            if any(not torch.equal(a, b) for g in outs[:2]
-                   for a, b in zip(g, outs[2])):
+            if any(not torch.equal(a, b) for a, b in zip(*outs)):
                 raise SystemExit(f"compact on the masks of {label} differs "
                                  f"from its plain version")
         out = tiles.tile_buffers(cfg, "cuda")
@@ -916,7 +907,7 @@ def compare_groups():
         _say(f"  ms per call: {label} {ms:.4f} (plain {plain:.4f}; "
              f"torch._int_mm x {got[0][1].shape[0]} on the pre-unpacked "
              f"operands, contraction only, {lib:.4f}); compact with the "
-             f"counts and without equal to the plain version")
+             f"counts equal to the plain version")
         res[group] = (0, ms, plain, lib)
         del got, out, outs
     return res
@@ -925,7 +916,7 @@ def compare_groups():
 def compare_payloads():
     """compact with 4- and 9-part payloads against its plain version, on
     random masks with the counts given (tile_counts_plain of the mask, as
-    parts_tile writes them) and without: pair-packed at 2,504 samples (B
+    parts_tile writes them): pair-packed at 2,504 samples (B
     = 4096), one part per column at 70,000 unphased samples (a 512-row
     tile, where pack16_ok is false). Returns {P: (max_abs_err, ms with
     the counts, plain_ms, rows kept by the timed call, ms without the
@@ -952,24 +943,22 @@ def compare_payloads():
                 outs = _compact_all_ways([(mask, parts, counts)], ncol, cap,
                                          2)
                 err = max([err] + [int((a - b).abs().max())
-                                   for g in outs[:2]
-                                   for a, b in zip(g, outs[2])])
+                                   for a, b in zip(*outs)])
             _say(f"  compact P={P}, {n_samples} samples, {ncol} columns, "
-                 f"B={Bt}, counts given / not given: {int(outs[1][1][0])} "
-                 f"survivors, max |diff| {err}")
+                 f"B={Bt}, counts given: {int(outs[0][1][0])} survivors, "
+                 f"max |diff| {err}")
             if err:
                 raise SystemExit("compact disagrees with its plain version")
             if n_samples == N_SAMPLES:
                 tm = _time_compact(mask, parts, ncol, counts)
-                kept = min(int(outs[1][1][0]), 32768)
+                kept = min(int(outs[0][1][0]), 32768)
                 _say(f"  ms per call: compact, {P} parts, counts given "
-                     f"{tm['ms']:.4f}, not given {tm['no_counts_ms']:.4f}, "
-                     f"at the host's pace {tm['host_paced_ms']:.4f} (plain "
+                     f"{tm['ms']:.4f}, at the host's pace "
+                     f"{tm['host_paced_ms']:.4f} (plain "
                      f"{tm['plain_ms']:.4f}; bound "
                      f"{compact_bound_ms(P, ncol, kept):.4f} by bytes, "
                      f"{kept} rows kept)")
-                res[P] = (err, tm["ms"], tm["plain_ms"], kept,
-                          tm["no_counts_ms"])
+                res[P] = (err, tm["ms"], tm["plain_ms"], kept)
     return res
 
 
@@ -1011,8 +1000,7 @@ def check_ticket_fault():
             raise SystemExit(f"the ticket is {int(ticket.item())} after the "
                              f"fault, not 0")
         outs = _compact_all_ways([(mask, parts, counts)], 2, 32768, 1)
-        if any(not torch.equal(a, b) for g in outs[:2]
-               for a, b in zip(g, outs[2])):
+        if any(not torch.equal(a, b) for a, b in zip(*outs)):
             raise SystemExit("the compaction after a ticket fault differs "
                              "from its plain version")
         _say(f"  ticket left at {stale}: host_counts raised ({msg[:60]}...);"
@@ -1036,7 +1024,7 @@ def compare_dprime():
     plain versions: phased_tile and every parts_tile instance with their
     counts, on a diagonal and an off-diagonal tile, bit for bit in the
     mask, the parts and the counts; compact on those masks with the
-    counts and without, bit for bit in the survivor rows; tile_epilogue
+    counts, bit for bit in the survivor rows; tile_epilogue
     of every instance on the same parts, bit for bit in the mask and the
     counts. Then
     the time per call of phased_tile and of parts_tile's MAIN_GROUP
@@ -1088,8 +1076,7 @@ def compare_dprime():
             del want_m, want_p, m0
         for cap in (32768, 256):
             outs = _compact_all_ways(got, sweeps.buf_cols(cfg), cap, 2)
-            if any(not torch.equal(a, b) for g in outs[:2]
-                   for a, b in zip(g, outs[2])):
+            if any(not torch.equal(a, b) for a, b in zip(*outs)):
                 raise SystemExit(f"compact on the masks of {label} differs "
                                  f"from its plain version")
         _say(f"  {label}: survivors with / without the bounds "
@@ -2055,7 +2042,7 @@ def run_calc(label, twk, two, flags, mode, need, window=0, plan=None,
                              ss["n_prefetched"] > 0) != plan:
         raise SystemExit(f"calc {label}: banded plan {ss} is not {plan}")
     _check_counts(label, launches, plain, need,
-                  ("local_parts", "tile_epilogue", "segment_counts"))
+                  ("local_parts", "tile_epilogue"))
     check_records(label, two, twk, mode, window, dprime)
     return launches
 
@@ -2291,10 +2278,9 @@ def run_mesh_paths(ld, miss, two):
             _say(f"main path {label}: compute_ld(mesh=make_mesh({P}, {S}, "
                  f"[cuda:0] x {P * S})) {dt:.2f}s wall, launches {launches}")
             if S == 1:
-                need, idle = fused[mode], split[:2] + ("segment_counts",)
+                need, idle = fused[mode], split[:2]
             else:
-                need, idle = split, ("phased_tile", "parts_tile",
-                                     "segment_counts")
+                need, idle = split, ("phased_tile", "parts_tile")
             _check_counts(label, launches, dict(_build.PLAIN_CALLS), need,
                           idle)
             check_records(label, out, twk, mode)
@@ -2363,7 +2349,7 @@ def run_route_paths(ld, small, two):
                              f"or a plain version")
         if env is not None:
             _check_counts(label, launches, plain, ("phased_tile", "compact"),
-                          ("local_parts", "tile_epilogue", "segment_counts"))
+                          ("local_parts", "tile_epilogue"))
         if twk == ld:
             same_records(label, out, "a", two.format("a"))
         else:
@@ -2510,11 +2496,10 @@ def main_paths(work):
         total[k] = total.get(k, 0) + v
     two = two.format("ranked")
     dcn = ("local_parts", "tile_epilogue", "compact")
-    # every compaction is handed its tile's counts: none counts a mask
-    fused = ("phased_tile", "parts_tile", "segment_counts")
+    fused = ("phased_tile", "parts_tile")
     ranked = (("g", ld, ["-p"], "phased", dcn, fused, "dcn"),
               ("h", miss, [], "mixed", dcn, fused, "dcn"),
-              ("i", miss, [], "mixed", every, dcn[:2] + fused[2:], None))
+              ("i", miss, [], "mixed", every, dcn[:2], None))
     for label, twk, flags, mode, need, idle, is_dcn in ranked:
         launches = run_ranked_calc(label, twk, two, flags, mode, need, idle,
                                    is_dcn)
@@ -2609,8 +2594,7 @@ def run_checkpointed(label, twk, two, ref_two, ref_launches):
         E._finish_segment = real["fin"]
         E._dispatch_fused = real["disp"]
     _check_counts(label, launches, plain, ("phased_tile", "compact"),
-                  ("parts_tile", "local_parts", "tile_epilogue",
-                   "segment_counts"))
+                  ("parts_tile", "local_parts", "tile_epilogue"))
     if os.path.exists(ckpt):
         raise SystemExit(f"calc {label}: the sidecar outlived the run")
     skipped = sum(done[:ck["units"]])
@@ -2902,7 +2886,7 @@ def _time_engine(work, tag, run, n_pairs, stat_key, engine,
     _say(f"  stats (all reps): count {st['count_s']:.2f}s, extract "
          f"{st['extract_s']:.2f}s, math {st['math_s']:.2f}s, repair "
          f"tiles {st['n_repair']}, supplementary copies {st['n_supp']}, "
-         f"fused cap {engine._fused_cap}")
+         f"fused cap {engine.caps['fused_cap']}")
     return walls
 
 
@@ -3294,7 +3278,7 @@ def dcn_engine():
         _check_counts(f"engine dcn rank {rep['rank']}", rep["launches"],
                       rep["plain"],
                       ("local_parts", "tile_epilogue", "compact"),
-                      ("phased_tile", "parts_tile", "segment_counts"))
+                      ("phased_tile", "parts_tile"))
     a, b = reports
     if (a["candidates"], a["records"]) != (b["candidates"], b["records"]):
         raise SystemExit(f"engine dcn: the ranks disagree: {a} {b}")
@@ -3365,13 +3349,13 @@ def mesh_engine(dcn):
         _check_counts("engine 1x2 mesh", dict(_build.LAUNCHES),
                       dict(_build.PLAIN_CALLS),
                       ("local_parts", "tile_epilogue", "compact"),
-                      ("phased_tile", "parts_tile", "segment_counts"))
+                      ("phased_tile", "parts_tile"))
         if (int(n_cand), n_rec[0]) != (dcn["candidates"], dcn["records"]):
             raise SystemExit(f"engine 1x2 mesh: {int(n_cand)} candidates, "
                              f"{n_rec[0]} records; the dcn row "
                              f"{dcn['candidates']}, {dcn['records']}")
         cfg = engine._cfg("phased", False, "all")
-        row = engine._dev_for(cfg)[0]
+        row = engine.bands.dev_for(cfg)[0]
         group = engine._row_cfg(cfg, 0, row)["psum_group"]
         peer_out = group.peers[0][1]
         ms = _step_times(cfg, row[0], pairs, (
@@ -3469,7 +3453,7 @@ def rank_engine(job):
             n_rec[0] += 2 * len(recs)
 
         cfg = engine._cfg("phased", False, "all")
-        dev = engine._dev_for(cfg)[0][0]
+        dev = engine.bands.dev_for(cfg)[0][0]
         out = tiles.tile_buffers(cfg, device)
         counts = tiles.counts_buffer(cfg, device)
         # warm-up: one tile through every step, and a reduction on every
@@ -3741,8 +3725,8 @@ def hold_kernels_on(device, rows):
     tile kernel (phased_tile or parts_tile) and its counts; local_parts
     on every word slice of each S in MULTI_SLICES, the slices' sum equal
     to the full width's plain parts; tile_epilogue and its counts on that
-    sum; compact on the fused tiles' masks (the counts given and not, caps
-    32768 and 256). Then fisher_bracket on the survivor rows of a phased
+    sum; compact on the fused tiles' masks (the counts given, caps 32768
+    and 256). Then fisher_bracket on the survivor rows of a phased
     fused sweep (cls "all" and "clean") of 4 LD-grouped super-blocks,
     whose 10 tiles open the volume gate. Raises SystemExit on a
     difference."""
@@ -3808,8 +3792,7 @@ def hold_kernels_on(device, rows):
             for cap in (32768, 256):
                 outs = _compact_all_ways(fused, sweeps.buf_cols(cfg), cap, 2,
                                          device)
-                if any(not torch.equal(a, b) for g in outs[:2]
-                       for a, b in zip(g, outs[2])):
+                if any(not torch.equal(a, b) for a, b in zip(*outs)):
                     raise SystemExit(f"compact on the masks of {label} on "
                                      f"{at} differs from its plain version")
             del out, fused, outs, slices
@@ -3876,9 +3859,8 @@ def multi_paths(work, ld, miss):
     """Paths r, s and t of `multi` on a's archive `ld` and b's `miss`,
     each with the counts set to 0 just before it and read just after;
     every path's records equal the native CPU engine's, every card of its
-    mesh launched its kernels and no card a plain version or
-    `segment_counts`. Returns the launches by card summed over the
-    paths."""
+    mesh launched its kernels and no card a plain version. Returns the
+    launches by card summed over the paths."""
     from tomahawk_tpu_torch.ops import _build
     two = os.path.join(work, "{}.two")
     fused = {"phased": ("phased_tile",),
@@ -3914,19 +3896,18 @@ def multi_paths(work, ld, miss):
              f"bands, {ss['n_loads']} loads, {ss['n_prefetched']} "
              f"staged")
         need = _local_cards(fused[mode], P, S)
-        idle = ("segment_counts",) + (split[:2] if S == 1 else
-                                      ("phased_tile", "parts_tile"))
+        idle = split[:2] if S == 1 else ("phased_tile", "parts_tile")
         _check_counts(label, launches, plain, (), idle)
         _check_cards(label, by_card, need, idle)
         check_records(label, out, twk, mode)
         _add_cards(total, by_card)
     # s: four ranks, one card each, NCCL
     every = ("phased_tile", "parts_tile", "compact")
-    idle_dcn = ("phased_tile", "parts_tile", "segment_counts")
+    idle_dcn = ("phased_tile", "parts_tile")
     own = [dict(CUDA_VISIBLE_DEVICES=str(k)) for k in range(MULTI_CARDS)]
     ranked = (
         ("s tile partition", miss, [], "mixed", every,
-         split[:2] + ("segment_counts",), None, None),
+         split[:2], None, None),
         ("s dcn -p", ld, ["-p"], "phased", split, idle_dcn, "dcn", None),
         ("s dcn", miss, [], "mixed", split, idle_dcn, "dcn", None),
         ("s dcn -p, CUDA_VISIBLE_DEVICES=k a rank", ld, ["-p"], "phased",
@@ -3962,7 +3943,7 @@ def _shard_work(by_card, P, S):
 def multi_idle(work, ld):
     """The meshes of MULTI_IDLE on a's archive `ld` at the default tile
     rows (10 tiles), records against the native CPU engine's, no plain
-    version and no `segment_counts`: how the tiles fall to the pairs
+    version: how the tiles fall to the pairs
     shards (a segment is padded to 16 tiles a shard and split into
     contiguous slices, so a small load leaves later shards only dead
     tiles) and which cards' shards ran no tile (`_shard_work`),
@@ -3981,7 +3962,7 @@ def multi_idle(work, ld):
         dt = time.perf_counter() - t0
         by_card = _local_by_card()
         _check_counts(label, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS),
-                      (), ("segment_counts",))
+                      (), ())
         check_records(label, out, ld, "phased")
         shard, idle = _shard_work(by_card, P, S)
         runs.append(dict(mesh=spec, flags=flags, wall_s=dt,
@@ -4049,7 +4030,7 @@ def multi_sparse():
         raise SystemExit(f"engine sparse: one card and 4x1 disagree: {got}")
     _check_cards("engine sparse 4x1", by_card,
                  _local_cards(("phased_tile",), MULTI_CARDS, 1),
-                 ("local_parts", "tile_epilogue", "segment_counts"))
+                 ("local_parts", "tile_epilogue"))
     n_cand, n_rec = got["4x1"].pop()
     row = dict(tiles=len(pairs), pairs=64 * B * (64 * B - 1) // 2,
                candidates=n_cand, records=n_rec,
@@ -4082,14 +4063,14 @@ def multi_dcn():
             _check_counts(f"engine {tag} rank {rep['rank']}",
                           rep["launches"], rep["plain"],
                           ("local_parts", "tile_epilogue", "compact"),
-                          ("phased_tile", "parts_tile", "segment_counts"))
+                          ("phased_tile", "parts_tile"))
             if "device collectives over nccl" not in rep["dist"]:
                 raise SystemExit(f"engine {tag}: not NCCL: {rep['dist']}")
         _check_cards(f"engine {tag}",
                      _by_index([rep["cards"] for rep in reports]),
                      {c: ("local_parts", "tile_epilogue", "compact")
                       for c in range(MULTI_CARDS)},
-                     ("phased_tile", "parts_tile", "segment_counts"))
+                     ("phased_tile", "parts_tile"))
         if len({(r["candidates"], r["records"]) for r in reports}) != 1:
             raise SystemExit(f"engine {tag}: the ranks disagree: {reports}")
         for rep in reports:
@@ -4116,7 +4097,7 @@ def _mesh_cut_times(engine, cfg, pairs):
     import torch
     from tomahawk_tpu_torch.compute import sweeps
     from tomahawk_tpu_torch.ops import tiles
-    row = engine._dev_for(cfg)[0]
+    row = engine.bands.dev_for(cfg)[0]
     group = engine._row_cfg(cfg, 0, row)["psum_group"]
     devs = [d["valid"].device for d in row]
     out = tiles.tile_buffers(cfg, devs[0])
@@ -4232,7 +4213,7 @@ def multi_mesh():
                       dict(_build.PLAIN_CALLS), (), ())
         _check_cards("engine 1x4 mesh", by_card,
                      _local_cards((), 1, MULTI_CARDS),
-                     ("phased_tile", "parts_tile", "segment_counts"))
+                     ("phased_tile", "parts_tile"))
         if len(got) != 1:
             raise SystemExit(f"engine 1x4 mesh: the runs disagree: {got}")
         ms = _mesh_cut_times(engine, engine._cfg("phased", False, "all"),
@@ -4317,7 +4298,7 @@ def dcn2_main():
         miss = make_archive(work, "miss", 16384, miss_sites=12288,
                             miss_step=2, miss_frac=0.025)
         need = ("local_parts", "tile_epilogue", "compact")
-        idle = ("phased_tile", "parts_tile", "segment_counts")
+        idle = ("phased_tile", "parts_tile")
         two = os.path.join(work, "ranked.two")
         for label, twk, flags, mode in (("g", ld, ["-p"], "phased"),
                                         ("h", miss, [], "mixed")):
@@ -4453,16 +4434,11 @@ def main():
                     probe, "unphased", False, probe[3])]
         + [dict(kernel="compact", group="1 part, counts given",
                 ms=compact1[1], plain_ms=compact1[2]),
-           dict(kernel="compact", group="1 part, no counts given",
-                ms=times["no_counts_ms"], plain_ms=compact1[2]),
            dict(kernel="compact", group="1 part, counts given, at the "
                 "host's pace with the offset reset",
                 ms=times["host_paced_ms"], plain_ms=compact1[2])]
         + [dict(kernel="compact", group=f"{P} parts, counts given",
                 ms=v[1], plain_ms=v[2])
-           for P, v in sorted(payloads.items())]
-        + [dict(kernel="compact", group=f"{P} parts, no counts given",
-                ms=v[4], plain_ms=v[2])
            for P, v in sorted(payloads.items())]}))
     # window rows: (group, window, diagonal) -> ms, plain, bound, shares
     _say(json.dumps({"window_instances": [

@@ -202,9 +202,9 @@ def test_resume_skips_completed_loads(archive, tmp_path, monkeypatch):
     loads, planes = [], []
     orig_set, orig_inflate = LdEngine.set_load, E.block_to_planes
 
-    def counting_set(self, bands):
+    def counting_set(self, bands, **kw):
         loads.append([b for b, _ in bands])
-        return orig_set(self, bands)
+        return orig_set(self, bands, **kw)
 
     def counting_inflate(*a, **kw):
         planes.append(1)

@@ -209,6 +209,14 @@ def rank_main(rank: int, port: int, out_path: str):
     st = planes(n_blocks=N_BLOCKS)
     tl = tile_list(N_BLOCKS)
     res = {}
+    # the compactions handed no counts with their mask
+    compact, no_counts = sweeps.compact_survivors, []
+
+    def spy(*args, **kwargs):
+        counts = args[8] if len(args) > 8 else kwargs.get("counts")
+        no_counts.append(counts is None)
+        return compact(*args, **kwargs)
+    sweeps.compact_survivors = spy
     for n, (grp, window) in enumerate(SWEEPS):
         cfg, _ = cfg_pair(grp, window, psum_group=group)
         dev = sweeps.planes_to_device(st, "cpu", sweeps.dev_keys_for(cfg),
@@ -226,6 +234,8 @@ def rank_main(rank: int, port: int, out_path: str):
             res[f"{n}_{k}"] = v.numpy()
     for k, v in _build.PLAIN_CALLS.items():
         res[f"plain_{k}"] = np.int64(v)
+    res["compact_calls"] = np.int64(len(no_counts))
+    res["compact_no_counts"] = np.int64(sum(no_counts))
     dist.sync_shards()
     dist.shutdown()
     np.savez(out_path, **res)
@@ -275,8 +285,8 @@ def test_two_rank_sweeps_match_jax(two_rank_sweeps, n):
         # and every compaction was handed the epilogue's counts
         assert res["plain_local_parts"] == res["plain_tile_epilogue"] > 0
         assert res["plain_phased_tile"] == res["plain_parts_tile"] == 0
-        assert res["plain_compact"] > 0
-        assert res["plain_segment_counts"] == 0
+        assert res["plain_compact"] == res["compact_calls"] > 0
+        assert res["compact_no_counts"] == 0
     a, b = two_rank_sweeps
     np.testing.assert_array_equal(a[f"{n}_buf"], b[f"{n}_buf"])
     np.testing.assert_array_equal(a[f"{n}_rbuf"], b[f"{n}_rbuf"])

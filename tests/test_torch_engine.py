@@ -27,7 +27,7 @@ from tomahawk_tpu.io.two import TwoReader
 from tomahawk_tpu.ops.ld_math import LdFilters
 
 from tomahawk_tpu_torch import cli
-from tomahawk_tpu_torch.compute import engine as port_engine
+from tomahawk_tpu_torch.compute import resume as port_resume
 from tomahawk_tpu_torch.compute.engine import LdEngine, compute_ld
 from tomahawk_tpu_torch.ops import _build
 
@@ -153,8 +153,8 @@ def _repair_runs(tmp_path, monkeypatch, twk, stat_key, **settings):
         _assert_same(runs[cap], runs[1 << 20])
         assert engines[cap].stats[stat_key]["n_repair"] > 0
     _assert_same(runs[8], _sorted(ref))
-    assert engines[8]._fused_cap > 8
-    assert engines[256]._outcap > 512
+    assert engines[8].caps["fused_cap"] > 8
+    assert engines[256].caps["outcap"] > 512
 
 
 def test_cap_overflow_and_spill_repair(tmp_path, monkeypatch):
@@ -387,8 +387,8 @@ def test_checkpointed_calc_matches_jax(archive, tmp_path, monkeypatch,
     kw = dict(min_r2=0.05, tile_rows=128, checkpoint_interval=0.0,
               force_phased=mode == "phased")
     writes = []
-    real = port_engine._ckpt_write
-    monkeypatch.setattr(port_engine, "_ckpt_write",
+    real = port_resume._ckpt_write
+    monkeypatch.setattr(port_resume, "_ckpt_write",
                         lambda *a, **k: writes.append(a[2]) or real(*a, **k))
     got = []
     for run, tag in ((compute_ld, "port"), (jax_compute_ld, "jax")):

@@ -122,7 +122,10 @@ def _engine_records(planes, n_samples, has_missing, monkeypatch, device_on,
     else:
         e = LdEngine(planes, n_samples, CalcSettings(min_r2=0.05), "cpu")
         filt = LdFilters(min_r2=0.05)
-    e._fused_cap = fused_cap
+    if jax:
+        e._fused_cap = fused_cap
+    else:
+        e.caps["fused_cap"] = fused_cap
     out = []
     try:
         e.run_phased_pairs(pairs, has_missing, filt,

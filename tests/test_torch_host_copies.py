@@ -42,7 +42,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_PKG, PORT = REPO / "tomahawk_tpu", REPO / "tomahawk_tpu_torch"
 
 #: every module the port copied from the JAX package, and the functions
-#: it copied into a module of its own ("path::function")
+#: it copied into a module of its own ("path::function", the path the
+#: port's: ORIGINAL names the JAX package's where it differs)
 COPIED = [
     "utils/__init__.py", "utils/logging.py", "utils/timer.py",
     "utils/progress.py",
@@ -56,9 +57,11 @@ COPIED = [
     "post/filters.py", "post/view.py", "post/concat.py", "post/stats.py",
     "post/decay.py", "post/haplotype.py", "post/aggregate.py",
     "post/relationship.py",
-    "compute/engine.py::_ckpt_config_key", "compute/engine.py::_ckpt_read",
-    "compute/engine.py::_ckpt_write", "compute/engine.py::report_performance",
+    "compute/resume.py::_ckpt_config_key", "compute/resume.py::_ckpt_read",
+    "compute/resume.py::_ckpt_write", "compute/engine.py::report_performance",
 ]
+#: the JAX package's module of a copy the port keeps elsewhere
+ORIGINAL = {"compute/resume.py": "compute/engine.py"}
 
 #: the lines that differ, (lines the original has more of, lines the
 #: copy has more of), in file order: header literals name the package
@@ -130,7 +133,7 @@ DIFFS = {
          "    def to_dev(b):",
          "        return kinship.block_to_device(b, device)",
          "    kin = kinship.to_host(kin, n_samples).astype(np.float64)"]),
-    "compute/engine.py::_ckpt_config_key": (
+    "compute/resume.py::_ckpt_config_key": (
         ["        stage_prefetch=settings.stage_prefetch)"],
         ["        stage_prefetch=settings.stage_prefetch,",
          '        engine="tomahawk_tpu_torch")']),
@@ -212,6 +215,8 @@ DIFFS = {
 def _lines(root, rel):
     """The lines of a copied module, or of one function of it."""
     path, _, func = rel.partition("::")
+    if root == JAX_PKG:
+        path = ORIGINAL.get(path, path)
     text = (root / path).read_text()
     if not func:
         return text.splitlines()

@@ -1,8 +1,9 @@
 """The port stands apart from jax and from the JAX package: every module
-imports with both blocked and no source (chip_smoke.py included) imports
-them, bench or tools; the zstd stand-in writes files the real package
-reads and reads files it wrote; the device rule raises instead of
-falling back; a kernel build without nvcc fails loudly."""
+imports with both blocked and no source (chip_smoke.py and
+time_variants.py included) imports them, bench or tools; the zstd
+stand-in writes files the real package reads and reads files it wrote;
+the device rule raises instead of falling back; a kernel build without
+nvcc fails loudly."""
 
 import os
 import pathlib
@@ -47,7 +48,7 @@ def test_every_module_imports_without_jax(tmp_path):
     # every .py below the package but its own __init__ and __main__
     modules = [f for f in PKG.rglob("*.py") if "_compat" not in f.parts
                and f not in (PKG / "__init__.py", PKG / "__main__.py")]
-    assert int(out.split()[-1]) == len(modules) == 53
+    assert int(out.split()[-1]) == len(modules) == 54
 
 
 def test_entry_points_import_without_the_jax_package(tmp_path):
@@ -62,10 +63,11 @@ def test_entry_points_import_without_the_jax_package(tmp_path):
 
 def test_no_source_names_jax():
     """No import of jax, the JAX package, bench or tools in any source of
-    the port or in chip_smoke.py (relative imports stay inside the
-    port)."""
+    the port, in chip_smoke.py or in time_variants.py (relative imports
+    stay inside the port)."""
     banned = {"jax", "tomahawk_tpu", "bench", "tools"}
-    sources = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    sources = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "time_variants.py"]
     assert len(sources) > 35
     for path in sources:
         for line in path.read_text().splitlines():

@@ -218,8 +218,15 @@ def test_compact_kernel_matches_plain_on_card():
                                        p=[0.7, 0.29, 0.01]).astype(np.uint8))
     altalt = torch.from_numpy(
         rng.integers(0, 500, size=(Bt, Bt)).astype(np.int32))
+    # the kernel reads the counts the tile kernels write beside the mask
+    counts = tiles.tile_counts_plain(mask.to(card))
+    with pytest.raises(ValueError, match="counts"):
+        sweeps.compact_survivors(mask.to(card), altalt[None].to(card),
+                                 *[torch.zeros(1, dtype=torch.int32,
+                                               device=card)] * 4, 0, cap)
     outs = []
-    for fn in (sweeps.compact_survivors, sweeps.compact_survivors_plain):
+    for fn in (lambda *a: sweeps.compact_survivors(*a, counts),
+               sweeps.compact_survivors_plain):
         bufs = [torch.zeros((outcap, 2), dtype=torch.int32, device=card),
                 torch.zeros(2, dtype=torch.int32, device=card),
                 torch.zeros(2, dtype=torch.int32, device=card),

@@ -27,7 +27,7 @@ from tomahawk_tpu.compute.engine import dispatch_pairs as jax_dispatch
 from tomahawk_tpu.ops.ld_math import LdFilters
 from tomahawk_tpu.parallel.mesh import make_mesh as jax_make_mesh
 
-from tomahawk_tpu_torch.compute import engine as port_engine
+from tomahawk_tpu_torch.compute import resume as port_resume
 from tomahawk_tpu_torch.compute.engine import (LdEngine, compute_ld,
                                                dispatch_pairs)
 from tomahawk_tpu_torch.ops import _build
@@ -137,22 +137,20 @@ def test_banded_staging_on_mesh(shape):
 
     engine = LdEngine(None, N_SAMPLES, CalcSettings(min_r2=MIN_R2), B=B,
                       mesh=make_mesh(P, S, ["cpu"] * (P * S)))
-    engine.MAX_RESIDENT_BANDS = 3
     filt = LdFilters(min_r2=MIN_R2)
     loads = [(p, q) for p in range(3) for q in range(p, 3)]
     got, n = [], 0
     try:
         for li, (p, q) in enumerate(loads):
             engine.stage_wait()
-            load = [(p, None if p in engine._band_host else band(p))]
+            resident = engine.bands.resident()
+            load = [(p, None if p in resident else band(p))]
             if q != p:
-                load.append((q, None if q in engine._band_host
-                             else band(q)))
-            engine.set_load(load)
+                load.append((q, None if q in resident else band(q)))
+            engine.set_load(load, limit=3)
             if li + 1 < len(loads):
                 for b in set(loads[li + 1]):
-                    if b not in engine._band_host:
-                        engine.stage_band_async(b, lambda b=b: band(b))
+                    engine.stage_band_async(b, lambda b=b: band(b))
             width = bands[p][1] - bands[p][0]
             tiles = [(i - bands[p][0],
                       j - bands[q][0] + (0 if q == p else width), i == j)
@@ -165,7 +163,7 @@ def test_banded_staging_on_mesh(shape):
         engine.stage_close()
     assert engine.stage_stats["n_prefetched"] > 0
     # a word plane on a samples slice holds its share of the words
-    alt = engine._band_dev[("alt_bits", 0)]
+    alt = engine.bands._dev[("alt_bits", 0)]
     assert len(alt) == P * S and alt[0].shape[-1] == \
         -(-stacked["alt_bits"].shape[-1] // S)
     assert n == n_ref
@@ -217,7 +215,7 @@ def test_checkpointed_mesh_counts_segments_as_jax(archive, tmp_path,
     kw = dict(input=archive, min_r2=MIN_R2, tile_rows=64,
               checkpoint_interval=0.0, sweep_segment=16, mesh="cpu:2x1")
     writes = {"port": [], "jax": []}
-    for mod, tag in ((port_engine, "port"), (jax_engine, "jax")):
+    for mod, tag in ((port_resume, "port"), (jax_engine, "jax")):
         real = mod._ckpt_write
         monkeypatch.setattr(mod, "_ckpt_write",
                             lambda *a, _r=real, _t=tag, **k:
@@ -236,10 +234,10 @@ def test_checkpointed_mesh_counts_segments_as_jax(archive, tmp_path,
     _assert_same(*got)
     settings = CalcSettings(output=str(tmp_path / "k.two"),
                             checkpoint=str(tmp_path / "k.ckpt"), **kw)
-    keys = [port_engine._resume_state(settings, 0, 1, False, p)[1]
+    keys = [port_resume._resume_state(settings, 0, 1, False, p)[1]
             for p in (1, 2)]
-    assert keys[1] == port_engine._ckpt_config_key(settings, 32)
-    assert keys[0] == port_engine._ckpt_config_key(settings, 16) != keys[1]
+    assert keys[1] == port_resume._ckpt_config_key(settings, 32)
+    assert keys[0] == port_resume._ckpt_config_key(settings, 16) != keys[1]
 
 
 def test_samples_group_sums_peers():

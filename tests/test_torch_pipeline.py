@@ -71,7 +71,8 @@ def _engine(planes, depth, cap=8, outcap=64, prefix=16):
                                                  sweep_segment=16), "cpu")
     if depth == 1:
         _serial(e)
-    e._fused_cap, e._outcap, e.PREFIX_ROWS0 = cap, outcap, prefix
+    e.caps = dict(fused_cap=cap, outcap=outcap)
+    e.PREFIX_ROWS0 = prefix
     return e
 
 
@@ -125,7 +126,7 @@ def test_depth_two_emits_the_serial_records_in_order(planes, runner,
     for e in (serial, piped):
         st = list(e.stats.values())
         assert sum(s["n_repair"] for s in st) > 0
-        assert e._fused_cap > 8 and e._outcap > 64
+        assert e.caps["fused_cap"] > 8 and e.caps["outcap"] > 64
         assert e.units_done == (8 if runner == "mixed" else 4)
     assert _seg_threads(threads_before) == []
 
@@ -356,7 +357,8 @@ def test_depth_gate_reads_free_memory_once_a_group(planes, monkeypatch):
     reads, asks = [], []
     monkeypatch.setattr(LdEngine, "_prefetch_headroom_ok",
                         lambda self, cfg: reads.append(
-                            (cfg["cls"], self._outcap, self._fused_cap))
+                            (cfg["cls"], self.caps["outcap"],
+                             self.caps["fused_cap"]))
                         or True)
     depth = engine._pipeline_depth
     monkeypatch.setattr(engine, "_pipeline_depth",

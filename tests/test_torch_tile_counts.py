@@ -408,7 +408,7 @@ def test_compaction_fault_raises_at_the_host_read(monkeypatch):
     assert n.tolist() == [3, 0, 5] and nc.tolist() == [7, 0, 9]
     assert n.dtype == nc.dtype == np.int64
     sweeps._launch_compact(mask, parts, off, buf, n_pass, n_cand, 1, 64,
-                           None, None)
+                           tiles.tile_counts_plain(mask), None)
     assert lib.calls == [dict(n_pass=n_pass.data_ptr(), t=1,
                               ticket=ticket.data_ptr())]
     assert n_pass.tolist() == [3, sweeps.TICKET_FAULT, 5]

@@ -1,38 +1,27 @@
 #!/usr/bin/env python3
-"""Where the tile kernels' time goes, and what the compaction's redesign
-gained.
+"""Where the tile kernels' time goes.
 
-    python3 -m tomahawk_tpu_torch.ops.time_variants [--old-compact FILE]
-        [--old-tiles DIR]
+    python3 time_variants.py
 
 A measurement, not part of the library or of chip_smoke.py; needs an
-NVIDIA GPU and nvcc. It builds csrc/phased_tile.cu whole and once per
-entry of CUTS, each from a copy with parts of the kernel edited out (the
-outputs of those builds are wrong by design), and times each on the -p
-tile (B = 4096, 2,504 samples, W = 160 words, off-diagonal). The
-differences say what the staging + MMA loop, the prefilter's arithmetic
-and the stores cost, and how far they overlap. It does the same for
+NVIDIA GPU and nvcc, and runs from the root of a checkout. It builds
+csrc/phased_tile.cu whole and once per entry of CUTS, each from a copy
+with parts of the kernel edited out (the outputs of those builds are
+wrong by design), and times each on the -p tile (B = 4096, 2,504
+samples, W = 160 words, off-diagonal). The differences say what the
+staging + MMA loop, the prefilter's arithmetic and the stores cost, and
+how far they overlap. It does the same for
 csrc/parts_tile.cu (PARTS_CUTS) in its three instances, on the
 off-diagonal tile of genotype planes with ~1% of genotypes missing, and
 times PARTS_SHAPES, copies with another block shape or register budget
 whose outputs are right.
-
-With --old-compact FILE it also times the compaction of FILE, a compact.cu
-with the interface the compaction had while it ran three dependent
-launches and counted every mask itself (twk_compact without the `counts`
-and `ticket` arguments, scratch of 3 * B + 2 words allocated per call),
-against the library's on one mask (the LD-grouped diagonal tile, 30,720
-survivors, one part), with the counts given and without.
 
 It builds csrc/fisher_bracket.cu whole and once per entry of
 FISHER_CUTS and times each on the survivor rows of the dense workload's
 10 tiles (4 LD-grouped super-blocks) in both layouts and on
 chip_smoke.py's 16,988 tables at 2N = 32,768 (the 4-part layout), and
 the whole kernel with the volume gate closed (the `ends` launch and an
-empty second launch): where the Fisher search spends its time. With
---fisher-designs it also builds and times FISHER_DESIGNS, the two designs
-the kernel did not take (the table in shared memory, not at 2N = 32,768
-where the array does not hold it; one launch).
+empty second launch): where the Fisher search spends its time.
 
 It builds csrc/epilogue.cu whole and once per entry of EPILOGUE_CUTS and
 times each on the summed parts of the off-diagonal genotype tile in its
@@ -40,23 +29,11 @@ four (table, has_missing) instances, with a counts buffer, and the whole
 kernel without one: what the prefilter, the one half of the unphased
 prefilter a pair, the pairs a lane and the rows a block cost.
 
-With --old-tiles DIR it also builds phased_tile.cu, parts_tile.cu and
-epilogue.cu of DIR, the csrc/ of an earlier tree, and times them against
-the library's on the -p tile, the three parts_tile groups and the four
-epilogue instances, in turns (old, new, new, old), each after checking
-that both give the same mask; DIR's launchers may take the D' bounds or
-predate them, and DIR's epilogue may predate its counts. Where DIR holds a
-fisher_bracket.cu with the walk's interface (no search table), it times
-that kernel against the library's on the same rows as the cuts, in
-turns, after checking that the library's flags are a subset of its and
-the other brackets agree within 1e-6 relative.
-
 Every timed call is queued behind ~4 ms of other device work, so the host
 stays ahead and the time is the device's, launch gaps included. Prints the
 card's name and power limit, one line a variant, and one JSON object.
 """
 
-import argparse
 import ctypes
 import itertools
 import json
@@ -116,36 +93,9 @@ PARTS_SHAPES = {
 _F_SEARCH = (r"long long lo = 0, hi = span \+ 1;",
              "long long lo = span, hi = span + 1;")
 _F_TAIL = (r"        while \(used < rem\) \{\n", "        while (false) {\n")
-# the table staged in shared memory by every block (right up to 6,142
-# haplotypes), in place of the read-only path
-_F_SMEM = ((r"  return __ldg\(lf \+ i\);\n", "  return lf[i];\n"),
-           (r"  const double\* lf = a\.lf;\n",
-            "  __shared__ double staged[6144];\n"
-            "  for (int i = threadIdx.x; i < a.n_lf; i += kThreads)\n"
-            "    staged[i] = a.lf[i];\n"
-            "  __syncthreads();\n"
-            "  const double* lf = staged;\n"))
-# one launch: every block sums n_pass itself (right up to 1,024 tiles) in
-# place of the one-block ends_kernel launch before it
-_F_FOLD = ((r"ends_kernel<<<1, kEndsThreads, 0, s>>>\(.*?\);\n",
-            "(void)0;\n"),
-           (r"  const long long total = a\.ends\[a\.T\];\n",
-            "  __shared__ long long s_ends[1025];\n"
-            "  if (threadIdx.x == 0) {\n"
-            "    long long c = 0;\n"
-            "    for (int t = 0; t < a.T; ++t) s_ends[t] = c += a.n_pass[t];\n"
-            "    s_ends[a.T] = c;\n"
-            "  }\n"
-            "  __syncthreads();\n"
-            "  const long long total = s_ends[a.T];\n"),
-           (r"a\.ends\[mid\]", "s_ends[mid]"),
-           (r"a\.ends\[t\] >", "s_ends[t] >"))
 #: variant -> edits of fisher_bracket.cu, as CUTS
 FISHER_CUTS = {"whole": (), "no tail": (_F_TAIL,),
                "no search, no tail": (_F_SEARCH,)}
-#: the same for the designs the kernel did not take, whose outputs are
-#: right
-FISHER_DESIGNS = {"table in shared memory": _F_SMEM, "one launch": _F_FOLD}
 # epilogue.cu: the prefilter cut to a bit of the parts, so that the
 # stores still depend on every load
 _E_PREFILTER = (r"pair_pf<KIND, DP, P, C>\(a, sm, row, acj\[e\], "
@@ -185,7 +135,7 @@ def device_ms(fn, reps, probe_lib=None):
     calls queued behind the MMA probe (~4 ms) of `probe_lib` (the kernel
     library by default)."""
     import torch
-    from . import _build
+    from tomahawk_tpu_torch.ops import _build
     fn()
     sink = torch.zeros(528 * 256, dtype=torch.int32, device="cuda")
     start = torch.cuda.Event(enable_timing=True)
@@ -205,7 +155,7 @@ def device_ms(fn, reps, probe_lib=None):
 def _nvcc_shared(jobs):
     """Build each (source, library) of `jobs`, all at once; nvcc's output
     (ptxas's report) of each."""
-    from . import _build
+    from tomahawk_tpu_torch.ops import _build
     return _build._run([[_build._nvcc(), *_build.NVCC_FLAGS, "-I",
                          _build.CSRC, "-shared", "-o", so, src]
                         for src, so in jobs])
@@ -235,7 +185,7 @@ def _edited_builds(work, source_name, variants, tag, kernel=None):
     regular expression that must match once in the source and its
     replacement), all at once; their paths in order. With `kernel`, print
     ptxas's registers and spills of its instances in each."""
-    from . import _build
+    from tomahawk_tpu_torch.ops import _build
     with open(os.path.join(_build.CSRC, source_name)) as fh:
         source = fh.read()
     jobs = []
@@ -259,10 +209,10 @@ def _edited_builds(work, source_name, variants, tag, kernel=None):
 
 def time_cuts(work):
     import torch
-    from .. import workloads
-    from ..compute import sweeps
-    from . import _build, tiles
-    from . import ld_kernels as K
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import _build, tiles
+    from tomahawk_tpu_torch.ops import ld_kernels as K
     libs = _edited_builds(work, "phased_tile.cu", CUTS, "cut")
     cfg = sweeps.make_cfg("phased", False, "all", B, N_SAMPLES, 0, MIN_R2,
                           100.0)
@@ -301,9 +251,9 @@ def time_parts(work):
     the same tile in two launches of the kernel library, local_parts over
     the whole row and tile_epilogue, whose one mask byte a thread runs the
     prefilter at full occupancy. Returns {group: {variant: ms}}."""
-    from .. import workloads
-    from ..compute import sweeps
-    from . import _build, tiles
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import _build, tiles
     main_lib = _build.library()
     variants = dict(PARTS_CUTS, **PARTS_SHAPES)
     libs = dict(zip(variants, _edited_builds(work, "parts_tile.cu",
@@ -340,171 +290,20 @@ def time_parts(work):
     return res
 
 
-def time_compact(work, old_source):
-    import torch
-    from .. import workloads
-    from ..compute import sweeps
-    from . import tiles
-    so = os.path.join(work, "old_compact.so")
-    _nvcc_shared([(old_source, so)])
-    old = ctypes.CDLL(so)
-    P_, I_ = ctypes.c_void_p, ctypes.c_int
-    old.twk_compact.argtypes = [P_, P_, I_, I_, I_, P_, I_, I_, P_, P_, I_,
-                                P_, P_, P_]
-    cfg = sweeps.make_cfg("phased", False, "all", B, N_SAMPLES, 0, MIN_R2,
-                          100.0)
-    dev = sweeps.planes_to_device(
-        workloads.build_planes_grouped(1, B, N_SAMPLES), "cuda",
-        sweeps.dev_keys_for(cfg))
-    counts = tiles.counts_buffer(cfg, "cuda")
-    mask, parts = tiles.tile_prefilter(dev, 0, 0, True, cfg, counts=counts)
-    cap, outcap = 32768, 1 << 18
-    buf = torch.zeros((outcap, 2), dtype=torch.int32, device="cuda")
-    n_pass, n_cand, off = (torch.zeros(1, dtype=torch.int32, device="cuda")
-                           for _ in range(3))
-    scratch = sweeps.compact_scratch(B, "cuda")
-
-    def new(cnt):
-        sweeps.compact_survivors(mask, parts, off, buf, n_pass, n_cand, 0,
-                                 cap, cnt, scratch)
-
-    def before():
-        tmp = torch.empty(3 * B + 2, dtype=torch.int32, device="cuda")
-        rc = old.twk_compact(
-            mask.data_ptr(), parts.data_ptr(), 1, 2, B, off.data_ptr(), cap,
-            outcap, n_pass.data_ptr(), n_cand.data_ptr(), 0, tmp.data_ptr(),
-            buf.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise SystemExit(f"old compact: CUDA error {rc}")
-
-    res = {"old": device_ms(before, 50),
-           "counts given": device_ms(lambda: new(counts), 50),
-           "no counts given": device_ms(lambda: new(None), 50)}
-    print(f"compact, 1 part, {int((mask == 2).sum())} survivors: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in res.items()), flush=True)
-    return res
-
-
-class _OldTiles:
-    """An earlier library's two tile launchers, handed the library's
-    arguments, less the D' bounds where they predate them; anything else
-    from the library."""
-
-    def __init__(self, lib, main, dprime):
-        self.lib, self.main, self.dprime = lib, main, dprime
-
-    def twk_phased_tile(self, *a):
-        if self.dprime:
-            return self.lib.twk_phased_tile(*a)
-        return self.lib.twk_phased_tile(*a[:19], *a[21:])
-
-    def twk_parts_tile(self, *a):
-        if self.dprime:
-            return self.lib.twk_parts_tile(*a)
-        return self.lib.twk_parts_tile(*a[:28], *a[30:])
-
-    def __getattr__(self, name):
-        return getattr(self.main, name)
-
-
-def time_old_tiles(work, old_dir):
-    """phased_tile and parts_tile of `old_dir` against the library's: ms a
-    call, in turns, on the -p tile and on each of PARTS_GROUPS. Returns
-    {group: {"old": [ms, ms], "new": [ms, ms]}}."""
-    import torch
-    from .. import workloads
-    from ..compute import sweeps
-    from . import _build, tiles
-    so = os.path.join(work, "old_tiles.so")
-    objs = [os.path.join(work, f"old_{s}.o") for s in ("phased", "parts")]
-    _build._run([[_build._nvcc(), *_build.NVCC_FLAGS, "-c",
-                  os.path.join(old_dir, f"{s}_tile.cu"), "-o", o]
-                 for s, o in zip(("phased", "parts"), objs)])
-    _build._run([[_build._nvcc(), *_build.LINK_FLAGS, "-o", so, *objs]])
-    main = _build.library()
-    lib = ctypes.CDLL(so)
-    with open(os.path.join(old_dir, "phased_tile.cu")) as fh:
-        dprime = "dp_lo" in fh.read()
-    if dprime:
-        for name in ("twk_phased_tile", "twk_parts_tile"):
-            getattr(lib, name).argtypes = _build._SIGNATURES[name]
-    else:
-        P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.twk_phased_tile.argtypes = [P_] * 12 + [I_] * 5 + [F_] * 2 \
-            + [I_] * 2 + [P_] * 4
-        lib.twk_parts_tile.argtypes = [I_] + [P_] * 20 + [I_] * 5 \
-            + [F_] * 2 + [I_] * 2 + [P_] * 4
-    old = _OldTiles(lib, main, dprime)
-    res = {}
-    for group in (("phased", False, "all"),) + PARTS_GROUPS:
-        planes = (workloads.build_planes(2, B, N_SAMPLES, seed=0)
-                  if group[:2] == ("phased", False)
-                  else workloads.genotype_planes(2, B, N_SAMPLES))
-        dev = sweeps.planes_to_device(planes, "cuda")
-        cfg = sweeps.make_cfg(*group, B, N_SAMPLES, 0, MIN_R2, 100.0)
-        out = tiles.tile_buffers(cfg, "cuda")
-        counts = tiles.counts_buffer(cfg, "cuda")
-        tag = "/".join(map(str, group))
-        res[tag] = {"old": [], "new": []}
-        masks = []
-        for side in ("old", "new", "new", "old"):
-            _build._lib = old if side == "old" else main
-            try:
-                masks.append(tiles.tile_prefilter(dev, 0, 1, False, cfg, out,
-                                                  counts)[0].clone())
-                res[tag][side].append(device_ms(lambda: tiles.tile_prefilter(
-                    dev, 0, 1, False, cfg, out, counts), 20, main))
-            finally:
-                _build._lib = main
-        if any(not torch.equal(m, masks[0]) for m in masks):
-            raise SystemExit(f"{tag}: the old and new masks differ")
-        print(f"{tag}: old {res[tag]['old']}, new {res[tag]['new']} ms",
-              flush=True)
-    return res
-
-
-class _OldEpilogue:
-    """An earlier library's epilogue launcher, from before it wrote counts,
-    handed the library's arguments less the counts; anything else from the
-    library."""
-
-    def __init__(self, lib, main):
-        self.lib, self.main = lib, main
-
-    def twk_tile_epilogue(self, *a):
-        return self.lib.twk_tile_epilogue(*a[:-2], a[-1])
-
-    def __getattr__(self, name):
-        return getattr(self.main, name)
-
-
-def time_epilogue(work, old_dir=None):
+def time_epilogue(work):
     """epilogue.cu's variants (EPILOGUE_CUTS) in each (table, has_missing)
     instance on the summed parts of the off-diagonal tile of genotype
     planes (cls "all", no window), each library swapped in for the kernel
     library around tiles.tile_epilogue with a counts buffer, the outputs of
-    the right variants checked against the library's; the library's kernel
-    without a counts buffer; with `old_dir`, that tree's epilogue.cu (the
-    launcher without counts) against the library's in turns (old, new,
-    new, old), masks checked equal. Returns {instance: {variant: ms}}."""
+    the right variants checked against the library's; and the library's
+    kernel without a counts buffer. Returns {instance: {variant: ms}}."""
     import torch
-    from .. import workloads
-    from ..compute import sweeps
-    from . import _build, tiles
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import _build, tiles
     main_lib = _build.library()
     libs = dict(zip(EPILOGUE_CUTS, _edited_builds(
         work, "epilogue.cu", EPILOGUE_CUTS, "epi", "epilogue_kernel")))
-    old = None
-    if old_dir is not None:
-        with open(os.path.join(old_dir, "epilogue.cu")) as fh:
-            takes_counts = "void* mask, void* counts" in fh.read()
-        so = os.path.join(work, "old_epilogue.so")
-        _nvcc_shared([(os.path.join(old_dir, "epilogue.cu"), so)])
-        lib = ctypes.CDLL(so)
-        sig = _build._SIGNATURES["twk_tile_epilogue"]
-        lib.twk_tile_epilogue.argtypes = sig if takes_counts \
-            else sig[:-2] + sig[-1:]
-        old = lib if takes_counts else _OldEpilogue(lib, main_lib)
     dev = sweeps.planes_to_device(
         workloads.genotype_planes(2, B, N_SAMPLES), "cuda")
     res = {}
@@ -542,22 +341,6 @@ def time_epilogue(work, old_dir=None):
         res[tag]["whole, no counts"] = device_ms(lambda: call(None), 20)
         print(f"tile_epilogue {tag}, whole, no counts: "
               f"{res[tag]['whole, no counts']:.4f} ms", flush=True)
-        if old is not None:
-            turns = {"old": [], "new": []}
-            for side in ("old", "new", "new", "old"):
-                _build._lib = old if side == "old" else main_lib
-                try:
-                    out[0].fill_(7)
-                    call()
-                    if not torch.equal(out[0], want):
-                        raise SystemExit(f"tile_epilogue {tag}: the old and "
-                                         f"new masks differ")
-                    turns[side].append(device_ms(call, 20, main_lib))
-                finally:
-                    _build._lib = main_lib
-            res[tag].update(turns)
-            print(f"tile_epilogue {tag}: old {turns['old']}, new "
-                  f"{turns['new']} ms", flush=True)
     return res
 
 
@@ -565,8 +348,8 @@ def _fisher_rows():
     """(layout, dev, n_pass, buf with its bracket cleared, pi, pj, cfg,
     cap) of the dense workload's 10 tiles in both layouts, as
     chip_smoke.py compare_fisher sweeps them."""
-    from .. import workloads
-    from ..compute import sweeps
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
     nb = 4
     pairs = [(i, j) for i in range(nb) for j in range(i, nb)]
     pi = np.array([p[0] for p in pairs], np.int32)
@@ -596,8 +379,8 @@ def _wide_rows():
     tile of a phased sweep with missing data (chip_smoke.py
     compare_fisher_wide's rows)."""
     import torch
-    from .. import workloads
-    from ..compute import sweeps
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
     n_samples = 16384
     C = workloads.fisher_tables(2 * n_samples, sweeps.FISHER_MIN_ROWS, 17)
     cfg = sweeps.make_cfg("phased", True, "all", B, n_samples, 0, MIN_R2,
@@ -610,70 +393,15 @@ def _wide_rows():
     yield "2N = 32,768", dev, n_pass, buf, zero, zero, cfg, len(C)
 
 
-def _brackets(buf, cfg):
-    """(bracket f32, flagged) of every row of a buffer the Fisher kernel
-    wrote (chip_smoke.py's _bracket_bits)."""
-    import torch
-    from ..compute import sweeps
-    from . import fisher_dev as F
-    if sweeps.fisher_packed(cfg):
-        bits = (buf[:, 1] >> 16) & 0xFFFF
-        return (bits << 16).view(torch.float32), bits == F.BF16_NAN
-    br = buf[:, sweeps.buf_cols(cfg)].contiguous().view(torch.float32)
-    return br, br < 0
-
-
-def _old_fisher(so):
-    """A launch of the walk's kernel of library `so` (the interface before
-    the search: no table, one steps counter) with append_fisher_col's
-    arguments."""
-    import torch
-    from ..compute import sweeps
-    from . import _build
-    from . import fisher_dev as F
-    lib = ctypes.CDLL(so)
-    P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.twk_fisher_bracket.argtypes = [P_] + [I_] * 9 + [P_, I_] + [P_] * 4 \
-        + [ctypes.c_longlong, I_] + [P_] * 2
-
-    def launch(dev, n_pass, buf, pi, pj, cfg, cap):
-        miss = cfg["has_missing"]
-        tl = torch.from_numpy(np.stack([pi, pj]).astype(np.int32)).cuda()
-        ends = torch.empty(len(pi) + 1, dtype=torch.int64, device="cuda")
-        rc = lib.twk_fisher_bracket(
-            buf.data_ptr(), buf.shape[1], int(miss),
-            int(sweeps.pack16_ok(cfg)), int(sweeps.fisher_packed(cfg)),
-            sweeps.buf_cols(cfg), cfg["B"], 2 * cfg["n_samples"], cap,
-            buf.shape[0], n_pass.data_ptr(), len(pi), ends.data_ptr(),
-            None if miss else dev["ac"].data_ptr(),
-            None if miss else tl[0].data_ptr(),
-            None if miss else tl[1].data_ptr(), sweeps.FISHER_MIN_ROWS,
-            F.MAX_STEPS, None, torch.cuda.current_stream().cuda_stream)
-        _build.check(rc, "old fisher_bracket launch")
-
-    return launch
-
-
-def time_fisher(work, old_dir=None, designs=False):
-    """fisher_bracket.cu's cuts (FISHER_CUTS, with `designs` FISHER_DESIGNS
-    too) and the whole kernel with the volume gate closed, on the survivor
-    rows of `_fisher_rows` in each layout; with `old_dir`, that tree's walk
-    kernel against the library's in turns. Returns {layout: {variant:
-    ms}}."""
-    from ..compute import sweeps
-    from . import _build
+def time_fisher(work):
+    """fisher_bracket.cu's cuts (FISHER_CUTS) and the whole kernel with
+    the volume gate closed, on the survivor rows of `_fisher_rows` and
+    `_wide_rows`. Returns {layout: {variant: ms}}."""
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import _build
     main_lib = _build.library()
-    variants = dict(FISHER_CUTS, **(FISHER_DESIGNS if designs else {}))
-    libs = dict(zip(variants, _edited_builds(
-        work, "fisher_bracket.cu", variants, "fisher")))
-    old = None
-    if old_dir is not None:
-        with open(os.path.join(old_dir, "fisher_bracket.cu")) as fh:
-            walk_kernel = "search_table" not in fh.read()
-        if walk_kernel:
-            so = os.path.join(work, "old_fisher.so")
-            _nvcc_shared([(os.path.join(old_dir, "fisher_bracket.cu"), so)])
-            old = _old_fisher(so)
+    libs = dict(zip(FISHER_CUTS, _edited_builds(
+        work, "fisher_bracket.cu", FISHER_CUTS, "fisher")))
     res = {}
     for layout, dev, n_pass, buf, pi, pj, cfg, cap in itertools.chain(
             _fisher_rows(), _wide_rows()):
@@ -682,8 +410,6 @@ def time_fisher(work, old_dir=None, designs=False):
         call = lambda: sweeps.append_fisher_col(dev, n_pass, ker, pi, pj,
                                                 cfg, cap)
         for name, so in libs.items():
-            if name == "table in shared memory" and cfg["n_samples"] > 3071:
-                continue
             lib = ctypes.CDLL(so)
             lib.twk_fisher_bracket.argtypes = \
                 _build._SIGNATURES["twk_fisher_bracket"]
@@ -702,37 +428,11 @@ def time_fisher(work, old_dir=None, designs=False):
         for name, ms in res[layout].items():
             print(f"fisher_bracket {layout}, {name}: {ms:.4f} ms",
                   flush=True)
-        if old is None or layout not in ("packed", "column"):
-            continue
-        outs, turns = {}, {"old": [], "new": []}
-        for side in ("old", "new", "new", "old"):
-            out = buf.clone()
-            fn = (lambda: old(dev, n_pass, out, pi, pj, cfg, cap)) \
-                if side == "old" else (lambda: sweeps.append_fisher_col(
-                    dev, n_pass, out, pi, pj, cfg, cap))
-            turns[side].append(device_ms(fn, 20))
-            outs[side] = _brackets(out, cfg)
-        (ob, of), (nb_, nf) = outs["old"], outs["new"]
-        both = ~of & ~nf
-        rel = float(((nb_[both] - ob[both]).abs()
-                     / ob[both].abs().clamp(min=1e-30)).max())
-        if bool((nf & ~of).any()) or rel > 1e-6:
-            raise SystemExit(f"fisher_bracket {layout}: the library flags "
-                             f"{int((nf & ~of).sum())} lanes the old kernel "
-                             f"does not, brackets {rel} apart")
-        res[layout]["old"], res[layout]["new"] = turns["old"], turns["new"]
-        print(f"fisher_bracket {layout}: old {turns['old']}, new "
-              f"{turns['new']} ms", flush=True)
     return res
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old-compact", metavar="FILE")
-    ap.add_argument("--old-tiles", metavar="DIR")
-    ap.add_argument("--fisher-designs", action="store_true")
-    args = ap.parse_args()
-    from . import _build
+    from tomahawk_tpu_torch.ops import _build
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -742,13 +442,8 @@ def main():
     try:
         out = {"phased_tile_cuts_ms": time_cuts(work),
                "parts_tile_cuts_ms": time_parts(work),
-               "fisher_bracket_ms": time_fisher(work, args.old_tiles,
-                                                 args.fisher_designs),
-               "tile_epilogue_ms": time_epilogue(work, args.old_tiles)}
-        if args.old_compact:
-            out["compact_ms"] = time_compact(work, args.old_compact)
-        if args.old_tiles:
-            out["old_tiles_ms"] = time_old_tiles(work, args.old_tiles)
+               "fisher_bracket_ms": time_fisher(work),
+               "tile_epilogue_ms": time_epilogue(work)}
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps(out))

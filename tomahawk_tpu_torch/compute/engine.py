@@ -18,7 +18,7 @@ it, since a load's planes are also concatenated), the super-blocks split
 into bands and every band pair is one load (`_plan_loads`, `run_loads`):
 the engine keeps bands resident across loads, and a staging worker
 inflates and uploads the next load's band from pinned memory on a stream
-of its own while the current load computes (`stage_band_async`).
+of its own while the current load computes (compute/bands.py).
 
 Pipeline: for each segment the device runs the tile kernel and the
 survivor compaction on every tile (sweeps.fused_sweep, one C call that
@@ -75,18 +75,10 @@ the same loads and tiles in the same order with the same caps and
 repair decisions, because those follow from the global counts, so the
 collectives stay aligned; such a run neither stages nor pipelines.
 
-Checkpoints (`--checkpoint PATH`): after a segment's records are
-emitted, at most every `checkpoint_interval` seconds, the consumer
-writes a sidecar (`_ckpt_write`: segments done, totals, the load
-boundaries, the adaptive caps and the writer's durable state). A run
-that finds a sidecar with its own settings resumes: the output is
-truncated to the checkpointed offset, whole loads and then segments
-done before it are skipped without being dispatched, and the caps are
-restored, so the resumed run cuts and extracts the same segments as an
-uninterrupted one. Tile-partition runs keep a sidecar a process
-(`PATH.pKofN`); a dcn run keeps rank 0's, whose state every rank
-receives (`parallel.broadcast_resume`). The sidecar is removed once the
-output is complete.
+Checkpoints (`--checkpoint PATH`, compute/resume.py): a run resumes
+after its last whole segment. Tile-partition runs keep a sidecar a
+process (`PATH.pKofN`); a dcn run keeps rank 0's, whose state every rank
+receives (`parallel.broadcast_resume`).
 
 The host layer (file formats, balancer, exact statistics, the native
 library) is this package's own. The JAX engine's XLA degradation ladder
@@ -97,11 +89,8 @@ one segment at a time on the same kernels.
 """
 
 import contextlib
-import dataclasses
 import datetime
 import os
-import threading
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -118,8 +107,8 @@ from ..ops.fisher_dev import host_p_from_bracket, log_factorial_table
 # one call a super-block: the name ldbench's `calc.inflate` wrap times
 from ..ops.inflate import decode_super as block_to_planes
 from ..ops.inflate import new_planes, read_super
-from ..ops.ld_math import (LdFilters, PairMeta, ld_records, phased_math,
-                           unphased_math)
+from ..ops.ld_math import (LdFilters, PairMeta, _meta_subset, ld_records,
+                           phased_math, unphased_math)
 from ..ops.tiles import tile_buffers
 from ..parallel import distributed as dist
 from ..parallel.mesh import SamplesGroup
@@ -127,7 +116,9 @@ from ..utils import Timer, log, pretty_int
 from ..utils.progress import ProgressTicker
 from . import sweeps
 from .balancer import Balancer
+from .bands import Bands
 from .cpu_engine import run_native_cpu
+from .resume import Checkpoint
 from .two_pool import PooledTwoWriter
 
 __all__ = ["CalcResult", "CalcSettings", "LdEngine", "compute_ld"]
@@ -156,15 +147,12 @@ class CalcSettings:
     c_level: int = 1
     b_size: int = 10_000          # output block record limit
     intervals: List[str] = field(default_factory=list)
-    # accepted and unused, as in the JAX package
-    batch_pairs: int = 16
-    cap_fraction: float = 0.25
     # upper limit of tiles per segment; the progress ticker advances
     # between segments
     sweep_segment: int = 4096
     performance: bool = False
     # consecutive .twk blocks regroup into super-blocks of up to this
-    # many variants (never spanning a contig change); 0 = 4096
+    # many variants (never spanning a contig change); 0 = TILE_ROWS
     tile_rows: int = 0
     # "auto": every visible card as the pairs axis when there is more
     # than one (one card a process under --distributed); "off" or "":
@@ -244,6 +232,20 @@ def _reverse_records(recs: np.ndarray) -> np.ndarray:
     return rev
 
 
+def _host_records(table, data, meta: PairMeta, filt, p_pre):
+    """(records, their reverses or None, the kept survivor indices or
+    None) of a segment's survivors: the native record pipeline
+    (`ld_records`, with the in-sweep P where given), or the plain math on
+    a host without the native library."""
+    out = ld_records(table, data, meta, filt, p_pre=p_pre)
+    if out is not None:
+        return out
+    if table == "phased":
+        recs, kept_idx = phased_math(data, meta, filt)
+        return recs, None, kept_idx
+    return unphased_math(data, meta, filt), None, None
+
+
 def _bucket(n: int, lo: int) -> int:
     """Round n up to a power of two (>= lo)."""
     b = lo
@@ -257,13 +259,11 @@ def _round_up(n: int, q: int) -> int:
     return ((n + q - 1) // q) * q
 
 
-def _auto_tile_rows(entries, block_ids, settings) -> int:
-    """Resolve tile_rows=0: 4096 rows in every mode, the JAX engine's
-    rule, so both engines plan the same tiles and emit records in the
-    same order. Whether a smaller tile serves a short window better on
-    the GPU is not measured yet; tile_rows remains an explicit
-    override."""
-    return 4096
+#: the tile rows of `tile_rows=0`, in every mode: the JAX engine's rule,
+#: so both engines plan the same tiles and emit records in the same
+#: order. Whether a smaller tile serves a short window better on the GPU
+#: is not measured yet; tile_rows remains an explicit override
+TILE_ROWS = 4096
 
 
 def _super_ranges(entries, block_ids, tile_rows: int):
@@ -388,10 +388,9 @@ class LdEngine:
     the same order, so such an engine neither stages bands nor pipelines
     segments.
 
-    Device planes are held per band (uploaded once while the band stays
-    resident) and concatenated on the device once per load; the sweep's
-    kernels run on the stream that is current where the engine is
-    called. Call `stage_close` when done: it joins the staging worker
+    Device planes are held per band (`bands`, compute/bands.py); the
+    sweep's kernels run on the stream that is current where the engine
+    is called. Call `stage_close` when done: it joins the staging worker
     and the segment consumer."""
 
     # survivors extracted per tile inside the fused sweep; tiles with
@@ -408,13 +407,6 @@ class LdEngine:
     # survivor-buffer rows copied to the host right behind each sweep,
     # before its counts are known; adapts per sweep group
     PREFIX_ROWS0 = 4096
-    #: resident band limit: a banded load touches at most 2 bands (3 with
-    #: the staging worker's band in flight)
-    MAX_RESIDENT_BANDS = 2
-    #: per-variant host arrays of a band, concatenated per load for the
-    #: host math
-    META_KEYS = ("pos", "rid", "ac", "an", "n_het", "n_hom", "hwe",
-                 "has_missing", "valid", "n_rec")
 
     def __init__(self, stacked: dict, n_samples: int,
                  settings: CalcSettings, device=None, B: int = None,
@@ -435,14 +427,14 @@ class LdEngine:
                       for row in grid]
         self._positions = [pos for row in self._grid for pos in row]
         self.n_pair_shards = len(self._grid)
-        self.n_samples_shards = S
         self.settings = settings
         self.n_samples = n_samples
         self.device = self._grid[0][0][0]
         self.window = settings.l_window if settings.window else 0
         self.ticker = None           # optional ProgressTicker
-        self._outcap = self.OUTCAP0
-        self._fused_cap = self.FUSED_CAP
+        # the adaptive survivor caps, per tile in the fused sweep and per
+        # segment's buffer; a resumed run sets them to its sidecar's
+        self.caps = dict(fused_cap=self.FUSED_CAP, outcap=self.OUTCAP0)
         # in-sweep Fisher (phased tables): the fused sweep carries a
         # bracket per survivor and the host multiplies by the exact f64 q.
         # Above 2**15 haplotypes the walk's distance to the mirror
@@ -483,11 +475,9 @@ class LdEngine:
         self._prefix_rows = {}
         # the depth gate's answers in the current group, by caps
         self._headroom = {}
-        # checkpoint/resume: segments are the resume unit, and their
-        # order is deterministic in the settings, so a resumed run counts
-        # them as the interrupted one did. `ckpt_skip` segments are
-        # skipped (their records are in the checkpointed output);
-        # `units_done` counts segments completed or skipped,
+        # checkpoint/resume (compute/resume.py): the first `ckpt_skip`
+        # segments are skipped (their records are in the checkpointed
+        # output); `units_done` counts segments completed or skipped,
         # `_units_planned` those skipped or dispatched, `cand_total` the
         # candidate pairs of the run; `on_segment` is called after each
         # segment's records are emitted
@@ -496,278 +486,56 @@ class LdEngine:
         self._units_planned = 0
         self.cand_total = 0
         self.on_segment = None
-        # band residency: host planes, device planes per (key, band), the
-        # bands of the current load and their per-load concatenation
-        self._stage_lock = threading.Lock()
-        self._band_host = {}
-        self._band_dev = {}
-        self._band_meta = {}
-        self._band_nb = {}
-        self._load_bands = []
-        self._load_dev = {}
-        self.n_band_uploads = 0
-        # band staging: one worker inflates and uploads the next load's
-        # band while the current load computes. `exposed_s`: main-thread
-        # time blocked on uploads; `wait_s`: main-thread time blocked on
-        # an unfinished prefetch; `hidden_s`: the worker's upload time
-        self._stage_pool = None
-        self._stage_streams = {}
-        self._stage_futures = []
-        self._seen_keys = set()
-        self.stage_stats = dict(hidden_s=0.0, exposed_s=0.0, wait_s=0.0,
-                                bytes=0, n_prefetched=0, n_blocking=0)
+        self.bands = Bands(self._grid, S, B)
+        self.stage_stats = self.bands.stats
         self.stacked = None
         self.B = B
-        self.NB = 0
+        # a window no sweep takes raises here, before any output
+        self._cfg("phased", False, "all")
         if stacked is not None:
             self.set_load([("all", stacked)])
         elif B is None:
             raise ValueError("need either stacked planes or explicit B")
 
-    # -- band residency --------------------------------------------------
-    def set_load(self, bands):
-        """Make `bands` (a list of (band_id, stacked-or-None)) the current
-        load, in order. A band passed with stacked=None must still be
-        resident from an earlier load. Evicts bands outside the load
-        beyond MAX_RESIDENT_BANDS."""
-        for band_id, stacked in bands:
-            if stacked is None:
-                if band_id not in self._band_meta:
-                    raise ValueError(f"band {band_id} not resident")
-                continue
-            self._register_band(band_id, stacked)
-        self._load_bands = [b for b, _ in bands]
-        self._load_dev = {}
-        self.NB = sum(self._band_nb[b] for b in self._load_bands)
-        self.stacked = {
-            k: np.concatenate([self._band_meta[b][k]
-                               for b in self._load_bands])
-            for k in self.META_KEYS}
-        with self._stage_lock:
-            resident = [b for b in self._band_host if b in self._load_bands]
-            others = [b for b in self._band_host
-                      if b not in self._load_bands]
-            for b in others[:max(0, len(resident) + len(others)
-                                 - self.MAX_RESIDENT_BANDS)]:
-                self._evict_locked(b)
-
-    def _pad_samples_axis(self, host: dict) -> dict:
-        """The word planes of `host` padded to a multiple of the samples
-        shards, as the JAX engine pads them for a 'samples' axis (the
-        miss plane with ones: padding is "missing"), so every slice has
-        the same words."""
-        if self.n_samples_shards <= 1:
-            return host
-        return {k: sweeps.pad_words(v, k, self.n_samples_shards)
-                for k, v in host.items()}
-
-    def _register_band(self, band_id, stacked):
-        host = self._pad_samples_axis({k: stacked[k]
-                                       for k in sweeps.DEV_KEYS})
-        if self.B is None:
-            self.B = stacked["alt_bits"].shape[1]
-        elif stacked["alt_bits"].shape[1] != self.B:
-            raise ValueError("band tile_rows mismatch")
-        with self._stage_lock:
-            self._band_host[band_id] = host
-            self._band_meta[band_id] = {k: stacked[k]
-                                        for k in self.META_KEYS}
-            self._band_nb[band_id] = stacked["alt_bits"].shape[0]
-
-    def _evict_locked(self, band_id):
-        """Drop a band's host and device planes. A device plane the staging
-        worker uploaded was marked for the compute stream, so its memory
-        is not reused before the kernels queued there are done with it."""
-        self._band_host.pop(band_id, None)
-        self._band_meta.pop(band_id, None)
-        self._band_nb.pop(band_id, None)
-        for key in [k for k in self._band_dev if k[1] == band_id]:
-            self._band_dev.pop(key)
-
-    def _mesh_upload(self, k, host, put=None):
-        """Plane `k` of a band on every position of the mesh, a list in
-        `_positions` order: a word plane cut to the position's slice of
-        the samples axis, metadata copied whole to each card. Positions
-        that share a device and a slice share one tensor. `put(device,
-        array)` makes a device tensor of the host array (`host_plane` of
-        the position's slice); by default an upload from the calling
-        thread on the device's current stream."""
-        out, made = [], {}
-        for dev, ws in self._positions:
-            key = (dev, ws if k in sweeps.WORD_KEYS else None)
-            if key not in made:
-                arr = sweeps.host_plane(host, k, ws)
-                with on_device(dev):
-                    made[key] = (put(dev, arr) if put is not None
-                                 else torch.from_numpy(arr).to(dev))
-            out.append(made[key])
-        return out
-
-    @staticmethod
-    def _nbytes(tensors) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in {id(t): t for t in tensors}.values())
-
-    def _band_dev_get(self, k, band_id):
-        key = (k, band_id)
-        self._seen_keys.add(k)
-        with self._stage_lock:
-            arr = self._band_dev.get(key)
-            if arr is not None:
-                return arr
-            host = self._band_host[band_id][k]
-        with spans.timed("engine.upload") as up:
-            arr = self._mesh_upload(k, host)
-            up.set(bytes=self._nbytes(arr))
-        with self._stage_lock:
-            self._band_dev[key] = arr
-            self.n_band_uploads += 1
-            self.stage_stats["exposed_s"] += up.seconds
-            self.stage_stats["bytes"] += up.attrs["bytes"]
-            self.stage_stats["n_blocking"] += 1
-        return arr
-
-    # -- band staging (upload / compute overlap) -------------------------
-    def _stage_upload(self, k, host, compute_streams):
-        """Plane `k` uploaded on the staging worker's stream of each card:
-        from pinned host memory, so that the copy overlaps the sweeps,
-        and complete when this returns (the worker publishes the tensors
-        only then). Each tensor is marked as used on its card's stream in
-        `compute_streams`, where the sweeps read it, so that once evicted
-        its memory goes back to the staging stream's pool only after the
-        kernels queued there."""
-        if self.device.type != "cuda":
-            return self._mesh_upload(k, host)
-
-        def put(dev, arr):
-            stream = self._stage_streams[dev]
-            with torch.cuda.stream(stream):
-                out = torch.from_numpy(arr).pin_memory().to(
-                    dev, non_blocking=True)
-            stream.synchronize()
-            out.record_stream(compute_streams[dev])
-            return out
-        return self._mesh_upload(k, host, put)
-
-    def stage_band(self, band_id, stacked, compute_streams=None):
-        """Register `stacked` as band `band_id` and push its device planes
-        ahead of use, so the following `set_load` finds the band resident
-        with its transfers done. Runs on the staging worker; evicts
-        surplus non-load bands first so the staged band never pushes
-        residency past MAX_RESIDENT_BANDS."""
-        if band_id in self._band_meta:
-            return
-        with self._stage_lock:
-            others = [b for b in self._band_host
-                      if b not in self._load_bands and b != band_id]
-            for b in others[:max(0, len(self._band_host) + 1
-                                 - self.MAX_RESIDENT_BANDS)]:
-                self._evict_locked(b)
-        self._register_band(band_id, stacked)
-        # stage the planes the run has used (a phased sweep never pays
-        # for het/hom/valid planes); before any sweep ran, the alt plane
-        # is the one certainty
-        keys = (self._seen_keys & set(sweeps.DEV_KEYS)) or {"alt_bits"}
-        for k in sorted(keys):
-            with self._stage_lock:
-                if (k, band_id) in self._band_dev:
-                    continue
-                host = self._band_host[band_id][k]
-            with spans.timed("engine.upload") as up:
-                arr = self._stage_upload(k, host, compute_streams)
-                up.set(bytes=self._nbytes(arr))
-            with self._stage_lock:
-                self._band_dev[(k, band_id)] = arr
-                self.n_band_uploads += 1
-                self.stage_stats["hidden_s"] += up.seconds
-                self.stage_stats["bytes"] += up.attrs["bytes"]
-        self.stage_stats["n_prefetched"] += 1
+    # -- bands, caps and the segment count --------------------------------
+    def set_load(self, bands, limit: int = 2):
+        """`Bands.set_load`, the load's host arrays becoming `stacked`."""
+        self.stacked = self.bands.set_load(bands, limit)
+        self.B = self.bands.B
 
     def stage_band_async(self, band_id, provider):
-        """Queue background staging of one band: `provider()` builds its
-        stacked host planes (the archive's blocks inflated) and
-        `stage_band` uploads them, both overlapping the current load's
-        sweeps. The single worker thread is also the backpressure: at
-        most one band stages at a time. A samples-sharded engine does not
-        stage: every rank uploads in program order on its main thread."""
-        if band_id in self._band_meta or self.group is not None:
-            return
-        compute_streams = None
-        if self._stage_pool is None:
-            self._stage_pool = ThreadPoolExecutor(
-                1, thread_name_prefix="twk-stage")
-        if self.device.type == "cuda":
-            compute_streams = {d: torch.cuda.current_stream(d)
-                               for d in self._cards()}
-            for d in self._cards():
-                if d not in self._stage_streams:
-                    self._stage_streams[d] = torch.cuda.Stream(d)
-        ctx = spans.current()
-
-        def work():
-            with on_device(self.device), \
-                    spans.span("engine.stage", parent=ctx):
-                if band_id not in self._band_meta:
-                    self.stage_band(band_id, provider(), compute_streams)
-        self._stage_futures.append((band_id, self._stage_pool.submit(work)))
+        """`Bands.stage_async`. A samples-sharded engine does not stage:
+        every rank uploads in program order on its main thread."""
+        if self.group is None:
+            self.bands.stage_async(band_id, provider)
 
     def stage_wait(self):
-        """Drain outstanding staging work before the next `set_load`
-        touches the residency maps. A failed staging job is reported and
-        its band loads on demand at the next `set_load`: the same kernels
-        on the same card, where a device fault raises at that upload."""
-        with spans.timed("engine.stage_wait") as wait:
-            for band_id, fut in self._stage_futures:
-                try:
-                    fut.result()
-                except Exception as e:   # noqa: BLE001 - loads on demand
-                    log("WARNING", f"staging band {band_id} failed "
-                        f"({type(e).__name__}: {str(e)[:120]}); loading it "
-                        f"on demand", sub="MEMORY")
-        if self._stage_futures:
-            self.stage_stats["wait_s"] += wait.seconds
-        self._stage_futures = []
+        """`Bands.stage_wait`."""
+        self.bands.stage_wait()
 
     def stage_close(self):
         """Drain and join the staging worker and the segment consumer."""
-        self.stage_wait()
-        for attr in ("_stage_pool", "_seg_pool_"):
-            pool = getattr(self, attr)
-            if pool is not None:
-                pool.shutdown(wait=True)
-                setattr(self, attr, None)
+        self.bands.close()
+        if self._seg_pool_ is not None:
+            self._seg_pool_.shutdown(wait=True)
+            self._seg_pool_ = None
 
-    def _cards(self) -> list:
-        """The distinct devices of the mesh, in position order."""
-        return list(dict.fromkeys(d for d, _ in self._positions))
+    @property
+    def n_band_uploads(self) -> int:
+        return self.bands.n_uploads
 
-    def _dev_for(self, cfg) -> list:
-        """The current load's device tensors for one sweep config, a dict
-        for each position of the mesh: [pairs shard][samples slice]. Each
-        band's plane uploads on first use (a phased run never pays for
-        the het/hom/valid planes), then the bands of the load are
-        concatenated on each device, once a load."""
-        keys = sweeps.dev_keys_for(cfg)
-        for k in keys:
-            if k not in self._load_dev:
-                parts = [self._band_dev_get(k, b) for b in self._load_bands]
-                made = {}
-                for q in range(len(self._positions)):
-                    src = [p[q] for p in parts]
-                    key = tuple(map(id, src))
-                    if key not in made:
-                        made[key] = src[0] if len(src) == 1 else torch.cat(src)
-                    self._load_dev.setdefault(k, []).append(made[key])
-        S = len(self._grid[0])
-        return [[{k: self._load_dev[k][p * S + s] for k in keys}
-                 for s in range(S)] for p in range(self.n_pair_shards)]
+    def skip_to(self, units: int):
+        """Count the segments up to the `units`-th as done and planned
+        without dispatching them: a resumed run's skip of a whole load."""
+        self.units_done = max(self.units_done, units)
+        self._units_planned = max(self._units_planned, units)
 
     def _row_cfg(self, cfg, p: int, row: list) -> dict:
         """The sweep config of pairs shard `p`, whose samples slices hold
-        `row` (a `_dev_for` row): under a dcn mesh, row p's device group
-        (`ProcessGroup.rows`: card p of every rank); with S > 1 on a local
-        mesh, the row's SamplesGroup, with tile buffers of its own on each
-        peer's device."""
+        `row` (a `Bands.dev_for` row): under a dcn mesh, row p's device
+        group (`ProcessGroup.rows`: card p of every rank); with S > 1 on a
+        local mesh, the row's SamplesGroup, with tile buffers of its own on
+        each peer's device."""
         if self.group is not None:
             return dict(cfg, psum_group=self.group.rows[p])
         if len(row) == 1:
@@ -814,7 +582,7 @@ class LdEngine:
                 1, thread_name_prefix="twk-seg")
             if self.device.type == "cuda":
                 self._seg_streams = {d: torch.cuda.Stream(d)
-                                     for d in self._cards()}
+                                     for d in self.bands.cards}
         return self._seg_pool_
 
     def _pipeline_depth(self, cfg) -> int:
@@ -827,12 +595,12 @@ class LdEngine:
         thread in program order on every rank. A local mesh pipelines."""
         if self.group is not None or not self._pipeline_enabled:
             return 1
-        if self._outcap > (1 << 21):
+        if self.caps["outcap"] > (1 << 21):
             return 1
         # the free memory is read once a group and again when the caps
         # grow: `run_group` asks before every dispatch, and one read of
         # it took 17-326 us on the card's host (chip_smoke.py)
-        key = (self._outcap, self._fused_cap)
+        key = (self.caps["outcap"], self.caps["fused_cap"])
         if key not in self._headroom:
             self._headroom[key] = self._prefetch_headroom_ok(cfg)
         return 2 if self._headroom[key] else 1
@@ -846,9 +614,9 @@ class LdEngine:
         here."""
         if self.device.type != "cuda":
             return True
-        cap = min(self._fused_cap, self.B * self.B)
-        need = sweeps.sweep_bytes(cfg, max(self._outcap, 2 * cap))
-        for dev in self._cards():
+        cap = min(self.caps["fused_cap"], self.B * self.B)
+        need = sweeps.sweep_bytes(cfg, max(self.caps["outcap"], 2 * cap))
+        for dev in self.bands.cards:
             free, _ = torch.cuda.mem_get_info(dev)
             free += torch.cuda.memory_reserved(dev) \
                 - torch.cuda.memory_allocated(dev)
@@ -1004,9 +772,9 @@ class LdEngine:
             pj = np.array([t[1] for t in tiles] + [0] * pad, np.int32)
             dg = np.array([t[2] for t in tiles] + [True] * pad, bool)
             live = np.arange(Tpad) < T
-            devs = self._dev_for(cfg)
-            cap = min(self._fused_cap, self.B * self.B)
-            outcap = max(self._outcap, 2 * cap)
+            devs = self.bands.dev_for(cfg)
+            cap = min(self.caps["fused_cap"], self.B * self.B)
+            outcap = max(self.caps["outcap"], 2 * cap)
             per = Tpad // P
         shards = []
         with spans.span("engine.dispatch.sweep"):
@@ -1181,15 +949,8 @@ class LdEngine:
                 # math of its slice and the records are gathered
                 recs, rev = self._dcn_records(table, data, meta, filt, p_pre)
             else:
-                out = ld_records(table, data, meta, filt, p_pre=p_pre)
-                if out is not None:
-                    recs, rev, kept_idx = out
-                elif table == "phased":
-                    recs, kept_idx = phased_math(data, meta, filt)
-                    rev = None
-                else:
-                    recs = unphased_math(data, meta, filt)
-                    rev = None
+                recs, rev, kept_idx = _host_records(table, data, meta, filt,
+                                                    p_pre)
         stat["math_s"] += math.seconds
         if self.settings.performance:
             self._tally_ac(meta, kept_idx)
@@ -1272,18 +1033,9 @@ class LdEngine:
             recs = rev = np.empty(0, TWO_DTYPE)
         else:
             sl = slice(lo, hi)
-            meta_sl = PairMeta(**{f.name: getattr(meta, f.name)[sl]
-                                  for f in dataclasses.fields(PairMeta)})
-            out = ld_records(table, data[sl], meta_sl, filt,
-                             p_pre=None if p_pre is None else p_pre[sl])
-            if out is not None:
-                recs, rev = out[0], out[1]
-            elif table == "phased":
-                recs, _ = phased_math(data[sl], meta_sl, filt)
-                rev = None
-            else:
-                recs = unphased_math(data[sl], meta_sl, filt)
-                rev = None
+            recs, rev, _ = _host_records(
+                table, data[sl], _meta_subset(meta, sl), filt,
+                None if p_pre is None else p_pre[sl])
             if rev is None:
                 rev = _reverse_records(recs)
         with spans.timed("engine.gather") as gather:
@@ -1342,11 +1094,11 @@ class LdEngine:
         stat["n_repair"] += len(bad)
         if (ns_bad <= cap).any():
             # a tile spilled its shard's buffer: grow it
-            self._outcap = min(self._outcap * 4, 1 << 23)
+            self.caps["outcap"] = min(self.caps["outcap"] * 4, 1 << 23)
         over = int(ns_bad.max())
         if over > cap:
-            self._fused_cap = min(_bucket(over, self.FUSED_CAP),
-                                  self.FUSED_CAP_MAX, B * B)
+            self.caps["fused_cap"] = min(_bucket(over, self.FUSED_CAP),
+                                         self.FUSED_CAP_MAX, B * B)
         rcap = min(_bucket(over, 1024), B * B)
         out = {}
         for p in np.unique(bad // per):
@@ -1396,49 +1148,39 @@ def dispatch_pairs(engine: LdEngine, pairs, mode: str, filt: LdFilters,
 
 def run_loads(engine: LdEngine, bands, loads, provider, mode: str,
               filt: LdFilters, emit, prefetch: bool = False,
-              load_cum=None) -> int:
+              resume: Checkpoint = None) -> int:
     """Sweep a `_plan_loads` plan: for each load, the band pair (p, q) is
     made resident (`provider(b)` gives band b's stacked host planes, for
     a band not resident yet) and its tiles are dispatched. With
     `prefetch` the staging worker inflates and uploads the next load's
     new band while the current load computes (a third resident band).
-    `load_cum` (a list, updated in place) holds the engine's `units_done`
-    after each completed load: a resumed run skips a load whose value is
-    at most `engine.ckpt_skip` whole, neither inflating nor staging its
-    bands. Returns the candidate pairs evaluated."""
-    if prefetch:
-        engine.MAX_RESIDENT_BANDS = 3
-    load_cum = [] if load_cum is None else load_cum
-
+    `resume` (a resume.Checkpoint) takes the engine's segments done after
+    each load, and a resumed run skips the loads it completed whole.
+    Returns the candidate pairs evaluated."""
     def done_before(li):
-        return li < len(load_cum) and load_cum[li] <= engine.ckpt_skip
+        return resume is not None and resume.load_done(li)
 
     n = 0
     for li, ((p, q), load_tiles) in enumerate(loads):
         if done_before(li):
-            # the planned count follows, or later loads would skip
+            # the segment count follows, or later loads would skip
             # against the wrong base
-            engine.units_done = max(engine.units_done, load_cum[li])
-            engine._units_planned = max(engine._units_planned, load_cum[li])
+            engine.skip_to(resume.load_cum[li])
             continue
         engine.stage_wait()
-        load = [(p, None if p in engine._band_host else provider(p))]
-        if q != p:
-            load.append((q, None if q in engine._band_host
-                         else provider(q)))
-        engine.set_load(load)
+        resident = engine.bands.resident()
+        engine.set_load([(b, None if b in resident else provider(b))
+                         for b in dict.fromkeys((p, q))],
+                        limit=3 if prefetch else 2)
         if prefetch and li + 1 < len(loads) and not done_before(li + 1):
             for b in set(loads[li + 1][0]):
-                if b not in engine._band_host:
-                    engine.stage_band_async(b, lambda b=b: provider(b))
+                engine.stage_band_async(b, lambda b=b: provider(b))
         load_ids = bands[p] if p == q else bands[p] + bands[q]
         slot = {g: s for s, g in enumerate(load_ids)}
         tiles = [(slot[i], slot[j], d) for i, j, d in load_tiles]
         n += dispatch_pairs(engine, tiles, mode, filt, emit, engine.stacked)
-        if li < len(load_cum):
-            load_cum[li] = engine.units_done
-        else:
-            load_cum.append(engine.units_done)
+        if resume is not None:
+            resume.load_cum.append(engine.units_done)
     return n
 
 
@@ -1505,130 +1247,6 @@ def _route_backend(settings: CalcSettings, est_pairs: int, n_samples: int,
     work = est_pairs * 2 * n_samples
     limit = float(os.environ.get("TWK_CPU_ROUTE_WORK", CPU_ROUTE_WORK))
     return work < limit
-
-
-def _ckpt_config_key(settings: CalcSettings, seg_effective: int,
-                     proc_id: int = 0, n_procs: int = 1) -> str:
-    """Fingerprint of everything that determines the dispatch plan and
-    the output stream; a resume under a different key would silently
-    mix incompatible runs, so it is rejected. `seg_effective` is the
-    resolved segment size (it depends on the visible device count, not
-    just the settings: resuming on a different machine shape would
-    misalign segment counting)."""
-    import hashlib
-    import json as _json
-    import os as _os
-    st = _os.stat(settings.input)
-    fields = dict(
-        # bump when the segment-size derivation changes (run_group
-        # splits groups into ~PIPELINE_SEGMENTS pieces since round 4):
-        # resumed runs must count segments identically
-        plan=2,
-        proc=f"{proc_id}/{n_procs}",
-        input=_os.path.abspath(settings.input), size=st.st_size,
-        mtime=st.st_mtime,
-        output=_os.path.abspath(settings.output),
-        seg_effective=seg_effective,
-        force_phased=settings.force_phased,
-        forced_unphased=settings.forced_unphased, window=settings.window,
-        l_window=settings.l_window, min_p=settings.min_p,
-        min_r2=settings.min_r2, max_r2=settings.max_r2,
-        min_dprime=settings.min_dprime, max_dprime=settings.max_dprime,
-        n_chunks=settings.n_chunks, c_chunk=settings.c_chunk,
-        intervals=list(settings.intervals), b_size=settings.b_size,
-        c_level=settings.c_level, sweep_segment=settings.sweep_segment,
-        tile_rows=settings.tile_rows, mesh=settings.mesh,
-        memory_gb=settings.memory_gb,
-        # the load plan's band size depends on it, and segment counting
-        # follows the plan
-        stage_prefetch=settings.stage_prefetch,
-        engine="tomahawk_tpu_torch")
-    blob = _json.dumps(fields, sort_keys=True).encode()
-    return hashlib.sha256(blob).hexdigest()
-
-
-def _ckpt_read(path: str, config_key: str):
-    import base64
-    import json as _json
-    with open(path) as fh:
-        ck = _json.load(fh)
-    if ck.get("version") != 1:
-        raise ValueError(f"unsupported checkpoint version in {path}")
-    if ck["config"] != config_key:
-        raise ValueError(
-            f"checkpoint {path} was written by a run with different "
-            "settings or input; delete it to start over")
-    ck["writer"]["index"] = base64.b64decode(ck["writer"]["index"])
-    return ck
-
-
-def _ckpt_write(path: str, config_key: str, units: int, n_pairs: int,
-                n_records: int, load_cum, writer_state: dict,
-                caps: dict = None):
-    """Atomic sidecar write (tmp + fsync + rename): the checkpoint is
-    only ever observed complete, and the writer state it carries was
-    fsync'd by checkpoint_state() before this is called. `caps`
-    carries the engine's adaptive buffer state (fused cap, outcap) so
-    a resumed run replays the SAME fused-vs-repair extraction paths --
-    with the in-sweep Fisher bracket, path choice decides which f32
-    program computes P, and resuming with reset caps would leave
-    f32-noise differences vs the uninterrupted run."""
-    import base64
-    import json as _json
-    import os as _os
-    state = dict(version=1, config=config_key, units=units,
-                 n_pairs=n_pairs, n_records=n_records,
-                 load_cum=list(load_cum),
-                 caps=caps or {},
-                 writer=dict(offset=writer_state["offset"],
-                             n_records=writer_state["n_records"],
-                             index=base64.b64encode(
-                                 writer_state["index"]).decode()))
-    tmp = path + ".tmp"
-    with open(tmp, "w") as fh:
-        _json.dump(state, fh)
-        fh.flush()
-        _os.fsync(fh.fileno())
-    _os.replace(tmp, path)
-
-
-def _resume_state(settings, proc_id, n_procs, dcn, n_pair_shards=1):
-    """(sidecar path, config key, the state to resume from or None). A
-    tile-partition rank keeps a sidecar of its own (`PATH.pKofN`); in a
-    dcn run rank 0 owns the one output and the one sidecar, and every
-    rank takes its state (`parallel.broadcast_resume`), so all skip the
-    same segments and the collectives stay aligned. Every rank of a
-    multi-process run passes the resume barrier once each has read and
-    validated its sidecar: a rank whose check failed fails every rank
-    there, before any writes. The key holds the segment size's quantum,
-    16 a pairs shard of the mesh (`LdEngine._segment_size`)."""
-    path = settings.checkpoint
-    if n_procs > 1 and not dcn:
-        path = f"{path}.p{proc_id}of{n_procs}"
-    key = _ckpt_config_key(settings,
-                           max(settings.sweep_segment, 16 * n_pair_shards),
-                           0 if dcn else proc_id, n_procs)
-
-    def read():
-        if (proc_id == 0 or not dcn) and os.path.exists(path):
-            return _ckpt_read(path, key)
-        return None
-    if n_procs == 1:
-        ck = read()
-    else:
-        ck, err = None, None
-        try:
-            ck = read()
-        except Exception as e:   # noqa: BLE001 - raised at the barrier
-            err = e
-        dist.resume_barrier(err)
-        if dcn:
-            ck = dist.broadcast_resume(ck)
-    if ck is not None:
-        log("LOG", f"Resuming from {settings.checkpoint if dcn else path}"
-            f": {ck['units']} segments, {pretty_int(ck['n_records'])} "
-            f"records already on disk", sub="CKPT")
-    return path, key, ck
 
 
 def compute_ld(settings: CalcSettings, device="cuda",
@@ -1718,8 +1336,7 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
     if settings.intervals:
         from ..post.intervals import blocks_for_intervals
         block_ids = list(blocks_for_intervals(reader, settings.intervals))
-    tile_rows = settings.tile_rows or _auto_tile_rows(
-        reader.index.ent, block_ids, settings)
+    tile_rows = settings.tile_rows or TILE_ROWS
     supers = _super_ranges(reader.index.ent, block_ids, tile_rows)
     balancer = Balancer.build(len(supers), settings.n_chunks,
                               settings.c_chunk)
@@ -1796,10 +1413,7 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
             "unphased" if settings.forced_unphased else "mixed")
 
     def make_engine():
-        eng = LdEngine(None, n_samples, settings, device, B=B, mesh=mesh)
-        for table, has_missing, cls, _ in group_tiles([], mode, []):
-            eng._cfg(table, has_missing, cls)   # reject before output
-        return eng
+        return LdEngine(None, n_samples, settings, device, B=B, mesh=mesh)
     engine = make_engine() if pairs and not native else None
     filt = LdFilters(min_p=settings.min_p, min_r2=settings.min_r2,
                      max_r2=settings.max_r2, min_dprime=settings.min_dprime,
@@ -1815,23 +1429,12 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
     hdr.literals += (f"\n##tomahawk_tpu_torch_calcVersion={__version__}\n"
                      f"##tomahawk_tpu_torch_calcCommand=calc; "
                      f"Date={datetime.datetime.now().isoformat()}\n")
-    ck_path, ck_key, ck = (_resume_state(settings, proc_id, n_procs, dcn,
-                                         mesh.shape["pairs"] if mesh else 1)
-                           if settings.checkpoint else ("", "", None))
+    ckpt = (Checkpoint(settings, proc_id, n_procs, dcn,
+                       mesh.shape["pairs"] if mesh else 1)
+            if settings.checkpoint else None)
     result = CalcResult()
-    # units_done after each completed load (run_loads)
-    load_cum = []
-    if ck is not None:
-        result.n_pairs, result.n_records = ck["n_pairs"], ck["n_records"]
-        load_cum = list(ck["load_cum"])
-        if engine is not None:
-            engine.ckpt_skip = ck["units"]
-            engine.cand_total = ck["n_pairs"]
-            caps = ck.get("caps") or {}
-            if caps.get("fused_cap"):
-                engine._fused_cap = int(caps["fused_cap"])
-            if caps.get("outcap"):
-                engine._outcap = int(caps["outcap"])
+    if ckpt is not None:
+        ckpt.restore(result, engine)
     ticker = ProgressTicker(total_pairs=est, n_samples=n_samples).start()
     if engine is not None:
         engine.ticker = ticker
@@ -1845,32 +1448,19 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
     # in flight.
     writer = None
     if not (dcn and proc_id != 0):
-        if ck is not None:
-            writer = PooledTwoWriter.resume(out, hdr, ck["writer"], n_threads,
+        if ckpt is not None and ckpt.state is not None:
+            writer = PooledTwoWriter.resume(out, hdr, ckpt.state["writer"],
+                                            n_threads,
                                             c_level=settings.c_level,
                                             block_limit=settings.b_size)
         else:
             writer = PooledTwoWriter(out, hdr, n_threads,
                                      c_level=settings.c_level,
                                      block_limit=settings.b_size)
-    if settings.checkpoint and writer is not None and engine is not None:
+    if ckpt is not None and writer is not None and engine is not None:
         # dcn ranks other than 0 own no writer and no sidecar: their
         # resume state came from rank 0's
-        last_ck = [time.monotonic()]
-
-        def _maybe_checkpoint():
-            """On the thread that emitted the segment, after its records:
-            a sidecar always describes a whole-segment boundary."""
-            now = time.monotonic()
-            if now - last_ck[0] < settings.checkpoint_interval:
-                return
-            last_ck[0] = now
-            _ckpt_write(ck_path, ck_key, engine.units_done,
-                        engine.cand_total, result.n_records, load_cum,
-                        writer.checkpoint_state(),
-                        caps=dict(fused_cap=engine._fused_cap,
-                                  outcap=engine._outcap))
-        engine.on_segment = _maybe_checkpoint
+        engine.on_segment = lambda: ckpt.write_due(engine, result, writer)
     plan.stop()
 
     def emit(recs, rev=None):
@@ -1930,7 +1520,7 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
         if engine is not None:
             result.n_pairs += run_loads(engine, bands, loads,
                                         lambda b: inflate(bands[b]), mode,
-                                        filt, emit, prefetch_on, load_cum)
+                                        filt, emit, prefetch_on, ckpt)
     finally:
         if engine is not None:
             engine.stage_close()
@@ -1951,11 +1541,10 @@ def _compute(settings, device, reader, timer, proc_id, n_procs, mesh,
                 f"{ss['hidden_s']:.1f}s overlapped with compute, "
                 f"{ss['exposed_s'] + ss['wait_s']:.1f}s exposed)",
                 sub="MEMORY")
-    if settings.checkpoint and os.path.exists(ck_path):
-        # the output is complete; the sidecar is obsolete. Removed before
-        # the in-place sort: a crash in the sort must start over, not
-        # resume a writer offset into the rewritten file
-        os.remove(ck_path)
+    if ckpt is not None:
+        # removed before the in-place sort: a crash in the sort must
+        # start over, not resume a writer offset into the rewritten file
+        ckpt.remove()
     if writer is not None and settings.sort_shards and out != "-":
         from ..post.sort import sort_two
         tmp_sorted = out[:-4] + ".sorting.two"

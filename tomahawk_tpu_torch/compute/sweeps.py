@@ -248,13 +248,12 @@ def sweep_bytes(cfg, outcap: int) -> int:
 
 def compact_scratch(B: int, device):
     """The compaction's scratch for tiles of B rows: int32 row totals,
-    row offsets and, for a mask that comes without counts, its segment
-    counts. A sweep allocates it once."""
+    row offsets and the scan's two results. A sweep allocates it once."""
     return torch.empty(_scratch_len(B), dtype=torch.int32, device=device)
 
 
 def _scratch_len(B: int) -> int:
-    return 2 * B + 8 + B * -(-B // SEG)
+    return 2 * B + 2
 
 
 #: the scan's ticket counter of each (device, stream): one int32 that the
@@ -282,22 +281,24 @@ def compact_survivors(mask, parts, off, buf, n_pass, n_cand, t: int,
     [P, B, B]; the payload layout follows `ncol`, the buffer's width by
     default (buf_cols: pair-packed or one part per column), and columns
     past it (the Fisher column) are left alone. `off` is an int32 [1] tensor
-    updated in place. `counts` are the mask's per-segment counts where
-    its producer wrote them (tiles.counts_buffer): the kernel then skips
-    its own count of the mask (a call without them is counted as
-    _build.SEGMENT_COUNTS). `scratch` (compact_scratch) is allocated
-    here when not given. Launches csrc/compact.cu for CUDA tensors, the
-    plain version for CPU tensors. The kernel reports a stale scan
-    ticket as n_pass[t] = TICKET_FAULT, which `host_counts` raises for
-    where the host reads the counts."""
+    updated in place. `counts` are the mask's per-segment counts that its
+    producer wrote (tiles.counts_buffer), which the kernel reads in place
+    of the mask: a CUDA mask without them raises ValueError, and the
+    plain version counts its own mask. `scratch` (compact_scratch) is
+    allocated here when not given. Launches csrc/compact.cu for CUDA
+    tensors, the plain version for CPU tensors. The kernel reports a
+    stale scan ticket as n_pass[t] = TICKET_FAULT, which `host_counts`
+    raises for where the host reads the counts."""
     if mask.is_cuda:
+        if counts is None:
+            raise ValueError("the compaction kernel reads the mask's "
+                             "per-segment counts (tiles.counts_buffer), "
+                             "which the tile kernels write; none given")
         return _launch_compact(mask, parts, off, buf, n_pass, n_cand, t,
                                cap, counts, scratch, ncol)
     if mask.device.type != "cpu":
         raise ValueError(f"no compaction kernel for device {mask.device}")
     _build.count(_build.PLAIN_CALLS, "compact")
-    if counts is None:
-        _build.count(_build.PLAIN_CALLS, _build.SEGMENT_COUNTS)
     return compact_survivors_plain(mask, parts, off, buf, n_pass, n_cand,
                                    t, cap, ncol)
 
@@ -320,9 +321,8 @@ def _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, counts,
         (off, torch.int32, (n_off,)), (buf, torch.int32, (outcap, ld)),
         (n_pass, torch.int32, tuple(n_pass.shape)),
         (n_cand, torch.int32, tuple(n_pass.shape)),
-        (scratch, torch.int32, (_scratch_len(B),))]
-    if counts is not None:
-        checks.append((counts, torch.int32, (B, -(-B // SEG))))
+        (scratch, torch.int32, (_scratch_len(B),)),
+        (counts, torch.int32, (B, -(-B // SEG)))]
     for x, dtype, shape in checks:
         if x.dtype != dtype or tuple(x.shape) != shape \
                 or not x.is_contiguous() or x.device != mask.device:
@@ -352,15 +352,12 @@ def _launch_compact(mask, parts, off, buf, n_pass, n_cand, t, cap, counts,
     stream = torch.cuda.current_stream(mask.device).cuda_stream
     rc = lib.twk_compact(
         mask.data_ptr(), parts.data_ptr(),
-        None if counts is None else counts.data_ptr(), P, ncol, ld, B,
+        counts.data_ptr(), P, ncol, ld, B,
         off.data_ptr(), cap, outcap, n_pass.data_ptr(), n_cand.data_ptr(), t,
         scratch.data_ptr(), _ticket(mask.device, stream).data_ptr(),
         buf.data_ptr(), stream)
     _build.check(rc, "compact launch")
     _build.count(_build.LAUNCHES, "compact", device=mask.device)
-    if counts is None:
-        _build.count(_build.LAUNCHES, _build.SEGMENT_COUNTS,
-                     device=mask.device)
 
 
 def host_counts(n_pass, n_cand):

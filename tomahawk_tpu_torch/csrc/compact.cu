@@ -29,18 +29,16 @@
 // The tile kernels (csrc/phased_tile.cu, csrc/parts_tile.cu,
 // csrc/epilogue.cu) write them from the registers that hold the mask
 // bytes, and then the mask is read here only where a segment has a
-// survivor; for a mask that comes without counts, (0) a first launch
-// counts the segments with 16-byte loads into the scratch. Then (1) one
-// launch sums each row's segments across its blocks, and the block that
-// finishes last scans the row totals into row offsets and advances the
-// offset (a ticket counter, no block waits: a single block summing all
-// B * B / 128 cells is latency-bound and several times slower), and (2) one
-// warp a row with survivors walks the row's non-empty segments (128 mask
-// bytes a request, 4 a lane) and writes the survivors in column order,
-// each lane placing its own by a shuffle scan of the lanes' counts. The
-// scan stays a launch of its own: folding it into (2) behind a flag or a
-// look-back would save one launch gap (~2 us) at the price of blocks that
-// spin on another block's progress.
+// survivor. (1) One launch sums each row's segments across its blocks,
+// and the block that finishes last scans the row totals into row offsets
+// and advances the offset (a ticket counter, no block waits: a single
+// block summing all B * B / 128 cells is latency-bound and several times
+// slower), and (2) one warp a row with survivors walks the row's
+// non-empty segments (128 mask bytes a request, 4 a lane) and writes the
+// survivors in column order, each lane placing its own by a shuffle scan
+// of the lanes' counts. The scan stays a launch of its own: folding it
+// into (2) behind a flag or a look-back would save one launch gap (~2 us)
+// at the price of blocks that spin on another block's progress.
 //
 // The ticket is the scan's only state that outlives a call: a scan that
 // dies between its blocks' draws would leave it non-zero, and every later
@@ -60,44 +58,9 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSeg = 128;           // mask columns of one counts cell
-constexpr int kRowThreads = 256;    // 8 rows per block in kernels 0 and 2
+constexpr int kRowThreads = 256;    // 8 rows per block in write_kernel
 constexpr int kScanThreads = 1024;
 constexpr int kScanRows = kScanThreads / 8;  // rows a scan block totals
-
-// survivors | candidates << 16 among the 4 mask bytes (0, 1 or 2) of a word
-__device__ __forceinline__ uint32_t count_word(uint32_t w) {
-  return __popc(w & 0x02020202u) |
-         __popc((w | (w >> 1)) & 0x01010101u) << 16;
-}
-
-// One warp per (row, group of 4 segments): 8 lanes a segment, 16 bytes a
-// lane, so every lane has exactly one load in flight.
-__global__ void segment_counts_kernel(const uint8_t* __restrict__ mask,
-                                      int B, int n_seg, int n_group,
-                                      uint32_t* __restrict__ counts) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  const int k = warp / n_group;
-  if (k >= B) return;  // uniform across the warp
-  const int seg = (warp % n_group) * 4 + lane / 8;
-  const int l = seg * kSeg + (lane % 8) * 16;
-  const uint8_t* row = mask + (size_t)k * B;
-  uint32_t n = 0;
-  if (B % 16 == 0) {
-    if (l < B) {
-      const uint4 v = *reinterpret_cast<const uint4*>(row + l);
-      n = count_word(v.x) + count_word(v.y) + count_word(v.z) +
-          count_word(v.w);
-    }
-  } else {
-    for (int q = 0; q < 16; ++q)
-      if (l + q < B) n += count_word(row[l + q]);
-  }
-  n += __shfl_xor_sync(kFull, n, 1);
-  n += __shfl_xor_sync(kFull, n, 2);
-  n += __shfl_xor_sync(kFull, n, 4);
-  if (lane % 8 == 0 && seg < n_seg) counts[(size_t)k * n_seg + seg] = n;
-}
 
 // Row totals, then their scan, in one launch. Every block sums the
 // segment counts of kScanRows rows (8 lanes a row) into row_tot[k] =
@@ -263,20 +226,21 @@ __global__ void write_kernel(const uint8_t* __restrict__ mask,
 }  // namespace
 
 // counts: int32 [B, ceil(B / 128)] cells n_survivors | n_candidates << 16
-// of the mask's row segments, or null: they are then counted here, into
-// the scratch. scratch: int32 [2 * B + 8 + B * ceil(B / 128)], which need
-// not be initialised: row totals, row offsets, info [2], six unused, segment
-// counts. ticket: the scan's counter, one uint32 that is 0 on entry and is
-// left 0; calls that may overlap (other streams) need one each. Found not
-// 0, it is set to 0 and n_pass[t] to -1. ld: the buffer's row stride,
-// ncol or more (the columns past ncol are left alone).
+// of the mask's row segments, as the tile kernels write them; null is
+// refused. scratch: int32 [2 * B + 2], which need not be initialised: row
+// totals, row offsets, info [2]. ticket: the scan's counter, one uint32
+// that is 0 on entry and is left 0; calls that may overlap (other
+// streams) need one each. Found not 0, it is set to 0 and n_pass[t] to
+// -1. ld: the buffer's row stride, ncol or more (the columns past ncol
+// are left alone).
 extern "C" int twk_compact(const void* mask, const void* parts,
                            const void* counts, int P, int ncol, int ld, int B,
                            void* off, int cap, int outcap, void* n_pass,
                            void* n_cand, int t, void* scratch, void* ticket,
                            void* buf, void* stream) {
-  if (B <= 0 || B >= 1 << 16 || cap <= 0 || cap > outcap || P <= 0 ||
-      (ncol != 1 + P && ncol != 1 + (P + 1) / 2) || ld < ncol)
+  if (counts == nullptr || B <= 0 || B >= 1 << 16 || cap <= 0 ||
+      cap > outcap || P <= 0 || (ncol != 1 + P && ncol != 1 + (P + 1) / 2) ||
+      ld < ncol)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int n_seg = (B + kSeg - 1) / kSeg;
@@ -284,16 +248,6 @@ extern "C" int twk_compact(const void* mask, const void* parts,
   int* row_off = (int*)scratch + B;
   int* info = row_off + B;
   const uint32_t* seg_counts = (const uint32_t*)counts;
-  if (seg_counts == nullptr) {
-    // 16-byte aligned: 2 * B + 8 ints precede it
-    uint32_t* own = (uint32_t*)(info + 8);
-    const int n_group = (n_seg + 3) / 4;
-    const long long threads = 32LL * B * n_group;
-    segment_counts_kernel<<<(int)((threads + kRowThreads - 1) / kRowThreads),
-                            kRowThreads, 0, s>>>((const uint8_t*)mask, B,
-                                                 n_seg, n_group, own);
-    seg_counts = own;
-  }
   scan_kernel<<<(B + kScanRows - 1) / kScanRows, kScanThreads, 0, s>>>(
       seg_counts, B, n_seg, row_tot, row_off, (int*)off, cap, outcap,
       (int*)n_pass, (int*)n_cand, t, info, (unsigned*)ticket);

@@ -65,7 +65,7 @@ constexpr int kRows = 32;  // rows of a block, kRows / kWarps a warp
 
 // The shape of an instance: its parts; the consecutive columns (pairs) of
 // a row a lane takes, C, the fastest of 16, 8 and 4 on the card
-// (ops/time_variants.py): the more parts and prefilter a pair holds in
+// (time_variants.py): the more parts and prefilter a pair holds in
 // registers, the fewer pairs a lane keeps enough warps on an SM (at 16
 // the unphased instances also spill, P = 9: 255 registers); and whether a
 // lane loads its next row's parts before this row's prefilter, which the

@@ -53,7 +53,7 @@
 // makes ~24 probes of the table and tail steps, each waiting on the last;
 // a warp runs as long as its longest row. The table is read through the
 // read-only path (L1): staged in shared memory by every block it took
-// longer at 2,504 samples (ops/time_variants.py --fisher-designs), and
+// longer at 2,504 samples (a copy timed against this kernel), and
 // at 32,768 haplotypes (262 KB) it would not fit.
 
 #include <cstdint>

@@ -46,7 +46,7 @@
 // MB a tile for phased P = 4, ~750 MB for P = 9, which at the ~3.7 TB/s
 // phased_tile's loop reads from L2 is ~0.18-0.2 ms, above both bounds
 // (thread-block clusters sharing stages through distributed shared memory
-// would cut it). Cut out of the kernel one at a time (ops/time_variants.py,
+// would cut it). Cut out of the kernel one at a time (time_variants.py,
 // NVIDIA H100 80GB HBM3, 700 W): phased P = 4 spends ~0.2 of its 0.33 ms
 // in the loop; the unphased instances ~0.39 of 0.58 ms (P = 4) and ~0.43
 // of 0.84 ms (P = 9) in the unphased prefilter's f32 arithmetic (a dozen

@@ -31,7 +31,7 @@
 // bytes a pair (84 MB at B = 4096, 0.025 ms at HBM rate) from 5 MB of
 // input, which its 1,024 blocks read 32 times over (168 MB from L2), and
 // every pair runs the f32 prefilter on the CUDA cores. Measured on the
-// card with parts of the kernel cut out (ops/time_variants.py; NVIDIA
+// card with parts of the kernel cut out (time_variants.py; NVIDIA
 // H100 80GB HBM3, 700 W): the whole 0.098 ms, without the staging + MMA
 // loop 0.053, without the prefilter 0.072, the stores alone 0.029: the
 // three overlap only in part. So the epilogue is laid out for the stores

@@ -57,17 +57,13 @@ KERNELS = {
         replaces="tomahawk_tpu/ops/fisher_dev.py:110"),
 }
 
-#: compactions handed no counts with their mask, which count it first
-#: (csrc/compact.cu's segment_counts_kernel): kept beside the kernels'
-#: counts, a part of compact's launch
-SEGMENT_COUNTS = "segment_counts"
 #: relationship's kinship GEMM (X4): a library call, torch._int_mm, not
 #: a hand kernel; counted like one by its wrapper (ops/kinship.py)
 KINSHIP = "kinship_int_mm"
 #: launches of each kernel, counted by its wrapper where it launches
-LAUNCHES = {name: 0 for name in (*KERNELS, SEGMENT_COUNTS, KINSHIP)}
+LAUNCHES = {name: 0 for name in (*KERNELS, KINSHIP)}
 #: wrapper calls that took the plain PyTorch version (CPU tensors)
-PLAIN_CALLS = {name: 0 for name in (*KERNELS, SEGMENT_COUNTS, KINSHIP)}
+PLAIN_CALLS = {name: 0 for name in (*KERNELS, KINSHIP)}
 #: the launches of LAUNCHES again by card: str(device) -> {name: count},
 #: for the launches whose wrapper names the card it launched on
 LAUNCHES_BY_CARD = {}
