@@ -27,7 +27,11 @@ Phases, in order; any failure exits non-zero:
    250,000 bp, a diagonal and an off-diagonal tile); every parts_tile
    instance and phased_tile's clean class on planes with ~2% missing genotypes, packed as bitpack.block_to_planes
    packs them, on a diagonal and an off-diagonal tile, with their counts
-   and compact on their masks with the counts; compact with 4- and
+   and compact on their masks with the counts; the unphased parts_tile
+   instances on a tile near the r2 floor by construction, where the
+   prefilter's division-free screen leaves some pairs to the exact
+   statement, with the screen's counter against its plain twin;
+   compact with 4- and
    9-part payloads, pair-packed (2,504 samples) and one part per column
    (70,000 unphased samples), the counts given; a
    compaction on a stale scan ticket (it must raise at sweeps.host_counts
@@ -910,6 +914,64 @@ def compare_groups():
              f"counts equal to the plain version")
         res[group] = (0, ms, plain, lib)
         del got, out, outs
+    return res
+
+
+#: the screen check's groups: parts_tile's unphased instances (kinds 1 and
+#: 2), the second also with D' bounds
+SCREEN_GROUPS = ((("unphased", False, "all"), ()),
+                 (("unphased", True, "all"), ()),
+                 (("unphased", True, "all"), (0.5, 0.95)))
+
+
+def compare_screen():
+    """parts_tile's unphased instances on tiles near the r2 floor by
+    construction (workloads.threshold_planes: a super-block with itself,
+    off the diagonal and on it), where the division-free screen
+    (csrc/prefilter.cuh unphased_screen) leaves some pairs to the exact
+    statement: mask, parts and counts bit for bit their plain versions',
+    and the kernel's screen counter (candidates screened, undecided)
+    equal to the plain twin's (tiles.tile_screen_plain). Returns
+    {group + (D' bounds,): (screened, undecided)}."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import tiles
+    dev = sweeps.planes_to_device(
+        workloads.threshold_planes(1, B, N_SAMPLES), "cuda")
+    res = {}
+    for group, dp in SCREEN_GROUPS:
+        cfg = sweeps.make_cfg(*group, B, N_SAMPLES, 0, MIN_R2, 100.0, *dp)
+        label = f"parts_tile {'/'.join(map(str, group))} D' {dp or 'off'}"
+        screen = torch.zeros(2, dtype=torch.int64, device="cuda")
+        want_s = torch.zeros(2, dtype=torch.int64, device="cuda")
+        n_pass = 0
+        for diag in (False, True):
+            counts = tiles.counts_buffer(cfg, "cuda").fill_(-1)
+            mask, parts = tiles.tile_prefilter(dev, 0, 0, diag, cfg,
+                                               counts=counts, screen=screen)
+            want_m, want_p = tiles.tile_prefilter_plain(dev, 0, 0, diag, cfg)
+            if not torch.equal(mask, want_m) or not torch.equal(parts,
+                                                                want_p):
+                raise SystemExit(f"{label} on the near-threshold tile "
+                                 f"(diag {diag}) differs from its plain "
+                                 f"version")
+            _check_counts_buffer(f"{label} near-threshold", counts, mask)
+            want_s += tiles.tile_screen_plain(dev, 0, 0, diag, cfg, want_p)
+            n_pass += int((mask == 2).sum())
+            del want_m, want_p
+        if not torch.equal(screen, want_s):
+            raise SystemExit(f"{label}: the screen counter "
+                             f"{screen.tolist()} differs from the plain "
+                             f"twin's {want_s.tolist()}")
+        scr, und = screen.tolist()
+        if not 0 < und < scr:
+            raise SystemExit(f"{label}: the near-threshold tile left "
+                             f"{und} of {scr} pairs undecided")
+        _say(f"  {label}, near-threshold tile: {n_pass} survivors, "
+             f"{scr} candidates screened, {und} undecided "
+             f"({und / scr:.3e}); mask, parts, counts and counter equal")
+        res[group + (dp,)] = (scr, und)
     return res
 
 
@@ -4368,6 +4430,7 @@ def main():
     checks, times = compare_kernels()
     compare_odd_shapes()
     groups = compare_groups()
+    compare_screen()
     payloads = compare_payloads()
     check_ticket_fault()
     n_sweeps = compare_c_sweep()

@@ -237,3 +237,37 @@ def test_compact_kernel_matches_plain_on_card():
         outs.append([b.cpu() for b in bufs])
     for got, want in zip(*outs):
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dprime", [(), (0.5, 0.95)],
+                         ids=["dprime_off", "dprime_on"])
+@pytest.mark.parametrize("miss", [False, True], ids=["kind1", "kind2"])
+def test_parts_tile_screen_on_card(miss, dprime):
+    """parts_tile's unphased instances on a tile near the r2 floor by
+    construction: mask, parts and counts bit for bit the plain version's,
+    and the screen counter (candidates screened, undecided) the plain
+    twin's; chip_smoke.py's kernel checks then still pass (its
+    compare_screen is this check at B = 4096)."""
+    import chip_smoke
+    from tomahawk_tpu_torch import workloads
+    Bt, n_samples = 256, 600
+    dev = sweeps.planes_to_device(
+        workloads.threshold_planes(1, Bt, n_samples, group=32), _card())
+    cfg = sweeps.make_cfg("unphased", miss, "all", Bt, n_samples, 0, 0.1,
+                          100.0, *dprime)
+    screen = torch.zeros(2, dtype=torch.int64, device="cuda")
+    want_s = torch.zeros(2, dtype=torch.int64, device="cuda")
+    for diag in (False, True):
+        counts = tiles.counts_buffer(cfg, "cuda")
+        mask, parts = tiles.tile_prefilter(dev, 0, 0, diag, cfg,
+                                           counts=counts, screen=screen)
+        want_m, want_p = tiles.tile_prefilter_plain(dev, 0, 0, diag, cfg)
+        assert torch.equal(mask, want_m) and torch.equal(parts, want_p)
+        assert torch.equal(counts, tiles.tile_counts_plain(mask))
+        want_s += tiles.tile_screen_plain(dev, 0, 0, diag, cfg, want_p)
+    assert torch.equal(screen, want_s)
+    assert 0 < int(screen[1]) < int(screen[0])
+    chip_smoke.build_kernels()
+    chip_smoke.compare_groups()
+    chip_smoke.compare_screen()

@@ -261,7 +261,7 @@ class _Library:
                     *m(ac), *v, *m(an), at(nhet, i, meta), at(nhom, i, meta),
                     at(nhet, j, meta), at(nhom, j, meta), *m(pos), *m(rid),
                     window, cls, B, W, n_samples, lo, hi, dp_lo, dp_hi,
-                    need_nonzero, dg[t], mask, parts, counts, stream)
+                    need_nonzero, dg[t], mask, parts, counts, None, stream)
             done[0] += 1
             self.twk_compact(mask, parts, counts, P, ncol, ld, B,
                              off + 4 * t if per_tile_off else off, cap,

@@ -14,7 +14,10 @@ how far they overlap. It does the same for
 csrc/parts_tile.cu (PARTS_CUTS) in its three instances, on the
 off-diagonal tile of genotype planes with ~1% of genotypes missing, and
 times PARTS_SHAPES, copies with another block shape or register budget
-whose outputs are right.
+whose outputs are right. PARTS_CUTS' "exact statement for every pair"
+times the unphased prefilter without its division-free screen, and
+`screen_share` prints the share of candidates the screen leaves to the
+exact statement, on the unphased benchmark cell's planes too.
 
 It builds csrc/fisher_bracket.cu whole and once per entry of
 FISHER_CUTS and times each on the survivor rows of the dense workload's
@@ -65,13 +68,20 @@ CUTS = {"whole": (), "no loop": (_LOOP,), "no prefilter": (_PREFILTER,),
 _P_LOOP = (r"  Tile::run\(smem, xa, xb, row0, col0, B, a\.W, acc\);\n", "")
 # the mask byte from a bit of two parts, so that the stores still depend
 # on the contraction
-_P_PREFILTER = (r"pair_mask<KIND, DP>\(a, v, k, l0 \+ e, aci, vi\)",
+_P_PREFILTER = (r"pair_mask<KIND, DP, COUNT>\(a, v, k, l0 \+ e, aci, vi, "
+                r"cnt\)",
                 "(unsigned)(v[0] & 1) + (unsigned)(v[1] & 1)")
+# the unphased prefilter's division-free screen cut: every candidate takes
+# the exact f32 statement inline (the decision path before the screen)
+_P_EXACT = (r"twk::unphased_screen<DP>\(T, a\.bnd, a\.scr\)",
+            "(twk::unphased_prefilter<DP>(T, a.bnd) ? twk::kKeep "
+            ": twk::kReject)")
 _P_PARTS = (r"__stcs\(reinterpret_cast<int2\*>\(a\.parts.*?\)\);\n",
             "(void)0;\n")
 #: variant -> edits of parts_tile.cu, as CUTS
 PARTS_CUTS = {"whole": (), "no loop": (_P_LOOP,),
               "no prefilter": (_P_PREFILTER,),
+              "exact statement for every pair": (_P_EXACT,),
               "no parts stores": (_P_PARTS,),
               "loop + mask stores only": (_P_PREFILTER, _P_PARTS),
               "stores only": (_P_LOOP, _P_PREFILTER)}
@@ -290,6 +300,44 @@ def time_parts(work):
     return res
 
 
+#: the unphased benchmark cell whose planes screen_share draws
+SCREEN_CELL = "ldbench/cells/kg3_unphased.engine_far.json"
+
+
+def screen_share():
+    """The share of candidate pairs the unphased prefilter's screen leaves
+    to the exact statement (parts_tile's screen counter), on the
+    off-diagonal tiles among 4 super-blocks drawn as the unphased
+    benchmark cell draws its planes (ldbench/traffic/genotype.py with the
+    cell's traffic, 2 seeds) and on the tile of workloads.genotype_planes
+    the cuts are timed on. Returns {planes: (screened, undecided)}."""
+    import torch
+    from ldbench.traffic import genotype
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import tiles
+    with open(SCREEN_CELL) as fh:
+        traffic = json.load(fh)["traffic"]
+    cfg = sweeps.make_cfg("unphased", True, "all", B, N_SAMPLES, 0, MIN_R2,
+                          100.0)
+    out = tiles.tile_buffers(cfg, "cuda")
+    sets = {f"cell seed {seed}": (sweeps.planes_to_device(genotype.draw(
+        [B] * 4, B, N_SAMPLES, seed, "cuda", **traffic), "cuda"),
+        [(0, 1), (0, 2), (1, 3), (2, 3)]) for seed in (2**31 + 7, 11)}
+    sets["workloads.genotype_planes"] = (sweeps.planes_to_device(
+        workloads.genotype_planes(2, B, N_SAMPLES), "cuda"), [(0, 1)])
+    res = {}
+    for name, (dev, pairs) in sets.items():
+        screen = torch.zeros(2, dtype=torch.int64, device="cuda")
+        for i, j in pairs:
+            tiles.tile_prefilter(dev, i, j, False, cfg, out, screen=screen)
+        scr, und = screen.tolist()
+        res[name] = (scr, und)
+        print(f"parts_tile screen on {name}: {und} of {scr} candidate "
+              f"pairs undecided ({und / max(scr, 1):.3e})", flush=True)
+    return res
+
+
 def time_epilogue(work):
     """epilogue.cu's variants (EPILOGUE_CUTS) in each (table, has_missing)
     instance on the summed parts of the off-diagonal tile of genotype
@@ -442,6 +490,7 @@ def main():
     try:
         out = {"phased_tile_cuts_ms": time_cuts(work),
                "parts_tile_cuts_ms": time_parts(work),
+               "parts_tile_screen": screen_share(),
                "fisher_bracket_ms": time_fisher(work),
                "tile_epilogue_ms": time_epilogue(work)}
     finally:

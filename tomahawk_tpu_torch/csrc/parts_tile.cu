@@ -48,9 +48,26 @@
 // (thread-block clusters sharing stages through distributed shared memory
 // would cut it). Cut out of the kernel one at a time (time_variants.py,
 // NVIDIA H100 80GB HBM3, 700 W): phased P = 4 spends ~0.2 of its 0.33 ms
-// in the loop; the unphased instances ~0.39 of 0.58 ms (P = 4) and ~0.43
-// of 0.84 ms (P = 9) in the unphased prefilter's f32 arithmetic (a dozen
-// IEEE divisions a pair), which two blocks of 8 warps an SM cannot hide.
+// in the loop. The unphased instances spent ~0.39 of 0.58 ms (P = 4) and
+// ~0.43 of 0.84 ms (P = 9) in the unphased prefilter's f32 statement (a
+// dozen IEEE divisions a pair), which two blocks of 8 warps an SM cannot
+// hide; with the division-free screen below, one call on one card took
+// 0.472 / 0.745 ms (P = 4 / 9) against 0.648 / 0.971 with the statement
+// for every pair and 0.215 / 0.490 with no prefilter at all. What is left
+// above the latter is the screen's ~100 instructions a pair, latency-bound
+// at the register cap, and on the benchmark's planes its rare undecided
+// pairs; below it, the loop and the stores.
+//
+// The unphased prefilter: twk::unphased_screen settles each candidate's
+// decision with products and a margin proved in prefilter.cuh, and only
+// the pairs it leaves undecided (a zero fold marginal, a pair within the
+// margin of a bound) run the f32 statement, out of line (exact_unphased):
+// the decision is bit for bit the statement's. With `screen` given (kinds
+// 1 and 2), the kernel adds the candidates screened and those left
+// undecided into screen[0] and screen[1] (int64): each warp sums its
+// lanes' counts (__reduce_add_sync) into shared memory, the block adds
+// them with one atomic each. Null, as on the engine's path, it costs
+// nothing: the counting epilogue is an instance of its own.
 //
 // The epilogue runs in the MMA's C layout, in registers: a thread holds
 // the same (row, column) pairs for every product, rows wr + 16 mi + 8 h + g
@@ -107,10 +124,12 @@ struct Args {
   twk::Window win;
   int cls, B, W, n_samples;
   twk::Bounds bnd;
+  twk::Screen scr;  // the unphased kinds' screen (twk::screen_for)
   int diag;
   uint8_t* mask;
   int32_t* parts;
   int32_t* counts;  // null: none
+  unsigned long long* screen;  // null: none (kinds 1 and 2 only)
 };
 
 // planes a side, parts, MMA patches a warp (rows x columns), words a stage
@@ -140,53 +159,82 @@ __device__ __forceinline__ unsigned count_byte(unsigned m) {
   return (m >> 1) | (m != 0 ? 1u << 16 : 0u);
 }
 
+// ld_kernels.unphased_cells: the 9 cells T00..T22 of pair (k, l) from its
+// P parts v (kind 1: the marginals from the per-variant het/hom counts and
+// n_samples).
+template <int KIND>
+__device__ __forceinline__ void unphased_cells(const Args& a, const int* v,
+                                               int k, int l, int (&T)[9]) {
+  const int T11 = v[0], T12 = v[1], T21 = v[2], T22 = v[3];
+  int hv, vh, ov, vo, vv;
+  if constexpr (KIND == 2) {
+    hv = v[4];
+    vh = v[5];
+    ov = v[6];
+    vo = v[7];
+    vv = v[8];
+  } else {
+    hv = a.nhet_i[k];
+    ov = a.nhom_i[k];
+    vh = a.nhet_j[l];
+    vo = a.nhom_j[l];
+    vv = a.n_samples;
+  }
+  const int T10 = hv - T11 - T12;
+  const int T20 = ov - T21 - T22;
+  const int T01 = vh - T11 - T21;
+  const int T02 = vo - T12 - T22;
+  const int T00 = vv - (T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22);
+  T[0] = T00, T[1] = T01, T[2] = T02, T[3] = T10, T[4] = T11, T[5] = T12;
+  T[6] = T20, T[7] = T21, T[8] = T22;
+}
+
+// twk::unphased_prefilter out of line: only the rare pairs the screen
+// leaves undecided take it, and inlined, its registers and schedule would
+// weigh on every pair.
+template <bool DP>
+__device__ __noinline__ bool exact_unphased(const int* T,
+                                            const twk::Bounds bnd) {
+  return twk::unphased_prefilter<DP>(T, bnd);
+}
+
 // The mask byte of pair (k, l) from its P parts v; DP: with the D' term.
-template <int KIND, bool DP>
+// The unphased kinds decide a candidate by twk::unphased_screen and run
+// twk::unphased_prefilter only where it leaves the pair undecided. COUNT
+// adds the candidates screened to cnt[0] and the undecided ones to cnt[1].
+template <int KIND, bool DP, bool COUNT>
 __device__ __forceinline__ unsigned pair_mask(const Args& a, const int* v,
                                               int k, int l, int aci,
-                                              bool vi) {
+                                              bool vi, unsigned (&cnt)[2]) {
   if (!twk::candidate(vi, a.valid_j[l] != 0, aci, a.ac_j[l], k, l, a.diag,
                       a.cls, a.an_i, a.an_j, a.win))
     return 0;
-  bool pf;
   if constexpr (KIND == 0) {
     // ld_kernels.phased_cells, 4-part branch
     const int altalt = v[0];
     const int altref = v[1] - altalt;
     const int refalt = v[2] - altalt;
     const int refref = v[3] - altalt - altref - refalt;
-    pf = twk::phased_prefilter<DP>(refref, refalt, altref, altalt, a.bnd);
+    return twk::phased_prefilter<DP>(refref, refalt, altref, altalt, a.bnd)
+               ? 2u
+               : 1u;
   } else {
-    // ld_kernels.unphased_cells
-    const int T11 = v[0], T12 = v[1], T21 = v[2], T22 = v[3];
-    int hv, vh, ov, vo, vv;
-    if constexpr (KIND == 2) {
-      hv = v[4];
-      vh = v[5];
-      ov = v[6];
-      vo = v[7];
-      vv = v[8];
-    } else {
-      hv = a.nhet_i[k];
-      ov = a.nhom_i[k];
-      vh = a.nhet_j[l];
-      vo = a.nhom_j[l];
-      vv = a.n_samples;
+    int T[9];
+    unphased_cells<KIND>(a, v, k, l, T);
+    const int s = twk::unphased_screen<DP>(T, a.bnd, a.scr);
+    if constexpr (COUNT) {
+      cnt[0] += 1;
+      cnt[1] += s == twk::kUndecided;
     }
-    const int T10 = hv - T11 - T12;
-    const int T20 = ov - T21 - T22;
-    const int T01 = vh - T11 - T21;
-    const int T02 = vo - T12 - T22;
-    const int T00 = vv - (T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22);
-    const int T[9] = {T00, T01, T02, T10, T11, T12, T20, T21, T22};
-    pf = twk::unphased_prefilter<DP>(T, a.bnd);
+    if (s == twk::kUndecided) return exact_unphased<DP>(T, a.bnd) ? 2u : 1u;
+    return s == twk::kKeep ? 2u : 1u;
   }
-  return pf ? 2u : 1u;
 }
 
 // The epilogue of a block from its accumulators: the mask bytes, the
-// parts and the row counts; DP: with the D' term.
-template <int KIND, bool DP>
+// parts and the row counts; DP: with the D' term; COUNT: the screen's
+// counts into a.screen, a block's with one atomic each.
+template <int KIND, bool DP, bool COUNT>
 __device__ __forceinline__ void epilogue(
     const Args& a,
     const int (&acc)[Shape<KIND>::kParts][Shape<KIND>::kMi]
@@ -198,10 +246,12 @@ __device__ __forceinline__ void epilogue(
   const int B = a.B;
   // the row counts of the block, in the freed staging buffers
   unsigned* srow = reinterpret_cast<unsigned*>(smem);
-  if (a.counts != nullptr) {
-    for (int r = threadIdx.x; r < TI; r += kThreads) srow[r] = 0;
+  unsigned* sscr = srow + TI;  // COUNT: the block's screened, undecided
+  if (a.counts != nullptr || COUNT) {
+    for (int r = threadIdx.x; r < TI + 2; r += kThreads) srow[r] = 0;
     __syncthreads();
   }
+  unsigned cnt[2] = {0, 0};
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int g = lane / 4;
@@ -232,7 +282,8 @@ __device__ __forceinline__ void epilogue(
           int v[P];
 #pragma unroll
           for (int p = 0; p < P; ++p) v[p] = acc[p][mi][ni][2 * h + e];
-          const unsigned m = pair_mask<KIND, DP>(a, v, k, l0 + e, aci, vi);
+          const unsigned m =
+              pair_mask<KIND, DP, COUNT>(a, v, k, l0 + e, aci, vi, cnt);
           m2 |= m << (8 * e);
           n += count_byte(m);
         }
@@ -259,6 +310,16 @@ __device__ __forceinline__ void epilogue(
         if (t == 0 && n != 0) atomicAdd(srow + r, n);
       }
     }
+  if constexpr (COUNT) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const unsigned w = __reduce_add_sync(0xffffffffu, cnt[c]);
+      if (lane == 0 && w != 0) atomicAdd(sscr + c, w);
+    }
+    __syncthreads();
+    if (threadIdx.x < 2 && sscr[threadIdx.x] != 0)
+      atomicAdd(a.screen + threadIdx.x, sscr[threadIdx.x]);
+  }
   if (a.counts == nullptr) return;
   __syncthreads();
   const int n_seg = (B + kSeg - 1) / kSeg;
@@ -276,7 +337,7 @@ __global__ void __launch_bounds__(kThreads, 2) parts_tile_kernel(const Args a) {
   constexpr int P = S::kParts, kMi = S::kMi, kNi = S::kNi;
   constexpr int TI = Tile::kRows, TJ = Tile::kCols;
   static_assert(kSeg % TJ == 0, "a block lies in one counts segment");
-  static_assert(TI * 4 <= Tile::kSmemBytes, "row counts fit");
+  static_assert((TI + 2) * 4 <= Tile::kSmemBytes, "row counts fit");
   extern __shared__ __align__(16) uint32_t smem[];
   const int row0 = blockIdx.y * TI;
   const int col0 = blockIdx.x * TJ;
@@ -305,11 +366,19 @@ __global__ void __launch_bounds__(kThreads, 2) parts_tile_kernel(const Args a) {
   const uint32_t* const xa[3] = {a.pi[0], a.pi[1], a.pi[2]};
   const uint32_t* const xb[3] = {a.pj[0], a.pj[1], a.pj[2]};
   Tile::run(smem, xa, xb, row0, col0, B, a.W, acc);
-
+  if constexpr (KIND != 0) {
+    if (a.screen != nullptr) {
+      if (twk::dprime_on(a.bnd))
+        epilogue<KIND, true, true>(a, acc, smem, row0, col0);
+      else
+        epilogue<KIND, false, true>(a, acc, smem, row0, col0);
+      return;
+    }
+  }
   if (twk::dprime_on(a.bnd))
-    epilogue<KIND, true>(a, acc, smem, row0, col0);
+    epilogue<KIND, true, false>(a, acc, smem, row0, col0);
   else
-    epilogue<KIND, false>(a, acc, smem, row0, col0);
+    epilogue<KIND, false, false>(a, acc, smem, row0, col0);
 }
 
 template <int KIND>
@@ -338,7 +407,8 @@ int launch(const Args& a, cudaStream_t s) {
 // (x = het, y = hom), 2 unphased with missing data (z = valid).
 // cls: 0 all, 1 clean, 2 missing (needs an_*). n_het/n_hom: kind 1 only.
 // window: 0 none, else bp (needs pos_* and rid_*). counts: int32
-// [B, ceil(B / 128)] or null.
+// [B, ceil(B / 128)] or null. screen: int64 [2] or null (kinds 1 and 2),
+// added the candidate pairs screened and those the screen left undecided.
 extern "C" int twk_parts_tile(
     int kind, const void* x_i, const void* y_i, const void* z_i,
     const void* x_j, const void* y_j, const void* z_j, const void* ac_i,
@@ -348,14 +418,15 @@ extern "C" int twk_parts_tile(
     const void* pos_i, const void* pos_j, const void* rid_i,
     const void* rid_j, int window, int cls, int B, int W, int n_samples,
     float lo, float hi, float dp_lo, float dp_hi, int need_nonzero, int diag,
-    void* mask, void* parts, void* counts, void* stream) {
+    void* mask, void* parts, void* counts, void* screen, void* stream) {
   const bool bad =
       B <= 0 || W <= 0 || kind < 0 || kind > 2 || cls < 0 || cls > 2 ||
       !x_i || !y_i || !x_j || !y_j || !ac_i || !ac_j || !valid_i ||
       !valid_j || !mask || !parts || (kind == 2 && (!z_i || !z_j)) ||
       (cls != 0 && (!an_i || !an_j)) || window < 0 ||
       (window > 0 && (!pos_i || !pos_j || !rid_i || !rid_j)) ||
-      (kind == 1 && (!nhet_i || !nhom_i || !nhet_j || !nhom_j));
+      (kind == 1 && (!nhet_i || !nhom_i || !nhet_j || !nhom_j)) ||
+      (kind == 0 && screen);
   if (bad) return (int)cudaErrorInvalidValue;
   Args a;
   a.pi[0] = (const uint32_t*)x_i;
@@ -381,10 +452,12 @@ extern "C" int twk_parts_tile(
   a.W = W;
   a.n_samples = n_samples;
   a.bnd = {lo, hi, dp_lo, dp_hi, need_nonzero};
+  a.scr = twk::screen_for(a.bnd, n_samples);
   a.diag = diag;
   a.mask = (uint8_t*)mask;
   a.parts = (int32_t*)parts;
   a.counts = (int32_t*)counts;
+  a.screen = (unsigned long long*)screen;
   cudaStream_t s = (cudaStream_t)stream;
   if (kind == 0) return launch<0>(a, s);
   if (kind == 1) return launch<1>(a, s);

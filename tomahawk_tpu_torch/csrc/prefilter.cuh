@@ -253,10 +253,159 @@ __device__ __forceinline__ bool unphased_prefilter(const int* T,
   return m && ((no_dh && fold_ok) || (!no_dh && em_ok));
 }
 
+// unphased_screen's answers (ld_kernels.SCREEN_REJECT, SCREEN_KEEP,
+// SCREEN_UNDECIDED)
+constexpr int kReject = 0, kKeep = 1, kUndecided = 2;
+
+// What unphased_screen takes beyond Bounds, fixed for a launch: its
+// relative margin, up = 1 + m and dn = 1 - m with m = 2^-6 + 2^-22 Xmax,
+// and n_max, the most samples a pair may count (Xmax = 2 n_max alleles);
+// n_max 0 makes every pair undecided.
+struct Screen {
+  float up, dn;
+  int n_max;
+};
+
+// Whether the screen may decide against bound b: 0, +-inf, or a magnitude
+// in [2^-64, 2^40], so that b times any screened product (at most 2^82)
+// stays finite and normal or is 0 or +-inf.
+__host__ __device__ inline bool screenable(float b) {
+  const float a = b < 0.0f ? -b : b;
+  return a == 0.0f || a == __builtin_huge_valf() ||
+         (a >= 0x1p-64f && a <= 0x1p40f);
+}
+
+// The Screen of a launch over pairs of at most n_samples samples (the
+// host computes it once; ld_kernels.screen_margin states it): n_max 0
+// where a bound is not screenable(), where need_nonzero is set (the
+// unphased statement does not read it) or where n_samples > 2^19.
+__host__ __device__ inline Screen screen_for(const Bounds& bnd,
+                                             int n_samples) {
+  const bool on = screenable(bnd.lo) && screenable(bnd.hi) &&
+                  !bnd.need_nonzero && n_samples <= (1 << 19);
+  const float m = 0x1p-6f + 0x1p-22f * (float)(2 * (on ? n_samples : 0));
+  return {1.0f + m, 1.0f - m, on ? n_samples : 0};
+}
+
+// unphased_prefilter's decision without a division, wherever a margin
+// proves it: kReject or kKeep is the decision unphased_prefilter<DP> makes
+// on T, kUndecided leaves it to unphased_prefilter. ld_kernels
+// .unphased_screen_cells states it in PyTorch, expression by expression.
+//
+// Undecided: a launch whose Screen is off (n_max 0), a cell outside [0,
+// 2^20), n < 5, n > n_max, and in the fold half a marginal of 0 (the
+// statement's r2 is then inf). Otherwise every cell and every integer
+// below is exact in f32.
+//
+// The proof. u = 2^-24; each f32 operation is x(1 + e), |e| <= u, for the
+// operands here (no result underflows but the subnormal squares treated
+// below; none overflows: X = 2n <= Xmax <= 2^20 keeps every product under
+// 2^82, and a bound's product is finite, 0 or +-inf by screenable()). m >=
+// 2^-6 + 2^-22 X; the roundings of m, up and dn are below the slack left
+// in each step.
+//
+// Fold half (T11 = 0; t = 2n >= 10). Ds = rr*aa - ar*ra is the statement's
+// own d_num, bit for bit, and M = G0 G1 H0 H1 > 0 its marginals' product.
+// phased_r2 rounds 13 times after Ds (t*t, D, D*D, the four marginal
+// quotients, three products, the last quotient), so its r2 lies in
+// Ds^2/M [(1-u)^4/(1+u)^9, (1+u)^4/(1-u)^9], all its intermediates normal
+// or 0. The screen's qs = Ds^2(1 +- u), ms = M(1 +- u)^3, L = lo ms(1 +- u),
+// qs*up and qs*dn one rounding more. qs*up < L implies lo > 0 and r2 <
+// lo (1+u)^8 / ((1-u)^11 up) < lo: the statement rejects; qs*dn >= L
+// implies r2 >= lo (lo <= 0 holds for every r2 >= 0). The same for hi,
+// with qs*dn > H a reject. A keep with DP still runs dprime_ok on the
+// statement's own table.
+//
+// EM half (T11 > 0). Scaled by X^2: Np = pX, Nq = qX, n11, nh = n11 + ndh
+// are integers, and 1 <= T11 <= Np, X - Np, Nq, X - Nq (a het is on both
+// sides), so the statement's denom > 0. The exact dmax* = max(c*, d*),
+// c* = nh/X + tau - PQ, d* = PQ - n11/X + tau, P = Np/X, Q = Nq/X, tau =
+// f32(1e-4); c* + d* >= 2 tau, so dmax* >= tau; dmin* = max(-c*, -d*, 0).
+// Statement: pq = PQ(1 +- 3u); lo_h is n11/X - tau within 2u max(n11/X,
+// tau) + u tau, hi_h likewise; |pq - lo_h|, |hi_h - pq| <= 1 + tau + 3u;
+// so its c and d lie within E = 6.01u of c* and d* (P, Q, n11/X, nh/X <=
+// 1), and dmax, dmin within E of dmax*, dmin* (a = -d, b = -c exactly).
+// Screen: A = n11 X - Np Nq and Bv = Np Nq - nh X within 3.001u X^2
+// (three roundings of numbers <= X^2); tx = tau X^2 (1 +- 2u); dx =
+// max(-A, -Bv) + tx, a sum of two positive numbers (max(-A*, -B*) >= X/2 >
+// 3.001u X^2 as X <= 2^20), within Es = 4.001u X^2 of dmax* X^2, and dm =
+// max(max(A, Bv) - tx, 0) within Es of dmin* X^2. So dmax lies in dx/X^2
+// (1 +- eta), eta = (E + Es/X^2 + 2^-70)/(tau - 4.001u) < 5.99e-3. denom:
+// p, q and the three products round 5 times; fl(1 - p) differs from 1 - P
+// by at most u(1 + u), a share phi <= u(1 + u) X of 1 - P >= 1/X, and the
+// same for q; den = Np (X-Np) Nq (X-Nq) (1 +- u)^3. Hence r2_max = fl(fl(
+// dmax^2)/denom) lies in dx^2/den [(1-eta)^2 (1-u)^5 / ((1+u)^5 (1+phi)^2),
+// (1+eta)^2 (1+u)^5 / ((1-u)^5 (1-phi)^2)]. With qlo = dx*dx, L = lo*den
+// (one rounding each): qlo*up < L gives r2_max < lo, as up >= 1.01201 +
+// 2.32 u X covers (1+eta)^2 (1+13.01u) / (1 - 2.0001 u X) for u X <=
+// 2^-4; qlo*dn >= L gives r2_max >= lo, as dn <= 0.98802 - 2.04 u X.
+// dmin is not relative (dmin* may be 0): gm = dm + 2^-20 X^2 >= (1 - u)
+// (dmin + 2^-70) X^2, the 2^-70 covering a subnormal fl(dmin^2); then
+// r2_min <= gm^2/den (1+u)^5 / ((1-u)^7 (1 - 2.0001 u X)), and qhi*up <=
+// H = hi*den, qhi = gm*gm, gives r2_min <= hi (hi <= 0 never passes; a
+// subnormal r2_min's absolute 2^-150 is far inside the slack of hi >=
+// 2^-64). The EM half rejects only by r2_max < lo, keeps only by r2_max
+// >= lo and r2_min <= hi; it has no D' term.
+template <bool DP>
+__device__ __forceinline__ int unphased_screen(const int* T,
+                                               const Bounds& bnd,
+                                               const Screen& scr) {
+  const int bits = T[0] | T[1] | T[2] | T[3] | T[4] | T[5] | T[6] | T[7] |
+                   T[8];
+  const int n = T[0] + T[1] + T[2] + T[3] + T[4] + T[5] + T[6] + T[7] + T[8];
+  if (bits < 0 || bits >= (1 << 20) || n < 5 || n > scr.n_max)
+    return kUndecided;
+  // both halves, then the pair's by selection: the lanes of a warp mix
+  // them, and branches would run both in turn
+  const bool fold = T[4] == 0;
+  const int rr = 2 * T[0] + T[1] + T[3];
+  const int ra = 2 * T[2] + T[1] + T[5];
+  const int ar = 2 * T[6] + T[3] + T[7];
+  const int aa = 2 * T[8] + T[7] + T[5];
+  const bool marg = rr + ra > 0 && ar + aa > 0 && rr + ar > 0 && ra + aa > 0;
+  const float frr = (float)rr, fra = (float)ra;
+  const float far = (float)ar, faa = (float)aa;
+  const float ds = frr * faa - far * fra;
+  const float qs = ds * ds;
+  const float ms = (frr + fra) * (far + faa) * (frr + far) * (fra + faa);
+  const float X = (float)(2 * n);
+  const float fnp = (float)(2 * (T[0] + T[1] + T[2]) + (T[3] + T[4] + T[5]));
+  const float fnq = (float)(2 * (T[0] + T[3] + T[6]) + (T[1] + T[4] + T[7]));
+  const float fn11 = (float)(2 * T[0] + T[1] + T[3]);
+  const float fnh = fn11 + (float)T[4];
+  const float nn = fnp * fnq;
+  const float A = fn11 * X - nn;
+  const float Bv = nn - fnh * X;
+  const float xx = X * X;
+  const float tx = (float)1e-4 * xx;
+  const float dx = fmaxf(-A, -Bv) + tx;
+  const float dm = fmaxf(fmaxf(A, Bv) - tx, 0.0f);
+  const float gm = dm + 0x1p-20f * xx;
+  const float den = fnp * (X - fnp) * fnq * (X - fnq);
+  // fold: qs against lo and hi times ms; EM: dx^2 against lo, gm^2
+  // against hi, times den
+  const float qlo = fold ? qs : dx * dx;
+  const float qhi = fold ? qs : gm * gm;
+  const float dd = fold ? ms : den;
+  const float L = bnd.lo * dd, H = bnd.hi * dd;
+  const bool reject = qlo * scr.up < L || (fold && qlo * scr.dn > H);
+  const bool keep = qlo * scr.dn >= L && qhi * scr.up <= H;
+  if (fold && !marg) return kUndecided;
+  if (reject) return kReject;
+  if (!keep) return kUndecided;
+  if constexpr (DP) {
+    if (fold)
+      return dprime_ok(frr, fra, far, faa, bnd.dp_lo, bnd.dp_hi) ? kKeep
+                                                                 : kReject;
+  }
+  return kKeep;
+}
+
 // unphased_prefilter in its two halves, for a kernel that runs only the
-// half a pair takes (csrc/epilogue.cu; parts_tile keeps the branch-free
-// statement above). Each half restates unphased_prefilter's expressions,
-// so under -fmad=false its decision is bit for bit the same.
+// half a pair takes (csrc/epilogue.cu; parts_tile runs the branch-free
+// statement above on the pairs unphased_screen leaves undecided). Each half
+// restates unphased_prefilter's expressions, so under -fmad=false its
+// decision is bit for bit the same.
 
 // The f32 cells T00..T22 of one 3x3 genotype table (T as
 // unphased_prefilter's) and their sum n.

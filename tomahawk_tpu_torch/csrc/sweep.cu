@@ -39,7 +39,7 @@ extern "C" int twk_parts_tile(
     const void* pos_i, const void* pos_j, const void* rid_i,
     const void* rid_j, int window, int cls, int B, int W, int n_samples,
     float lo, float hi, float dp_lo, float dp_hi, int need_nonzero, int diag,
-    void* mask, void* parts, void* counts, void* stream);
+    void* mask, void* parts, void* counts, void* screen, void* stream);
 extern "C" int twk_compact(const void* mask, const void* parts,
                            const void* counts, int P, int ncol, int ld, int B,
                            void* off, int cap, int outcap, void* n_pass,
@@ -113,7 +113,7 @@ extern "C" int twk_sweep(int kind, const void* x, const void* y,
           at(nhet, j, meta), at(nhom, j, meta), at(pos, i, meta),
           at(pos, j, meta), at(rid, i, meta), at(rid, j, meta), window, cls, B,
           W, n_samples, lo, hi, dp_lo, dp_hi, need_nonzero, dg[t], mask,
-          parts, counts, stream);
+          parts, counts, nullptr, stream);
     if (rc != 0) return rc;
     ++done[0];
     void* o = per_tile_off ? static_cast<void*>(static_cast<int32_t*>(off) + t)

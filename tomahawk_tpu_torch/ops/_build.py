@@ -79,9 +79,9 @@ _SIGNATURES = {
     # kind, x_i, y_i, z_i, x_j, y_j, z_j, ac_i, ac_j, valid_i, valid_j,
     # an_i, an_j, n_het_i, n_hom_i, n_het_j, n_hom_j, pos_i, pos_j, rid_i,
     # rid_j, window, cls, B, W, n_samples, lo, hi, dp_lo, dp_hi,
-    # need_nonzero, diag, mask, parts, counts, stream
+    # need_nonzero, diag, mask, parts, counts, screen, stream
     "twk_parts_tile": [_I] + [_P] * 20 + [_I] * 5 + [_F] * 4 + [_I] * 2
-    + [_P] * 4,
+    + [_P] * 5,
     # mask, parts, counts, P, ncol, ld, B, off, cap, outcap, n_pass, n_cand,
     # t, scratch, ticket, buf, stream
     "twk_compact": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P,

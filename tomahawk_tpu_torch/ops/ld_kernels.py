@@ -397,6 +397,107 @@ def unphased_prefilter_cells(cells, pair_mask, min_r2: float,
     return m & ((no_dh & fold_ok) | (~no_dh & em_ok))
 
 
+#: unphased_screen_cells' answers (csrc/prefilter.cuh's kReject, kKeep,
+#: kUndecided)
+SCREEN_REJECT, SCREEN_KEEP, SCREEN_UNDECIDED = 0, 1, 2
+
+
+def _screenable(b) -> bool:
+    """Whether a bound lets the screen decide: 0, +-inf, or a magnitude
+    in [2**-64, 2**40] (prefilter.cuh's screenable)."""
+    a = abs(float(b))
+    return a == 0.0 or a == float("inf") or 2.0 ** -64 <= a <= 2.0 ** 40
+
+
+def screen_margin(lo, hi, n_samples: int):
+    """(up, dn, n_max) f32, the launch's screen as prefilter.cuh's
+    screen_for computes it on the host: the relative margin m = 2**-6 +
+    2**-22 * 2 n_max, up = 1 + m, dn = 1 - m, and n_max = n_samples, the
+    most samples a pair may count; n_max 0 (every pair undecided) where a
+    bound is not screenable or n_samples > 2**19."""
+    f = np.float32
+    on = _screenable(lo) and _screenable(hi) and n_samples <= 1 << 19
+    n_max = n_samples if on else 0
+    m = f(2.0 ** -6) + f(2.0 ** -22) * f(2 * n_max)
+    return f(f(1.0) + m), f(f(1.0) - m), n_max
+
+
+def unphased_screen_cells(cells, n_samples: int, min_r2: float,
+                          max_r2: float, min_dprime: float = 0.0,
+                          max_dprime: float = 100.0):
+    """The division-free screen of csrc/prefilter.cuh's unphased_screen,
+    one f32 expression for each of the device's, in a launch over pairs
+    of at most `n_samples` samples: int8 SCREEN_REJECT or SCREEN_KEEP
+    where a margin proves what unphased_prefilter_cells decides for the
+    table (pair_mask all true), SCREEN_UNDECIDED where it does not. The
+    fold half (T11 = 0) compares d_num**2 with lo and hi times the
+    marginals' product; the EM half compares dmax and dmin, scaled by
+    X**2 (X = 2n), with lo and hi times Np (X - Np) Nq (X - Nq).
+    Undecided: a launch the screen does not take (`screen_margin`), a
+    cell outside [0, 2**20), n < 5, n > n_samples, a fold marginal of
+    0."""
+    T = [c.to(torch.int32) for c in cells]
+    T00, T01, T02, T10, T11, T12, T20, T21, T22 = T
+    f = lambda x: x.to(torch.float32)
+    lo, hi = unphased_bounds(min_r2, max_r2)
+    up, dn, n_max = screen_margin(lo, hi, n_samples)
+    dev = T00.device
+    lo, hi = torch.tensor(lo, device=dev), torch.tensor(hi, device=dev)
+    up, dn = torch.tensor(up, device=dev), torch.tensor(dn, device=dev)
+    bits = T00 | T01 | T02 | T10 | T11 | T12 | T20 | T21 | T22
+    n = T00 + T01 + T02 + T10 + T11 + T12 + T20 + T21 + T22
+    ok = (bits >= 0) & (bits < 1 << 20) & (n >= 5) & (n <= n_max)
+    fold = T11 == 0
+    # fold half: r2 = d_num**2 / (G0 G1 H0 H1), d_num as the statement
+    # rounds it
+    rr = 2 * T00 + T01 + T10
+    ra = 2 * T02 + T01 + T12
+    ar = 2 * T20 + T10 + T21
+    aa = 2 * T22 + T21 + T12
+    frr, fra, far, faa = f(rr), f(ra), f(ar), f(aa)
+    ds = frr * faa - far * fra
+    qs = ds * ds
+    ms = (frr + fra) * (far + faa) * (frr + far) * (fra + faa)
+    # EM half, scaled by X**2: dmax X**2 = max(-A, -B) + tau X**2, dmin X**2
+    # = max(max(A, B) - tau X**2, 0); denom X**4 = Np (X - Np) Nq (X - Nq)
+    X = f(2 * n)
+    fnp = f(2 * (T00 + T01 + T02) + (T10 + T11 + T12))
+    fnq = f(2 * (T00 + T10 + T20) + (T01 + T11 + T21))
+    fn11 = f(2 * T00 + T01 + T10)
+    fnh = fn11 + f(T11)
+    nn = fnp * fnq
+    A = fn11 * X - nn
+    Bv = nn - fnh * X
+    xx = X * X
+    tx = torch.tensor(np.float32(1e-4), device=dev) * xx
+    dx = torch.maximum(-A, -Bv) + tx
+    den = fnp * (X - fnp) * fnq * (X - fnq)
+    dm = torch.clamp(torch.maximum(A, Bv) - tx, min=0.0)
+    gm = dm + torch.tensor(np.float32(2.0 ** -20), device=dev) * xx
+    # fold: qs against lo and hi times ms; EM: dx**2 against lo, gm**2
+    # against hi, times den
+    qlo = torch.where(fold, qs, dx * dx)
+    qhi = torch.where(fold, qs, gm * gm)
+    dd = torch.where(fold, ms, den)
+    L, H = lo * dd, hi * dd
+    reject = (qlo * up < L) | (fold & (qlo * dn > H))
+    keep = (qlo * dn >= L) & (qhi * up <= H)
+    marg = (rr + ra > 0) & (ar + aa > 0) & (rr + ar > 0) & (ra + aa > 0)
+    live = ok & (~fold | marg)
+    rej = live & reject
+    keep = live & ~reject & keep
+    if (min_dprime, max_dprime) != DPRIME_OFF:
+        dp = dprime_prefilter_cells((rr, ra, ar, aa), min_dprime,
+                                    max_dprime)
+        rej |= keep & fold & ~dp
+        keep &= ~fold | dp
+    out = torch.full(T00.shape, SCREEN_UNDECIDED, dtype=torch.int8,
+                     device=dev)
+    out[rej] = SCREEN_REJECT
+    out[keep] = SCREEN_KEEP
+    return out
+
+
 def compact_indices_small(mask: torch.Tensor, cap: int):
     """(n_pass, idx[cap] int32): the flat indices of the first `cap`
     set bits of `mask`, ascending. Slots k >= n_pass hold the

@@ -31,6 +31,13 @@ registers that hold the mask, and so does `tile_epilogue`, and the
 compaction (compute/sweeps.py) then reads the mask only where a segment
 has a survivor.
 
+For the unphased table `tile_prefilter` can also count how often the
+division-free screen of the f32 prefilter (csrc/prefilter.cuh's
+`unphased_screen`, ld_kernels.unphased_screen_cells) settles a pair: an
+int64 [2] `screen` tensor is added the candidate pairs screened and those
+it left to the exact statement (`tile_screen_plain` states it). The
+engine does not ask for it: reading it back would cost a sync.
+
 Both versions return mask u8 [B, B] (0 = not a candidate, 1 =
 candidate, 2 = survivor of the f32 prefilter, the diagonal triangle
 applied) and parts i32 [P, B, B], the raw contractions in the column
@@ -120,15 +127,21 @@ def tile_local_parts_plain(dev, i: int, j: int, cfg):
                               cfg["has_missing"])
 
 
-def tile_epilogue_plain(dev, i: int, j: int, diag: bool, cfg, parts):
-    """The plain PyTorch version of `tile_epilogue`: a fresh mask from
-    the global parts (a tuple or a [P, B, B] tensor)."""
+def _pair_mask_plain(dev, i: int, j: int, diag: bool, cfg):
+    """The candidate pairs of tile (i, j): ld_kernels.pair_mask_tile on
+    the metadata the sweep group reads."""
     cls, win = cfg["cls"], cfg["window"]
     an = (dev["an"][i], dev["an"][j]) if cls != "all" else (None, None)
     pos_rid = ((dev["pos"][i], dev["pos"][j], dev["rid"][i], dev["rid"][j])
                if win > 0 else ())
-    m = K.pair_mask_tile(dev["valid"][i], dev["valid"][j], dev["ac"][i],
-                         dev["ac"][j], diag, cls, *an, win, *pos_rid)
+    return K.pair_mask_tile(dev["valid"][i], dev["valid"][j], dev["ac"][i],
+                            dev["ac"][j], diag, cls, *an, win, *pos_rid)
+
+
+def tile_epilogue_plain(dev, i: int, j: int, diag: bool, cfg, parts):
+    """The plain PyTorch version of `tile_epilogue`: a fresh mask from
+    the global parts (a tuple or a [P, B, B] tensor)."""
+    m = _pair_mask_plain(dev, i, j, diag, cfg)
     nh = ((dev["n_het"][i], dev["n_hom"][i], dev["n_het"][j],
            dev["n_hom"][j]) if cfg["table"] == "unphased" else ())
     return K.epilogue_tile(tuple(parts), m, cfg["table"], cfg["n_samples"],
@@ -143,6 +156,20 @@ def tile_prefilter_plain(dev, i: int, j: int, diag: bool, cfg):
             torch.stack(parts))
 
 
+def tile_screen_plain(dev, i: int, j: int, diag: bool, cfg, parts):
+    """The plain PyTorch version of the `screen` counts of the unphased
+    tile (i, j) from its parts: int64 [2], the candidate pairs screened
+    and those unphased_screen_cells leaves undecided."""
+    m = _pair_mask_plain(dev, i, j, diag, cfg)
+    nh = ((dev["n_het"][i], dev["n_hom"][i], dev["n_het"][j],
+           dev["n_hom"][j]) if not cfg["has_missing"] else (None,) * 4)
+    cells = K.unphased_cells(tuple(parts), *nh, cfg["n_samples"])
+    s = K.unphased_screen_cells(cells, cfg["n_samples"], cfg["min_r2"],
+                                cfg["max_r2"], *_dprime(cfg))
+    und = m & (s == K.SCREEN_UNDECIDED)
+    return torch.stack([m.sum(), und.sum()]).to(torch.int64)
+
+
 def kernel_name(cfg) -> str:
     """The hand kernel that serves a sweep group."""
     if cfg["table"] == "phased" and not cfg["has_missing"]:
@@ -151,16 +178,19 @@ def kernel_name(cfg) -> str:
 
 
 def tile_prefilter(dev, i: int, j: int, diag: bool, cfg, out=None,
-                   counts=None):
+                   counts=None, screen=None):
     """(mask, parts) for the tile of super-blocks (i, j), written into
     `out` (tile_buffers) when given, and returned. `counts`
-    (counts_buffer) is filled with the mask's per-segment counts."""
+    (counts_buffer) is filled with the mask's per-segment counts.
+    `screen` (int64 [2], unphased table only) is added the candidate
+    pairs the prefilter's screen saw and those it left undecided."""
     valid = dev["valid"]
     if out is None:
         out = tile_buffers(cfg, valid.device)
     _check_counts(cfg, counts, out[0].device)
+    _check_screen(cfg, screen, out[0].device)
     if valid.is_cuda:
-        return _launch(dev, i, j, diag, cfg, out, counts)
+        return _launch(dev, i, j, diag, cfg, out, counts, screen)
     if valid.device.type != "cpu":
         raise ValueError(f"no tile kernel for device {valid.device}")
     _build.count(_build.PLAIN_CALLS, kernel_name(cfg))
@@ -169,6 +199,8 @@ def tile_prefilter(dev, i: int, j: int, diag: bool, cfg, out=None,
     out[1].copy_(parts)
     if counts is not None:
         counts.copy_(tile_counts_plain(mask))
+    if screen is not None:
+        screen += tile_screen_plain(dev, i, j, diag, cfg, parts)
     return out
 
 
@@ -182,6 +214,21 @@ def _check_counts(cfg, counts, device):
             or not counts.is_contiguous() or counts.device != device:
         raise ValueError(f"counts {tuple(counts.shape)} {counts.dtype} on "
                          f"{counts.device}: expected {shape} torch.int32, "
+                         f"contiguous, on {device}")
+
+
+def _check_screen(cfg, screen, device):
+    """Refuse a screen buffer (None: none) that is not int64 [2],
+    contiguous, on `device`, or is given for the phased table."""
+    if screen is None:
+        return
+    if cfg["table"] != "unphased":
+        raise ValueError("the prefilter's screen serves the unphased "
+                         "table only")
+    if screen.dtype != torch.int64 or tuple(screen.shape) != (2,) \
+            or not screen.is_contiguous() or screen.device != device:
+        raise ValueError(f"screen {tuple(screen.shape)} {screen.dtype} on "
+                         f"{screen.device}: expected (2,) torch.int64, "
                          f"contiguous, on {device}")
 
 
@@ -270,7 +317,7 @@ def sweep_args(dev, cfg) -> list:
             *map(float, bounds), int(need_nonzero)]
 
 
-def _launch(dev, i, j, diag, cfg, out, counts=None):
+def _launch(dev, i, j, diag, cfg, out, counts=None, screen=None):
     NB, B, W = _check_inputs(dev, cfg, out)
     _in_range(i, j, NB)
     table, miss, cls = cfg["table"], cfg["has_missing"], cfg["cls"]
@@ -304,7 +351,8 @@ def _launch(dev, i, j, diag, cfg, out, counts=None):
             ptr("ac", j), ptr("valid", i), ptr("valid", j), *an, *nh, *win,
             window, cls_code, B, W, cfg["n_samples"], *bounds,
             int(need_nonzero), int(bool(diag)), mask.data_ptr(),
-            parts.data_ptr(), cnt, stream)
+            parts.data_ptr(), cnt,
+            None if screen is None else screen.data_ptr(), stream)
     _build.check(rc, f"{name} launch")
     _build.count(_build.LAUNCHES, name, device=mask.device)
     return out

@@ -81,11 +81,12 @@ def genotype_planes(n_blocks, B, n_samples, miss_frac=0.02, seed=3,
     """Genotype variants with missing data, packed as
     bitpack.block_to_planes packs them: every `group` consecutive
     variants are noisy copies of one haplotype template (group=1,
-    flip=0: independent variants); a `miss_rows` share of the variants
-    miss `miss_frac` of their genotypes (both alleles); the miss plane's
-    padding bits are ones; ac and an count alt and missing alleles;
-    n_het/n_hom are counted from the planes. Positions come from a
-    generator of their own (seed + 1000)."""
+    flip=0: independent variants), each allele flipped with probability
+    `flip` (a float, or one per variant); a `miss_rows` share of the
+    variants miss `miss_frac` of their genotypes (both alleles); the miss
+    plane's padding bits are ones; ac and an count alt and missing
+    alleles; n_het/n_hom are counted from the planes. Positions come from
+    a generator of their own (seed + 1000)."""
     rng = np.random.default_rng(seed)
     pos_rng = np.random.default_rng(seed + 1000)
     Wh, Ws = words_for(2 * n_samples), words_for(n_samples)
@@ -96,8 +97,9 @@ def genotype_planes(n_blocks, B, n_samples, miss_frac=0.02, seed=3,
         maf = np.minimum(rng.beta(0.5, 2.0, size=n_grp) * 0.4 + 0.05, 0.5)
         base = rng.random((n_grp, 2 * n_samples), np.float32) < maf[:, None]
         alt = np.repeat(base, group, axis=0)
-        if flip:
-            alt ^= rng.random((B, 2 * n_samples), np.float32) < flip
+        if np.any(flip):
+            alt ^= rng.random((B, 2 * n_samples), np.float32) \
+                < np.reshape(flip, (-1, 1))
         miss = rng.random((B, n_samples), np.float32) < miss_frac
         miss &= (rng.random(B) < miss_rows)[:, None]
         hap_miss = np.repeat(miss, 2, axis=1)
@@ -120,6 +122,19 @@ def genotype_planes(n_blocks, B, n_samples, miss_frac=0.02, seed=3,
             hwe=np.ones(B, np.float32), has_missing=miss.any(axis=1),
             valid=np.ones(B, bool)))
     return stack_planes(planes)
+
+
+def threshold_planes(n_blocks, B, n_samples, seed=9, group=64):
+    """genotype_planes whose pairs straddle the prefilter's r2 floor of
+    0.1: every `group` consecutive variants copy one template, each with
+    its own flip rate, spread over [0, 0.3) and shuffled, so that the
+    pairs of a group (a tile of a super-block with itself) run from r2 ~1
+    down past 0.1, many of them within the unphased screen's margin of
+    it."""
+    flip = np.random.default_rng(seed).permutation(
+        np.linspace(0.0, 0.3, B, endpoint=False))
+    return genotype_planes(n_blocks, B, n_samples, seed=seed, group=group,
+                           flip=flip)
 
 
 def super_ranges(stacked):
