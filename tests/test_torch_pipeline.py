@@ -233,9 +233,9 @@ class _Library:
     def twk_sweep(self, kind, x, y, z, W, ac, valid, an, nhet, nhom, pos,
                   rid, window, cls, B, n_samples, lo, hi, dp_lo, dp_hi,
                   need_nonzero, T,
-                  pi, pj, dg, live, mask, parts, counts, P, ncol, ld, off,
-                  per_tile_off, cap, outcap, n_pass, n_cand, scratch, ticket,
-                  buf, stream, done):
+                  pi, pj, dg, live, mask, parts, counts, screen, P, ncol, ld,
+                  off, per_tile_off, cap, outcap, n_pass, n_cand, scratch,
+                  ticket, buf, stream, done):
         at = lambda base, s, row: None if base is None else base + s * row
         plane, meta = B * W * 4, B * 4
         pi, pj = _ints(pi, T), _ints(pj, T)
@@ -261,7 +261,8 @@ class _Library:
                     *m(ac), *v, *m(an), at(nhet, i, meta), at(nhom, i, meta),
                     at(nhet, j, meta), at(nhom, j, meta), *m(pos), *m(rid),
                     window, cls, B, W, n_samples, lo, hi, dp_lo, dp_hi,
-                    need_nonzero, dg[t], mask, parts, counts, None, stream)
+                    need_nonzero, dg[t], mask, parts, counts,
+                    screen if kind >= 1 else None, stream)
             done[0] += 1
             self.twk_compact(mask, parts, counts, P, ncol, ld, B,
                              off + 4 * t if per_tile_off else off, cap,
@@ -287,7 +288,8 @@ def test_c_sweep_gets_the_per_tile_arguments(monkeypatch, group, window,
     calls the C loop makes from `_launch_sweep`'s arguments equal the
     calls of the per-tile wrappers (`tiles._launch`,
     `sweeps._launch_compact`) on the same buffers, tile by tile, stream
-    included, and the launches are counted as the loop reports them."""
+    and the unphased groups' screen counter included, and the launches
+    are counted as the loop reports them."""
     lib = _Library()
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -308,9 +310,11 @@ def test_c_sweep_gets_the_per_tile_arguments(monkeypatch, group, window,
     n_pass = torch.zeros(T, dtype=torch.int32)
     n_cand = torch.zeros(T, dtype=torch.int32)
     off = torch.zeros(T if extract else 1, dtype=torch.int32)
+    screen = (torch.zeros(2, dtype=torch.int64)
+              if cfg["table"] == "unphased" else None)
     _build.reset_counts()
     sweeps._launch_sweep(dev, pi, pj, dg, live, cfg, 256, out, cnt, scratch,
-                         off, buf, n_pass, n_cand)
+                         off, buf, n_pass, n_cand, screen=screen)
     from_c = [_no_nulls(c) for c in lib.calls]
     name = tiles.kernel_name(cfg)
     n_live = T if extract else 4
@@ -320,7 +324,7 @@ def test_c_sweep_gets_the_per_tile_arguments(monkeypatch, group, window,
         if live is not None and not live[t]:
             continue
         tiles._launch(dev, int(pi[t]), int(pj[t]), bool(dg[t]), cfg, out,
-                      cnt)
+                      cnt, screen)
         sweeps._launch_compact(out[0], out[1],
                                off[t:t + 1] if extract else off, buf,
                                n_pass, n_cand, t, 256, cnt, scratch)

@@ -92,7 +92,7 @@ def draw_tables(k, n_samples, seed, maf_scale=0.5, maf_floor=0.001,
 
 
 @pytest.mark.parametrize("r2", R2, ids=lambda r: f"{r[0]}-{r[1]}")
-@pytest.mark.parametrize("n_samples", [2504, 32470])
+@pytest.mark.parametrize("n_samples", [2504, 32470, 488377])
 def test_drawn_tables(n_samples, r2):
     T = draw_tables(10 ** 6, n_samples, seed=n_samples)
     # the ac rule of the candidate mask, on the called samples
@@ -105,18 +105,29 @@ def test_drawn_tables(n_samples, r2):
         assert int(undecided.sum()) < 1e-3 * int(cand.sum())
 
 
-def fold_tables(k, target, seed):
-    """Tables with no double heterozygote whose exact r2 lies near
-    `target`: even marginals G0, H0 of t = 2n alleles, the even refref
-    that brings d_num = refref t - G0 H0 nearest +-sqrt(target M), the
-    homozygous cells that give that phased table, then random pairs of
-    homozygotes traded for single heterozygotes (the table unchanged)."""
+def _product(*xs, wide=False):
+    """The product of integer arrays, left to right: in int64, or in
+    float64 for tables of up to 2**19 samples, whose products of four
+    allele counts overflow int64."""
+    out = xs[0].astype(float) if wide else xs[0]
+    for x in xs[1:]:
+        out = out * x
+    return out
+
+
+def fold_tables(k, target, seed, n_max=5000):
+    """Tables of 5 to `n_max` samples with no double heterozygote whose
+    exact r2 lies near `target`: even marginals G0, H0 of t = 2n
+    alleles, the even refref that brings d_num = refref t - G0 H0 nearest
+    +-sqrt(target M), the homozygous cells that give that phased table,
+    then random pairs of homozygotes traded for single heterozygotes
+    (the table unchanged)."""
     rng = np.random.default_rng(seed)
-    n = rng.integers(5, 5000, k)
+    n = rng.integers(5, n_max, k)
     t = 2 * n
     G0 = 2 * rng.integers(1, n)
     H0 = 2 * rng.integers(1, n)
-    M = G0 * (t - G0) * H0 * (t - H0)
+    M = _product(G0, t - G0, H0, t - H0, wide=n_max > 5000)
     dn = rng.choice([-1, 1], k) * np.sqrt(target * M.astype(float))
     rr = 2 * np.round((G0 * H0 + dn) / t / 2).astype(np.int64)
     rr = np.clip(rr, np.maximum(0, G0 + H0 - t), np.minimum(G0, H0))
@@ -135,7 +146,7 @@ def fold_tables(k, target, seed):
     return T, exact
 
 
-def em_tables(k, target, seed, side):
+def em_tables(k, target, seed, side, n_max=None):
     """Tables with double heterozygotes whose exact EM r2 bound (r2_max
     for side "lo", r2_min for "hi", with the prefilter's tol) lies near
     `target`. For "lo": multinomial genotype tables of n samples from
@@ -144,17 +155,20 @@ def em_tables(k, target, seed, side):
     where r2_min must reach
     the target: fold_tables a little above it, with 1-3 pairs of double
     homozygotes (T00, T22) made double heterozygotes, which narrows the
-    EM interval to a few alleles."""
+    EM interval to a few alleles. `n_max`: the most samples of a table
+    (3000 for "lo", fold_tables' 5000 for "hi" when None)."""
     rng = np.random.default_rng(seed)
+    wide = n_max is not None and n_max > 5000
     if side == "hi":
-        T, _ = fold_tables(k, target * 1.05, seed)
+        T, _ = fold_tables(k, target * 1.05, seed,
+                           **({} if n_max is None else dict(n_max=n_max)))
         x = np.minimum(rng.integers(1, 4, k), np.minimum(T[:, 0], T[:, 8]))
         T[:, 0] -= x
         T[:, 8] -= x
         T[:, 4] += 2 * x
         n = T.sum(1)
     else:
-        n = rng.integers(50, 3000, k)
+        n = rng.integers(50, n_max or 3000, k)
         pa, pb = np.exp(rng.uniform(np.log(0.002), np.log(0.5), (2, k)))
         r2 = rng.uniform(0.3, 1.5, k) * target
         D = np.minimum(np.sqrt(r2 * pa * (1 - pa) * pb * (1 - pb)),
@@ -176,7 +190,8 @@ def em_tables(k, target, seed, side):
     nh = n11 + T[:, 4]
     A = (n11 * X - Np * Nq) / X.astype(float) ** 2
     Bv = (Np * Nq - nh * X) / X.astype(float) ** 2
-    denom = (Np * (X - Np) * Nq * (X - Nq)).astype(float) / X ** 4.0
+    denom = _product(Np, X - Np, Nq, X - Nq, wide=wide).astype(float) \
+        / X ** 4.0
     d = np.maximum(-A, -Bv) + TAU if side == "lo" else \
         np.maximum(np.maximum(A, Bv) - TAU, 0)
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -205,6 +220,35 @@ def test_tables_at_the_bounds(r2, dp):
             und = s == K.SCREEN_UNDECIDED
             close = gap[sel] <= 1e-3
             assert close.sum() > 100, (side, half)
+            assert und.any() and not und.all(), (side, half)
+
+
+@pytest.mark.parametrize("dp", DPRIME, ids=["dprime_off", "dprime_on"])
+@pytest.mark.parametrize("r2", R2, ids=lambda r: f"{r[0]}-{r[1]}")
+def test_tables_at_the_bounds_at_biobank_width(r2, dp):
+    """The same at UK Biobank's 488,377 samples, tables of up to that
+    many: the screen's margin there (0.249 of a bound) leaves every table
+    within 1e-3 of a bound to the statement, and within half a bound both
+    answers occur."""
+    n_samples = 488377
+    lo, hi = (float(b) for b in K.unphased_bounds(*r2))
+    for seed, (side, bound) in enumerate((("lo", lo), ("hi", hi))):
+        if not 0.0 < bound < 1.0:
+            continue
+        for half, build in (
+                ("fold", lambda: fold_tables(200_000, bound, seed,
+                                             n_max=n_samples)),
+                ("em", lambda: em_tables(200_000, bound, seed + 10, side,
+                                         n_max=n_samples))):
+            T, exact = build()
+            assert T.sum(1).max() <= n_samples
+            gap = np.abs(exact - bound)
+            sel = gap <= 0.5 * bound
+            s = _agrees(T[sel], r2, dp, n_samples).numpy()
+            und = s == K.SCREEN_UNDECIDED
+            close = gap[sel] <= 1e-3
+            assert close.sum() > 100, (side, half)
+            assert und[close].all(), (side, half)
             assert und.any() and not und.all(), (side, half)
 
 

@@ -68,8 +68,7 @@ CUTS = {"whole": (), "no loop": (_LOOP,), "no prefilter": (_PREFILTER,),
 _P_LOOP = (r"  Tile::run\(smem, xa, xb, row0, col0, B, a\.W, acc\);\n", "")
 # the mask byte from a bit of two parts, so that the stores still depend
 # on the contraction
-_P_PREFILTER = (r"pair_mask<KIND, DP, COUNT>\(a, v, k, l0 \+ e, aci, vi, "
-                r"cnt\)",
+_P_PREFILTER = (r"pair_mask<KIND, DP, COUNT>\(a, v, k, l0 \+ e, aci, vi\)",
                 "(unsigned)(v[0] & 1) + (unsigned)(v[1] & 1)")
 # the unphased prefilter's division-free screen cut: every candidate takes
 # the exact f32 statement inline (the decision path before the screen)

@@ -25,9 +25,10 @@ survivor compaction on every tile (sweeps.fused_sweep, one C call that
 enqueues them all), for phased tables the in-sweep Fisher bracket of its
 survivors (sweeps.append_fisher_col, when the segment holds
 FISHER_MIN_ROWS of them) and, behind them on the same stream, copies the
-per-tile counts and a prefix of the survivor rows into pinned host
-memory. A consumer thread waits on that copy's event, pulls the rest of
-the rows, re-sweeps the rare tiles that overflowed the per-tile cap or
+per-tile counts, a prefix of the survivor rows and, for unphased
+tables, the prefilter screen's two counts (candidates screened, left to
+the exact statement) into pinned host memory. A consumer thread waits
+on that copy's event, pulls the rest of the rows, re-sweeps the rare tiles that overflowed the per-tile cap or
 spilled the buffer at exact offsets (sweeps.extract_sweep, on its own
 stream), runs the exact f64 statistics and Fisher P in the native record
 pipeline (ld_math.ld_records; P from the bracket times the exact q where
@@ -91,6 +92,7 @@ one segment at a time on the same kernels.
 import contextlib
 import datetime
 import os
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -122,6 +124,13 @@ from .resume import Checkpoint
 from .two_pool import PooledTwoWriter
 
 __all__ = ["CalcResult", "CalcSettings", "LdEngine", "compute_ld"]
+
+#: the unphased prefilter screen's counts over every sweep group of the
+#: process, as each segment's read-back brings them: candidates screened
+#: and those left to the exact statement (a group's own are its
+#: `engine.group` span's `screened` and `undecided`)
+SCREEN_TOTALS = {"screened": 0, "undecided": 0}
+_screen_lock = threading.Lock()
 
 
 @dataclass
@@ -475,6 +484,8 @@ class LdEngine:
         self._prefix_rows = {}
         # the depth gate's answers in the current group, by caps
         self._headroom = {}
+        # the current group's screen counts (unphased tables)
+        self._screen = dict(screened=0, undecided=0)
         # checkpoint/resume (compute/resume.py): the first `ckpt_skip`
         # segments are skipped (their records are in the checkpointed
         # output); `units_done` counts segments completed or skipped,
@@ -658,7 +669,9 @@ class LdEngine:
         # the job of library use; the main thread's time in the group is
         # engine.dispatch, engine.wait or a serial engine.consume. `fisher`:
         # 1 where the sweep carries the in-sweep bracket, 0 where every P
-        # is the host's exact scan
+        # is the host's exact scan; `screened`, `undecided`: the group's
+        # screen counts (0 for phased tables), set when it ends
+        self._screen = dict(screened=0, undecided=0)
         group = spans.span("engine.group", job=True, tiles=len(tiles),
                            segments=len(todo),
                            fisher=int(sweeps.fisher_on(cfg))).start()
@@ -702,6 +715,7 @@ class LdEngine:
             raise
         finally:
             self._seg_error = None
+            group.set(**self._screen)
             group.stop()
         return n
 
@@ -781,18 +795,23 @@ class LdEngine:
             for p, row in enumerate(devs):
                 sl = slice(p * per, (p + 1) * per)
                 with on_device(self._grid[p][0][0]):
+                    screen = (torch.zeros(2, dtype=torch.int64,
+                                          device=row[0]["valid"].device)
+                              if cfg["table"] == "unphased" else None)
                     n_pass, n_cand, buf = sweeps.fused_sweep(
                         row[0], pi[sl], pj[sl], dg[sl], live[sl],
                         cfg=self._row_cfg(cfg, p, row), cap=cap,
-                        outcap=outcap)
-                shards.append(dict(n_pass=n_pass, n_cand=n_cand, buf=buf))
+                        outcap=outcap, screen=screen)
+                shards.append(dict(n_pass=n_pass, n_cand=n_cand, buf=buf,
+                                   screen=screen))
         return dict(shards=shards, devs=devs, pi=pi, pj=pj, dg=dg, per=per,
                     cap=cap, outcap=outcap, stacked=self.stacked)
 
     def _submit_segment(self, tiles, cfg) -> dict:
         """Dispatch one segment's fused sweep and, on each shard's stream
-        right behind it, copy its counts and the first X rows of its
-        survivor buffer into pinned host memory (X from this group's
+        right behind it, copy its counts, the first X rows of its
+        survivor buffer and its screen counts (unphased tables) into
+        pinned host memory (X from this group's
         recent survivor volume, so the copies depend on nothing the host
         has yet to read), then record one event a shard. The consumer
         waits on those events, not on the streams: a host read issued
@@ -807,7 +826,8 @@ class LdEngine:
                               st["outcap"])
             with spans.span("engine.dispatch.readback"):
                 for sh, row in zip(st["shards"], self._grid):
-                    src = (sh["n_pass"], sh["n_cand"], sh["buf"][:X])
+                    src = (sh["n_pass"], sh["n_cand"], sh["buf"][:X]) + (
+                        () if sh["screen"] is None else (sh["screen"],))
                     sh["event"] = None
                     if sh["buf"].is_cuda:
                         host = [torch.empty(x.shape, dtype=x.dtype,
@@ -868,7 +888,7 @@ class LdEngine:
         if int(n_pass.sum()) == 0:
             if self.ticker:
                 self.ticker.add(pairs=total_cand)
-            self._finish_segment()
+            self._finish_segment(st["shards"])
             return total_cand
         stat["n_pass"] += int(n_pass.sum())
 
@@ -960,8 +980,20 @@ class LdEngine:
             emit(recs, rev)
         if self.ticker:
             self.ticker.add(pairs=total_cand, records=len(recs))
-        self._finish_segment()
+        self._finish_segment(st["shards"])
         return total_cand
+
+    def _add_screen(self, shards):
+        """Add the read-back screen counts of a segment's shards to the
+        group's and to SCREEN_TOTALS."""
+        got = [sh["host"][3] for sh in shards if len(sh["host"]) > 3]
+        if not got:
+            return
+        scr, und = (int(x) for x in sum(g.to(torch.int64) for g in got))
+        with _screen_lock:
+            for key, v in (("screened", scr), ("undecided", und)):
+                self._screen[key] += v
+                SCREEN_TOTALS[key] += v
 
     def _fisher_p(self, cfg, rows, data, n_pass, row_tile, bad, filt,
                   per=None):
@@ -989,9 +1021,11 @@ class LdEngine:
         p_pre[~valid] = np.nan
         return p_pre
 
-    def _finish_segment(self):
+    def _finish_segment(self, shards):
         """Segment bookkeeping, on whichever thread handled the segment,
-        after its records were emitted."""
+        after its records were emitted: its screen counts (read back with
+        its counts from each of its `shards`), once."""
+        self._add_screen(shards)
         self.units_done += 1
         if self.on_segment is not None:
             self.on_segment()

@@ -53,9 +53,10 @@ from ..device import on_device
 from ..ops import _build
 from ..ops import fisher_dev as F
 from ..ops import ld_kernels as K
-from ..ops.tiles import (SEG, _check_inputs, counts_buffer, kernel_name,
-                         payload_cols, plane_keys, sweep_args, tile_buffers,
-                         tile_epilogue, tile_local_parts, tile_prefilter)
+from ..ops.tiles import (SEG, _check_inputs, _check_screen, counts_buffer,
+                         kernel_name, payload_cols, plane_keys, sweep_args,
+                         tile_buffers, tile_epilogue, tile_local_parts,
+                         tile_prefilter)
 from ..parallel.distributed import all_reduce_parts
 
 #: device tensors the sweeps may read: uint32 planes (as int32),
@@ -379,15 +380,17 @@ def _zeros(dev, *shape):
     return torch.zeros(shape, dtype=torch.int32, device=dev["valid"].device)
 
 
-def _tile(dev, i, j, diag, cfg, out, counts=None):
+def _tile(dev, i, j, diag, cfg, out, counts=None, screen=None):
     """(mask, parts) of one tile into `out`, and the mask's counts into
     `counts` when given: the fused tile kernel, or in a samples-sharded
     sweep the local parts (of this device's slice and of the group's
     peers, the other slices of a local mesh's row, each on its own
-    device), their sum over the group and the epilogue."""
+    device), their sum over the group and the epilogue. `screen`: the
+    fused kernel's screen counts (tiles.tile_prefilter); the
+    samples-sharded epilogue adds none."""
     group = cfg["psum_group"]
     if group is None:
-        return tile_prefilter(dev, i, j, diag, cfg, out, counts)
+        return tile_prefilter(dev, i, j, diag, cfg, out, counts, screen)
     tile_local_parts(dev, i, j, cfg, out)
     for peer_dev, peer_out in group.peers:
         with on_device(peer_out[1].device):
@@ -404,7 +407,7 @@ def _sweep_buffers(cfg, device):
             compact_scratch(cfg["B"], device))
 
 
-def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
+def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap, screen=None):
     """Per-tile counts AND capped survivor extraction at a running
     offset over a tile list: (n_pass [T], n_cand [T], buf [outcap,
     out_cols]) on the planes' device. Writes clamp at outcap - cap; rows
@@ -416,13 +419,16 @@ def fused_sweep(dev, pi, pj, dg, live, *, cfg, cap, outcap):
     per-segment counts to the compaction. With `fisher_on(cfg)`
     the rows of the tiles the caller keeps carry the Fisher bracket
     (`append_fisher_col`) when the segment has FISHER_MIN_ROWS survivors.
-    Read the counts with `host_counts`."""
+    `screen` (int64 [2], unphased table only) is added the candidates the
+    unphased prefilter's screen saw and those it left undecided, over
+    every live tile (tiles.tile_prefilter). Read the counts with
+    `host_counts`."""
     T = len(pi)
     n_pass, n_cand, off = _zeros(dev, T), _zeros(dev, T), _zeros(dev, 1)
     buf = _zeros(dev, outcap, out_cols(cfg))
     out, cnt, scratch = _sweep_buffers(cfg, buf.device)
     _loop(cfg, buf)(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
-                    buf, n_pass, n_cand, ncol=buf_cols(cfg))
+                    buf, n_pass, n_cand, ncol=buf_cols(cfg), screen=screen)
     if fisher_on(cfg) and T:
         append_fisher_col(dev, n_pass, buf, pi, pj, cfg, cap)
     return n_pass, n_cand, buf
@@ -583,7 +589,7 @@ def _loop(cfg, buf):
 
 
 def _tile_loop(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off, buf,
-               n_pass, n_cand, ncol=None):
+               n_pass, n_cand, ncol=None, screen=None):
     """The tile loop in Python, with `_launch_sweep`'s arguments: for each
     live tile the tile (`_tile`: the fused kernel, or the samples-sharded
     steps with their all-reduce) and its compaction, at the one running
@@ -591,7 +597,7 @@ def _tile_loop(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off, buf,
     for t in range(len(pi)):
         if live is None or live[t]:
             mask, parts = _tile(dev, int(pi[t]), int(pj[t]), bool(dg[t]),
-                                cfg, out, cnt)
+                                cfg, out, cnt, screen)
             compact_survivors(mask, parts,
                               off if live is not None else off[t:t + 1],
                               buf, n_pass, n_cand, t, cap, cnt, scratch,
@@ -599,15 +605,17 @@ def _tile_loop(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off, buf,
 
 
 def _launch_sweep(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
-                  buf, n_pass, n_cand, ncol=None):
+                  buf, n_pass, n_cand, ncol=None, screen=None):
     """The tile loop of `fused_sweep` (live given, one running offset) or
     of `extract_sweep` (live None, `off` an offset a tile) as one call of
     csrc/sweep.cu's `twk_sweep`, on the current stream: every tensor is
     checked here once, and the C loop launches each live tile's fused
     tile kernel and its compaction in tile order. Each kernel's launches
     are counted as the C loop reports them. `ncol`: the payload layout's
-    columns, when the buffer has more (the Fisher column)."""
+    columns, when the buffer has more (the Fisher column). `screen`: as
+    tiles.tile_prefilter takes it, checked here."""
     NB, B, _ = _check_inputs(dev, cfg, out)
+    _check_screen(cfg, screen, buf.device)
     mask, parts = out
     T = len(pi)
     ncol = _check_compact(mask, parts, off, buf, n_pass, n_cand, cap, cnt,
@@ -631,7 +639,8 @@ def _launch_sweep(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
     rc = _build.library().twk_sweep(
         *sweep_args(dev, cfg), T, pi.ctypes.data, pj.ctypes.data,
         dg.ctypes.data, None if live is None else live.ctypes.data,
-        mask.data_ptr(), parts.data_ptr(), cnt.data_ptr(), parts.shape[0],
+        mask.data_ptr(), parts.data_ptr(), cnt.data_ptr(),
+        None if screen is None else screen.data_ptr(), parts.shape[0],
         ncol, buf.shape[1], off.data_ptr(), int(live is None), cap,
         buf.shape[0],
         n_pass.data_ptr(), n_cand.data_ptr(), scratch.data_ptr(),

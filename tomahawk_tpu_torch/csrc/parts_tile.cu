@@ -64,10 +64,12 @@
 // margin of a bound) run the f32 statement, out of line (exact_unphased):
 // the decision is bit for bit the statement's. With `screen` given (kinds
 // 1 and 2), the kernel adds the candidates screened and those left
-// undecided into screen[0] and screen[1] (int64): each warp sums its
-// lanes' counts (__reduce_add_sync) into shared memory, the block adds
-// them with one atomic each. Null, as on the engine's path, it costs
-// nothing: the counting epilogue is an instance of its own.
+// undecided into screen[0] and screen[1] (int64), with `counts` given: a
+// block adds its candidates from its row counts with one atomic a warp of
+// rows, and each undecided pair adds itself on its rare branch, so no
+// register or barrier is added to the pairs' path. The engine's sweeps
+// give it for every unphased tile; null, the counting epilogue (an
+// instance of its own) is not run.
 //
 // The epilogue runs in the MMA's C layout, in registers: a thread holds
 // the same (row, column) pairs for every product, rows wr + 16 mi + 8 h + g
@@ -201,11 +203,11 @@ __device__ __noinline__ bool exact_unphased(const int* T,
 // The mask byte of pair (k, l) from its P parts v; DP: with the D' term.
 // The unphased kinds decide a candidate by twk::unphased_screen and run
 // twk::unphased_prefilter only where it leaves the pair undecided. COUNT
-// adds the candidates screened to cnt[0] and the undecided ones to cnt[1].
+// adds each undecided one to a.screen[1], on that rare branch alone.
 template <int KIND, bool DP, bool COUNT>
 __device__ __forceinline__ unsigned pair_mask(const Args& a, const int* v,
                                               int k, int l, int aci,
-                                              bool vi, unsigned (&cnt)[2]) {
+                                              bool vi) {
   if (!twk::candidate(vi, a.valid_j[l] != 0, aci, a.ac_j[l], k, l, a.diag,
                       a.cls, a.an_i, a.an_j, a.win))
     return 0;
@@ -222,18 +224,18 @@ __device__ __forceinline__ unsigned pair_mask(const Args& a, const int* v,
     int T[9];
     unphased_cells<KIND>(a, v, k, l, T);
     const int s = twk::unphased_screen<DP>(T, a.bnd, a.scr);
-    if constexpr (COUNT) {
-      cnt[0] += 1;
-      cnt[1] += s == twk::kUndecided;
+    if (s == twk::kUndecided) {
+      if constexpr (COUNT) atomicAdd(a.screen + 1, 1ull);
+      return exact_unphased<DP>(T, a.bnd) ? 2u : 1u;
     }
-    if (s == twk::kUndecided) return exact_unphased<DP>(T, a.bnd) ? 2u : 1u;
     return s == twk::kKeep ? 2u : 1u;
   }
 }
 
 // The epilogue of a block from its accumulators: the mask bytes, the
-// parts and the row counts; DP: with the D' term; COUNT: the screen's
-// counts into a.screen, a block's with one atomic each.
+// parts and the row counts; DP: with the D' term; COUNT (a.counts given):
+// the block's candidates, every one screened, from its row counts into
+// a.screen[0] with one atomic (pair_mask adds the undecided).
 template <int KIND, bool DP, bool COUNT>
 __device__ __forceinline__ void epilogue(
     const Args& a,
@@ -246,12 +248,10 @@ __device__ __forceinline__ void epilogue(
   const int B = a.B;
   // the row counts of the block, in the freed staging buffers
   unsigned* srow = reinterpret_cast<unsigned*>(smem);
-  unsigned* sscr = srow + TI;  // COUNT: the block's screened, undecided
-  if (a.counts != nullptr || COUNT) {
-    for (int r = threadIdx.x; r < TI + 2; r += kThreads) srow[r] = 0;
+  if (a.counts != nullptr) {
+    for (int r = threadIdx.x; r < TI; r += kThreads) srow[r] = 0;
     __syncthreads();
   }
-  unsigned cnt[2] = {0, 0};
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int g = lane / 4;
@@ -283,7 +283,7 @@ __device__ __forceinline__ void epilogue(
 #pragma unroll
           for (int p = 0; p < P; ++p) v[p] = acc[p][mi][ni][2 * h + e];
           const unsigned m =
-              pair_mask<KIND, DP, COUNT>(a, v, k, l0 + e, aci, vi, cnt);
+              pair_mask<KIND, DP, COUNT>(a, v, k, l0 + e, aci, vi);
           m2 |= m << (8 * e);
           n += count_byte(m);
         }
@@ -310,24 +310,24 @@ __device__ __forceinline__ void epilogue(
         if (t == 0 && n != 0) atomicAdd(srow + r, n);
       }
     }
-  if constexpr (COUNT) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const unsigned w = __reduce_add_sync(0xffffffffu, cnt[c]);
-      if (lane == 0 && w != 0) atomicAdd(sscr + c, w);
-    }
-    __syncthreads();
-    if (threadIdx.x < 2 && sscr[threadIdx.x] != 0)
-      atomicAdd(a.screen + threadIdx.x, sscr[threadIdx.x]);
-  }
   if (a.counts == nullptr) return;
   __syncthreads();
   const int n_seg = (B + kSeg - 1) / kSeg;
+  unsigned cand = 0;
   for (int r = threadIdx.x; r < TI; r += kThreads)
-    if (srow[r] != 0 && row0 + r < B)
+    if (srow[r] != 0 && row0 + r < B) {
       atomicAdd(reinterpret_cast<unsigned*>(a.counts) +
                     (size_t)(row0 + r) * n_seg + col0 / kSeg,
                 srow[r]);
+      cand += srow[r] >> 16;
+    }
+  if constexpr (COUNT) {
+    if (threadIdx.x < TI) {  // the warps that hold rows (TI % 32 == 0)
+      cand = __reduce_add_sync(0xffffffffu, cand);
+      if (lane == 0 && cand != 0)
+        atomicAdd(a.screen, (unsigned long long)cand);
+    }
+  }
 }
 
 template <int KIND>
@@ -337,7 +337,8 @@ __global__ void __launch_bounds__(kThreads, 2) parts_tile_kernel(const Args a) {
   constexpr int P = S::kParts, kMi = S::kMi, kNi = S::kNi;
   constexpr int TI = Tile::kRows, TJ = Tile::kCols;
   static_assert(kSeg % TJ == 0, "a block lies in one counts segment");
-  static_assert((TI + 2) * 4 <= Tile::kSmemBytes, "row counts fit");
+  static_assert(TI * 4 <= Tile::kSmemBytes && TI % 32 == 0,
+                "row counts fit, whole warps hold them");
   extern __shared__ __align__(16) uint32_t smem[];
   const int row0 = blockIdx.y * TI;
   const int col0 = blockIdx.x * TJ;
@@ -407,8 +408,9 @@ int launch(const Args& a, cudaStream_t s) {
 // (x = het, y = hom), 2 unphased with missing data (z = valid).
 // cls: 0 all, 1 clean, 2 missing (needs an_*). n_het/n_hom: kind 1 only.
 // window: 0 none, else bp (needs pos_* and rid_*). counts: int32
-// [B, ceil(B / 128)] or null. screen: int64 [2] or null (kinds 1 and 2),
-// added the candidate pairs screened and those the screen left undecided.
+// [B, ceil(B / 128)] or null. screen: int64 [2] or null (kinds 1 and 2,
+// with counts), added the candidate pairs screened and those the screen
+// left undecided.
 extern "C" int twk_parts_tile(
     int kind, const void* x_i, const void* y_i, const void* z_i,
     const void* x_j, const void* y_j, const void* z_j, const void* ac_i,
@@ -426,7 +428,7 @@ extern "C" int twk_parts_tile(
       (cls != 0 && (!an_i || !an_j)) || window < 0 ||
       (window > 0 && (!pos_i || !pos_j || !rid_i || !rid_j)) ||
       (kind == 1 && (!nhet_i || !nhom_i || !nhet_j || !nhom_j)) ||
-      (kind == 0 && screen);
+      (screen && (kind == 0 || !counts));
   if (bad) return (int)cudaErrorInvalidValue;
   Args a;
   a.pi[0] = (const uint32_t*)x_i;

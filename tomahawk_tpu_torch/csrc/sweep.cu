@@ -68,7 +68,10 @@ inline const void* at(const void* base, int s, long long row_bytes) {
 // D' pair -inf, inf when the run sets none). pi, pj: int32
 // [T] super-block indices; dg: uint8 [T] diagonal flags; live: uint8 [T]
 // or null (every tile live); host memory, all of them. mask, parts,
-// counts: the tile buffers every tile reuses. P, ncol, ld: the compaction's
+// counts: the tile buffers every tile reuses. screen: int64 [2] on the
+// device or null; parts_tile's unphased kinds (1, 2) add to it the
+// candidates their prefilter's screen saw and those it left undecided
+// (the other kinds ignore it). P, ncol, ld: the compaction's
 // parts, payload layout and buffer row stride. off: int32 on the device,
 // one running offset, or with per_tile_off an [T] array whose slot t tile
 // t compacts at. n_pass, n_cand: int32 [T] on the device. done: int32 [2]
@@ -83,15 +86,17 @@ extern "C" int twk_sweep(int kind, const void* x, const void* y,
                          int T, const int32_t* pi,
                          const int32_t* pj, const uint8_t* dg,
                          const uint8_t* live, void* mask, void* parts,
-                         void* counts, int P, int ncol, int ld, void* off,
-                         int per_tile_off, int cap, int outcap, void* n_pass,
-                         void* n_cand, void* scratch, void* ticket, void* buf,
-                         void* stream, int32_t* done) {
+                         void* counts, void* screen, int P, int ncol, int ld,
+                         void* off, int per_tile_off, int cap, int outcap,
+                         void* n_pass, void* n_cand, void* scratch,
+                         void* ticket, void* buf, void* stream,
+                         int32_t* done) {
   done[0] = done[1] = 0;
   if (kind < -1 || kind > 2 || B <= 0 || W <= 0 || T < 0 || !x || !ac ||
       !valid)
     return (int)cudaErrorInvalidValue;
   const long long plane = (long long)B * W * 4, meta = (long long)B * 4;
+  void* const scr = kind >= 1 ? screen : nullptr;
   for (int t = 0; t < T; ++t) {
     if (live != nullptr && !live[t]) continue;
     const int i = pi[t], j = pj[t];
@@ -113,7 +118,7 @@ extern "C" int twk_sweep(int kind, const void* x, const void* y,
           at(nhet, j, meta), at(nhom, j, meta), at(pos, i, meta),
           at(pos, j, meta), at(rid, i, meta), at(rid, j, meta), window, cls, B,
           W, n_samples, lo, hi, dp_lo, dp_hi, need_nonzero, dg[t], mask,
-          parts, counts, nullptr, stream);
+          parts, counts, scr, stream);
     if (rc != 0) return rc;
     ++done[0];
     void* o = per_tile_off ? static_cast<void*>(static_cast<int32_t*>(off) + t)

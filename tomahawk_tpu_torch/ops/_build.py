@@ -103,11 +103,11 @@ _SIGNATURES = {
     + [_L, _I, _P, _I] + [_D] * 3 + [_P] * 2,
     # kind, x, y, z, W, ac, valid, an, n_het, n_hom, pos, rid, window, cls,
     # B, n_samples, lo, hi, dp_lo, dp_hi, need_nonzero, T, pi, pj, dg, live,
-    # mask, parts, counts, P, ncol, ld, off, per_tile_off, cap, outcap,
-    # n_pass, n_cand, scratch, ticket, buf, stream, done (csrc/sweep.cu: the
-    # tile loop)
+    # mask, parts, counts, screen, P, ncol, ld, off, per_tile_off, cap,
+    # outcap, n_pass, n_cand, scratch, ticket, buf, stream, done (csrc/
+    # sweep.cu: the tile loop)
     "twk_sweep": [_I] + [_P] * 3 + [_I] + [_P] * 7 + [_I] * 4 + [_F] * 4
-    + [_I] * 2 + [_P] * 7 + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 7,
+    + [_I] * 2 + [_P] * 8 + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 7,
 }
 
 #: entry points called with the GIL held (ctypes.PyDLL): short calls the

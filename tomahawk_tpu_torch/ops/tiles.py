@@ -36,7 +36,8 @@ division-free screen of the f32 prefilter (csrc/prefilter.cuh's
 `unphased_screen`, ld_kernels.unphased_screen_cells) settles a pair: an
 int64 [2] `screen` tensor is added the candidate pairs screened and those
 it left to the exact statement (`tile_screen_plain` states it). The
-engine does not ask for it: reading it back would cost a sync.
+engine hands one to every unphased segment's sweep (compute/sweeps.py's
+`fused_sweep`) and reads it back with the segment's counts.
 
 Both versions return mask u8 [B, B] (0 = not a candidate, 1 =
 candidate, 2 = survivor of the f32 prefilter, the diagonal triangle
@@ -332,6 +333,9 @@ def _launch(dev, i, j, diag, cfg, out, counts=None, screen=None):
     lib = _build.library()
     *bounds, need_nonzero = map(float, _bounds(cfg))
     name = kernel_name(cfg)
+    if screen is not None and counts is None:
+        # the kernel counts the screened pairs from its row counts
+        counts = counts_buffer(cfg, mask.device)
     cnt = None if counts is None else counts.data_ptr()
     if name == "phased_tile":
         rc = lib.twk_phased_tile(
