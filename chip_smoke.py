@@ -30,7 +30,11 @@ Phases, in order; any failure exits non-zero:
    and compact on their masks with the counts; the unphased parts_tile
    instances on a tile near the r2 floor by construction, where the
    prefilter's division-free screen leaves some pairs to the exact
-   statement, with the screen's counter against its plain twin;
+   statement, with the screen's counter against its plain twin; the
+   unphased parts_tile's wide instance (clusters sharing TMA stages) and
+   today's (on planes 4 bytes off alignment) against the plain version
+   bit for bit at 15,264 / 2,032 / 2,031 / kWideWords words, 4,096 and
+   4,000 rows, with its launch counter and through the C tile loop;
    compact with 4- and
    9-part payloads, pair-packed (2,504 samples) and one part per column
    (70,000 unphased samples), the counts given; a
@@ -340,7 +344,7 @@ PRODUCTS = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0), (1, 2), (2, 1),
 #: SASS of the 1-bit MMA (mma.sync.m16n8k256.b1.and.popc)
 BMMA = "BMMA.168256.AND.POPC"
 #: the kernels that contract on the tensor cores, and their instances
-MMA_KERNELS = {"phased_tile_kernel": 1, "parts_tile_kernel": 3,
+MMA_KERNELS = {"phased_tile_kernel": 1, "parts_tile_kernel": 4,
                "local_parts_kernel": 4}
 #: seconds a spawned rank may take before it is killed
 RANK_LIMIT = 300
@@ -972,6 +976,136 @@ def compare_screen():
              f"{scr} candidates screened, {und} undecided "
              f"({und / scr:.3e}); mask, parts, counts and counter equal")
         res[group + (dp,)] = (scr, und)
+    return res
+
+
+#: the wide instance's check: tile rows (whole clusters of 128 rows, and
+#: ragged), and words a plane beside kWideWords (with 7 padding bits in
+#: the last word): the ukb cell's, hrc's, and a W % 4 != 0 that must
+#: take today's instance
+WIDE_ROWS = (4096, 4000)
+WIDE_WORDS = (15264, 2032, 2031)
+
+
+def wide_words():
+    """csrc/parts_tile.cu's kWideWords: the least W its wide instance
+    serves."""
+    import re
+    with open(os.path.join(ROOT, "tomahawk_tpu_torch", "csrc",
+                           "parts_tile.cu")) as fh:
+        return int(re.search(r"constexpr int kWideWords = (\d+);",
+                             fh.read()).group(1))
+
+
+def _misaligned(t):
+    """A copy of `t` whose data starts 4 bytes past a 16-byte boundary."""
+    import torch
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def compare_wide():
+    """parts_tile's wide instance (kind 2, clusters of 4 x 1 blocks that
+    share their operand stages by TMA multicast, csrc/cluster_stage.cuh)
+    against today's instance and the plain version, bit for bit: mask,
+    parts, counts and both screen counters, on an off-diagonal tile (diag
+    0) and a diagonal one (diag 1), cls all and missing, D' bounds off
+    and on, at WIDE_ROWS rows and WIDE_WORDS + kWideWords words. Today's
+    instance runs on a copy of the planes 4 bytes off 16-byte alignment,
+    which the wide instance does not take; `_build.WIDE_LAUNCHES` must
+    count the wide launches and no other. Returns {W: ms a call} of the
+    aligned planes' off-diagonal tile, 4096 rows, cls all, D' off."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import _build, tiles
+    least = wide_words()
+    res = {}
+    for W in sorted(set(WIDE_WORDS + (least,)), reverse=True):
+        n = 32 * W - 7
+        t0 = time.perf_counter()
+        full = workloads.genotype_planes_on("cuda", 2, max(WIDE_ROWS), n,
+                                            seed=23 + W, W=W)
+        wide = W % 4 == 0 and W >= least
+        base = sweeps.make_cfg("unphased", True, "all", max(WIDE_ROWS), n, 0,
+                               MIN_R2, 100.0)
+        plain = {(i, j): torch.stack(tiles.tile_local_parts_plain(
+            full, i, j, base)) for i, j in ((0, 1), (1, 1))}
+        _say(f"wide check, W={W} ({n} samples): planes and plain parts in "
+             f"{time.perf_counter() - t0:.1f}s")
+        for rows in WIDE_ROWS:
+            dev = {k: v[:, :rows].contiguous() for k, v in full.items()}
+            off = {k: _misaligned(v) if k.endswith("_bits") else v
+                   for k, v in dev.items()}
+            for (i, j), diag in (((0, 1), False), ((1, 1), True)):
+                parts = plain[i, j][:, :rows, :rows]
+                for cls in ("all", "missing"):
+                    for dp in ((), DPRIME):
+                        cfg = sweeps.make_cfg("unphased", True, cls, rows, n,
+                                              0, MIN_R2, 100.0, *dp)
+                        label = (f"parts_tile W={W} B={rows} ({i},{j}) "
+                                 f"{cls} D' {dp or 'off'}")
+                        want = (tiles.tile_epilogue_plain(dev, i, j, diag,
+                                                          cfg, parts),)
+                        want += (parts, tiles.tile_counts_plain(want[0]),
+                                 tiles.tile_screen_plain(dev, i, j, diag,
+                                                         cfg, parts))
+                        for planes, took in ((dev, wide), (off, False)):
+                            counts = tiles.counts_buffer(cfg, "cuda")
+                            screen = torch.zeros(2, dtype=torch.int64,
+                                                 device="cuda")
+                            w0 = _build.WIDE_LAUNCHES["parts_tile"]
+                            mask, got_p = tiles.tile_prefilter(
+                                planes, i, j, diag, cfg, counts=counts,
+                                screen=screen)
+                            n_wide = _build.WIDE_LAUNCHES["parts_tile"] - w0
+                            inst = "wide" if took else "today's"
+                            if n_wide != int(took):
+                                raise SystemExit(f"{label}: {n_wide} wide "
+                                                 f"launches, expected "
+                                                 f"{int(took)}")
+                            got = (mask, got_p, counts, screen)
+                            for name, a, b in zip(
+                                    ("mask", "parts", "counts", "screen"),
+                                    got, want):
+                                if not torch.equal(a, b):
+                                    raise SystemExit(
+                                        f"{label}, {inst} instance: {name} "
+                                        f"differs from the plain version")
+                        scr, und = want[3].tolist()
+                        _say(f"  {label}: {int((want[0] == 2).sum())} "
+                             f"survivors, {scr} screened, {und} undecided; "
+                             f"{'wide and ' if wide else ''}today's "
+                             f"instance equal the plain version")
+            del dev, off
+        # the C tile loop reports the wide launches it made
+        pi, pj = np.array([0, 0, 1], np.int32), np.array([0, 1, 1], np.int32)
+        dg, live = pi == pj, np.ones(3, bool)
+        w0 = _build.WIDE_LAUNCHES["parts_tile"]
+        got = sweeps.fused_sweep(full, pi, pj, dg, live, cfg=base,
+                                 cap=32768, outcap=1 << 16)
+        n_wide = _build.WIDE_LAUNCHES["parts_tile"] - w0
+        want = _per_tile_sweep(full, pi, pj, dg, live, base, 32768, 1 << 16)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"the C sweep at W={W} differs from the "
+                             f"per-tile launches")
+        if n_wide != 3 * wide:
+            raise SystemExit(f"the C sweep at W={W} reported {n_wide} wide "
+                             f"launches of 3, expected {3 * wide}")
+        _say(f"  C sweep at W={W}: equal the per-tile launches, {n_wide} "
+             f"wide launches of 3")
+        out = tiles.tile_buffers(base, "cuda")
+        counts = tiles.counts_buffer(base, "cuda")
+        screen = torch.zeros(2, dtype=torch.int64, device="cuda")
+        res[W] = _cuda_ms(lambda: tiles.tile_prefilter(
+            full, 0, 1, False, base, out, counts, screen), reps=5)
+        inst = "the wide" if wide else "today's"
+        _say(f"  parts_tile W={W}, {inst} instance: {res[W]:.4f} ms a call")
+        del full, plain, out
+        torch.cuda.empty_cache()
+    _say(json.dumps({"wide_check": {"least_words": least, "ms": res}}))
     return res
 
 
@@ -2616,9 +2750,9 @@ def run_checkpointed(label, twk, two, ref_two, ref_launches):
         done.append(len(tiles))
         return real["seg"](self, tiles, *a, **kw)
 
-    def timed_end(self):
+    def timed_end(self, shards):
         t0 = time.perf_counter()
-        real["fin"](self)
+        real["fin"](self, shards)
         ends.append(time.perf_counter() - t0)
 
     def counting(self, tiles, cfg):
@@ -4431,6 +4565,8 @@ def main():
     compare_odd_shapes()
     groups = compare_groups()
     compare_screen()
+    compare_wide()
+    torch.cuda.empty_cache()
     payloads = compare_payloads()
     check_ticket_fault()
     n_sweeps = compare_c_sweep()

@@ -95,66 +95,12 @@ def test_biobank_width_matches_reference(n_samples):
     assert gap.max() <= 1e-4
 
 
-def _pack(bits):
-    """bool [n, L] -> int32 [n, words_for(L)] on its device (bit k of
-    word w: column 32 w + k)."""
-    n, L = bits.shape
-    W = words_for(L)
-    full = torch.zeros((n, W * 32), dtype=torch.bool, device=bits.device)
-    full[:, :L] = bits
-    full = full.view(n, W, 32)
-    out = torch.zeros((n, W), dtype=torch.int32, device=bits.device)
-    for k in range(32):
-        out |= full[:, :, k].to(torch.int32) << k
-    return out
-
-
-def card_planes(seed, n_samples, n_blocks, device):
-    """The sweep's device tensors of `n_blocks` super-blocks of B_CARD
-    unphased variants: frequencies Beta(0.5, 2) x 0.5 + 0.001 (capped at
-    0.5), Hardy-Weinberg genotypes, 1% of each variant's calls
-    missing."""
-    rng = np.random.default_rng(seed)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    out = {k: [] for k in ("het_bits", "hom_bits", "valid_bits", "n_het",
-                           "n_hom")}
-    for _ in range(n_blocks):
-        p = torch.from_numpy(np.minimum(
-            rng.beta(0.5, 2.0, B_CARD) * 0.5 + 0.001, 0.5)).to(device)
-        het, hom, called = [], [], []
-        for r0 in range(0, B_CARD, 256):
-            pp = p[r0:r0 + 256, None].float()
-            u = torch.rand((len(pp), n_samples), generator=gen,
-                           device=device)
-            c = torch.rand((len(pp), n_samples), generator=gen,
-                           device=device) >= 0.01
-            g = ((u < pp * pp).to(torch.int8)
-                 + (u < 2 * pp - pp * pp).to(torch.int8)) * c
-            het.append(_pack(g == 1))
-            hom.append(_pack(g == 2))
-            called.append(_pack(c))
-            out["n_het"].append((g == 1).sum(1, dtype=torch.int32))
-            out["n_hom"].append((g == 2).sum(1, dtype=torch.int32))
-        for k, v in (("het_bits", het), ("hom_bits", hom),
-                     ("valid_bits", called)):
-            out[k].append(torch.cat(v))
-    dev = {k: torch.stack(out[k]) for k in ("het_bits", "hom_bits",
-                                            "valid_bits")}
-    for k in ("n_het", "n_hom"):
-        dev[k] = torch.cat(out[k]).view(n_blocks, B_CARD)
-    dev["ac"] = dev["n_het"] + 2 * dev["n_hom"]
-    dev["valid"] = torch.ones((n_blocks, B_CARD), dtype=torch.bool,
-                              device=device)
-    return dev
-
-
 @pytest.mark.gpu
 def test_parts_tile_matches_plain_at_biobank_width_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     card = torch.device("cuda")
-    dev = card_planes(SEED, UKB, 2, card)
+    dev = workloads.genotype_planes_on(card, 2, B_CARD, UKB, SEED)
     assert dev["het_bits"].shape[-1] == 15264
     cfg = sweeps.make_cfg("unphased", True, "all", B_CARD, UKB, 0, MIN_R2,
                           100.0)

@@ -211,7 +211,8 @@ def _ints(ptr, n, ctype=ctypes.c_int32):
 
 class _Library:
     """Records what the per-tile wrappers hand twk_phased_tile,
-    twk_parts_tile and twk_compact; `twk_sweep` runs a model of
+    twk_parts_tile and twk_compact (twk_parts_tile_wide: never the wide
+    instance); `twk_sweep` runs a model of
     csrc/sweep.cu's loop over what `_launch_sweep` hands it, recording
     the launcher calls the C loop would make."""
 
@@ -224,6 +225,9 @@ class _Library:
 
     def twk_parts_tile(self, *args):
         self.calls.append(("parts_tile",) + args)
+        return 0
+
+    def twk_parts_tile_wide(self, *args):
         return 0
 
     def twk_compact(self, *args):

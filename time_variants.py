@@ -14,8 +14,12 @@ how far they overlap. It does the same for
 csrc/parts_tile.cu (PARTS_CUTS) in its three instances, on the
 off-diagonal tile of genotype planes with ~1% of genotypes missing, and
 times PARTS_SHAPES, copies with another block shape or register budget
-whose outputs are right. PARTS_CUTS' "exact statement for every pair"
-times the unphased prefilter without its division-free screen, and
+whose outputs are right. WIDE_VARIANTS fix kind 2's instance (today's,
+or the wide one, whose TMA stages clusters share, in other cluster
+shapes and depths too) and time each at widths from 80 to 15,264 words:
+the crossover behind parts_tile.cu's kWideWords. PARTS_CUTS' "exact
+statement for every pair" times the unphased prefilter without its
+division-free screen, and
 `screen_share` prints the share of candidates the screen leaves to the
 exact statement, on the unphased benchmark cell's planes too.
 
@@ -253,6 +257,17 @@ def time_cuts(work):
     return res
 
 
+def _parts_lib(so):
+    """A build of parts_tile.cu alone, loaded with its entry points'
+    signatures."""
+    from tomahawk_tpu_torch.ops import _build
+    lib = ctypes.CDLL(so)
+    for name in ("twk_parts_tile", "twk_parts_tile_wide"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
 def time_parts(work):
     """parts_tile.cu's cuts (PARTS_CUTS) in each of PARTS_GROUPS and its
     P = 9 variants (PARTS_SHAPES), each library swapped in for the
@@ -279,10 +294,7 @@ def time_parts(work):
         for name, so in libs.items():
             if name in PARTS_SHAPES and group[:2] != ("unphased", True):
                 continue
-            lib = ctypes.CDLL(so)
-            lib.twk_parts_tile.argtypes = _build._SIGNATURES["twk_parts_tile"]
-            lib.twk_parts_tile.restype = ctypes.c_int
-            _build._lib = lib
+            _build._lib = _parts_lib(so)
             try:
                 ms = device_ms(lambda: tiles.tile_prefilter(
                     dev, 0, 1, False, cfg, out, counts), 20, main_lib)
@@ -301,6 +313,71 @@ def time_parts(work):
 
 #: the unphased benchmark cell whose planes screen_share draws
 SCREEN_CELL = "ldbench/cells/kg3_unphased.engine_far.json"
+
+
+_WIDE_WORDS = r"constexpr int kWideWords = \d+;"
+_EVERY_W = (_WIDE_WORDS, "constexpr int kWideWords = 4;")
+_SHAPE = r"constexpr int kWideCx = \d+, kWideCy = \d+;"
+#: copies of parts_tile.cu with kind 2's instance fixed: today's at every
+#: W, or the wide one (TMA stages shared by clusters) wherever W % 4 == 0,
+#: as built and in other cluster shapes and depths
+WIDE_VARIANTS = {
+    "today's instance": (
+        (_WIDE_WORDS, "constexpr int kWideWords = 1 << 30;"),),
+    "wide, 4 x 1 clusters, 3 stages": (_EVERY_W,),
+    "wide, 4 x 2 clusters": (
+        _EVERY_W, (_SHAPE, "constexpr int kWideCx = 2, kWideCy = 4;")),
+    "wide, 1 x 1 clusters (no multicast)": (
+        _EVERY_W, (_SHAPE, "constexpr int kWideCx = 1, kWideCy = 1;")),
+    "wide, 2 stages": (
+        _EVERY_W, (r"constexpr int kWideStages = \d+;",
+                   "constexpr int kWideStages = 2;"))}
+#: words a sample plane the crossover is timed at: the unphased cells'
+#: 80 and 15,264, hrc's 2,032, and between
+WIDE_AT = (80, 160, 512, 2032, 15264)
+
+
+def time_wide(work):
+    """parts_tile's kind 2 (unphased, missing data) in each of
+    WIDE_VARIANTS at each W of WIDE_AT: the off-diagonal tile of B = 4096
+    variants drawn on the card (workloads.genotype_planes_on, 32 W - 7
+    samples), cls "all", with the counts and screen buffers as the
+    engine's sweep gives them; the least of 3 rounds. Where the wide
+    instance is faster from: the crossover behind kWideWords. Returns {W:
+    {variant: ms}}."""
+    import torch
+    from tomahawk_tpu_torch import workloads
+    from tomahawk_tpu_torch.compute import sweeps
+    from tomahawk_tpu_torch.ops import _build, tiles
+    main_lib = _build.library()
+    libs = dict(zip(WIDE_VARIANTS, _edited_builds(
+        work, "parts_tile.cu", WIDE_VARIANTS, "wide",
+        kernel="parts_tile_kernel")))
+    res = {}
+    for W in WIDE_AT:
+        n = 32 * W - 7
+        dev = workloads.genotype_planes_on("cuda", 2, B, n, seed=W, W=W)
+        cfg = sweeps.make_cfg("unphased", True, "all", B, n, 0, MIN_R2,
+                              100.0)
+        out = tiles.tile_buffers(cfg, "cuda")
+        counts = tiles.counts_buffer(cfg, "cuda")
+        screen = torch.zeros(2, dtype=torch.int64, device="cuda")
+        reps = 4 if W > 4096 else 20
+        res[W] = {}
+        for name, so in libs.items():
+            _build._lib = _parts_lib(so)
+            try:
+                ms = min(device_ms(lambda: tiles.tile_prefilter(
+                    dev, 0, 1, False, cfg, out, counts, screen), reps,
+                    main_lib) for _ in range(3))
+            finally:
+                _build._lib = main_lib
+            res[W][name] = ms
+            print(f"parts_tile kind 2, W={W}, {name}: {ms:.4f} ms",
+                  flush=True)
+        del dev, out
+        torch.cuda.empty_cache()
+    return res
 
 
 def screen_share():
@@ -490,6 +567,7 @@ def main():
         out = {"phased_tile_cuts_ms": time_cuts(work),
                "parts_tile_cuts_ms": time_parts(work),
                "parts_tile_screen": screen_share(),
+               "parts_tile_wide_ms": time_wide(work),
                "fisher_bracket_ms": time_fisher(work),
                "tile_epilogue_ms": time_epilogue(work)}
     finally:

@@ -105,6 +105,7 @@ from .. import __version__, spans
 from ..device import on_device, resolve_device
 from ..io.twk import TwkReader
 from ..io.two import TWO_DTYPE
+from ..ops import _build
 from ..ops.fisher_dev import host_p_from_bracket, log_factorial_table
 # one call a super-block: the name ldbench's `calc.inflate` wrap times
 from ..ops.inflate import decode_super as block_to_planes
@@ -670,8 +671,10 @@ class LdEngine:
         # engine.dispatch, engine.wait or a serial engine.consume. `fisher`:
         # 1 where the sweep carries the in-sweep bracket, 0 where every P
         # is the host's exact scan; `screened`, `undecided`: the group's
-        # screen counts (0 for phased tables), set when it ends
+        # screen counts (0 for phased tables), and `wide`: its parts_tile
+        # launches of the wide instance, set when it ends
         self._screen = dict(screened=0, undecided=0)
+        wide0 = _build.WIDE_LAUNCHES["parts_tile"]
         group = spans.span("engine.group", job=True, tiles=len(tiles),
                            segments=len(todo),
                            fisher=int(sweeps.fisher_on(cfg))).start()
@@ -715,7 +718,8 @@ class LdEngine:
             raise
         finally:
             self._seg_error = None
-            group.set(**self._screen)
+            group.set(wide=_build.WIDE_LAUNCHES["parts_tile"] - wide0,
+                      **self._screen)
             group.stop()
         return n
 

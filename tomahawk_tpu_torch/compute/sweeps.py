@@ -611,7 +611,8 @@ def _launch_sweep(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
     csrc/sweep.cu's `twk_sweep`, on the current stream: every tensor is
     checked here once, and the C loop launches each live tile's fused
     tile kernel and its compaction in tile order. Each kernel's launches
-    are counted as the C loop reports them. `ncol`: the payload layout's
+    are counted as the C loop reports them, parts_tile's wide ones in
+    `_build.WIDE_LAUNCHES` too. `ncol`: the payload layout's
     columns, when the buffer has more (the Fisher column). `screen`: as
     tiles.tile_prefilter takes it, checked here."""
     NB, B, _ = _check_inputs(dev, cfg, out)
@@ -635,7 +636,7 @@ def _launch_sweep(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
                                                  else (live,))):
         raise ValueError("the tile arrays differ in length")
     stream = torch.cuda.current_stream(buf.device).cuda_stream
-    done = (ctypes.c_int32 * 2)()
+    done = (ctypes.c_int32 * 3)()
     rc = _build.library().twk_sweep(
         *sweep_args(dev, cfg), T, pi.ctypes.data, pj.ctypes.data,
         dg.ctypes.data, None if live is None else live.ctypes.data,
@@ -648,6 +649,7 @@ def _launch_sweep(dev, pi, pj, dg, live, cfg, cap, out, cnt, scratch, off,
         done)
     _build.count(_build.LAUNCHES, kernel_name(cfg), done[0], buf.device)
     _build.count(_build.LAUNCHES, "compact", done[1], buf.device)
+    _build.count(_build.WIDE_LAUNCHES, "parts_tile", done[2])
     _build.check(rc, "sweep launch")
 
 

@@ -45,8 +45,8 @@
 // long). Each operand row then comes from L2 B / 64 (+ B / 32) times: ~670
 // MB a tile for phased P = 4, ~750 MB for P = 9, which at the ~3.7 TB/s
 // phased_tile's loop reads from L2 is ~0.18-0.2 ms, above both bounds
-// (thread-block clusters sharing stages through distributed shared memory
-// would cut it). Cut out of the kernel one at a time (time_variants.py,
+// (kind 2's wide instance, below, shares stages between blocks). Cut out
+// of the kernel one at a time (time_variants.py,
 // NVIDIA H100 80GB HBM3, 700 W): phased P = 4 spends ~0.2 of its 0.33 ms
 // in the loop. The unphased instances spent ~0.39 of 0.58 ms (P = 4) and
 // ~0.43 of 0.84 ms (P = 9) in the unphased prefilter's f32 statement (a
@@ -84,6 +84,37 @@
 // compaction reads them only at survivors). Padding rows (valid = 0) are
 // never candidates.
 //
+// The wide instance (cluster_parts_tile_kernel<2>, cluster_stage.cuh):
+// kind 2 with the same blocks, warps, fragments and epilogue, its operand
+// stages copied by the TMA (32 words of every row and plane a stage,
+// 128-byte swizzle, fragments by ldmatrix, three stages: 108 KB a block)
+// and shared by clusters of 4 x 1 blocks (4 along rows, one column block:
+// the 64 columns of a block come from L2 once for 4 row blocks, through
+// TMA multicast). The C entry takes it for kind 2 when W >= kWideWords,
+// window = 0, W % 4 == 0 and every plane is 16-byte aligned (a tensor
+// map's stride and base); `twk_parts_tile_wide` says which it took.
+// Windowed runs stay on today's instance: a block with no pair in the
+// window would have to go on loading boxes for the others of its cluster.
+// Timed in turns on one card (time_variants.py time_wide,
+// NVIDIA H100 80GB HBM3, 700 W; ms a call, today's -> wide): 80 words
+// 0.640 -> 0.492, 160 words 0.857 -> 0.604, 512 words 2.050 -> 1.331,
+// 2,032 words 6.541 -> 4.226, 15,264 words 46.10 -> 28.74. The wide
+// instance is the faster at every width measured; kWideWords = 160 keeps
+// the 80-word unphased panels (1000 Genomes width) on today's instance
+// until a change is judged on them. At 15,264 words (B = 4096) a row of
+// the first side is read from L2 once for each of the B / 64 column
+// blocks and a row of the second once for each of the B / 32 row blocks,
+// 144 GB a tile; wide, the second's once for each of the B / 128 cluster
+// rows, 72 GB. Clusters of 4 x 2 (48 GB) took
+// 30.91 ms, single blocks on the same staging (144 GB) 36.38, two stages
+// 35.11, and 16-word stages (64-byte rows, the 64-byte swizzle) 46-52:
+// the per-stage handshakes, not the L2 bytes, had set the pace. What
+// bounds it now, against its MMA bound of 14.05 ms: with the MMAs cut,
+// the stages alone took 24.0 of 33.8 ms (4 x 2 clusters, one release a
+// block), ~72 KB a stage into each SM's shared memory, ~5.9 TB/s over the
+// card; today's loop with its staging cut took 22.7 ms. The two overlap
+// only in part.
+//
 // Counts: with `counts` given, the kernel also adds each row's survivors
 // and candidates of its columns, n_survivors | n_candidates << 16, into
 // counts[k, col0 / 128] (int32 [B, ceil(B / 128)], the cell phased_tile
@@ -100,8 +131,10 @@
 // staging loop.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "cluster_stage.cuh"
 #include "mma_tile.cuh"
 #include "prefilter.cuh"
 
@@ -236,15 +269,12 @@ __device__ __forceinline__ unsigned pair_mask(const Args& a, const int* v,
 // parts and the row counts; DP: with the D' term; COUNT (a.counts given):
 // the block's candidates, every one screened, from its row counts into
 // a.screen[0] with one atomic (pair_mask adds the undecided).
-template <int KIND, bool DP, bool COUNT>
+template <int KIND, bool DP, bool COUNT, int kMi, int kNi>
 __device__ __forceinline__ void epilogue(
-    const Args& a,
-    const int (&acc)[Shape<KIND>::kParts][Shape<KIND>::kMi]
-                    [Shape<KIND>::kNi][4],
+    const Args& a, const int (&acc)[Shape<KIND>::kParts][kMi][kNi][4],
     uint32_t* smem, int row0, int col0) {
-  using S = Shape<KIND>;
-  constexpr int P = S::kParts, kMi = S::kMi, kNi = S::kNi;
-  constexpr int TI = TileOf<KIND>::kRows;
+  constexpr int P = Shape<KIND>::kParts;
+  constexpr int TI = twk::mma::kWarpsM * kMi * 16;
   const int B = a.B;
   // the row counts of the block, in the freed staging buffers
   unsigned* srow = reinterpret_cast<unsigned*>(smem);
@@ -330,6 +360,39 @@ __device__ __forceinline__ void epilogue(
   }
 }
 
+// The epilogue instance of the run's terms: the counting one where
+// `screen` is given (the unphased kinds), with the D' term where it is on.
+template <int KIND, int kMi, int kNi>
+__device__ __forceinline__ void finish(
+    const Args& a, const int (&acc)[Shape<KIND>::kParts][kMi][kNi][4],
+    uint32_t* smem, int row0, int col0) {
+  if constexpr (KIND != 0) {
+    if (a.screen != nullptr) {
+      if (twk::dprime_on(a.bnd))
+        epilogue<KIND, true, true>(a, acc, smem, row0, col0);
+      else
+        epilogue<KIND, false, true>(a, acc, smem, row0, col0);
+      return;
+    }
+  }
+  if (twk::dprime_on(a.bnd))
+    epilogue<KIND, true, false>(a, acc, smem, row0, col0);
+  else
+    epilogue<KIND, false, false>(a, acc, smem, row0, col0);
+}
+
+template <int P, int kMi, int kNi>
+__device__ __forceinline__ void zero(int (&acc)[P][kMi][kNi][4]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNi; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][mi][ni][q] = 0;
+}
+
 template <int KIND>
 __global__ void __launch_bounds__(kThreads, 2) parts_tile_kernel(const Args a) {
   using S = Shape<KIND>;
@@ -356,50 +419,152 @@ __global__ void __launch_bounds__(kThreads, 2) parts_tile_kernel(const Args a) {
   }
 
   int acc[P][kMi][kNi][4];
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < kNi; ++ni)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][mi][ni][q] = 0;
+  zero(acc);
   const uint32_t* const xa[3] = {a.pi[0], a.pi[1], a.pi[2]};
   const uint32_t* const xb[3] = {a.pj[0], a.pj[1], a.pj[2]};
   Tile::run(smem, xa, xb, row0, col0, B, a.W, acc);
-  if constexpr (KIND != 0) {
-    if (a.screen != nullptr) {
-      if (twk::dprime_on(a.bnd))
-        epilogue<KIND, true, true>(a, acc, smem, row0, col0);
-      else
-        epilogue<KIND, false, true>(a, acc, smem, row0, col0);
-      return;
-    }
-  }
-  if (twk::dprime_on(a.bnd))
-    epilogue<KIND, true, false>(a, acc, smem, row0, col0);
-  else
-    epilogue<KIND, false, false>(a, acc, smem, row0, col0);
+  finish<KIND>(a, acc, smem, row0, col0);
+}
+
+// The wide instance of kind 2 (see the note at the top): today's blocks of
+// 32 x 64 pairs and epilogue, the stages shared by clusters of 4 x 1
+// blocks (cluster_stage.cuh).
+constexpr int kWideWords = 160;  // the least W it serves
+constexpr int kWideStages = 3;   // 108 KB a block: two blocks an SM
+constexpr int kWideCx = 1, kWideCy = 4;  // blocks along columns, rows
+using Wide = twk::cluster::Staged<Shape<2>::kPlanes, Shape<2>::kParts, 1, 2,
+                                  twk::mma::Products<false>, kWideStages,
+                                  kWideCx, kWideCy>;
+
+// the tensor maps of each side's planes (kernel parameters: the TMA reads
+// them from parameter space)
+struct Maps {
+  CUtensorMap a[3];
+  CUtensorMap b[3];
+};
+
+template <int KIND>
+__global__ void __cluster_dims__(Wide::kCx, Wide::kCy, 1)
+    __launch_bounds__(kThreads, 2)
+        cluster_parts_tile_kernel(const Args a,
+                                  const __grid_constant__ Maps m) {
+  static_assert(KIND == 2, "unphased genotypes with missing data only");
+  static_assert(kSeg % Wide::kCols == 0 && Wide::kRows % 32 == 0,
+                "the epilogue's counts, as in parts_tile_kernel");
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  uint8_t* smem = twk::cluster::aligned(wide_smem);
+  const int row0 = blockIdx.y * Wide::kRows;
+  const int col0 = blockIdx.x * Wide::kCols;
+  int acc[Shape<KIND>::kParts][1][2][4];
+  zero(acc);
+  Wide::run(smem, m.a, m.b, row0, col0, a.W, acc);
+  finish<KIND>(a, acc, reinterpret_cast<uint32_t*>(smem), row0, col0);
+  Wide::leave();
+}
+
+int zero_counts(const Args& a, cudaStream_t s) {
+  if (a.counts == nullptr) return 0;
+  const size_t n_seg = (a.B + kSeg - 1) / kSeg;
+  return (int)cudaMemsetAsync(a.counts, 0, (size_t)a.B * n_seg * 4, s);
 }
 
 template <int KIND>
 int launch(const Args& a, cudaStream_t s) {
   using Tile = TileOf<KIND>;
-  if (a.counts != nullptr) {
-    const size_t n_seg = (a.B + kSeg - 1) / kSeg;
-    const cudaError_t rc =
-        cudaMemsetAsync(a.counts, 0, (size_t)a.B * n_seg * 4, s);
-    if (rc != cudaSuccess) return (int)rc;
-  }
+  int rc = zero_counts(a, s);
+  if (rc != 0) return rc;
   // per device, so set on every launch (a host-side call of about 1 us)
-  const cudaError_t rc = cudaFuncSetAttribute(
-      parts_tile_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile::kSmemBytes);
-  if (rc != cudaSuccess) return (int)rc;
+  rc = (int)cudaFuncSetAttribute(parts_tile_kernel<KIND>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 Tile::kSmemBytes);
+  if (rc != 0) return rc;
   const dim3 grid((a.B + Tile::kCols - 1) / Tile::kCols,
                   (a.B + Tile::kRows - 1) / Tile::kRows);
   parts_tile_kernel<KIND><<<grid, kThreads, Tile::kSmemBytes, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime so that the
+// library needs no -lcuda; null where it is missing
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a [B, W] plane's map: boxes of `box_rows` rows x kStageWords words,
+// 128-byte swizzle, zeros past B and W
+int encode(CUtensorMap* map, const uint32_t* plane, int B, int W,
+           int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)B};
+  const cuuint64_t strides[1] = {(cuuint64_t)W * 4};
+  const cuuint32_t box[2] = {twk::cluster::kStageWords,
+                             (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2,
+         const_cast<uint32_t*>(plane), dims, strides, box, step,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int launch_wide(const Args& a, cudaStream_t s) {
+  Maps m;
+  for (int p = 0; p < 3; ++p) {
+    int rc = encode(&m.a[p], a.pi[p], a.B, a.W, Wide::kBoxA);
+    if (rc == 0) rc = encode(&m.b[p], a.pj[p], a.B, a.W, Wide::kBoxB);
+    if (rc != 0) return rc;
+  }
+  int rc = zero_counts(a, s);
+  if (rc != 0) return rc;
+  rc = (int)cudaFuncSetAttribute(cluster_parts_tile_kernel<2>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 Wide::kSmemBytes);
+  if (rc != 0) return rc;
+  // whole clusters: the blocks past B load their boxes and store nothing
+  const int gx = (a.B + Wide::kCols - 1) / Wide::kCols;
+  const int gy = (a.B + Wide::kRows - 1) / Wide::kRows;
+  const int cx = Wide::kCx, cy = Wide::kCy;
+  const dim3 grid((gx + cx - 1) / cx * cx, (gy + cy - 1) / cy * cy);
+  cluster_parts_tile_kernel<2><<<grid, kThreads, Wide::kSmemBytes, s>>>(a, m);
+  return (int)cudaGetLastError();
+}
+
+// Whether the wide instance serves these arguments: kind 2, no window
+// (a block with no pair in the window would have to load its boxes for
+// the others), W a whole number of 16-byte rows (a tensor map's row
+// stride) and at least kWideWords, every plane 16-byte aligned (a tensor
+// map's base).
+bool takes_wide(int kind, int window, int W, const void* const* planes) {
+  if (kind != 2 || window != 0 || W % 4 != 0 || W < kWideWords) return false;
+  for (int p = 0; p < 6; ++p)
+    if (reinterpret_cast<uintptr_t>(planes[p]) % 16 != 0) return false;
+  return true;
 }
 
 }  // namespace
@@ -461,7 +626,20 @@ extern "C" int twk_parts_tile(
   a.counts = (int32_t*)counts;
   a.screen = (unsigned long long*)screen;
   cudaStream_t s = (cudaStream_t)stream;
+  const void* planes[6] = {x_i, y_i, z_i, x_j, y_j, z_j};
+  if (takes_wide(kind, window, W, planes)) return launch_wide(a, s);
   if (kind == 0) return launch<0>(a, s);
   if (kind == 1) return launch<1>(a, s);
   return launch<2>(a, s);
+}
+
+// 1 where twk_parts_tile launches the wide instance
+// (cluster_parts_tile_kernel) for these of its arguments, else 0: the
+// launch counters' source.
+extern "C" int twk_parts_tile_wide(int kind, int window, int W,
+                                   const void* x_i, const void* y_i,
+                                   const void* z_i, const void* x_j,
+                                   const void* y_j, const void* z_j) {
+  const void* planes[6] = {x_i, y_i, z_i, x_j, y_j, z_j};
+  return takes_wide(kind, window, W, planes) ? 1 : 0;
 }

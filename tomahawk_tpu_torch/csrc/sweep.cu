@@ -40,6 +40,10 @@ extern "C" int twk_parts_tile(
     const void* rid_j, int window, int cls, int B, int W, int n_samples,
     float lo, float hi, float dp_lo, float dp_hi, int need_nonzero, int diag,
     void* mask, void* parts, void* counts, void* screen, void* stream);
+extern "C" int twk_parts_tile_wide(int kind, int window, int W,
+                                   const void* x_i, const void* y_i,
+                                   const void* z_i, const void* x_j,
+                                   const void* y_j, const void* z_j);
 extern "C" int twk_compact(const void* mask, const void* parts,
                            const void* counts, int P, int ncol, int ld, int B,
                            void* off, int cap, int outcap, void* n_pass,
@@ -74,8 +78,9 @@ inline const void* at(const void* base, int s, long long row_bytes) {
 // (the other kinds ignore it). P, ncol, ld: the compaction's
 // parts, payload layout and buffer row stride. off: int32 on the device,
 // one running offset, or with per_tile_off an [T] array whose slot t tile
-// t compacts at. n_pass, n_cand: int32 [T] on the device. done: int32 [2]
-// on the host, set to the tile kernels and the compactions launched.
+// t compacts at. n_pass, n_cand: int32 [T] on the device. done: int32 [3]
+// on the host, set to the tile kernels and the compactions launched, and
+// the tile kernels of them that took parts_tile's wide instance.
 // Returns the first nonzero code of a launcher, or 0.
 extern "C" int twk_sweep(int kind, const void* x, const void* y,
                          const void* z, int W, const void* ac,
@@ -91,7 +96,7 @@ extern "C" int twk_sweep(int kind, const void* x, const void* y,
                          void* n_pass, void* n_cand, void* scratch,
                          void* ticket, void* buf, void* stream,
                          int32_t* done) {
-  done[0] = done[1] = 0;
+  done[0] = done[1] = done[2] = 0;
   if (kind < -1 || kind > 2 || B <= 0 || W <= 0 || T < 0 || !x || !ac ||
       !valid)
     return (int)cudaErrorInvalidValue;
@@ -121,6 +126,11 @@ extern "C" int twk_sweep(int kind, const void* x, const void* y,
           parts, counts, scr, stream);
     if (rc != 0) return rc;
     ++done[0];
+    if (kind >= 0)
+      done[2] += twk_parts_tile_wide(kind, window, W, at(x, i, plane),
+                                     at(y, i, plane), at(z, i, plane),
+                                     at(x, j, plane), at(y, j, plane),
+                                     at(z, j, plane));
     void* o = per_tile_off ? static_cast<void*>(static_cast<int32_t*>(off) + t)
                            : off;
     rc = twk_compact(mask, parts, counts, P, ncol, ld, B, o, cap, outcap,

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
 SOURCES = ("phased_tile.cu", "parts_tile.cu", "compact.cu", "local_parts.cu",
            "epilogue.cu", "mma_probe.cu", "sweep.cu", "fisher_bracket.cu")
 #: headers the sources include (part of the build hash)
-HEADERS = ("prefilter.cuh", "mma_tile.cuh")
+HEADERS = ("prefilter.cuh", "mma_tile.cuh", "cluster_stage.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -67,6 +67,10 @@ PLAIN_CALLS = {name: 0 for name in (*KERNELS, KINSHIP)}
 #: the launches of LAUNCHES again by card: str(device) -> {name: count},
 #: for the launches whose wrapper names the card it launched on
 LAUNCHES_BY_CARD = {}
+#: the launches of LAUNCHES that took a kernel's wide instance, as the C
+#: side reports them (parts_tile: `twk_parts_tile_wide`, clusters sharing
+#: operand stages)
+WIDE_LAUNCHES = {"parts_tile": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _D = ctypes.c_longlong, ctypes.c_double
@@ -82,6 +86,9 @@ _SIGNATURES = {
     # need_nonzero, diag, mask, parts, counts, screen, stream
     "twk_parts_tile": [_I] + [_P] * 20 + [_I] * 5 + [_F] * 4 + [_I] * 2
     + [_P] * 5,
+    # kind, window, W, x_i, y_i, z_i, x_j, y_j, z_j: 1 where twk_parts_tile
+    # takes its wide instance
+    "twk_parts_tile_wide": [_I] * 3 + [_P] * 6,
     # mask, parts, counts, P, ncol, ld, B, off, cap, outcap, n_pass, n_cand,
     # t, scratch, ticket, buf, stream
     "twk_compact": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P,
@@ -128,14 +135,15 @@ build_log = ""
 
 def reset_counts():
     with _count_lock:
-        for d in (LAUNCHES, PLAIN_CALLS):
+        for d in (LAUNCHES, PLAIN_CALLS, WIDE_LAUNCHES):
             for k in d:
                 d[k] = 0
         LAUNCHES_BY_CARD.clear()
 
 
 def count(counts: dict, name: str, n: int = 1, device=None):
-    """Add n to counts[name] (LAUNCHES or PLAIN_CALLS), and a launch on
+    """Add n to counts[name] (LAUNCHES, PLAIN_CALLS or WIDE_LAUNCHES),
+    and a launch on
     `device` to LAUNCHES_BY_CARD too. A segment's consumer thread
     launches repair sweeps while the main thread enqueues the next
     segment, so the read-modify-write holds a lock."""

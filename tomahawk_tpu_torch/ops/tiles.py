@@ -14,7 +14,12 @@ The kernel serving each group:
     unphased, missing      het, hom, valid         9   csrc/parts_tile.cu
 
 each with the pair class `cls` ("all", "clean", "missing") of the mixed
-dispatch, read from the per-variant `an` (missing-allele counts). With
+dispatch, read from the per-variant `an` (missing-allele counts). The
+unphased instance with missing data has a wide form for rows of at least
+160 words with no window (its operand stages copied by the TMA and
+shared by clusters of blocks, csrc/cluster_stage.cuh): the C entry
+chooses it from the arguments, `twk_parts_tile_wide` tells which it
+took, and `_build.WIDE_LAUNCHES` counts the wide launches. With
 cfg["window"] > 0 a pair must also share its contig (`rid`) and lie
 within `window` bp (`pos`), and the kernels skip the contraction of
 every thread block that can hold no such pair (`block_live`): its mask
@@ -359,6 +364,9 @@ def _launch(dev, i, j, diag, cfg, out, counts=None, screen=None):
             None if screen is None else screen.data_ptr(), stream)
     _build.check(rc, f"{name} launch")
     _build.count(_build.LAUNCHES, name, device=mask.device)
+    if name == "parts_tile":
+        _build.count(_build.WIDE_LAUNCHES, name, lib.twk_parts_tile_wide(
+            _KIND[(table, miss)], window, W, *side(i), *side(j)))
     return out
 
 

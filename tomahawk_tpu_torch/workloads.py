@@ -13,9 +13,11 @@ Positions ascend along the blocks with a mean spacing of 275 bp on one
 contig, so a 4096-variant super-block spans about 1.1 Mb. `fisher_tables`
 and `fisher_buffer` give the Fisher kernel survivor rows of a cohort
 wider than the planes' (2N = 32,768 haplotypes) without a sweep.
+`genotype_planes_on` draws unphased planes on the card at biobank width.
 """
 
 import numpy as np
+import torch
 
 from .ops.bitpack import (BlockPlanes, _pack_bits, _popcount_rows,
                           stack_planes, words_for)
@@ -135,6 +137,65 @@ def threshold_planes(n_blocks, B, n_samples, seed=9, group=64):
         np.linspace(0.0, 0.3, B, endpoint=False))
     return genotype_planes(n_blocks, B, n_samples, seed=seed, group=group,
                            flip=flip)
+
+
+def _pack_on(bits, W):
+    """bool [n, L] -> int32 [n, W] on its device (bit k of word w: column
+    32 w + k; W >= words of L, the rest zero)."""
+    n, L = bits.shape
+    full = torch.zeros((n, W * 32), dtype=torch.bool, device=bits.device)
+    full[:, :L] = bits
+    full = full.view(n, W, 32)
+    out = torch.zeros((n, W), dtype=torch.int32, device=bits.device)
+    for k in range(32):
+        out |= full[:, :, k].to(torch.int32) << k
+    return out
+
+
+def genotype_planes_on(device, n_blocks, B, n_samples, seed, W=None,
+                       miss_frac=0.01):
+    """The unphased sweep's device tensors (compute/sweeps.py
+    `planes_to_device` keys: het/hom/valid planes, n_het, n_hom, ac, an,
+    valid) of `n_blocks` super-blocks of B independent variants, drawn on
+    `device`: frequencies Beta(0.5, 2) x 0.5 + 0.001 (capped at 0.5),
+    Hardy-Weinberg genotypes, `miss_frac` of each variant's calls
+    missing. W: words a plane (words_for(n_samples) by default). At
+    biobank width the host's genotype_planes would take minutes; on the
+    card this takes seconds."""
+    W = words_for(n_samples) if W is None else W
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    keys = ("het_bits", "hom_bits", "valid_bits", "n_het", "n_hom", "an")
+    out = {k: [] for k in keys}
+    for _ in range(n_blocks):
+        p = torch.from_numpy(np.minimum(
+            rng.beta(0.5, 2.0, B) * 0.5 + 0.001, 0.5)).to(device)
+        het, hom, called = [], [], []
+        for r0 in range(0, B, 256):
+            pp = p[r0:r0 + 256, None].float()
+            u = torch.rand((len(pp), n_samples), generator=gen,
+                           device=device)
+            c = torch.rand((len(pp), n_samples), generator=gen,
+                           device=device) >= miss_frac
+            g = ((u < pp * pp).to(torch.int8)
+                 + (u < 2 * pp - pp * pp).to(torch.int8)) * c
+            het.append(_pack_on(g == 1, W))
+            hom.append(_pack_on(g == 2, W))
+            called.append(_pack_on(c, W))
+            out["n_het"].append((g == 1).sum(1, dtype=torch.int32))
+            out["n_hom"].append((g == 2).sum(1, dtype=torch.int32))
+            out["an"].append(2 * (~c).sum(1, dtype=torch.int32))
+        for k, v in (("het_bits", het), ("hom_bits", hom),
+                     ("valid_bits", called)):
+            out[k].append(torch.cat(v))
+    dev = {k: torch.stack(out[k]) for k in keys[:3]}
+    for k in keys[3:]:
+        dev[k] = torch.cat(out[k]).view(n_blocks, B)
+    dev["ac"] = dev["n_het"] + 2 * dev["n_hom"]
+    dev["valid"] = torch.ones((n_blocks, B), dtype=torch.bool,
+                              device=device)
+    return dev
 
 
 def super_ranges(stacked):
